@@ -1,0 +1,21 @@
+"""artspeech_tpu_torch — the PyTorch/CUDA port of artspeech_tpu for one NVIDIA H100.
+
+The JAX package ``artspeech_tpu`` stays the reference; this package mirrors its
+layout (core/, ops/, models/, geometry/, synth/, utils/, data/) and names, so
+each module's counterpart is found at the same path. It imports torch and
+numpy, never jax or anything of ``artspeech_tpu``: what it needs of the
+framework-free JAX modules (constants, the semipolar grid, the B-spline basis,
+the canonical incisor) is copied here.
+
+Every TPU Pallas kernel on a ported path becomes a hand-written Hopper kernel
+under ``ops/csrc/``, built with nvcc at first use. A kernel's wrapper takes its
+plain PyTorch version only for CPU tensors; for CUDA tensors it launches the
+kernel or raises. Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``, and raise when no CUDA device is present.
+
+Ported so far: the synthesis (serving) path — ArtSpeech forward with the
+masked-GRU forward kernel, B-spline smoothing, incisor injection, vocal-tract
+tube walls and the semipolar-grid area function.
+"""
+
+__version__ = "0.1.0"

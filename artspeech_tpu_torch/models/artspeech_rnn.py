@@ -1,0 +1,92 @@
+"""ArtSpeech: the BiGRU phoneme-to-articulation model
+(counterpart of artspeech_tpu/models/artspeech_rnn.py).
+
+Embedding -> 2-layer masked BiGRU -> Linear + ReLU -> per-articulator heads ->
+sigmoid, producing (B, T, Nart, 2, n_samples). Sequences are padded to
+bucketed lengths with a boolean mask instead of pack_padded_sequence.
+
+Construction takes a CPU ``torch.Generator`` for the random weights (None:
+one seeded with 0), which are drawn on the CPU and then moved, so one seed
+gives the same weights on every device, and a ``device``: ``cuda`` unless the
+caller passes ``device="cpu"``. Inference only so far (dropout is applied in
+training, which waits for the training path).
+"""
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
+from artspeech_tpu_torch.models.heads import ContourDecoder, lecun_normal_
+from artspeech_tpu_torch.ops.gru import BiGRU, check_inference_only
+from artspeech_tpu_torch.utils.masks import make_padding_mask
+
+
+def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+def _embedding(vocab_size, embed_dim, generator):
+    """flax ``nn.Embed`` default init: N(0, 1/embed_dim)."""
+    embed = nn.Embedding(vocab_size, embed_dim)
+    with torch.no_grad():
+        embed.weight.normal_(0.0, math.sqrt(1.0 / embed_dim), generator=generator)
+    return embed
+
+
+def _dense(in_features, out_features, generator):
+    """flax ``nn.Dense`` default init (lecun normal kernel, zero bias)."""
+    dense = nn.Linear(in_features, out_features)
+    with torch.no_grad():
+        lecun_normal_(dense.weight, in_features, generator)
+        dense.bias.zero_()
+    return dense
+
+
+class ArtSpeech(nn.Module):
+    def __init__(self, vocab_size: int, n_articulators: int, embed_dim: int = 64,
+                 hidden_size: int = 128, n_samples: int = 50, dropout: float = 0.0,
+                 *, generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = _generator(generator)
+        self.embed = _embedding(vocab_size, embed_dim, gen)
+        self.rnn = BiGRU(embed_dim, hidden_size, num_layers=2, dropout=dropout, generator=gen)
+        self.dense = _dense(2 * hidden_size, hidden_size, gen)
+        self.decoder = ContourDecoder(hidden_size, n_articulators, n_samples, generator=gen)
+        self.to(dev)
+        self.eval()
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        """tokens (B, T) int ids (padded), lengths (B,) -> (B, T, Nart, 2, D)."""
+        mask = make_padding_mask(lengths, tokens.shape[1])
+        rnn_out = self.rnn(self.embed(tokens), mask)
+        h = torch.relu(self.dense(rnn_out))
+        return self.decoder(h)
+
+
+class SimpleArtSpeech(nn.Module):
+    """RNN-free variant (reference encoder_decoder/models.py:53-96)."""
+
+    def __init__(self, vocab_size: int, n_articulators: int, embed_dim: int = 64,
+                 hidden_size: int = 128, n_samples: int = 50, dropout: float = 0.0,
+                 *, generator: Optional[torch.Generator] = None,
+                 device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = _generator(generator)
+        self.dropout = dropout
+        self.embed = _embedding(vocab_size, embed_dim, gen)
+        self.dense = _dense(embed_dim, hidden_size, gen)
+        self.decoder = ContourDecoder(hidden_size, n_articulators, n_samples, generator=gen)
+        self.to(dev)
+        self.eval()
+
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        del lengths
+        check_inference_only(self)
+        h = torch.relu(self.dense(self.embed(tokens)))
+        return self.decoder(h)

@@ -1,0 +1,77 @@
+"""Per-articulator contour heads (counterpart of artspeech_tpu/models/heads.py).
+
+All articulator heads run as batched products over a leading (Nart, ...)
+parameter axis instead of a Python loop over heads. Each head is
+LayerNorm -> Linear(256) -> ReLU -> LayerNorm -> Linear(256) -> ReLU ->
+LayerNorm -> [x | y] Linear(2 x n_samples), with the x and y output layers
+fused into one (256 -> 2*n_samples) product as in the JAX package.
+
+Parameters keep the JAX (flax) layout and orientation: ``ln{i}_scale``,
+``ln{i}_bias`` (Nart, F); ``dense{i}_kernel`` (Nart, in, out) and
+``dense{i}_bias`` (Nart, out) for i = 0..3 (Dense_2 = x, Dense_3 = y).
+"""
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+#: flax ``nn.LayerNorm`` epsilon (torch's default is 1e-5).
+LAYER_NORM_EPS = 1e-6
+
+
+def layer_norm(x, scale, bias, eps: float = LAYER_NORM_EPS):
+    """flax LayerNorm over the last axis: Var = E[x^2] - E[x]^2, clipped at 0.
+
+    ``scale``/``bias`` broadcast against ``x``.
+    """
+    mean = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps) * scale
+    return (x - mean) * mul + bias
+
+
+def lecun_normal_(param: torch.Tensor, fan_in: int,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's default Dense kernel init: truncated normal, variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(param, std=std, a=-2.0 * std, b=2.0 * std,
+                                     generator=generator)
+
+
+class ContourDecoder(nn.Module):
+    """(B, T, F) -> (B, T, Nart, 2, n_samples) contours in [0, 1]."""
+
+    def __init__(self, in_features: int, n_articulators: int, n_samples: int = 50,
+                 hidden: int = 256, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_articulators = n_articulators
+        self.n_samples = n_samples
+        widths = [(in_features, hidden), (hidden, hidden), (hidden, n_samples),
+                  (hidden, n_samples)]
+        for i, width in enumerate((in_features, hidden, hidden)):
+            self.register_parameter(f"ln{i}_scale", nn.Parameter(torch.ones(n_articulators, width)))
+            self.register_parameter(f"ln{i}_bias", nn.Parameter(torch.zeros(n_articulators, width)))
+        for i, (fan_in, fan_out) in enumerate(widths):
+            kernel = nn.Parameter(torch.empty(n_articulators, fan_in, fan_out))
+            lecun_normal_(kernel, fan_in, generator)
+            self.register_parameter(f"dense{i}_kernel", kernel)
+            self.register_parameter(f"dense{i}_bias", nn.Parameter(torch.zeros(n_articulators, fan_out)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        h = x.reshape(1, -1, x.shape[-1])  # (1, M, F), shared by every head
+        for i in range(2):
+            h = layer_norm(h, getattr(self, f"ln{i}_scale")[:, None, :],
+                           getattr(self, f"ln{i}_bias")[:, None, :])  # (Nart, M, F)
+            h = torch.baddbmm(getattr(self, f"dense{i}_bias")[:, None, :], h,
+                              getattr(self, f"dense{i}_kernel"))
+            h = torch.relu(h)
+        h = layer_norm(h, self.ln2_scale[:, None, :], self.ln2_bias[:, None, :])
+        w = torch.cat([self.dense2_kernel, self.dense3_kernel], dim=-1)  # (Nart, 256, 2D)
+        b = torch.cat([self.dense2_bias, self.dense3_bias], dim=-1)
+        xy = torch.baddbmm(b[:, None, :], h, w)  # (Nart, M, 2D) = [x_pos | y_pos]
+        xy = xy.reshape(self.n_articulators, *lead, 2, self.n_samples)
+        return torch.sigmoid(torch.movedim(xy, 0, len(lead)))

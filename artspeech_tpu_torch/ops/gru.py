@@ -1,0 +1,122 @@
+"""Mask-aware GRU layers (counterpart of artspeech_tpu/ops/gru.py).
+
+Sequences stay padded at bucketed lengths and the recurrence is masked: the
+hidden state freezes outside the valid region, so outputs at padded steps
+repeat the last valid state (torch ``pack_padded_sequence`` would give zeros).
+The input projection of every step is hoisted out of the time loop into one
+(T*B, E) x (E, 3H) product; only the recurrence runs in the kernel
+(ops/hopper_gru.py), time-major.
+
+Gate math follows torch semantics:
+    r = sigmoid(x W_ir + b_ir + h W_hr + b_hr)
+    z = sigmoid(x W_iz + b_iz + h W_hz + b_hz)
+    n = tanh(x W_in + b_in + r * (h W_hn + b_hn))
+    h' = (1 - z) * n + z * h
+
+Parameters keep the JAX orientation: ``wi (E, 3H)``, ``bi (3H,)``,
+``wh (H, 3H)``, ``bh (3H,)``. The JAX package has two numerically identical
+BiGRU paths (direction-fused scan for B <= 16, time-major twin scans above);
+the port has one.
+"""
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from artspeech_tpu_torch.ops.hopper_gru import bigru_sequence, gru_sequence
+
+
+def torch_rnn_init(param: torch.Tensor, hidden_size: int,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """torch nn.GRU initialization: U(-k, k) with k = 1/sqrt(hidden_size)."""
+    bound = 1.0 / (hidden_size**0.5)
+    with torch.no_grad():
+        return param.uniform_(-bound, bound, generator=generator)
+
+
+class GRULayer(nn.Module):
+    """Single-direction masked GRU, time-major: (T, B, E) -> (T, B, H)
+    (the JAX ``GRULayer(time_major=True)``)."""
+
+    def __init__(self, in_features: int, hidden_size: int, reverse: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.reverse = reverse
+        gates = 3 * hidden_size
+        self.wi = nn.Parameter(torch.empty(in_features, gates))
+        self.bi = nn.Parameter(torch.empty(gates))
+        self.wh = nn.Parameter(torch.empty(hidden_size, gates))
+        self.bh = nn.Parameter(torch.empty(gates))
+        for p in (self.wi, self.bi, self.wh, self.bh):
+            torch_rnn_init(p, hidden_size, generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """x (T, B, E), mask (T, B), nonzero on valid steps -> (T, B, H)."""
+        x_proj = x @ self.wi + self.bi
+        return gru_sequence(x_proj, self.wh, self.bh, mask, reverse=self.reverse)
+
+
+class BiGRU(nn.Module):
+    """Stacked bidirectional GRU: (B, T, E) -> (B, T, 2H).
+
+    ``layers`` holds, in order, layer 0 forward, layer 0 backward, layer 1
+    forward, ... (the JAX ``GRULayer_0..`` order). Both directions of a layer
+    share one input product and one kernel launch.
+    """
+
+    def __init__(self, in_features: int, hidden_size: int, num_layers: int = 2,
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.dropout = dropout
+        self.layers = nn.ModuleList()
+        for layer in range(num_layers):
+            width = in_features if layer == 0 else 2 * hidden_size
+            for reverse in (False, True):
+                self.layers.append(GRULayer(width, hidden_size, reverse, generator))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        check_inference_only(self)
+        out = x.transpose(0, 1)  # (T, B, E)
+        mask_tm = mask.transpose(0, 1)
+        for layer in range(self.num_layers):
+            fwd, bwd = self.layers[2 * layer], self.layers[2 * layer + 1]
+            x_proj = out @ torch.cat([fwd.wi, bwd.wi], dim=1) + torch.cat([fwd.bi, bwd.bi])
+            out = bigru_sequence(
+                x_proj, torch.stack([fwd.wh, bwd.wh]), torch.stack([fwd.bh, bwd.bh]), mask_tm
+            )
+        return out.transpose(0, 1)
+
+
+class GRUStack(nn.Module):
+    """Stacked unidirectional GRU: (B, T, E) -> (B, T, H)."""
+
+    def __init__(self, in_features: int, hidden_size: int, num_layers: int = 1,
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dropout = dropout
+        self.layers = nn.ModuleList(
+            GRULayer(in_features if layer == 0 else hidden_size, hidden_size,
+                     generator=generator)
+            for layer in range(num_layers)
+        )
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        check_inference_only(self)
+        out = x.transpose(0, 1)
+        mask_tm = mask.transpose(0, 1)
+        for layer in self.layers:
+            out = layer(out, mask_tm)
+        return out.transpose(0, 1)
+
+
+def check_inference_only(module: nn.Module) -> None:
+    """The port runs inference only so far: dropout between layers and the
+    backward kernel come with the training path."""
+    if module.training and module.dropout > 0.0:
+        raise NotImplementedError(
+            "training-mode dropout is not ported yet; call .eval() for inference"
+        )

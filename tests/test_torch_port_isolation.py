@@ -1,0 +1,134 @@
+"""The port stands alone and never runs on the CPU by accident.
+
+- No module of ``artspeech_tpu_torch`` (nor ``chip_smoke.py``) imports jax,
+  flax, orbax, yaml or anything of ``artspeech_tpu``.
+- Importing the whole package leaves jax out of ``sys.modules``.
+- Entry points called without ``device=`` raise where no CUDA device is.
+- The GRU wrapper takes its plain version only for CPU tensors, without
+  counting a launch, and raises for any other non-CUDA device.
+"""
+
+import ast
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import artspeech_tpu_torch
+from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS
+from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech, SimpleArtSpeech
+from artspeech_tpu_torch.ops import _build, hopper_gru
+from artspeech_tpu_torch.synth import pipeline
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "artspeech_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "yaml", "artspeech_tpu"}
+
+
+def _sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        paths += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return paths
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_no_forbidden_imports():
+    sources = _sources()
+    assert len(sources) > 20
+    offending = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
+                 for p in sources}
+    assert {p: mods for p, mods in offending.items() if mods} == {}
+
+
+def test_importing_the_package_leaves_jax_out():
+    modules = [m.name for m in pkgutil.walk_packages(artspeech_tpu_torch.__path__,
+                                                     "artspeech_tpu_torch.")]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{sorted(FORBIDDEN)!r})\n"
+        "assert not leaked, leaked\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(modules) > 15
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the behaviour without one")
+
+
+def test_entry_points_raise_without_cuda_and_without_device():
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ArtSpeech(12, 3, hidden_size=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimpleArtSpeech(12, 3, hidden_size=16)
+    model = ArtSpeech(12, len(RECOGNITION_ARTICULATORS), hidden_size=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.make_synthesis_step(model, RECOGNITION_ARTICULATORS)
+
+    class _Empty:
+        articulators = list(RECOGNITION_ARTICULATORS)
+        data = []
+
+        def __len__(self):
+            return 0
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline.synthesize_corpus(model, _Empty(), "unused", None)
+
+
+def _gru_inputs(device):
+    rng = np.random.default_rng(0)
+    t, b, h = 5, 3, 8
+    xp = torch.from_numpy(rng.standard_normal((t, b, 3 * h)).astype(np.float32)).to(device)
+    wh = torch.from_numpy(rng.standard_normal((h, 3 * h)).astype(np.float32)).to(device)
+    bh = torch.zeros(3 * h, device=device)
+    mask = torch.ones(t, b, dtype=torch.bool, device=device)
+    return xp, wh, bh, mask
+
+
+def test_cpu_tensors_take_the_plain_version_without_a_launch():
+    before = hopper_gru.launches
+    xp, wh, bh, mask = _gru_inputs("cpu")
+    for reverse in (False, True):
+        got = hopper_gru.gru_sequence(xp, wh, bh, mask, reverse)
+        torch.testing.assert_close(got, hopper_gru.gru_sequence_reference(xp, wh, bh, mask, reverse),
+                                   rtol=0, atol=0)
+    hopper_gru.bigru_sequence(torch.cat([xp, xp], -1), torch.stack([wh, wh]),
+                              torch.stack([bh, bh]), mask)
+    assert hopper_gru.launches == before
+    assert _build._libraries == {}  # nothing was built or loaded
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    before = hopper_gru.launches
+    xp, wh, bh, mask = _gru_inputs("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_gru.gru_sequence(xp, wh, bh, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_gru.bigru_sequence(torch.cat([xp, xp], -1), torch.stack([wh, wh]),
+                                  torch.stack([bh, bh]), mask)
+    assert hopper_gru.launches == before
