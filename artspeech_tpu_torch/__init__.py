@@ -1,7 +1,8 @@
 """artspeech_tpu_torch — the PyTorch/CUDA port of artspeech_tpu for one NVIDIA H100.
 
 The JAX package ``artspeech_tpu`` stays the reference; this package mirrors its
-layout (core/, ops/, models/, geometry/, synth/, utils/, data/) and names, so
+layout (core/, ops/, models/, geometry/, synth/, utils/, data/, losses/,
+train/) and names, so
 each module's counterpart is found at the same path. It imports torch and
 numpy, never jax or anything of ``artspeech_tpu``: what it needs of the
 framework-free JAX modules (constants, the semipolar grid, the B-spline basis,
@@ -15,7 +16,10 @@ kernel or raises. Entry points run on ``cuda`` unless the caller passes
 
 Ported so far: the synthesis (serving) path — ArtSpeech forward with the
 masked-GRU forward kernel, B-spline smoothing, incisor injection, vocal-tract
-tube walls and the semipolar-grid area function.
+tube walls and the semipolar-grid area function; and the training path —
+the GRU backward kernel behind a ``torch.autograd.Function``, training-mode
+dropout, the masked-Euclidean loss, the P2CP metric kernel, the train and
+eval steps with AdamW, checkpoints and ``fit`` (losses/, train/).
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,7 @@
 """Dataset configuration constants (copy of artspeech_tpu/core/config.py).
 
-Reproduces reference settings.py:13-46 as frozen dataclasses.
+Reproduces reference settings.py:13-46 as frozen dataclasses, and
+``mm_per_unit``.
 """
 
 from dataclasses import dataclass
@@ -35,3 +36,8 @@ DATASET_CONFIG = {
     "gottingen": GOTTINGEN_CONFIG,
     "textgrid_only": TEXTGRID_ONLY_CONFIG,
 }
+
+
+def mm_per_unit(config: DatasetConfig) -> float:
+    """Conversion factor from normalized coordinate units to millimetres."""
+    return config.RES * config.PIXEL_SPACING

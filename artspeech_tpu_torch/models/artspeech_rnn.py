@@ -8,8 +8,10 @@ bucketed lengths with a boolean mask instead of pack_padded_sequence.
 Construction takes a CPU ``torch.Generator`` for the random weights (None:
 one seeded with 0), which are drawn on the CPU and then moved, so one seed
 gives the same weights on every device, and a ``device``: ``cuda`` unless the
-caller passes ``device="cpu"``. Inference only so far (dropout is applied in
-training, which waits for the training path).
+caller passes ``device="cpu"``. Construction ends in ``.eval()``; the
+trainer calls ``.train()``. In training mode with dropout > 0, ``forward``
+needs a ``torch.Generator`` on the model's device for the dropout masks and
+raises without one.
 """
 
 import math
@@ -20,7 +22,7 @@ from torch import nn
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
 from artspeech_tpu_torch.models.heads import ContourDecoder, lecun_normal_
-from artspeech_tpu_torch.ops.gru import BiGRU, check_inference_only
+from artspeech_tpu_torch.ops.gru import BiGRU, apply_dropout
 from artspeech_tpu_torch.utils.masks import make_padding_mask
 
 
@@ -60,10 +62,15 @@ class ArtSpeech(nn.Module):
         self.to(dev)
         self.eval()
 
-    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) int ids (padded), lengths (B,) -> (B, T, Nart, 2, D)."""
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """tokens (B, T) int ids (padded), lengths (B,) -> (B, T, Nart, 2, D).
+
+        ``generator`` draws the dropout masks in training mode (flax's
+        ``deterministic=False``); in eval mode it is not used.
+        """
         mask = make_padding_mask(lengths, tokens.shape[1])
-        rnn_out = self.rnn(self.embed(tokens), mask)
+        rnn_out = self.rnn(self.embed(tokens), mask, generator)
         h = torch.relu(self.dense(rnn_out))
         return self.decoder(h)
 
@@ -85,8 +92,11 @@ class SimpleArtSpeech(nn.Module):
         self.to(dev)
         self.eval()
 
-    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         del lengths
-        check_inference_only(self)
-        h = torch.relu(self.dense(self.embed(tokens)))
+        embed = self.embed(tokens)
+        if self.training and self.dropout > 0.0:
+            embed = apply_dropout(embed, self.dropout, generator)
+        h = torch.relu(self.dense(embed))
         return self.decoder(h)

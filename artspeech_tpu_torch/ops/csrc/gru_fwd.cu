@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel artspeech_tpu/ops/pallas_gru.py:_gru_fwd_kernel
 // (pallas_call in _gru_forward), reached from ops/gru.py:GRULayer. It computes
-// the same function, forward only (no h_bound side output):
+// the same function without the h_bound side output: the backward kernel
+// (gru_bwd.cu) reads the carry before every step from ys.
 //
 //   hg = h @ W_h + b_h                      (f32 accumulation)
 //   r  = sigmoid(x_r + hg_r)

@@ -16,7 +16,13 @@ Gate math follows torch semantics:
 Parameters keep the JAX orientation: ``wi (E, 3H)``, ``bi (3H,)``,
 ``wh (H, 3H)``, ``bh (3H,)``. The JAX package has two numerically identical
 BiGRU paths (direction-fused scan for B <= 16, time-major twin scans above);
-the port has one.
+the port has one. Every layer is differentiable through
+``hopper_gru.GRUSequenceFn`` (the backward kernel on CUDA).
+
+In training mode, dropout between stacked layers works as flax
+``nn.Dropout``: keep with probability 1 - p, scale kept values by 1/(1 - p),
+after every layer but the last. Its mask is drawn from a ``torch.Generator``
+on the tensor's device that the caller passes; without one it raises.
 """
 
 from typing import Optional
@@ -25,6 +31,20 @@ import torch
 from torch import nn
 
 from artspeech_tpu_torch.ops.hopper_gru import bigru_sequence, gru_sequence
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` with ``deterministic=False``, its keep mask
+    drawn from ``generator`` (on x's device)."""
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator on the "
+                         "tensor's device (pass generator=...)")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 def torch_rnn_init(param: torch.Tensor, hidden_size: int,
@@ -78,8 +98,10 @@ class BiGRU(nn.Module):
             for reverse in (False, True):
                 self.layers.append(GRULayer(width, hidden_size, reverse, generator))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        check_inference_only(self)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, E), mask (B, T) -> (B, T, 2H); ``generator`` draws the
+        dropout masks in training mode."""
         out = x.transpose(0, 1)  # (T, B, E)
         mask_tm = mask.transpose(0, 1)
         for layer in range(self.num_layers):
@@ -88,6 +110,8 @@ class BiGRU(nn.Module):
             out = bigru_sequence(
                 x_proj, torch.stack([fwd.wh, bwd.wh]), torch.stack([fwd.bh, bwd.bh]), mask_tm
             )
+            if self.training and self.dropout > 0.0 and layer < self.num_layers - 1:
+                out = apply_dropout(out, self.dropout, generator)
         return out.transpose(0, 1)
 
 
@@ -104,19 +128,13 @@ class GRUStack(nn.Module):
             for layer in range(num_layers)
         )
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        check_inference_only(self)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, E), mask (B, T) -> (B, T, H); ``generator`` as in BiGRU."""
         out = x.transpose(0, 1)
         mask_tm = mask.transpose(0, 1)
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             out = layer(out, mask_tm)
+            if self.training and self.dropout > 0.0 and i < len(self.layers) - 1:
+                out = apply_dropout(out, self.dropout, generator)
         return out.transpose(0, 1)
-
-
-def check_inference_only(module: nn.Module) -> None:
-    """The port runs inference only so far: dropout between layers and the
-    backward kernel come with the training path."""
-    if module.training and module.dropout > 0.0:
-        raise NotImplementedError(
-            "training-mode dropout is not ported yet; call .eval() for inference"
-        )

@@ -1,13 +1,16 @@
-"""Masked GRU recurrence: the Hopper kernel's wrapper and its plain version.
+"""Masked GRU recurrence: the Hopper kernels' wrappers and their plain versions.
 
 Counterpart of artspeech_tpu/ops/pallas_gru.py:gru_sequence (the fused Pallas
-forward time loop, ``_gru_fwd_kernel``). The kernel is ``csrc/gru_fwd.cu``.
+time loop, ``_gru_fwd_kernel`` and ``_gru_bwd_kernel`` wired by a custom VJP).
+The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``;
+:class:`GRUSequenceFn` wires them as a ``torch.autograd.Function``.
 
-- A CPU tensor takes the plain version, :func:`gru_sequence_reference`.
-- A CUDA tensor takes the kernel, or the call raises. Nothing falls back.
+- A CPU tensor takes the plain versions, :func:`gru_sequence_reference` and
+  :func:`gru_sequence_backward_reference`.
+- A CUDA tensor takes the kernels, or the call raises. Nothing falls back.
 
-``launches`` counts kernel launches, so a run can show that its GRUs went
-through the kernel.
+``launches`` counts forward kernel launches and ``bwd_launches`` backward
+ones, so a run can show that its GRUs went through the kernels.
 """
 
 import ctypes
@@ -16,24 +19,34 @@ import torch
 
 from artspeech_tpu_torch.ops import _build
 
-#: Kernel launches so far (the plain version does not count).
+#: Forward kernel launches so far (the plain version does not count).
 launches = 0
+#: Backward kernel launches so far (the plain version does not count).
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
-_lib = None
+#: Each kernel's entry point: (device pointers, ints), then the stream.
+_POINTERS_INTS = {"gru_fwd": (5, 6), "gru_bwd": (12, 6)}
+_libs = {}
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = _build.load("gru_fwd")
-        lib.gru_fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.gru_fwd.restype = ctypes.c_int
-        lib.gru_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.gru_fwd_smem_bytes.restype = ctypes.c_size_t
-        _lib = lib
-    return _lib
+def _library(name):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = _build.load(name)
+        pointers, ints = _POINTERS_INTS[name]
+        entry = getattr(lib, name)
+        entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
+        entry.restype = ctypes.c_int
+        smem = getattr(lib, f"{name}_smem_bytes")
+        smem.argtypes = [ctypes.c_int, ctypes.c_int]
+        smem.restype = ctypes.c_size_t
+        if name == "gru_bwd":
+            lib.gru_bwd_batch_tile.argtypes = []
+            lib.gru_bwd_batch_tile.restype = ctypes.c_int
+        _libs[name] = lib
+    return lib
 
 
 def gru_sequence_reference(x_proj, w_h, b_h, mask, reverse=False):
@@ -55,7 +68,7 @@ def gru_sequence_reference(x_proj, w_h, b_h, mask, reverse=False):
     b = b_h.float()
     valid = mask != 0
     h = torch.zeros(batch, hidden, dtype=torch.float32, device=x_proj.device)
-    ys = torch.empty(n_steps, batch, hidden, dtype=dtype, device=x_proj.device)
+    ys = []
     for s in range(n_steps):
         t = n_steps - 1 - s if reverse else s
         hg = h @ w + b
@@ -65,12 +78,72 @@ def gru_sequence_reference(x_proj, w_h, b_h, mask, reverse=False):
         n = torch.tanh(xg[:, 2 * hidden:] + r * hg[:, 2 * hidden:])
         cand = (1.0 - z) * n + z * h
         out = torch.where(valid[t][:, None], cand, h).to(dtype)
-        ys[t] = out
+        ys.append(out)
         h = out.float()
-    return ys
+    if reverse:
+        ys.reverse()
+    if not ys:
+        return x_proj.new_zeros(0, batch, hidden)
+    return torch.stack(ys)
 
 
-def _check(x_proj, w_h, b_h, mask, n_dir):
+def gru_sequence_backward_reference(x_proj, w_h, b_h, mask, ys, g, reverse=False):
+    """Plain PyTorch backward of :func:`gru_sequence_reference` (a loop over T).
+
+    Mirrors ``_gru_bwd_kernel`` step by step, in reverse traversal order: the
+    gates are recomputed in f32 from the carry before each step (``ys`` at
+    the previous traversal step, zero at the first), dL/dh is carried in f32,
+    the gradient of ``h @ W_h + b_h`` is rounded to x_proj's dtype before the
+    two products, and ``dW_h``/``db_h`` accumulate in f32.
+
+    Args:
+        x_proj, w_h, b_h, mask, reverse: as in :func:`gru_sequence_reference`.
+        ys: (T, B, H) its output; g: (T, B, H) the gradient of the loss by ys.
+    Returns:
+        (dx_proj (T, B, 3H) in x_proj's dtype, dW_h (H, 3H) f32, db_h (3H,) f32).
+        The mask gets no gradient.
+    """
+    n_steps, batch, gates = x_proj.shape
+    hidden = gates // 3
+    dtype = x_proj.dtype
+    w = w_h.float()
+    b = b_h.float()
+    m_all = (mask != 0).float()
+    dh = torch.zeros(batch, hidden, dtype=torch.float32, device=x_proj.device)
+    dw = torch.zeros(hidden, gates, dtype=torch.float32, device=x_proj.device)
+    db = torch.zeros(gates, dtype=torch.float32, device=x_proj.device)
+    dxp = torch.empty_like(x_proj)
+    for s in reversed(range(n_steps)):
+        t = n_steps - 1 - s if reverse else s
+        if s == 0:
+            h_prev = torch.zeros(batch, hidden, dtype=torch.float32, device=x_proj.device)
+        else:
+            h_prev = ys[t + 1 if reverse else t - 1].float()
+        hg = h_prev @ w + b
+        xg = x_proj[t].float()
+        hn = hg[:, 2 * hidden:]
+        r = torch.sigmoid(xg[:, :hidden] + hg[:, :hidden])
+        z = torch.sigmoid(xg[:, hidden:2 * hidden] + hg[:, hidden:2 * hidden])
+        n = torch.tanh(xg[:, 2 * hidden:] + r * hn)
+        m = m_all[t][:, None]
+        dh_tot = g[t].float() + dh
+        dcand = m * dh_tot
+        dz = dcand * (h_prev - n)
+        dn = dcand * (1.0 - z)
+        dn_pre = dn * (1.0 - n * n)
+        dr = dn_pre * hn
+        dz_pre = dz * z * (1.0 - z)
+        dr_pre = dr * r * (1.0 - r)
+        dhg = torch.cat([dr_pre, dz_pre, dn_pre * r], dim=-1)
+        dhg_c = dhg.to(dtype).float()
+        dh = (1.0 - m) * dh_tot + dcand * z + dhg_c @ w.T
+        dw += h_prev.T @ dhg_c
+        db += dhg.sum(dim=0)
+        dxp[t] = torch.cat([dr_pre, dz_pre, dn_pre], dim=-1).to(dtype)
+    return dxp, dw, db
+
+
+def _check(x_proj, w_h, b_h, mask, n_dir, name):
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru kernel needs CUDA tensors, got {x_proj.device}")
     if x_proj.dtype not in _DTYPES:
@@ -87,28 +160,25 @@ def _check(x_proj, w_h, b_h, mask, n_dir):
         raise ValueError(
             f"gru kernel shape mismatch: x_proj {tuple(x_proj.shape)}, w_h {tuple(w_h.shape)}, "
             f"b_h {tuple(b_h.shape)}, mask {tuple(mask.shape)}")
-    for name, t in (("x_proj", x_proj), ("w_h", w_h), ("b_h", b_h)):
+    for arg, t in (("x_proj", x_proj), ("w_h", w_h), ("b_h", b_h)):
         if t.dtype != x_proj.dtype or t.device != x_proj.device:
-            raise ValueError(f"gru kernel: {name} must match x_proj's dtype and device")
+            raise ValueError(f"gru kernel: {arg} must match x_proj's dtype and device")
         if not t.is_contiguous():
-            raise ValueError(f"gru kernel: {name} must be contiguous")
+            raise ValueError(f"gru kernel: {arg} must be contiguous")
     if mask.device != x_proj.device:
         raise ValueError("gru kernel: mask must be on x_proj's device")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x_proj, w_h, b_h)):
-        raise RuntimeError("gru kernel has no backward yet; run it under torch.inference_mode() "
-                           "or torch.no_grad()")
     if hidden % 4 or gates > 1024:
         raise ValueError(f"gru kernel takes H % 4 == 0 and H <= 340, got H={hidden}")
-    smem = _library().gru_fwd_smem_bytes(hidden, x_proj.element_size())
+    smem = getattr(_library(name), f"{name}_smem_bytes")(hidden, x_proj.element_size())
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"gru kernel: H={hidden} in {x_proj.dtype} needs {smem} B of shared memory, "
+            f"{name} kernel: H={hidden} in {x_proj.dtype} needs {smem} B of shared memory, "
             f"more than the {_MAX_SMEM} B a block may use")
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
     global launches
-    _check(x_proj, w_h, b_h, mask, n_dir)
+    _check(x_proj, w_h, b_h, mask, n_dir, "gru_fwd")
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
     mask_f = mask.to(torch.float32).contiguous()
@@ -117,7 +187,7 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
         return ys
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().gru_fwd(
+        err = _library("gru_fwd").gru_fwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(),
             ys.data_ptr(), n_steps, batch, hidden, n_dir, rev_bits,
             _DTYPES[x_proj.dtype], stream)
@@ -127,6 +197,108 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
     return ys
 
 
+def _launch_bwd(x_proj, w_h, b_h, mask, ys, g, n_dir, rev_bits):
+    global bwd_launches
+    _check(x_proj, w_h, b_h, mask, n_dir, "gru_bwd")
+    n_steps, batch, _ = x_proj.shape
+    hidden = w_h.shape[1]
+    gates = 3 * hidden
+    for arg, t in (("ys", ys), ("g", g)):
+        if tuple(t.shape) != (n_steps, batch, n_dir * hidden):
+            raise ValueError(f"gru_bwd kernel: {arg} must be (T, B, D*H), got {tuple(t.shape)}")
+        if t.dtype != x_proj.dtype or t.device != x_proj.device or not t.is_contiguous():
+            raise ValueError(f"gru_bwd kernel: {arg} must be contiguous, x_proj's dtype and device")
+    dev = x_proj.device
+    dw = torch.zeros(n_dir, hidden, gates, dtype=torch.float32, device=dev)
+    db = torch.zeros(n_dir, gates, dtype=torch.float32, device=dev)
+    if n_steps == 0 or batch == 0:
+        return torch.zeros_like(x_proj), dw, db
+    lib = _library("gru_bwd")
+    tiles = -(-batch // lib.gru_bwd_batch_tile())
+    mask_f = mask.to(torch.float32).contiguous()
+    dxp = torch.empty_like(x_proj)
+    dhg = torch.empty_like(x_proj)
+    dw_part = torch.empty(n_dir, tiles, hidden, gates, dtype=torch.float32, device=dev)
+    db_part = torch.empty(n_dir, tiles, gates, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gru_bwd(
+            x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), ys.data_ptr(),
+            g.data_ptr(), dxp.data_ptr(), dhg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), n_steps, batch, hidden, n_dir, rev_bits,
+            _DTYPES[x_proj.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err}")
+    bwd_launches += 1
+    return dxp, dw, db
+
+
+def _directions(n_dir, rev_bits):
+    return [bool((rev_bits >> d) & 1) for d in range(n_dir)]
+
+
+def gru_forward_reference(x_proj, w_h, b_h, mask, rev_bits):
+    """:func:`gru_sequence_reference` for each of D directions, in the
+    kernels' layout: x_proj (T, B, D*3H), w_h (D, H, 3H), b_h (D, 3H) ->
+    (T, B, D*H); direction d walks time backward iff bit d of ``rev_bits``."""
+    gates = w_h.shape[-1]
+    return torch.cat([
+        gru_sequence_reference(x_proj[..., d * gates:(d + 1) * gates], w_h[d], b_h[d], mask, rev)
+        for d, rev in enumerate(_directions(w_h.shape[0], rev_bits))
+    ], dim=-1)
+
+
+def gru_backward_reference(x_proj, w_h, b_h, mask, ys, g, rev_bits):
+    """:func:`gru_sequence_backward_reference` for each of D directions, in
+    the kernels' layout: (dx_proj, dW_h (D, H, 3H) f32, db_h (D, 3H) f32)."""
+    gates, hidden = w_h.shape[-1], w_h.shape[1]
+    parts = [
+        gru_sequence_backward_reference(
+            x_proj[..., d * gates:(d + 1) * gates], w_h[d], b_h[d], mask,
+            ys[..., d * hidden:(d + 1) * hidden], g[..., d * hidden:(d + 1) * hidden], rev)
+        for d, rev in enumerate(_directions(w_h.shape[0], rev_bits))
+    ]
+    return (torch.cat([p[0] for p in parts], dim=-1), torch.stack([p[1] for p in parts]),
+            torch.stack([p[2] for p in parts]))
+
+
+def gru_forward(x_proj, w_h, b_h, mask, rev_bits):
+    """D directions of the recurrence (layout of :func:`gru_forward_reference`).
+    CPU: the plain version; CUDA: one launch of the forward kernel."""
+    if x_proj.device.type == "cpu":
+        return gru_forward_reference(x_proj, w_h, b_h, mask, rev_bits)
+    return _launch(x_proj, w_h, b_h, mask, w_h.shape[0], rev_bits)
+
+
+def gru_backward(x_proj, w_h, b_h, mask, ys, g, rev_bits):
+    """Backward of :func:`gru_forward` given its output ``ys`` and the
+    gradient ``g`` by ys: (dx_proj, dW_h (D, H, 3H) f32, db_h (D, 3H) f32).
+    CPU: the plain version; CUDA: one launch of the backward kernel."""
+    if x_proj.device.type == "cpu":
+        return gru_backward_reference(x_proj, w_h, b_h, mask, ys, g, rev_bits)
+    return _launch_bwd(x_proj, w_h, b_h, mask, ys, g, w_h.shape[0], rev_bits)
+
+
+class GRUSequenceFn(torch.autograd.Function):
+    """Differentiable :func:`gru_forward`, its backward :func:`gru_backward`
+    (the counterpart of the JAX custom VJP). Saves x_proj, w_h, b_h, mask and
+    ys; the backward recomputes the gates from ys."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_h, b_h, mask, rev_bits):
+        ys = gru_forward(x_proj, w_h, b_h, mask, rev_bits)
+        ctx.save_for_backward(x_proj, w_h, b_h, mask, ys)
+        ctx.rev_bits = rev_bits
+        return ys
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, w_h, b_h, mask, ys = ctx.saved_tensors
+        g = g.to(ys.dtype).contiguous()
+        dxp, dw, db = gru_backward(x_proj, w_h, b_h, mask, ys, g, ctx.rev_bits)
+        return dxp, dw.to(w_h.dtype), db.to(b_h.dtype), None, None
+
+
 def gru_sequence(x_proj, w_h, b_h, mask, reverse=False):
     """Masked GRU recurrence over hoisted input projections, time-major.
 
@@ -134,12 +306,10 @@ def gru_sequence(x_proj, w_h, b_h, mask, reverse=False):
         x_proj: (T, B, 3H); w_h: (H, 3H); b_h: (3H,); mask: (T, B), nonzero on
             valid steps; reverse: walk time backward (outputs in forward order).
     Returns:
-        (T, B, H). A CPU tensor takes :func:`gru_sequence_reference`; a CUDA
-        tensor takes the kernel, or the call raises.
+        (T, B, H), differentiable in x_proj, w_h and b_h. A CPU tensor takes
+        the plain versions; a CUDA tensor takes the kernels, or the call raises.
     """
-    if x_proj.device.type == "cpu":
-        return gru_sequence_reference(x_proj, w_h, b_h, mask, reverse)
-    return _launch(x_proj, w_h[None], b_h[None], mask, 1, int(bool(reverse)))
+    return GRUSequenceFn.apply(x_proj, w_h[None], b_h[None], mask, int(bool(reverse)))
 
 
 def bigru_sequence(x_proj, w_h, b_h, mask):
@@ -151,10 +321,4 @@ def bigru_sequence(x_proj, w_h, b_h, mask):
     Returns:
         (T, B, 2H): the forward direction's states, then the backward one's.
     """
-    if x_proj.device.type == "cpu":
-        gates = w_h.shape[-1]
-        return torch.cat([
-            gru_sequence_reference(x_proj[..., :gates], w_h[0], b_h[0], mask, False),
-            gru_sequence_reference(x_proj[..., gates:], w_h[1], b_h[1], mask, True),
-        ], dim=-1)
-    return _launch(x_proj, w_h, b_h, mask, 2, 0b10)
+    return GRUSequenceFn.apply(x_proj, w_h, b_h, mask, 0b10)

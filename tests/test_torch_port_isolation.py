@@ -6,6 +6,8 @@
 - Entry points called without ``device=`` raise where no CUDA device is.
 - The GRU wrapper takes its plain version only for CPU tensors, without
   counting a launch, and raises for any other non-CUDA device.
+- So do the GRU backward and P2CP wrappers, and a gradient taken through the
+  GRU on the CPU runs the plain backward without counting a launch.
 """
 
 import ast
@@ -21,8 +23,10 @@ import torch
 import artspeech_tpu_torch
 from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech, SimpleArtSpeech
-from artspeech_tpu_torch.ops import _build, hopper_gru
+from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_p2cp
 from artspeech_tpu_torch.synth import pipeline
+from artspeech_tpu_torch.train import loop, state
+from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "artspeech_tpu_torch")
@@ -132,3 +136,71 @@ def test_other_devices_raise_instead_of_falling_back():
         hopper_gru.bigru_sequence(torch.cat([xp, xp], -1), torch.stack([wh, wh]),
                                   torch.stack([bh, bh]), mask)
     assert hopper_gru.launches == before
+
+
+def test_training_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_artspeech_train_step(1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_artspeech_eval_step(1.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ArtSpeech(12, 3, hidden_size=16, dropout=0.1)
+    model = ArtSpeech(12, 3, hidden_size=16, device="cpu")
+    st = state.create_train_state(model, 1e-3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.fit(st, [], [], None, None, 1, str(tmp_path))
+
+
+def _bwd_inputs(device):
+    xp, wh, bh, mask = _gru_inputs(device)
+    ys = hopper_gru.gru_sequence(xp, wh, bh, mask) if device == "cpu" else torch.empty(
+        xp.shape[0], xp.shape[1], wh.shape[0], device=device)
+    return xp, wh[None], bh[None], mask, ys, torch.ones_like(ys)
+
+
+def _p2cp_inputs(device):
+    rng = np.random.default_rng(1)
+    u, v = (torch.from_numpy(rng.random((3, 2, 2, 7)).astype(np.float32)).to(device)
+            for _ in range(2))
+    return u, v
+
+
+def test_backward_and_p2cp_take_the_plain_version_on_cpu_without_a_launch():
+    before = (hopper_gru.launches, hopper_gru.bwd_launches, hopper_p2cp.launches)
+    xp, wh, bh, mask, ys, g = _bwd_inputs("cpu")
+    dxp, dw, db = hopper_gru.gru_backward(xp, wh, bh, mask, ys, g, 0)
+    ref = hopper_gru.gru_sequence_backward_reference(xp, wh[0], bh[0], mask, ys, g)
+    for got, want in zip((dxp, dw[0], db[0]), ref):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    u, v = _p2cp_inputs("cpu")
+    torch.testing.assert_close(hopper_p2cp.mean_p2cp_channel_major(u, v),
+                               hopper_p2cp.mean_p2cp_channel_major_reference(u, v),
+                               rtol=0, atol=0)
+    assert (hopper_gru.launches, hopper_gru.bwd_launches, hopper_p2cp.launches) == before
+    assert _build._libraries == {}
+
+
+def test_gradient_through_the_gru_on_cpu_counts_no_launch():
+    before = (hopper_gru.launches, hopper_gru.bwd_launches)
+    xp, wh, bh, mask = (t.requires_grad_() if t.is_floating_point() else t
+                        for t in _gru_inputs("cpu"))
+    for reverse in (False, True):
+        loss = hopper_gru.gru_sequence(xp, wh, bh, mask, reverse).square().sum()
+        grads = torch.autograd.grad(loss, (xp, wh, bh))
+        assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    ys = hopper_gru.bigru_sequence(torch.cat([xp, xp], -1), torch.stack([wh, wh]),
+                                   torch.stack([bh, bh]), mask)
+    grads = torch.autograd.grad(ys.sum(), (xp, wh, bh))
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert (hopper_gru.launches, hopper_gru.bwd_launches) == before
+    assert _build._libraries == {}
+
+
+def test_backward_and_p2cp_raise_on_other_devices():
+    before = (hopper_gru.bwd_launches, hopper_p2cp.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_gru.gru_backward(*_bwd_inputs("meta"), 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_p2cp.mean_p2cp_channel_major(*_p2cp_inputs("meta"))
+    assert (hopper_gru.bwd_launches, hopper_p2cp.launches) == before
