@@ -1,0 +1,75 @@
+"""Shared CLI scaffolding: --config YAML + tracker flags + --device
+(counterpart of artspeech_tpu/cli/common.py).
+
+Mirrors the reference entry-script surface (argparse with --config /
+--mlflow / --experiment / --run_id / --run_name / --checkpoint, e.g.
+train_phoneme_to_articulation.py:387-424) so thesis_config YAMLs drive
+experiments the same way. The config is read with the port's own reader of
+the configs' YAML subset (cli/config_file.py). ``--device`` is the CLI's form
+of the ``device=`` that every entry point of the port takes: ``cuda`` unless
+``--device cpu`` is given.
+"""
+
+import argparse
+import os
+import time
+from typing import Callable, Dict
+
+from artspeech_tpu_torch.cli import config_file
+from artspeech_tpu_torch.utils.tracking import make_tracker
+
+_FLOAT32 = ("float32", "fp32")
+
+
+def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
+    """Model constructor kwargs from a config.
+
+    The port computes in float32. A config that asks for another compute
+    type (``compute_dtype: bfloat16`` at the top level, or ``dtype`` in the
+    model's kwargs) raises: bf16 compute is not ported yet (ROADMAP Queue 1,
+    item 2). ``float32`` is accepted and dropped.
+    """
+    kwargs = dict(cfg.get(key) or {})
+    for where, dtype in (("compute_dtype", cfg.get("compute_dtype")),
+                         (f"{key}.dtype", kwargs.pop("dtype", None))):
+        if dtype is not None and str(dtype).lower() not in _FLOAT32:
+            raise NotImplementedError(
+                f"{where}: {dtype} is not ported: artspeech_tpu_torch computes in float32 "
+                f"(bf16 compute is ROADMAP Queue 1, item 2)")
+    return kwargs
+
+
+def parse_cli(description: str):
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--config", dest="config_filepath", required=True)
+    parser.add_argument("--mlflow", dest="mlflow_tracking_uri", default=None)
+    parser.add_argument("--experiment", dest="experiment_name", default="artspeech_tpu")
+    parser.add_argument("--run_id", dest="run_id", default=None)
+    parser.add_argument("--run_name", dest="run_name", default=None)
+    parser.add_argument("--checkpoint", dest="checkpoint_filepath", default=None)
+    parser.add_argument("--output_dir", dest="output_dir", default="results")
+    parser.add_argument("--device", dest="device", default="cuda",
+                        help="torch device to run on (default: cuda; the CPU only when asked)")
+    args = parser.parse_args()
+    return args, config_file.load(args.config_filepath)
+
+
+def run_experiment(description: str, main_fn: Callable):
+    """Parse CLI, build tracker, call ``main_fn(cfg, args, tracker)``."""
+    args, cfg = parse_cli(description)
+    # Unique default so two runs without --run_name never interleave their
+    # metrics.jsonl/params.json.
+    default_name = f"run_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
+    run_dir = os.path.join(args.output_dir, args.run_name or default_name)
+    tracker = make_tracker(
+        run_dir,
+        mlflow_uri=args.mlflow_tracking_uri,
+        experiment=args.experiment_name,
+        run_id=args.run_id,
+        run_name=args.run_name,
+    )
+    tracker.log_params(cfg)
+    try:
+        return main_fn(cfg, args, tracker)
+    finally:
+        tracker.end()

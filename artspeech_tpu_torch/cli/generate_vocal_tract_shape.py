@@ -1,0 +1,75 @@
+"""Generate a synthetic articulation corpus from TextGrid phoneme sequences
+(counterpart of artspeech_tpu/cli/generate_vocal_tract_shape.py).
+
+Equivalent of reference generate_vocal_tract_shape_v2.py:270-450: run the
+synthesis pipeline and write inference_contours / air_column / xarticul /
+target_sequence.txt per sentence — the corpus later consumed by the
+phoneme-recognition evaluation. Ported: ``method: encoder_decoder``. The
+``mean_contour`` and ``autoencoder`` methods (ROADMAP Queue 1, items 6 and 9)
+and ``save_plots`` / ``save_videos`` (``synth/viz.py``, Queue 1, item 10)
+raise ``NotImplementedError``.
+
+Usage: python -m artspeech_tpu_torch.cli.generate_vocal_tract_shape \
+           --config config.yaml [--device cpu]
+"""
+
+from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
+from artspeech_tpu_torch.core.config import DATASET_CONFIG
+from artspeech_tpu_torch.core.device import resolve_device
+from artspeech_tpu_torch.core.vocab import load_vocabulary
+from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
+from artspeech_tpu_torch.synth.pipeline import SynthesisDataset, synthesize_corpus
+from artspeech_tpu_torch.train.checkpoint import load_params
+from artspeech_tpu_torch.utils.io import sequences_from_dict
+
+_NOT_PORTED = {
+    "mean_contour": "ROADMAP Queue 1, items 6 and 9 (models/mean_contour.py)",
+    "autoencoder": "ROADMAP Queue 1, items 6 and 9 (the PCA/autoencoder family)",
+}
+
+
+def build_forward(cfg, vocabulary, articulators, device):
+    method = cfg.get("method", "encoder_decoder")
+    if method == "encoder_decoder":
+        model = ArtSpeech(vocab_size=len(vocabulary), n_articulators=len(articulators),
+                          **model_kwargs_from_cfg(cfg, "model_params"), device=device)
+        model.load_state_dict(load_params(cfg["state_dict_filepath"]))
+        return model
+    if method in _NOT_PORTED:
+        raise NotImplementedError(
+            f"method: {method} is not ported to artspeech_tpu_torch yet: {_NOT_PORTED[method]}")
+    raise ValueError(f"Unknown synthesis method: {method}")
+
+
+def main(cfg, args, tracker):
+    device = resolve_device(args.device)
+    if cfg.get("save_plots", False) or cfg.get("save_videos", False):
+        raise NotImplementedError("save_plots / save_videos need synth/viz.py, which is not "
+                                  "ported to artspeech_tpu_torch yet (ROADMAP Queue 1, item 10)")
+    database_name = cfg["database_name"]
+    vocabulary = load_vocabulary(cfg["vocab_filepath"])
+    articulators = sorted(cfg["articulators"])
+
+    dataset = SynthesisDataset(
+        cfg["datadir"],
+        database_name,
+        sequences_from_dict(cfg["datadir"], cfg["seq_dict"]),
+        vocabulary,
+        articulators,
+    )
+    forward = build_forward(cfg, vocabulary, articulators, device)
+    written = synthesize_corpus(
+        forward,
+        dataset,
+        cfg["save_to"],
+        DATASET_CONFIG[database_name],
+        regularize_outputs=cfg.get("regularize_outputs", True),
+        batch_size=cfg.get("batch_size", 8),
+        device=device,
+    )
+    print(f"Synthesized {len(written)} sentences -> {cfg['save_to']}")
+    return written
+
+
+if __name__ == "__main__":
+    run_experiment("Generate vocal tract shapes", main)

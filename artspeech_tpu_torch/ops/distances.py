@@ -1,16 +1,17 @@
 """Batched contour distances (counterpart of artspeech_tpu/ops/distances.py:
-``pairwise_distances``, ``mean_p2cp``, ``mean_p2cp_channel_major``,
-``euclidean_distance``).
+``pairwise_distances``, ``min_distance``, ``mean_p2cp``,
+``mean_p2cp_channel_major``, ``euclidean_distance``,
+``pearson_correlation``).
 
-Shape-polymorphic over leading batch dims. ``mean_p2cp_channel_major`` on a
-CUDA tensor launches the P2CP kernel (ops/hopper_p2cp.py); on a CPU tensor it
-runs the plain formula. ``min_distance`` and its channel-major form come with
-the tract-variables slice, together with their kernel.
+Shape-polymorphic over leading batch dims. On a CUDA tensor
+``mean_p2cp_channel_major`` launches the P2CP kernel (ops/hopper_p2cp.py) and
+``min_distance`` / ``min_distance_channel_major`` the min-distance kernel
+(ops/hopper_min_dist.py); on a CPU tensor each runs its plain formula.
 """
 
 import torch
 
-from artspeech_tpu_torch.ops import hopper_p2cp
+from artspeech_tpu_torch.ops import hopper_min_dist, hopper_p2cp
 
 
 def pairwise_distances(u, v):
@@ -18,6 +19,24 @@ def pairwise_distances(u, v):
     distances (``torch.cdist`` semantics)."""
     diff = u[..., :, None, :] - v[..., None, :, :]
     return torch.sqrt(torch.clamp((diff * diff).sum(dim=-1), min=0.0))
+
+
+def min_distance(u, v):
+    """Minimum pairwise distance and its argmin pair.
+
+    Args:
+        u: (..., N, 2); v: (..., M, 2) point-major.
+    Returns:
+        (dist, idx_u, idx_v), each (...,); ties go to the smallest flat index
+        ``idx_u * M + idx_v`` (reference tract_variables.py:23-35).
+    """
+    return min_distance_channel_major(u.transpose(-1, -2), v.transpose(-1, -2))
+
+
+def min_distance_channel_major(u, v):
+    """min_distance for channel-major (..., 2, N) / (..., 2, M) contours.
+    CUDA: the min-distance kernel (forward only); CPU: the plain formula."""
+    return hopper_min_dist.min_distance_channel_major(u, v)
 
 
 def mean_p2cp(u, v):
@@ -43,3 +62,23 @@ def euclidean_distance(outputs, targets):
     (reference phoneme_to_articulation/metrics.py:5-24, reduction "none")."""
     diff = outputs - targets
     return torch.sqrt(torch.clamp((diff * diff).sum(dim=-2), min=0.0))
+
+
+def pearson_correlation(outputs, targets, mask=None, axis=1, eps=1e-8):
+    """Pearson correlation along ``axis`` (time), optionally masked: False
+    entries of the broadcastable ``mask`` are ignored. The target deviations
+    are taken around the target mean (reference metrics.py:9-35 subtracts the
+    output mean there, a bug the JAX package does not replicate either)."""
+    if mask is not None:
+        w = mask.to(outputs.dtype)
+        denom = torch.clamp(torch.sum(w, dim=axis, keepdim=True), min=1.0)
+        mean_o = torch.sum(outputs * w, dim=axis, keepdim=True) / denom
+        mean_t = torch.sum(targets * w, dim=axis, keepdim=True) / denom
+        vo = (outputs - mean_o) * w
+        vt = (targets - mean_t) * w
+    else:
+        vo = outputs - outputs.mean(dim=axis, keepdim=True)
+        vt = targets - targets.mean(dim=axis, keepdim=True)
+    num = torch.sum(vo * vt, dim=axis)
+    den = torch.sqrt(torch.sum(vo * vo, dim=axis) * torch.sum(vt * vt, dim=axis))
+    return num / torch.clamp(den, min=eps)

@@ -6,11 +6,13 @@ forward, B-spline smoothing, canonical-incisor injection and vocal-tract tube
 walls run on the device per batch; the host writes the synthetic corpus
 (inference_contours/*.npy, air_column/*.npy, xarticul/*.txt,
 target_sequence.txt) in the JAX package's directory schema.
+``SynthesisDataset`` is a copy of the JAX package's without its voiced-token
+option, whose callers (the recognizer CLIs) are not ported.
 """
 
 import logging
 import os
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -18,13 +20,50 @@ import torch
 from artspeech_tpu_torch.core.config import DatasetConfig
 from artspeech_tpu_torch.core.constants import UPPER_INCISOR
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
+from artspeech_tpu_torch.core.vocab import token_id
 from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, pad_to, pick_bucket
+from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.geometry.tube import generate_vocal_tract_tube_batch
 from artspeech_tpu_torch.ops.bspline import regularize_bsplines
 from artspeech_tpu_torch.synth.reference_contour import CANONICAL_UPPER_INCISOR
 from artspeech_tpu_torch.utils.io import npy_to_xarticul
 
 logger = logging.getLogger(__name__)
+
+
+class SynthesisDataset:
+    """Tokens-only sentence dataset with the canonical incisor reference
+    (reference generate_vocal_tract_shape_v2.py:41-121)."""
+
+    def __init__(
+        self,
+        datadir: str,
+        database_name: str,
+        sequences,
+        vocabulary: Dict[str, int],
+        articulators: Sequence[str],
+    ):
+        self.vocabulary = vocabulary
+        self.articulators = sorted(articulators)
+        collector = DATABASE_COLLECTORS[database_name](datadir)
+        self.data = collector.collect_data(sequences)
+
+    def __len__(self):
+        return len(self.data)
+
+    def __getitem__(self, index: int) -> dict:
+        item = self.data[index]
+        tokens = item["phonemes"]
+        return {
+            "sentence_name": item["sentence_name"],
+            "subject": item["subject"],
+            "tokens": np.array(
+                [token_id(t, self.vocabulary) for t in tokens], np.int32
+            ),
+            "phonemes": list(tokens),
+            "voicing": np.zeros(len(tokens), np.float32),
+            "length": len(tokens),
+        }
 
 
 def make_synthesis_step(

@@ -9,7 +9,10 @@
 
 Files are written to a temporary name and renamed, so a run cut mid-write
 leaves the previous checkpoint whole. They are loaded with
-``weights_only=True``. Converting an orbax checkpoint is not ported yet.
+``weights_only=True``. ``load_params`` reads ``<dir>/state`` as the model
+part of ``<dir>/state.pt``, so the configs' ``state_dict_filepath:
+results/checkpoints/best/state`` works as it does for the JAX package.
+Converting an orbax checkpoint is not ported yet.
 """
 
 import json
@@ -68,9 +71,21 @@ def save_params(path: str, model) -> None:
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:
-    """A model ``state_dict`` from a model-only artifact, or from a train-state
-    checkpoint directory (its model part)."""
+    """A model ``state_dict`` from any of the forms the JAX package's
+    ``load_params`` accepts and the repository's configs name:
+
+    - ``<dir>/state`` (``results/checkpoints/best/state``): the model part of
+      ``<dir>/state.pt``;
+    - ``<dir>``, a train-state checkpoint directory: the same;
+    - a model-only artifact (``best_model``).
+    """
+    state_file = None
     if os.path.isdir(path):
-        return torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
-                          weights_only=True)["model"]
+        state_file = os.path.join(path, STATE_FILE)
+    elif os.path.basename(path) == "state" and not os.path.exists(path):
+        state_file = os.path.join(os.path.dirname(path), STATE_FILE)
+    if state_file is not None:
+        if not os.path.isfile(state_file):
+            raise FileNotFoundError(f"no model parameters at {path}: {state_file} is missing")
+        return torch.load(state_file, map_location="cpu", weights_only=True)["model"]
     return torch.load(path, map_location="cpu", weights_only=True)

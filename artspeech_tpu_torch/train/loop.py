@@ -94,6 +94,7 @@ def fit(
     monitor: str = "p2cp_mm",
     patience: int = 30,
     scheduler: Optional[PlateauScheduler] = None,
+    tracker=None,
     seed: int = 0,
     resume: bool = False,
     resume_from: Optional[str] = None,
@@ -105,8 +106,9 @@ def fit(
     metric), ``last/`` (the rolling resume checkpoint with the scheduler's
     and stopper's state in aux.json) and ``best_model`` (model only).
     ``resume_from`` restores that checkpoint directory; plain ``resume``
-    restores ``last/`` if it exists. ``device``: ``cuda`` unless the caller
-    passes ``device="cpu"``.
+    restores ``last/`` if it exists. Each epoch's record (without ``best``)
+    goes to ``tracker.log_metrics(..., step=epoch)``. ``device``: ``cuda``
+    unless the caller passes ``device="cpu"``.
     """
     dev = resolve_device(device)
     os.makedirs(checkpoints_dir, exist_ok=True)
@@ -152,6 +154,8 @@ def fit(
             "best": is_best,
         }
         history.append(record)
+        if tracker is not None:
+            tracker.log_metrics({k: v for k, v in record.items() if k != "best"}, step=epoch)
 
         if is_best:
             save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: monitored})

@@ -1,6 +1,8 @@
-"""Host-side IO helpers (copy of artspeech_tpu/utils/io.py:npy_to_xarticul)."""
+"""Host-side IO helpers (copy of artspeech_tpu/utils/io.py:
+``npy_to_xarticul``, ``sequences_from_dict``)."""
 
-from typing import List
+import os
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -16,3 +18,22 @@ def npy_to_xarticul(array: np.ndarray, filepath: str = None) -> List[str]:
         with open(filepath, "w") as f:
             f.write("\n".join(lines))
     return lines
+
+
+def sequences_from_dict(
+    datadir: str, sequences_dict: Dict[str, Sequence[str]]
+) -> List[Tuple[str, str]]:
+    """Expand {subject: [sequences]} into (subject, sequence) pairs; an empty
+    list selects every sequence directory (reference helpers.py:63-76)."""
+    sequences = []
+    for subject, seqs in sequences_dict.items():
+        use_seqs = seqs
+        if len(seqs) == 0:
+            subject_dir = os.path.join(datadir, subject)
+            use_seqs = sorted(
+                s
+                for s in os.listdir(subject_dir)
+                if os.path.isdir(os.path.join(subject_dir, s))
+            )
+        sequences.extend((subject, seq) for seq in use_seqs)
+    return sequences

@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's synthesis and training paths on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch/CUDA port's synthesis and training paths and the thesis
+workflow through its CLIs on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -7,14 +7,18 @@ Usage, from the root of the repository, on a machine with one H100:
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles the three kernels, ops/csrc/{gru_fwd,gru_bwd,p2cp}.cu,
-               one nvcc each, all started together;
+  2. build   — compiles the four kernels,
+               ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist}.cu, one nvcc each, all
+               started together;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
                each alone, ragged lengths, f32 and bf16 (the backward also
                against torch.autograd through the plain forward); P2CP at
-               R = 12*128*10 and R = 1001 rows;
+               R = 12*128*10 and R = 1001 rows; min-distance at the four
+               tract-variable shapes with R = 12*128 and R = 1001 rows, and
+               on ties (duplicated points, identical contours, a permutation):
+               indices equal, distances within 1e-6 relative;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -30,15 +34,32 @@ Phases, each printing its own lines:
                batch at lr 1e-3 (the loss must fall), and one train step on
                the card against the same step on the CPU (see
                train_against_cpu for how the updated parameters compare);
-  6. timing  — CUDA-event times of each kernel, its plain version and a
+  6. cli     — the thesis workflow through the port's three CLIs, each run
+               in-process through its run_experiment with sys.argv set, from
+               YAML files written from the text of the repository's
+               configs/model_free/ configs (only the corpus paths, the
+               database, num_epochs: 2, state_dict_filepath and save_to
+               changed) over a seeded gottingen-layout corpus on disk (one
+               subject, S01-S05, 6 sentences of about 100 frames each):
+               train_phoneme_to_articulation (fit + the final test with tract
+               variables), test_phoneme_to_articulation on best/state,
+               generate_vocal_tract_shape on S05 and, from best_model, on a
+               VCV corpus (textgrid_only). Checks the artifact trees, one TV
+               CSV row per test frame, finiteness, every kernel's launches on
+               each CLI, and the test CLI's results against the train CLI's
+               final test; then one test batch through the test step on the
+               card against the CPU;
+  7. timing  — CUDA-event times of each kernel, its plain version and a
                PyTorch library call that computes the same function (a
-               yardstick the port never calls), the bound, synthesis frames/s
-               and train frames/s at B=12 and B=256 with the device's idle
-               share and top kernels from torch.profiler.
+               yardstick the port never calls), the bound, synthesis frames/s,
+               train frames/s at B=12 and B=256 and test frames/s at B=12
+               with the device's idle share and top kernels from
+               torch.profiler, and each CLI's wall time.
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
 
+import csv
 import json
 import os
 import subprocess
@@ -50,17 +71,30 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from artspeech_tpu_torch.cli import (
+    config_file,
+    generate_vocal_tract_shape,
+    test_phoneme_to_articulation,
+    train_phoneme_to_articulation,
+)
+from artspeech_tpu_torch.cli.common import run_experiment
 from artspeech_tpu_torch.core.config import DATASET_CONFIG, mm_per_unit
 from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS, TUBE_ARTICULATORS
-from artspeech_tpu_torch.data.batching import BucketedLoader
+from artspeech_tpu_torch.core.vocab import load_vocabulary
+from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, pick_bucket
+from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
+from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
+from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
+from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry.area_function import tube_area_function
 from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
-from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_p2cp
+from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_min_dist, hopper_p2cp
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
 from artspeech_tpu_torch.train import loop, state
-from artspeech_tpu_torch.train.checkpoint import restore_checkpoint
+from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
 from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
+from artspeech_tpu_torch.utils.io import sequences_from_dict
 
 VOCAB, HIDDEN = 64, 128
 BENCH_B, BENCH_T = 16, 128
@@ -86,7 +120,26 @@ REPLACES = {
     "gru_fwd": "artspeech_tpu/ops/pallas_gru.py:80 (_gru_fwd_kernel, pallas_call at :212)",
     "gru_bwd": "artspeech_tpu/ops/pallas_gru.py:117 (_gru_bwd_kernel, pallas_call at :251)",
     "p2cp": "artspeech_tpu/ops/pallas_kernels.py:31 (_p2cp_kernel, pallas_call at :76)",
+    "min_dist": "artspeech_tpu/ops/pallas_kernels.py:41 (_min_dist_kernel, pallas_call at :76)",
 }
+KERNELS = tuple(REPLACES)
+# min_dist rounds each squared distance as its plain version does, so both
+# pick the same pair; the distances differ by the sqrt's rounding at most.
+MIN_DIST_TOL = 1e-6
+TEST_ROWS = 12 * 128  # the thesis test batch at bucket 128: B * T frames per TV
+TV_SHAPES = {"LA": (50, 50), "TTCD": (15, 25), "TBCD": (20, 40), "VEL": (15, 50)}  # (N, M)
+REPO = os.path.dirname(os.path.abspath(__file__))
+THESIS_CONFIGS = os.path.join(REPO, "configs", "model_free")
+#: The [cli] corpus: one subject, S01-S05 split as train_model_free.yaml
+#: splits them, about 100 frames a sentence so that batches fill bucket 128.
+CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S05"),
+                  n_sentences=6, frames_per_sentence=100)
+# Card against CPU, the test step: the tract variables and metrics of one
+# test batch within 1e-4 (f32 sums in another order), and the same argmin
+# pair on at least 99 % of the frames (near-ties may flip on ulp-level
+# differences of the model outputs; there the values still agree).
+TEST_STEP_TOL = 1e-4
+TV_SAME_PAIR_SHARE = 0.99
 
 
 def check(cond, message):
@@ -122,7 +175,7 @@ def rel_err(got, ref):
 
 
 def build_all():
-    names = ("gru_fwd", "gru_bwd", "p2cp")
+    names = KERNELS
     fresh = {n: not os.path.exists(_build.library_path(n)) for n in names}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -245,6 +298,55 @@ def p2cp_vs_plain():
         check(np.isfinite(err) and err <= P2CP_TOL,
               f"p2cp kernel disagrees with its plain version at R={rows}: {err}")
         worst = max(worst, err)
+    return worst
+
+
+def min_dist_inputs(rows, n, m, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(rows, 2, n, generator=g).cuda(), torch.rand(rows, 2, m, generator=g).cuda()
+
+
+def min_dist_cases():
+    """(name, u, v): each TV shape at the test batch's and an odd row count,
+    three kinds of ties at the test batch's, and TBCD's inputs as the tract
+    variables pass them: a strided window of a contour stack and a
+    concatenated palate."""
+    cases = [(f"{tv}_R{rows}", *min_dist_inputs(rows, n, m, seed=rows + n + m))
+             for tv, (n, m) in TV_SHAPES.items() for rows in (TEST_ROWS, 1001)]
+    u, v = min_dist_inputs(TEST_ROWS, 20, 30, seed=11)
+    v[..., 7] = u[..., 12]
+    v[..., 21] = u[..., 12]  # the same zero distance twice: (12, 7) must win
+    u[..., 15] = u[..., 12]
+    g = torch.Generator().manual_seed(12)
+    stack = torch.rand(TEST_ROWS, 11, 2, 50, generator=g).cuda()
+    palate = torch.cat([stack[:, 9, :, 0:25], stack[:, 6, :, 35:50]], dim=-1)
+    return cases + [
+        ("duplicated_points", u, v),
+        ("identical_contours", torch.full_like(u, 0.25), torch.full_like(v, 0.75)),
+        ("permutation", u, u[..., torch.randperm(20, generator=g).cuda()]),
+        ("TBCD_strided_views", stack[:, 8, :, 10:30], palate),
+    ]
+
+
+def min_dist_vs_plain():
+    """The kernel against its plain version: indices equal, distances within
+    MIN_DIST_TOL relative. Returns the largest absolute distance error."""
+    worst = 0.0
+    for name, u, v in min_dist_cases():
+        got = hopper_min_dist.min_distance_channel_major(u, v)
+        ref = hopper_min_dist.min_distance_channel_major_reference(u, v)
+        torch.cuda.synchronize()
+        diff = (got[0] - ref[0]).abs()
+        abs_err = diff.max().item()
+        rel = (diff / ref[0].abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+        same = bool(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
+        phase("kernel", kernel="min_dist", case=name, rows=u.shape[0], N=u.shape[-1],
+              M=v.shape[-1], dtype="float32", tol=MIN_DIST_TOL, max_abs_err=abs_err,
+              max_rel_err=rel, indices_equal=same)
+        check(same and np.isfinite(rel) and rel <= MIN_DIST_TOL,
+              f"min_dist kernel disagrees with its plain version on {name}: "
+              f"indices equal {same}, relative error {rel}")
+        worst = max(worst, abs_err)
     return worst
 
 
@@ -543,6 +645,290 @@ def train_against_cpu():
     check(all(v <= 1e-4 for v in errs.values()), f"card and CPU train steps disagree: {errs}")
 
 
+# -- the thesis workflow through the CLIs --------------------------------------
+
+CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv")
+
+
+def launch_counts():
+    return {"gru_fwd": hopper_gru.launches, "gru_bwd": hopper_gru.bwd_launches,
+            "p2cp": hopper_p2cp.launches, "min_dist": hopper_min_dist.launches}
+
+
+def reset_launch_counts():
+    hopper_gru.launches = hopper_gru.bwd_launches = hopper_p2cp.launches = 0
+    hopper_min_dist.launches = 0
+
+
+def n_batches(lengths, batch_size):
+    """The batches BucketedLoader makes of sentences of these lengths."""
+    per_bucket = {}
+    for length in lengths:
+        bucket = pick_bucket(length, DEFAULT_BUCKETS)
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+    return sum(-(-n // batch_size) for n in per_bucket.values())
+
+
+def thesis_config(name, path, changes):
+    """Write configs/model_free/<name>.yaml to ``path`` with the value of
+    each top-level key in ``changes`` replaced, line by line; returns the
+    config as the CLI reads it, after checking that no other key differs
+    from the repository's."""
+    src = os.path.join(THESIS_CONFIGS, f"{name}.yaml")
+    with open(src) as f:
+        lines = f.read().splitlines()
+    out = []
+    for line in lines:
+        key = line.split(":", 1)[0]
+        out.append(f"{key}: {changes[key]}" if key in changes else line)
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    cfg, original = config_file.load(path), config_file.load(src)
+    changed = {k for k in cfg.keys() | original.keys() if cfg.get(k) != original.get(k)}
+    check(changed <= set(changes) and set(cfg) == set(original),
+          f"{name}: keys {sorted(changed)} changed, only {sorted(changes)} may")
+    return cfg
+
+
+def run_cli(module, config_path, output_dir):
+    """One CLI in-process through its run_experiment, as ``python -m`` runs
+    it (no --device: the card). Returns (result, wall seconds)."""
+    saved = sys.argv
+    sys.argv = [module.__name__, "--config", config_path, "--output_dir", output_dir,
+                "--run_name", "run"]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = run_experiment(module.__name__, module.main)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+    finally:
+        sys.argv = saved
+
+
+def finite_npys(directory):
+    names = os.listdir(directory)
+    for name in names:
+        check(np.isfinite(np.load(os.path.join(directory, name))).all(),
+              f"non-finite values in {directory}/{name}")
+    return len(names)
+
+
+def read_csv(path):
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], rows[1:]
+
+
+def check_test_outputs(outputs_dir, lengths, n_arts):
+    """Per test sentence: the contours (predicted and true) of every frame
+    and articulator, one phonemes.csv and one tract_variables.csv row per
+    frame, all finite. Returns the frames and TV rows seen."""
+    check(sorted(os.listdir(outputs_dir)) == sorted(lengths), f"sentences in {outputs_dir}")
+    tv_rows = 0
+    for name, length in lengths.items():
+        sentence = os.path.join(outputs_dir, name)
+        n = finite_npys(os.path.join(sentence, "contours"))
+        check(n == 2 * n_arts * length, f"{n} contour files for {length} frames in {sentence}")
+        check(len(read_csv(os.path.join(sentence, "phonemes.csv"))[1]) == length,
+              f"phonemes.csv rows in {sentence}")
+        head, rows = read_csv(os.path.join(sentence, "tract_variables.csv"))
+        check(len(rows) == length, f"{len(rows)} TV rows for {length} frames in {sentence}")
+        values = np.array([[float(x) for x in row[3:]] for row in rows])
+        check(head[3:] and np.isfinite(values).all(), f"non-finite TVs in {sentence}")
+        tv_rows += len(rows)
+    return sum(lengths.values()), tv_rows
+
+
+def check_synthesis(save_to, sentences, n_arts):
+    """Per sentence: inference_contours of every frame and articulator,
+    air_column and xarticul of every frame, all finite."""
+    for item in sentences:
+        sentence = os.path.join(save_to, item["subject"], item["sentence_name"])
+        length = len(item["phonemes"])
+        check(finite_npys(os.path.join(sentence, "inference_contours")) == length * n_arts,
+              f"inference_contours in {sentence}")
+        check(finite_npys(os.path.join(sentence, "air_column")) == length,
+              f"air_column in {sentence}")
+        xarticul = os.listdir(os.path.join(sentence, "xarticul"))
+        check(len(xarticul) == length and all(
+            np.isfinite(np.loadtxt(os.path.join(sentence, "xarticul", x))).all()
+            for x in xarticul), f"xarticul in {sentence}")
+    return sum(len(item["phonemes"]) for item in sentences)
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def cli_path(tmp):
+    """The thesis workflow through the three CLIs on the card. Returns the
+    launch counts of each CLI run, their wall seconds and what the card-vs-CPU
+    test-step check needs."""
+    corpus, vcv = os.path.join(tmp, "corpus"), os.path.join(tmp, "vcv")
+    t0 = time.perf_counter()
+    info = make_synthetic_corpus(corpus, subjects=(CLI_CORPUS["subject"],),
+                                 sequences=CLI_CORPUS["sequences"],
+                                 n_sentences=CLI_CORPUS["n_sentences"],
+                                 frames_per_sentence=CLI_CORPUS["frames_per_sentence"],
+                                 framerate=DATASET_CONFIG["gottingen"].FRAMERATE)
+    vocab_path = os.path.join(corpus, "vocabulary.json")
+    with open(vocab_path, "w") as f:
+        json.dump(info["phonemes"], f)
+    make_vcv_corpus(vcv)
+    n_files = sum(len(names) for _, _, names in os.walk(corpus))
+    phase("cli", corpus_files=n_files, vcv_textgrids=sum(len(n) for _, _, n in os.walk(vcv)),
+          seconds=f"{time.perf_counter() - t0:.3f}")
+
+    out = os.path.join(tmp, "train_run")
+    best_state = os.path.join(out, "checkpoints", "best", "state")
+    corpus_keys = {"database_name": "gottingen", "datadir": corpus, "vocab_filepath": vocab_path}
+    configs = {
+        "cli_train": ("train_model_free", {**corpus_keys, "num_epochs": 2}),
+        "cli_test": ("test_model_free", {**corpus_keys, "state_dict_filepath": best_state}),
+        "cli_generate": ("generate_vocal_tract_shape_model_free",
+                         {**corpus_keys, "state_dict_filepath": best_state,
+                          "save_to": os.path.join(tmp, "synthesis")}),
+        "cli_generate_vcv": ("generate_vcv_model_free",
+                             {"datadir": vcv, "vocab_filepath": vocab_path,
+                              "state_dict_filepath": os.path.join(out, "checkpoints", "best_model"),
+                              "save_to": os.path.join(tmp, "vcv_synthesis")}),
+    }
+    cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes)
+            for p, (name, changes) in configs.items()}
+
+    train_cfg = cfgs["cli_train"]
+    arts, batch, epochs = sorted(train_cfg["articulators"]), train_cfg["batch_size"], 2
+    vocabulary = load_vocabulary(vocab_path)
+
+    def lengths(key):
+        dataset = ArtSpeechDataset(corpus, "gottingen", sequences_from_dict(corpus, train_cfg[key]),
+                                   vocabulary, arts, clip_tails=train_cfg["clip_tails"])
+        return {d["sentence_name"]: len(d["frame_ids"]) for d in dataset.data}
+
+    def synthesis_sentences(p):
+        cfg = cfgs[p]
+        return DATABASE_COLLECTORS[cfg["database_name"]](cfg["datadir"]).collect_data(
+            sequences_from_dict(cfg["datadir"], cfg["seq_dict"]))
+
+    test_lengths = lengths("test_seq_dict")
+    tr, va, te = (n_batches(lengths("train_seq_dict").values(), batch),
+                  n_batches(lengths("valid_seq_dict").values(), batch),
+                  n_batches(test_lengths.values(), batch))
+    sentences = {p: synthesis_sentences(p) for p in ("cli_generate", "cli_generate_vcv")}
+    none = dict.fromkeys(KERNELS, 0)
+    # Two BiGRU layers: one forward (and in training one backward) launch
+    # each; one P2CP launch per eval step and per test batch (the
+    # per-sentence metrics); 4 TVs x (prediction, target) per test batch.
+    expected = {
+        "cli_train": {"gru_fwd": 2 * (epochs * (tr + va) + te), "gru_bwd": 2 * epochs * tr,
+                      "p2cp": epochs * va + te, "min_dist": 8 * te},
+        "cli_test": {**none, "gru_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te},
+        **{p: {**none, "gru_fwd": 2 * -(-len(s) // 8)} for p, s in sentences.items()},
+    }
+    phase("cli", train_batches_per_epoch=tr, valid_batches=va, test_batches=te,
+          test_frames=sum(test_lengths.values()),
+          **{f"{p}_sentences": len(s) for p, s in sentences.items()})
+
+    modules = {"cli_train": train_phoneme_to_articulation, "cli_test": test_phoneme_to_articulation,
+               "cli_generate": generate_vocal_tract_shape,
+               "cli_generate_vcv": generate_vocal_tract_shape}
+    outputs = {"cli_train": out, "cli_test": os.path.join(tmp, "test_run"),
+               "cli_generate": os.path.join(tmp, "generate_run"),
+               "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run")}
+    results, launches, seconds = {}, {}, {}
+    for p in CLI_PATHS:
+        reset_launch_counts()
+        results[p], seconds[p] = run_cli(modules[p], os.path.join(tmp, f"{p}.yaml"), outputs[p])
+        launches[p] = launch_counts()
+        phase("cli", cli=p, seconds=f"{seconds[p]:.3f}",
+              **{f"{k}_launches": v for k, v in launches[p].items()},
+              **{f"{k}_expected": v for k, v in expected[p].items()})
+        check(launches[p] == expected[p], f"{p}: kernel launches {launches[p]}, "
+                                          f"expected {expected[p]}")
+    check(launches["cli_train"]["min_dist"] > 0 and launches["cli_test"]["min_dist"] > 0,
+          "the test paths launched no min_dist kernel")
+
+    # What the CLIs wrote.
+    for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
+                "checkpoints/last/state.pt", "checkpoints/last/aux.json",
+                "checkpoints/best_model", "test_results.json", "run/params.json",
+                "run/metrics.jsonl"):
+        check(os.path.isfile(os.path.join(out, sub)), f"the train CLI wrote no {sub}")
+    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    check([r["epoch"] for r in records] == list(range(epochs)), "metrics.jsonl epochs")
+    check(all(np.isfinite(v) for r in records for k, v in r.items() if k != "ts"),
+          "non-finite epoch metrics")
+    n_arts = len(arts) + 1  # with the upper incisor
+    for p in ("cli_train", "cli_test"):
+        frames, tv_rows = check_test_outputs(os.path.join(outputs[p], "test_outputs", "0"),
+                                             test_lengths, n_arts)
+        with open(os.path.join(outputs[p], "test_results.json")) as f:
+            written = flat(json.load(f))
+        check(written == flat(results[p]) and all(np.isfinite(v) for v in written.values()),
+              f"{p}: test_results.json")
+        phase("cli", cli=p, test_frames=frames, tv_csv_rows=tv_rows, finite=True,
+              loss=f"{results[p]['loss']:.6g}",
+              mean_p2cp_mm=f"{np.mean([results[p][a]['p2cp_mm'] for a in arts]):.6g}")
+    train_info, test_info = flat(results["cli_train"]), flat(results["cli_test"])
+    diff = max(abs(test_info[k] - v) for k, v in train_info.items())
+    phase("cli", test_cli_vs_train_cli_final_test_max_abs_diff=f"{diff:.3g}", tol=1e-6)
+    check(test_info.keys() == train_info.keys() and diff <= 1e-6,
+          f"the test CLI's results differ from the train CLI's final test by {diff}")
+    for p, s in sentences.items():
+        frames = check_synthesis(cfgs[p]["save_to"], s, n_arts)
+        check(len(results[p]) == len(s), f"{p}: {len(results[p])} sentences written")
+        phase("cli", cli=p, sentences=len(s), frames=frames, finite=True)
+    return launches, seconds, (best_state, corpus, vocab_path, train_cfg)
+
+
+def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
+    """One test batch (the first of S05: 12 rows at bucket 128) through the
+    test step on the card and on the CPU, same weights: loss, metrics and TV
+    values within TEST_STEP_TOL on the valid frames; the same places of
+    constriction (within TEST_STEP_TOL, i.e. the same contour points) on at
+    least TV_SAME_PAIR_SHARE of them."""
+    vocabulary = load_vocabulary(vocab_path)
+    arts = sorted(cfg["articulators"])
+    dataset = ArtSpeechDataset(corpus, "gottingen", sequences_from_dict(corpus, cfg["test_seq_dict"]),
+                               vocabulary, arts, clip_tails=cfg["clip_tails"])
+    batch, _ = next(iter(BucketedLoader(dataset, cfg["batch_size"], shuffle=False)))
+    params = load_params(best_state)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = ArtSpeech(len(vocabulary), len(arts), device=device)
+        model.load_state_dict(params)
+        step, _ = make_test_step(model, arts, device=device)
+        out[device] = {k: v.cpu().numpy() for k, v in flat(step(batch)).items()}
+    valid = np.arange(batch["tokens"].shape[1])[None, :] < batch["lengths"][:, None]
+    errs, shares = {}, {}
+    for key, ref in out["cpu"].items():
+        got = out["cuda"][key]
+        if "/poc_" in key:
+            continue
+        if key.startswith("tvs_"):
+            got, ref = got[valid], ref[valid]
+        errs[key] = float(np.abs(got - ref).max())
+    for key in (k for k in out["cpu"] if k.endswith("/poc_1")):
+        same = np.ones(valid.sum(), bool)
+        for poc in (key, key[:-1] + "2"):
+            same &= (np.abs(out["cuda"][poc] - out["cpu"][poc])[valid] <= TEST_STEP_TOL).all(-1)
+        shares[key[:-len("/poc_1")]] = float(same.mean())
+    worst = max(v for k, v in errs.items() if k not in ("outputs", "targets"))
+    phase("cli", test_step_card_vs_cpu_tol=TEST_STEP_TOL, rows=int(valid.sum()),
+          max_abs_err_metrics_and_tvs=f"{worst:.3g}", max_abs_err_outputs=f"{errs['outputs']:.3g}",
+          **{f"same_pair_share_{k.replace('/', '_')}": f"{v:.4f}" for k, v in shares.items()})
+    check(max(errs.values()) <= TEST_STEP_TOL, f"card and CPU test steps disagree: {errs}")
+    check(min(shares.values()) >= TV_SAME_PAIR_SHARE,
+          f"card and CPU pick other places of constriction: {shares}")
+
+
 # -- timing --------------------------------------------------------------------
 
 def gru_bound_ms(t, b, h, n_dir, elem_bytes):
@@ -579,6 +965,16 @@ def p2cp_bound_ms(rows, n, m):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def min_dist_bound_ms(rows, shapes):
+    """u and v read once, the distance (f32) and the pair (two int64) written
+    once; per point pair two subtractions, two multiplies, an add and a
+    compare: six operations. ``shapes``: the (N, M) of each call."""
+    bytes_moved = sum(4 * rows * 2 * (n + m) + rows * (4 + 8 + 8) for n, m in shapes)
+    ops = sum(rows * n * m * 6 for n, m in shapes)
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def device_breakdown(run_once, step_ms, tag, steps=3):
     """Where a step's time goes on the card: kernel launches and device-busy
     ms per step from a torch.profiler trace, the device's idle share against
@@ -602,7 +998,10 @@ def device_breakdown(run_once, step_ms, tag, steps=3):
     phase("profile", step=tag, kernel_launches_per_step=f"{launches:.0f}",
           device_busy_ms_per_step=f"{busy_ms:.6g}", step_ms=f"{step_ms:.6g}",
           device_idle_share=f"{max(0.0, 1.0 - busy_ms / step_ms):.4f}")
-    for name, ms, n in sorted(kernels, key=lambda k: -k[1])[:6]:
+    ranked = sorted(kernels, key=lambda k: -k[1])
+    # The top six, then the port's own kernels further down.
+    own = [k for k in ranked[6:] if any(f"{name}_kernel" in k[0] for name in KERNELS)]
+    for name, ms, n in ranked[:6] + own:
         phase("profile", step=tag, kernel=name[:60].replace(" ", "_"), ms_per_step=f"{ms:.6g}",
               calls_per_step=f"{n:.0f}", share_of_busy=f"{ms / busy_ms:.3f}")
 
@@ -680,6 +1079,60 @@ def time_p2cp():
     return result
 
 
+def time_min_dist():
+    """Each TV shape at the thesis test batch's R = 12*128 rows: the kernel,
+    its plain version, torch.cdist + a flat argmin + a gather (the yardstick;
+    it takes the sqrt before the argmin, so near-ties may pick another pair)
+    and the bound. Returns the four shapes' sums: one test step's launches
+    for one side (predictions or targets)."""
+    results = {}
+    for tv, (n, m) in TV_SHAPES.items():
+        u, v = min_dist_inputs(TEST_ROWS, n, m, seed=n * m)
+        kernel_ms = cuda_ms(lambda: hopper_min_dist.min_distance_channel_major(u, v), 100)
+        plain_ms = cuda_ms(lambda: hopper_min_dist.min_distance_channel_major_reference(u, v), 20)
+        up, vp = u.transpose(-1, -2), v.transpose(-1, -2)
+
+        def library():
+            d = torch.cdist(up, vp, compute_mode="donot_use_mm_for_euclid_dist").flatten(-2)
+            arg = d.argmin(dim=-1)
+            return d.gather(-1, arg[:, None])[:, 0], arg // m, arg % m
+
+        lib, got = library(), hopper_min_dist.min_distance_channel_major(u, v)
+        same_pair = ((lib[1] == got[1]) & (lib[2] == got[2])).float().mean().item()
+        lib_diff = (lib[0] - got[0]).abs().max().item()
+        library_ms = cuda_ms(library, 20)
+        bound_ms, bound_by = min_dist_bound_ms(TEST_ROWS, [(n, m)])
+        results[tv] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+        phase("timing", kernel="min_dist", tv=tv, rows=TEST_ROWS, N=n, M=m, dtype="float32",
+              library_max_abs_diff=f"{lib_diff:.3g}", library_same_pair_share=f"{same_pair:.4f}",
+              **fmt(results[tv]))
+    total = {k: sum(r[k] for r in results.values()) for k in ("ms", "plain_ms", "library_ms")}
+    total["bound_ms"], total["bound_by"] = min_dist_bound_ms(TEST_ROWS, list(TV_SHAPES.values()))
+    phase("timing", kernel="min_dist", tv="LA+TTCD+TBCD+VEL", rows=TEST_ROWS, **fmt(total))
+    return total
+
+
+def time_test_step():
+    """The thesis test step at B=12, T=128, every frame valid: 10
+    articulators and the incisor, metrics, TVs of predictions and targets."""
+    arts = sorted(RECOGNITION_ARTICULATORS)
+    model = ArtSpeech(VOCAB, len(arts), generator=torch.Generator().manual_seed(2))
+    step, _ = make_test_step(model, arts)
+    batch = fixed_batch(12, 128, seed=6, device="cuda", ragged=False)
+    batch["references"] = torch.rand(12, 128, 1, 2, 50, generator=torch.Generator().manual_seed(6),
+                                     device="cpu").cuda()
+    hopper_min_dist.launches = 0
+    step(batch)
+    torch.cuda.synchronize()
+    per_step = hopper_min_dist.launches
+    step_ms = host_ms(lambda: step(batch), 10)
+    phase("timing", test_step_ms=f"{step_ms:.6g}",
+          test_frames_per_s=f"{12 * 128 / step_ms * 1e3:.6g}", min_dist_launches_per_step=per_step,
+          shape="B=12,T=128,arts=10+incisor,tvs_pred_and_target")
+    device_breakdown(lambda: step(batch), step_ms, "test_B12")
+
+
 def time_synthesis():
     run = bench_step(None)
     rng = np.random.default_rng(1)
@@ -724,7 +1177,8 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     build_all()
-    errs = {"gru_fwd": gru_fwd_vs_plain(), "p2cp": p2cp_vs_plain()}
+    errs = {"gru_fwd": gru_fwd_vs_plain(), "p2cp": p2cp_vs_plain(),
+            "min_dist": min_dist_vs_plain()}
     errs["gru_bwd"], bwd_rel_err = gru_bwd_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
         synthesis_launches = main_path(tmp)
@@ -733,23 +1187,27 @@ def main():
         train_launches = train_path(tmp)
     loss_falls()
     train_against_cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
+        test_step_against_cpu(*test_step_inputs)
 
-    fwd = time_gru_fwd()[(BENCH_T, BENCH_B)]
-    bwd = time_gru_bwd()
-    p2cp = time_p2cp()
+    numbers = {"gru_fwd": time_gru_fwd()[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
+               "p2cp": time_p2cp(), "min_dist": time_min_dist()}
     time_synthesis()
     time_training()
+    time_test_step()
+    phase("timing", **{f"{p}_wall_s": f"{s:.3f}" for p, s in cli_seconds.items()})
 
+    by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
+                   "train": train_launches.get(k, 0),
+                   **{p: cli_launches[p][k] for p in CLI_PATHS}} for k in KERNELS}
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
-    line = {"kernels": [
-        kernel_entry("gru_fwd", synthesis_launches + train_launches["gru_fwd"],
-                     {"synthesis": synthesis_launches, "train": train_launches["gru_fwd"]},
-                     errs["gru_fwd"], fwd, gru_shape),
-        kernel_entry("gru_bwd", train_launches["gru_bwd"], {"train": train_launches["gru_bwd"]},
-                     errs["gru_bwd"], bwd, gru_shape, rel_err=bwd_rel_err),
-        kernel_entry("p2cp", train_launches["p2cp"], {"train": train_launches["p2cp"]},
-                     errs["p2cp"], p2cp, f"R={P2CP_ROWS},N=50,M=50,float32"),
-    ]}
+    shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
+              "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
+                  f"({n},{m})" for n, m in TV_SHAPES.values()) + " summed,float32"}
+    extra = {"gru_bwd": {"rel_err": bwd_rel_err}}
+    line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
+                                     shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

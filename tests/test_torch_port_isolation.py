@@ -1,15 +1,20 @@
 """The port stands alone and never runs on the CPU by accident.
 
 - No module of ``artspeech_tpu_torch`` (nor ``chip_smoke.py``) imports jax,
-  flax, orbax, yaml or anything of ``artspeech_tpu``.
+  flax, orbax, yaml, pandas (the card machine has neither of the last two)
+  or anything of ``artspeech_tpu``.
 - Importing the whole package leaves jax out of ``sys.modules``.
 - Entry points called without ``device=`` raise where no CUDA device is.
 - The GRU wrapper takes its plain version only for CPU tensors, without
   counting a launch, and raises for any other non-CUDA device.
-- So do the GRU backward and P2CP wrappers, and a gradient taken through the
-  GRU on the CPU runs the plain backward without counting a launch.
+- So do the GRU backward, P2CP and min-distance wrappers, and a gradient
+  taken through the GRU on the CPU runs the plain backward without counting a
+  launch.
+- The CLIs' ``main`` and the test step raise without a GPU unless the CPU is
+  asked for.
 """
 
+import argparse
 import ast
 import os
 import pkgutil
@@ -23,14 +28,20 @@ import torch
 import artspeech_tpu_torch
 from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech, SimpleArtSpeech
-from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_p2cp
+from artspeech_tpu_torch.cli import (
+    generate_vocal_tract_shape,
+    test_phoneme_to_articulation,
+    train_phoneme_to_articulation,
+)
+from artspeech_tpu_torch.eval.articulation import make_test_step, run_test
+from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_min_dist, hopper_p2cp
 from artspeech_tpu_torch.synth import pipeline
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "artspeech_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "yaml", "artspeech_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "yaml", "pandas", "artspeech_tpu"}
 
 
 def _sources():
@@ -204,3 +215,37 @@ def test_backward_and_p2cp_raise_on_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         hopper_p2cp.mean_p2cp_channel_major(*_p2cp_inputs("meta"))
     assert (hopper_gru.bwd_launches, hopper_p2cp.launches) == before
+
+
+def _min_dist_inputs(device):
+    rng = np.random.default_rng(2)
+    return (torch.from_numpy(rng.random((3, 4, 2, 15)).astype(np.float32)).to(device),
+            torch.from_numpy(rng.random((3, 4, 2, 25)).astype(np.float32)).to(device))
+
+
+def test_min_distance_takes_the_plain_version_on_cpu_and_raises_elsewhere():
+    before = hopper_min_dist.launches
+    u, v = _min_dist_inputs("cpu")
+    got = hopper_min_dist.min_distance_channel_major(u, v)
+    ref = hopper_min_dist.min_distance_channel_major_reference(u, v)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert got[0].shape == (3, 4) and got[1].dtype == torch.int64
+    assert _build._libraries == {}
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_min_dist.min_distance_channel_major(*_min_dist_inputs("meta"))
+    assert hopper_min_dist.launches == before
+
+
+def test_cli_mains_and_test_step_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    args = argparse.Namespace(device="cuda", output_dir=str(tmp_path), checkpoint_filepath=None)
+    for cli in (train_phoneme_to_articulation, test_phoneme_to_articulation,
+                generate_vocal_tract_shape):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main({}, args, tracker=None)
+    model = ArtSpeech(12, len(RECOGNITION_ARTICULATORS), hidden_size=16, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_test_step(model, RECOGNITION_ARTICULATORS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_test(model, [], RECOGNITION_ARTICULATORS, 1.0)
