@@ -1,0 +1,551 @@
+"""Multi-channel transformer for phoneme-to-articulation, method D
+(counterpart of artspeech_tpu/models/transformer.py): its serving path.
+
+- ``ArtSpeechTransformer``: token encoder, multi-channel decoder (per-channel
+  causal self attention, cross-channel interactions, cross attention to the
+  encoder memory, feed-forward) and the per-articulator heads, with
+  ``forward`` (teacher-forced), ``encode`` and ``generate`` (the buffer
+  re-decode).
+- ``make_fast_generate``: the KV-cached decode, whose every attend over the
+  caches goes through ``ops/hopper_attention.flash_decode_attend`` (the
+  hand-written kernel on the card).
+- ``make_auto_generate``: the per-length choice between the two.
+
+Every per-channel and per-channel-pair layer keeps its parameters stacked on
+leading ``(C,)`` or ``(C, C-1)`` axes, in flax's layout (Dense kernels
+``(in, out)``; attention ``query``/``key``/``value`` kernels ``(E, H, hd)``,
+``out`` ``(H, hd, E)``), and runs as one batched product over them: there is
+no Python loop over channels. The JAX package folds each LayerNorm's affine
+into the next Dense kernel; the port applies it as it stands (the same
+function up to float reassociation).
+
+Construction takes a CPU ``torch.Generator`` for the random weights (None: one
+seeded with 0; lecun-normal kernels, as flax initialises them), drawn on the
+CPU and then moved, and a ``device``: ``cuda`` unless the caller passes
+``device="cpu"``. Only serving is ported: ``forward`` in training mode with
+dropout > 0 raises (training is ROADMAP Queue 1, item 7); in eval mode the
+configs' ``dropout`` is accepted and inactive, as in JAX.
+"""
+
+import math
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
+from artspeech_tpu_torch.models.heads import LAYER_NORM_EPS, ContourDecoder, layer_norm, lecun_normal_
+from artspeech_tpu_torch.ops import hopper_attention
+from artspeech_tpu_torch.utils.masks import make_padding_mask
+
+
+def sinusoidal_positions(max_len: int, dim: int) -> torch.Tensor:
+    """(max_len, dim) sinusoidal table (reference models.py:9-34), float32."""
+    position = torch.arange(max_len, dtype=torch.float32)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32) * (-math.log(10000.0) / dim))
+    pe = torch.zeros(max_len, dim)
+    pe[:, 0::2] = torch.sin(position * div)
+    pe[:, 1::2] = torch.cos(position * div)
+    return pe
+
+
+class PositionalEncoding(nn.Module):
+    """Adds the sinusoidal table over the second-to-last axis (eval only:
+    the JAX module's dropout is inactive at inference)."""
+
+    def __init__(self, dim: int, max_len: int = 5000):
+        super().__init__()
+        self.register_buffer("table", sinusoidal_positions(max_len, dim), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.table[: x.shape[-2]]
+
+
+def _norm_f32(x):
+    """flax LayerNorm statistics without the affine: E[x^2] - E[x]^2, clamped
+    at 0 (JAX transformer.py:84)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
+    return (x - mu) * torch.rsqrt(var + LAYER_NORM_EPS)
+
+
+def _ln_norm(x, eps: float = LAYER_NORM_EPS):
+    """The KV-cached decode's LayerNorm statistics: as :func:`_norm_f32` but
+    without the clamp (JAX transformer.py:864)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x * x).mean(dim=-1, keepdim=True) - mu * mu
+    return (x - mu) * torch.rsqrt(var + eps)
+
+
+def lean_attention(query, key, value, mask=None):
+    """flax dot-product attention with the softmax normaliser folded into the
+    output, inference form (JAX transformer.py:97).
+
+    query (..., L, H, hd), key/value (..., S, H, hd), mask broadcastable to
+    (..., H, L, S), True = keep -> (..., L, H, hd). Masked scores become
+    ``finfo.min``, not -inf, so a fully masked row (a length-0 dummy) gets a
+    uniform, finite softmax, as in JAX.
+    """
+    hd = query.shape[-1]
+    s = torch.einsum("...qhd,...khd->...hqk", query / math.sqrt(hd), key)
+    if mask is not None:
+        s = torch.where(mask, s, torch.finfo(s.dtype).min)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    z = e.sum(dim=-1, keepdim=True)  # (..., h, q, 1)
+    o = torch.einsum("...hqk,...khd->...qhd", e, value)
+    return o / z.transpose(-3, -2)  # z -> (..., q, h, 1)
+
+
+def _others_index(c: int) -> np.ndarray:
+    """(C, C-1): row i lists every channel but i, in order."""
+    return np.asarray([[j for j in range(c) if j != i] for i in range(c)])
+
+
+def _expand_others(proc, c: int):
+    """(B, C, ...) -> (B, C, C-1, ...): row (i, j) is channel ``j`` skipping
+    ``i`` (JAX transformer.py:154, its index gather)."""
+    return proc[:, torch.as_tensor(_others_index(c), device=proc.device)]
+
+
+# -- parameters ----------------------------------------------------------------
+
+def _kernel(shape, fan_in, generator):
+    p = nn.Parameter(torch.empty(shape))
+    lecun_normal_(p, fan_in, generator)
+    return p
+
+
+def _zeros(shape):
+    return nn.Parameter(torch.zeros(shape))
+
+
+def _ones(shape):
+    return nn.Parameter(torch.ones(shape))
+
+
+class MultiHeadParams(nn.Module):
+    """flax ``MultiHeadDotProductAttention``'s parameters, stacked on
+    ``prefix``: ``{query,key,value}_kernel`` (*prefix, E, H, hd) and
+    ``_bias`` (*prefix, H, hd), ``out_kernel`` (*prefix, H, hd, E) and
+    ``out_bias`` (*prefix, E)."""
+
+    def __init__(self, prefix: Sequence[int], e: int, h: int, generator):
+        super().__init__()
+        hd = e // h
+        for name in ("query", "key", "value"):
+            self.register_parameter(f"{name}_kernel", _kernel((*prefix, e, h, hd), e, generator))
+            self.register_parameter(f"{name}_bias", _zeros((*prefix, h, hd)))
+        self.out_kernel = _kernel((*prefix, h, hd, e), e, generator)
+        self.out_bias = _zeros((*prefix, e))
+
+
+def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None):
+    """Multi-head attention with ``n`` stacked parameter sets.
+
+    q_in (B, n, L, E), k_in/v_in (B, n, S, E), mask broadcastable to
+    (B, n, H, L, S) -> (B, n, L, E).
+    """
+    e = q_in.shape[-1]
+    h, hd = p.query_bias.shape[-2:]
+
+    def project(x, name):
+        w = getattr(p, f"{name}_kernel").reshape(n, e, h, hd)
+        b = getattr(p, f"{name}_bias").reshape(n, 1, h, hd)
+        return torch.einsum("bnle,nehd->bnlhd", x, w) + b
+
+    o = lean_attention(project(q_in, "query"), project(k_in, "key"), project(v_in, "value"), mask)
+    return (torch.einsum("bnlhd,nhde->bnle", o, p.out_kernel.reshape(n, h, hd, e))
+            + p.out_bias.reshape(n, 1, e))
+
+
+class ChannelProcessingLayer(nn.Module):
+    """LN -> Q/K/V MLPs -> MHA -> query residual (JAX transformer.py:178),
+    ``prefix`` stacked parameter sets batched as one product. The same
+    LayerNorm normalises src and tgt, as in the reference."""
+
+    def __init__(self, prefix: Sequence[int], e: int, h: int, generator):
+        super().__init__()
+        self.n, self.e = int(np.prod(prefix)), e
+        self.ln_scale, self.ln_bias = _ones((*prefix, e)), _zeros((*prefix, e))
+        for i in range(3):  # query, key, value MLPs (flax Dense_0/1/2)
+            self.register_parameter(f"dense{i}_kernel", _kernel((*prefix, e, e), e, generator))
+            self.register_parameter(f"dense{i}_bias", _zeros((*prefix, e)))
+        self.attn = MultiHeadParams(prefix, e, h, generator)
+
+    def _mlp(self, i, x):
+        w = getattr(self, f"dense{i}_kernel").reshape(self.n, self.e, self.e)
+        b = getattr(self, f"dense{i}_bias").reshape(self.n, 1, self.e)
+        return torch.relu(torch.einsum("bnle,nef->bnlf", x, w) + b)
+
+    def forward(self, src, tgt, mask=None):
+        """src (B, n or 1, S, E) keys/values source; tgt (B, n, L, E) queries
+        source; mask broadcastable to (B, 1, L, S), True = keep -> (B, n, L, E)."""
+        scale = self.ln_scale.reshape(self.n, 1, self.e)
+        bias = self.ln_bias.reshape(self.n, 1, self.e)
+        src_ln = _norm_f32(src) * scale + bias
+        tgt_ln = src_ln if tgt is src else _norm_f32(tgt) * scale + bias
+        query = self._mlp(0, tgt_ln)
+        out = stacked_attention(self.attn, self.n, query, self._mlp(1, src_ln),
+                                self._mlp(2, src_ln), None if mask is None else mask[:, None])
+        return query + out
+
+
+class ChannelInteractionsLayer(nn.Module):
+    """Each channel's frames serve as keys and values to the queries of every
+    other channel; the C-1 results are concatenated, normalised and projected
+    back (JAX transformer.py:238, vmapped over the channel in
+    ``MultiChannelDecoderLayer``): parameters (C, C-1, ...) for the pairs,
+    (C, ...) for the projection."""
+
+    def __init__(self, c: int, e: int, h: int, generator):
+        super().__init__()
+        self.c = c
+        self.pairs = ChannelProcessingLayer((c, c - 1), e, h, generator)
+        self.ln_scale, self.ln_bias = _ones((c, (c - 1) * e)), _zeros((c, (c - 1) * e))
+        self.dense_kernel = _kernel((c, (c - 1) * e, e), (c - 1) * e, generator)
+        self.dense_bias = _zeros((c, e))
+
+    def forward(self, proc, mask=None):
+        """proc (B, C, L, E) -> (B, C, L, E)."""
+        b, c, l, e = proc.shape
+        others = _expand_others(proc, c)  # queries: (B, C, C-1, L, E)
+        own = proc[:, :, None].expand_as(others)  # keys and values: the channel itself
+        outs = self.pairs(own.reshape(b, -1, l, e), others.reshape(b, -1, l, e), mask)
+        concat = outs.reshape(b, c, c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
+        h = _norm_f32(concat) * self.ln_scale[:, None] + self.ln_bias[:, None]
+        return torch.relu(torch.einsum("bclx,cxe->bcle", h, self.dense_kernel)
+                          + self.dense_bias[:, None])
+
+
+class MultiChannelDecoderLayer(nn.Module):
+    """Self attention per channel -> cross-channel interactions -> cross
+    attention to the encoder memory -> LN -> feed-forward with pre-LN
+    (JAX transformer.py:582)."""
+
+    def __init__(self, c: int, e: int, h: int, generator):
+        super().__init__()
+        self.self_attn = ChannelProcessingLayer((c,), e, h, generator)
+        self.inter = ChannelInteractionsLayer(c, e, h, generator)
+        self.mem_attn = ChannelProcessingLayer((c,), e, h, generator)
+        self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
+        self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
+        self.dense_kernel, self.dense_bias = _kernel((e, e), e, generator), _zeros(e)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+        """tgt (B, C, L, E), memory (B, S, E), tgt_mask (B or 1, 1, L, L),
+        memory_mask (B, 1, 1, S) -> (B, C, L, E)."""
+        proc = self.self_attn(tgt, tgt, tgt_mask)
+        inter = self.inter(proc, tgt_mask)
+        attended = self.mem_attn(memory[:, None], inter, memory_mask)
+        attended = layer_norm(attended, self.ln0_scale, self.ln0_bias)
+        h = layer_norm(attended, self.ln1_scale, self.ln1_bias)
+        return attended + torch.relu(h @ self.dense_kernel + self.dense_bias)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-LN encoder layer, ReLU feed-forward (JAX transformer.py:674)."""
+
+    def __init__(self, e: int, h: int, ff_dim: int, generator):
+        super().__init__()
+        self.attn = MultiHeadParams((), e, h, generator)
+        self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
+        self.dense0_kernel, self.dense0_bias = _kernel((e, ff_dim), e, generator), _zeros(ff_dim)
+        self.dense1_kernel, self.dense1_bias = _kernel((ff_dim, e), ff_dim, generator), _zeros(e)
+        self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
+
+    def forward(self, x, mask=None):
+        """x (B, S, E), mask (B, 1, 1, S) keys kept -> (B, S, E)."""
+        xs = x[:, None]
+        attn = stacked_attention(self.attn, 1, xs, xs, xs, None if mask is None else mask[:, None])
+        x = layer_norm(x + attn[:, 0], self.ln0_scale, self.ln0_bias)
+        ff = torch.relu(x @ self.dense0_kernel + self.dense0_bias) @ self.dense1_kernel + self.dense1_bias
+        return layer_norm(x + ff, self.ln1_scale, self.ln1_bias)
+
+
+class ArtSpeechTransformer(nn.Module):
+    """Token encoder + multi-channel decoder + per-articulator predictors
+    (JAX transformer.py:701). Contours come out (B, L, C, 2, num_feat // 2)."""
+
+    def __init__(self, vocab_size: int, num_articulators: int, embed_dim: int = 64,
+                 num_heads: int = 4, num_layers: int = 4, num_feat: int = 100,
+                 dropout: float = 0.0, encoder_ff_dim: int = 2048, *,
+                 generator: Optional[torch.Generator] = None, device: DeviceLike = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        c, e = num_articulators, embed_dim
+        self.num_articulators, self.embed_dim, self.num_heads = c, e, num_heads
+        self.num_layers, self.num_feat, self.dropout = num_layers, num_feat, dropout
+        self.src_embedding = nn.Embedding(vocab_size, e)
+        with torch.no_grad():  # flax nn.Embed's default init: N(0, 1/embed_dim)
+            self.src_embedding.weight.normal_(0.0, math.sqrt(1.0 / e), generator=gen)
+        self.pos_encoding = PositionalEncoding(e)
+        self.encoder_layers = nn.ModuleList(
+            TransformerEncoderLayer(e, num_heads, encoder_ff_dim, gen) for _ in range(num_layers))
+        self.decoder_layers = nn.ModuleList(
+            MultiChannelDecoderLayer(c, e, num_heads, gen) for _ in range(num_layers))
+        self.tgt_embed_ln_scale, self.tgt_embed_ln_bias = _ones(num_feat), _zeros(num_feat)
+        self.tgt_embed_dense_kernel = _kernel((num_feat, e), num_feat, gen)
+        self.tgt_embed_dense_bias = _zeros(e)
+        self.head_ln_scale, self.head_ln_bias = _ones(c * e), _zeros(c * e)
+        self.head_dense_kernel, self.head_dense_bias = _kernel((c * e, e), c * e, gen), _zeros(e)
+        self.predictors = ContourDecoder(e, c, num_feat // 2, generator=gen)
+        self.to(dev)
+        self.eval()
+
+    def _encode(self, src, src_mask):
+        h = self.pos_encoding(self.src_embedding(src))
+        enc_mask = None if src_mask is None else src_mask[:, None, None, :]  # keys masked
+        for layer in self.encoder_layers:
+            h = layer(h, enc_mask)
+        return h
+
+    def _decode(self, tgt, memory, tgt_mask, memory_mask):
+        """tgt (B, L, C, F) -> (B, L, C, 2, D) sigmoid contours."""
+        b, l, c, _ = tgt.shape
+        h = layer_norm(tgt, self.tgt_embed_ln_scale, self.tgt_embed_ln_bias)
+        h = torch.relu(h @ self.tgt_embed_dense_kernel + self.tgt_embed_dense_bias)
+        h = self.pos_encoding(h.permute(0, 2, 1, 3))  # (B, C, L, E)
+        for layer in self.decoder_layers:
+            h = layer(h, memory, tgt_mask, memory_mask)
+        h = h.permute(0, 2, 1, 3).reshape(b, l, c * self.embed_dim)
+        h = layer_norm(h, self.head_ln_scale, self.head_ln_bias)
+        return self.predictors(torch.relu(h @ self.head_dense_kernel + self.head_dense_bias))
+
+    def forward(self, src, tgt, src_lengths=None, tgt_lengths=None):
+        """Teacher-forced forward: src (B, S) token ids, tgt (B, L, C, F)
+        right-shifted targets -> (B, L, C, 2, D)."""
+        if self.training and self.dropout > 0.0:
+            raise NotImplementedError(
+                "ArtSpeechTransformer: training with dropout is not ported yet (ROADMAP Queue 1, "
+                "item 7, transformer training); call .eval() to serve")
+        l = tgt.shape[1]
+        memory, memory_mask = self.encode(src, src_lengths)
+        tgt_mask = torch.tril(torch.ones(l, l, dtype=torch.bool, device=tgt.device))[None, None]
+        if tgt_lengths is not None:
+            tgt_mask = tgt_mask & make_padding_mask(tgt_lengths, l)[:, None, None, :]
+        return self._decode(tgt, memory, tgt_mask, memory_mask)
+
+    def encode(self, src, src_lengths=None):
+        """The encoder memory (B, S, E) and its mask (B, 1, 1, S) (None
+        without lengths)."""
+        src_mask = None if src_lengths is None else make_padding_mask(src_lengths, src.shape[1])
+        memory = self._encode(src, src_mask)
+        return memory, None if src_mask is None else src_mask[:, None, None, :]
+
+    @torch.inference_mode()
+    def generate(self, src, src_lengths=None):
+        """Autoregressive generation from a zero start frame by re-decoding
+        the whole buffer each step (JAX transformer.py:833) -> (B, S, C, 2, D),
+        under ``torch.inference_mode``."""
+        b, s = src.shape
+        c, f = self.num_articulators, self.num_feat
+        memory, memory_mask = self.encode(src, src_lengths)
+        causal = torch.tril(torch.ones(s + 1, s + 1, dtype=torch.bool, device=src.device))[None, None]
+        buf = torch.zeros(b, s + 1, c, f, device=memory.device)
+        for t in range(s):
+            out = self._decode(buf, memory, causal, memory_mask)
+            buf[:, t + 1] = out[:, t].reshape(b, c, f)
+        return buf[:, 1:].reshape(b, s, c, 2, f // 2)
+
+
+# -- the KV-cached decode ------------------------------------------------------
+
+def _cache_dtype(cache_dtype: Optional[str]) -> torch.dtype:
+    """None (float32), "float32" or "bfloat16" -> the torch dtype."""
+    dtype = torch.float32 if cache_dtype is None else getattr(torch, str(cache_dtype), None)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"cache_dtype must be float32 or bfloat16, got {cache_dtype}")
+    return dtype
+
+
+def make_fast_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] = None,
+                       device: DeviceLike = None):
+    """KV-cached autoregressive generation (JAX transformer.py:871).
+
+    The memory-side K/V of every layer's cross attention are projected once,
+    before the time loop. Each layer keeps its self and cross-channel K/V
+    caches as (S, hd, G) tensors, G being every batch, channel (pair) and head
+    dimension merged, in ``cache_dtype`` (float32 or bfloat16; a row is
+    rounded to nearest even on writing, as JAX's ``astype``); they are
+    allocated once per call and written in place, a row a step. The loop over
+    time is a Python loop with a host int ``t``: at every step and layer both
+    attends call ``hopper_attention.flash_decode_attend(..., n_rows=t + 1)``
+    — on the card the kernel, always, at every G. Score and softmax math is
+    float32 whatever the cache dtype. The rest of the step (the projections,
+    the cross attention to the memory, the feed-forward and the heads) is
+    plain torch, as JAX left it to XLA.
+
+    The TPU version's ``n_chunks`` (static-shape prefix scans) and
+    ``attend_impl`` (its dispatch between an XLA and a Pallas attend) are not
+    ported: reading exactly the ``t + 1`` live rows makes both moot, and in
+    JAX the rows past ``t`` contribute exact zeros.
+
+    ``model`` must be on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``). Returns ``fast_generate(src, src_lengths=None)`` ->
+    (B, S, C, 2, D), which runs under ``torch.inference_mode``.
+    """
+    dev = resolve_device(device)
+    dtype = _cache_dtype(cache_dtype)
+    c, e, f = model.num_articulators, model.embed_dim, model.num_feat
+    n_heads = model.num_heads
+    hd = e // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    layers = list(model.decoder_layers)
+    others = torch.as_tensor(_others_index(c), device=dev)
+    attend = hopper_attention.flash_decode_attend
+
+    def ln(x, s, b):
+        return _ln_norm(x) * s + b
+
+    def self_side(p, x):
+        """Per-channel LN -> Q/K/V MLPs -> MHA projections on one frame:
+        x (B, C, E) -> q_mlp (B, C, E), q/k/v (B, C, H, hd)."""
+        x_ln = ln(x, p.ln_scale, p.ln_bias)
+        mlp = [torch.relu(torch.einsum("bce,cef->bcf", x_ln, getattr(p, f"dense{i}_kernel"))
+                          + getattr(p, f"dense{i}_bias")) for i in range(3)]
+        proj = [torch.einsum("bcf,cfhd->bchd", m, getattr(p.attn, f"{name}_kernel"))
+                + getattr(p.attn, f"{name}_bias") for m, name in zip(mlp, ("query", "key", "value"))]
+        return mlp[0], proj
+
+    def pair_side(p, proc):
+        """The cross-channel pairs on one frame: queries from the other
+        channels, keys/values from the channel's own: proc (B, C, E) ->
+        q_mlp (B, C, C-1, E), q/k/v (B, C, C-1, H, hd)."""
+        proc_norm = _ln_norm(proc)
+        own = proc_norm[:, :, None] * p.ln_scale + p.ln_bias
+        other = proc_norm[:, others] * p.ln_scale + p.ln_bias
+        mlp = [torch.relu(torch.einsum("bcje,cjef->bcjf", x, getattr(p, f"dense{i}_kernel"))
+                          + getattr(p, f"dense{i}_bias")) for i, x in ((0, other), (1, own), (2, own))]
+        proj = [torch.einsum("bcjf,cjfhd->bcjhd", m, getattr(p.attn, f"{name}_kernel"))
+                + getattr(p.attn, f"{name}_bias") for m, name in zip(mlp, ("query", "key", "value"))]
+        return mlp[0], proj
+
+    def cached_attend(cache_k, cache_v, q, k_new, v_new, t):
+        """Write row t of both caches, attend over rows [0, t] -> (G, hd)."""
+        g = cache_k.shape[2]
+        cache_k[t].copy_(k_new.reshape(g, hd).T)
+        cache_v[t].copy_(v_new.reshape(g, hd).T)
+        qg = (q * scale).reshape(g, hd).T.contiguous()
+        return attend(cache_k, cache_v, qg, t + 1).T
+
+    def predict_frame(hh):
+        """The per-articulator heads on one frame (B, E) -> (B, C, F)."""
+        pp = model.predictors
+        h = ln(hh[:, None], pp.ln0_scale, pp.ln0_bias)  # (B, C, E)
+        for i in (1, 2):
+            h = torch.relu(torch.einsum("bce,ceg->bcg", h, getattr(pp, f"dense{i - 1}_kernel"))
+                           + getattr(pp, f"dense{i - 1}_bias"))
+            h = ln(h, getattr(pp, f"ln{i}_scale"), getattr(pp, f"ln{i}_bias"))
+        x_pos = torch.einsum("bck,ckd->bcd", h, pp.dense2_kernel) + pp.dense2_bias
+        y_pos = torch.einsum("bck,ckd->bcd", h, pp.dense3_kernel) + pp.dense3_bias
+        return torch.sigmoid(torch.stack([x_pos, y_pos], dim=-2)).reshape(h.shape[0], c, f)
+
+    @torch.inference_mode()
+    def fast_generate(src, src_lengths=None):
+        src = torch.as_tensor(src, device=dev)
+        src_lengths = None if src_lengths is None else torch.as_tensor(src_lengths, device=dev)
+        b, s = src.shape
+        memory, memory_mask = model.encode(src, src_lengths)
+        neg = torch.finfo(memory.dtype).min
+        mem_bias = (torch.zeros(b, 1, 1, s, device=dev) if memory_mask is None
+                    else torch.where(memory_mask, 0.0, neg))
+
+        # Hoisted: the memory's K/V through every layer's per-channel cross
+        # attention (LN -> K/V MLP -> MHA K/V projection), (B, C, S, H, hd).
+        mem_norm = _ln_norm(memory)
+        mem_kv = []
+        for layer in layers:
+            p = layer.mem_attn
+            src_ln = mem_norm[:, None] * p.ln_scale[None, :, None] + p.ln_bias[None, :, None]
+            kv = []
+            for i, name in ((1, "key"), (2, "value")):
+                mlp = torch.relu(torch.einsum("bcse,cef->bcsf", src_ln, getattr(p, f"dense{i}_kernel"))
+                                 + getattr(p, f"dense{i}_bias")[None, :, None])
+                kv.append(torch.einsum("bcsf,cfhd->bcshd", mlp, getattr(p.attn, f"{name}_kernel"))
+                          + getattr(p.attn, f"{name}_bias")[None, :, None])
+            mem_kv.append(kv)
+        pos_table = sinusoidal_positions(s, e).to(dev)
+
+        # Rows past t are never read (the attend takes n_rows = t + 1), so
+        # the caches need no zeroing.
+        g_self, g_pair = b * c * n_heads, b * c * (c - 1) * n_heads
+        caches = [[torch.empty((s, hd, g), dtype=dtype, device=dev)
+                   for g in (g_self, g_self, g_pair, g_pair)] for _ in layers]
+        prev = torch.zeros(b, c, f, device=dev)
+        frames = []
+        for t in range(s):
+            h = ln(prev, model.tgt_embed_ln_scale, model.tgt_embed_ln_bias)
+            h = torch.relu(h @ model.tgt_embed_dense_kernel + model.tgt_embed_dense_bias) + pos_table[t]
+            for layer, (k_self, v_self, k_pair, v_pair), (mem_k, mem_v) in zip(layers, caches, mem_kv):
+                # 1. per-channel causal self attention
+                p = layer.self_attn
+                q_mlp, (q, k_new, v_new) = self_side(p, h)
+                av = cached_attend(k_self, v_self, q, k_new, v_new, t).reshape(b, c, n_heads, hd)
+                proc = q_mlp + torch.einsum("bchd,chde->bce", av, p.attn.out_kernel) + p.attn.out_bias
+                # 2. cross-channel interactions
+                ip = layer.inter
+                pp = ip.pairs
+                q_mlp_i, (q_i, k_i, v_i) = pair_side(pp, proc)
+                av_i = cached_attend(k_pair, v_pair, q_i, k_i, v_i, t).reshape(b, c, c - 1, n_heads, hd)
+                outs = q_mlp_i + torch.einsum("bcjhd,cjhde->bcje", av_i, pp.attn.out_kernel) \
+                    + pp.attn.out_bias
+                concat = ln(outs.reshape(b, c, (c - 1) * e), ip.ln_scale, ip.ln_bias)
+                inter = torch.relu(torch.einsum("bcx,cxe->bce", concat, ip.dense_kernel) + ip.dense_bias)
+                # 3. cross attention to the encoder memory (hoisted K/V)
+                mp = layer.mem_attn
+                inter_ln = ln(inter, mp.ln_scale, mp.ln_bias)
+                q_mlp_m = torch.relu(torch.einsum("bce,cef->bcf", inter_ln, mp.dense0_kernel)
+                                     + mp.dense0_bias)
+                q_m = torch.einsum("bcf,cfhd->bchd", q_mlp_m, mp.attn.query_kernel) + mp.attn.query_bias
+                logits_m = torch.einsum("bchd,bcshd->bchs", q_m * scale, mem_k) + mem_bias
+                av_m = torch.einsum("bchs,bcshd->bchd", torch.softmax(logits_m, dim=-1), mem_v)
+                attended = q_mlp_m + torch.einsum("bchd,chde->bce", av_m, mp.attn.out_kernel) \
+                    + mp.attn.out_bias
+                # 4. LN, then the feed-forward with pre-LN
+                attended = ln(attended, layer.ln0_scale, layer.ln0_bias)
+                h_ff = ln(attended, layer.ln1_scale, layer.ln1_bias)
+                h = attended + torch.relu(h_ff @ layer.dense_kernel + layer.dense_bias)
+            flat = ln(h.reshape(b, c * e), model.head_ln_scale, model.head_ln_bias)
+            prev = predict_frame(torch.relu(flat @ model.head_dense_kernel + model.head_dense_bias))
+            frames.append(prev)
+        return torch.stack(frames, dim=1).reshape(b, s, c, 2, f // 2)
+
+    return fast_generate
+
+
+#: Source lengths at which the buffer re-decode beats the cached decode with
+#: float32 caches: none on the H100 (LO > HI; see make_auto_generate).
+BUFFER_WINS_LO = 1
+BUFFER_WINS_HI = 0
+
+
+def make_auto_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] = None,
+                       device: DeviceLike = None):
+    """Per-length choice between the KV-cached decode and the buffer
+    re-decode (JAX transformer.py:1195): the buffer is taken for float32
+    caches at source lengths in ``[BUFFER_WINS_LO, BUFFER_WINS_HI]``, the
+    cached decode everywhere else and always with bfloat16 caches.
+
+    The JAX band (64-112) was measured on a TPU v5e and does not carry over.
+    The port's band comes from chip_smoke.py's ``[decode]`` sweep, the cached
+    float32 decode against the buffer re-decode at B=12 on an NVIDIA H100
+    80GB HBM3 (700 W): the cached decode won at every length (ms, cached vs
+    buffer: T=32 590 vs 802, T=64 1131 vs 1606, T=96 1666 vs 2654, T=112
+    2443 vs 2866, T=128 1743 vs 2568), so the band is empty.
+
+    Returns ``auto_generate(src, src_lengths=None)`` -> (B, S, C, 2, D).
+    """
+    fast = make_fast_generate(model, cache_dtype, device)
+    buffer_band = _cache_dtype(cache_dtype) == torch.float32
+    dev = resolve_device(device)
+
+    def auto_generate(src, src_lengths=None):
+        if buffer_band and BUFFER_WINS_LO <= src.shape[1] <= BUFFER_WINS_HI:
+            lengths = None if src_lengths is None else torch.as_tensor(src_lengths, device=dev)
+            return model.generate(torch.as_tensor(src, device=dev), lengths)
+        return fast(src, src_lengths)
+
+    return auto_generate

@@ -1,9 +1,9 @@
 """Carry weights from the JAX package's param trees to the port's modules.
 
 The input is a flax param tree as nested dicts of numpy arrays (``np.asarray``
-of each leaf); the output is a ``state_dict`` the port's module accepts. GRU
-and head weights keep the JAX orientation in the port, so the only transpose
-is the one of ``nn.Linear``, here.
+of each leaf); the output is a ``state_dict`` the port's module accepts. GRU,
+head and transformer weights keep the JAX orientation in the port, so the only
+transpose is the one of ``nn.Linear``, here.
 """
 
 from typing import Dict, Mapping
@@ -33,7 +33,11 @@ def _linear(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _contour_decoder(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    heads = tree["VmapArticulatorPredictor_0"]
+    return _contour_heads(tree["VmapArticulatorPredictor_0"], prefix)
+
+
+def _contour_heads(heads: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """The stacked ``ArticulatorPredictor`` tree -> ``ContourDecoder``."""
     out = {}
     for i in range(3):
         out[f"{prefix}.ln{i}_scale"] = _t(heads[f"LayerNorm_{i}"]["scale"])
@@ -61,3 +65,68 @@ def simple_artspeech_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Te
         **_linear(params["Dense_0"], "dense"),
         **_contour_decoder(params["ContourDecoder_0"], "decoder"),
     }
+
+
+def _params(tree: Mapping, prefix: str, names: Dict[str, str]) -> Dict[str, torch.Tensor]:
+    """``tree[flax]`` -> ``{prefix}.{port}`` for each ``port: flax`` of ``names``,
+    kept in flax's orientation."""
+    return {f"{prefix}.{port}": _t(tree[flax]) for port, flax in names.items()}
+
+
+def _layer_norm(tree: Mapping, prefix: str, name: str) -> Dict[str, torch.Tensor]:
+    return _params(tree, prefix, {f"{name}_scale": "scale", f"{name}_bias": "bias"})
+
+
+def _dense(tree: Mapping, prefix: str, name: str) -> Dict[str, torch.Tensor]:
+    return _params(tree, prefix, {f"{name}_kernel": "kernel", f"{name}_bias": "bias"})
+
+
+def _attention(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """flax ``MultiHeadDotProductAttention`` -> ``MultiHeadParams``."""
+    out = {}
+    for name in ("query", "key", "value", "out"):
+        out.update(_dense(tree[name], prefix, name))
+    return out
+
+
+def _channel_processing(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """A (double) ``nn.vmap``-ed ``ChannelProcessingLayer`` -> the port's."""
+    out = {**_layer_norm(tree["LayerNorm_0"], prefix, "ln"),
+           **_attention(tree["MultiHeadDotProductAttention_0"], f"{prefix}.attn")}
+    for i in range(3):
+        out.update(_dense(tree[f"Dense_{i}"], prefix, f"dense{i}"))
+    return out
+
+
+def _count(params: Mapping, stem: str) -> int:
+    return sum(1 for key in params if key.startswith(stem))
+
+
+def transformer_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``ArtSpeechTransformer`` params -> the port's
+    ``ArtSpeechTransformer.load_state_dict``. Every kernel keeps flax's
+    orientation and stacked leading axes."""
+    out = {"src_embedding.weight": _t(params["src_embedding"]["embedding"])}
+    for i in range(_count(params, "encoder_layers_")):
+        tree, prefix = params[f"encoder_layers_{i}"], f"encoder_layers.{i}"
+        out.update(_attention(tree["MultiHeadDotProductAttention_0"], f"{prefix}.attn"))
+        for j in range(2):
+            out.update(_layer_norm(tree[f"LayerNorm_{j}"], prefix, f"ln{j}"))
+            out.update(_dense(tree[f"Dense_{j}"], prefix, f"dense{j}"))
+    for i in range(_count(params, "decoder_layers_")):
+        tree, prefix = params[f"decoder_layers_{i}"], f"decoder_layers.{i}"
+        inter = tree["VmapChannelInteractionsLayer_0"]
+        out.update(_channel_processing(tree["VmapChannelProcessingLayer_0"], f"{prefix}.self_attn"))
+        out.update(_channel_processing(inter["VmapChannelProcessingLayer_0"], f"{prefix}.inter.pairs"))
+        out.update(_layer_norm(inter["LayerNorm_0"], f"{prefix}.inter", "ln"))
+        out.update(_dense(inter["Dense_0"], f"{prefix}.inter", "dense"))
+        out.update(_channel_processing(tree["VmapChannelProcessingLayer_1"], f"{prefix}.mem_attn"))
+        out.update(_layer_norm(tree["LayerNorm_0"], prefix, "ln0"))
+        out.update(_layer_norm(tree["LayerNorm_1"], prefix, "ln1"))
+        out.update(_dense(tree["Dense_0"], prefix, "dense"))
+    for name, kind in (("tgt_embed_ln", "scale"), ("head_ln", "scale"),
+                       ("tgt_embed_dense", "kernel"), ("head_dense", "kernel")):
+        out[f"{name}_{kind}"] = _t(params[name][kind])
+        out[f"{name}_bias"] = _t(params[name]["bias"])
+    out.update(_contour_heads(params["predictors"], "predictors"))
+    return out

@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's synthesis and training paths and the thesis
-workflow through its CLIs on one NVIDIA GPU, and check them.
+"""Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
+workflow through its CLIs and the transformer's KV-cached decode on one
+NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -7,9 +8,9 @@ Usage, from the root of the repository, on a machine with one H100:
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles the four kernels,
-               ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist}.cu, one nvcc each, all
-               started together;
+  2. build   — compiles the five kernels,
+               ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode}.cu, one
+               nvcc each, all started together;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -18,7 +19,10 @@ Phases, each printing its own lines:
                R = 12*128*10 and R = 1001 rows; min-distance at the four
                tract-variable shapes with R = 12*128 and R = 1001 rows, and
                on ties (duplicated points, identical contours, a permutation):
-               indices equal, distances within 1e-6 relative;
+               indices equal, distances within 1e-6 relative; flash decode
+               at hd = 16 over 128-row caches, G of the self and cross-channel
+               caches at B = 1, 12 and 64, n_rows 1, 33 and 128, f32 and bf16
+               caches, within 1e-5 relative + 2e-5 absolute;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -48,18 +52,36 @@ Phases, each printing its own lines:
                CSV row per test frame, finiteness, every kernel's launches on
                each CLI, and the test CLI's results against the train CLI's
                final test; then one test batch through the test step on the
-               card against the CPU;
-  7. timing  — CUDA-event times of each kernel, its plain version and a
+               card against the CPU; last the transformer test CLI from
+               configs/model_free/train_transformer.yaml (corpus paths and
+               database changed, state_dict_filepath and save_to added) with
+               seeded full-width weights on S05 at the card's generate batch
+               (64) with bf16 caches: launches, artifacts, TV CSVs;
+  7. decode  — the full-width transformer (train_transformer.yaml: embed 64,
+               4 heads, 4 layers, 10 articulators) with seeded weights:
+               make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
+               caches, with exactly 8 * T flash_decode launches a batch,
+               frames/s and the device's busy time and idle share; the cached
+               f32 decode against the buffer re-decode at B = 12 for T in
+               {32, 64, 96, 112, 128} (make_auto_generate's band); and the
+               card against the CPU: one attend, forward and encode within
+               1e-4, a T = 16 decode with f32 caches within 1e-4 per frame;
+  8. timing  — CUDA-event times of each kernel, its plain version and a
                PyTorch library call that computes the same function (a
                yardstick the port never calls), the bound, synthesis frames/s,
                train frames/s at B=12 and B=256 and test frames/s at B=12
                with the device's idle share and top kernels from
-               torch.profiler, and each CLI's wall time.
+               torch.profiler, and each CLI's wall time; flash decode at the
+               B = 12 and B = 64 cross-channel caches with n_rows = 128, back
+               to back (cycling cache copies that overflow the L2) and by
+               profiler device time, against its bound, its plain version and
+               scaled_dot_product_attention.
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
 
 import csv
+import itertools
 import json
 import os
 import subprocess
@@ -75,9 +97,10 @@ from artspeech_tpu_torch.cli import (
     config_file,
     generate_vocal_tract_shape,
     test_phoneme_to_articulation,
+    test_phoneme_to_articulation_transformer,
     train_phoneme_to_articulation,
 )
-from artspeech_tpu_torch.cli.common import run_experiment
+from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
 from artspeech_tpu_torch.core.config import DATASET_CONFIG, mm_per_unit
 from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS, TUBE_ARTICULATORS
 from artspeech_tpu_torch.core.vocab import load_vocabulary
@@ -89,10 +112,11 @@ from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry.area_function import tube_area_function
 from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
-from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_min_dist, hopper_p2cp
+from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_fast_generate
+from artspeech_tpu_torch.ops import _build, hopper_attention, hopper_gru, hopper_min_dist, hopper_p2cp
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
 from artspeech_tpu_torch.train import loop, state
-from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
+from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint, save_params
 from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
 from artspeech_tpu_torch.utils.io import sequences_from_dict
 
@@ -121,6 +145,7 @@ REPLACES = {
     "gru_bwd": "artspeech_tpu/ops/pallas_gru.py:117 (_gru_bwd_kernel, pallas_call at :251)",
     "p2cp": "artspeech_tpu/ops/pallas_kernels.py:31 (_p2cp_kernel, pallas_call at :76)",
     "min_dist": "artspeech_tpu/ops/pallas_kernels.py:41 (_min_dist_kernel, pallas_call at :76)",
+    "flash_decode": "artspeech_tpu/ops/pallas_attention.py:86 (_flash_kernel, pallas_call at :157)",
 }
 KERNELS = tuple(REPLACES)
 # min_dist rounds each squared distance as its plain version does, so both
@@ -140,6 +165,15 @@ CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S0
 # differences of the model outputs; there the values still agree).
 TEST_STEP_TOL = 1e-4
 TV_SAME_PAIR_SHARE = 0.99
+#: flash decode against its plain version: both read the same cache values
+#: (bf16 widened exactly) and differ by the order of f32 sums and the online
+#: softmax's rescaling.
+FLASH_RTOL, FLASH_ATOL = 1e-5, 2e-5
+HD = 16  # the transformer config's head dim: embed 64 / 4 heads
+DECODE_T = 128
+DECODE_BATCHES = (12, 64)  # the thesis batch and the test CLI's generate batch on the card
+BAND_T = (32, 64, 96, 112, 128)
+TRANSFORMER_TOL = 1e-4  # card against CPU: forward, encode, per-frame decode
 
 
 def check(cond, message):
@@ -347,6 +381,53 @@ def min_dist_vs_plain():
               f"min_dist kernel disagrees with its plain version on {name}: "
               f"indices equal {same}, relative error {rel}")
         worst = max(worst, abs_err)
+    return worst
+
+
+def flash_groups(b, c=10, heads=4):
+    """The decode's lane counts G at batch b: self caches B*C*H, cross-channel
+    caches B*C*(C-1)*H."""
+    return {"self": b * c * heads, "inter": b * c * (c - 1) * heads}
+
+
+def flash_inputs(g, dtype, seed, s=DECODE_T):
+    """Seeded caches (S, hd, G) in ``dtype`` and a pre-scaled f32 query (hd, G)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(s, HD, g, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(s, HD, g, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(HD, g, generator=gen, device="cuda") * HD**-0.5
+    return k, v, q
+
+
+def flash_excess(got, ref):
+    """How far the worst element lies beyond FLASH_ATOL + FLASH_RTOL * |ref|
+    (<= 0: within), and max |got - ref|."""
+    diff = (got - ref).abs()
+    return (diff - FLASH_ATOL - FLASH_RTOL * ref.abs()).max().item(), diff.max().item()
+
+
+def flash_decode_vs_plain():
+    """The kernel against its plain version at every lane count of the
+    decode's caches at B = 1, 12 and 64, n_rows 1, 33 and 128, f32 and bf16.
+    Returns the largest absolute error."""
+    worst = 0.0
+    for b in (1, 12, 64):
+        for attend, g in flash_groups(b).items():
+            for dtype in (torch.float32, torch.bfloat16):
+                k, v, q = flash_inputs(g, dtype, seed=g)
+                errs = {}
+                for n_rows in (1, 33, DECODE_T):
+                    got = hopper_attention.flash_decode_attend(k, v, q, n_rows)
+                    ref = hopper_attention.flash_decode_attend_reference(k, v, q, n_rows)
+                    errs[n_rows] = flash_excess(got, ref)
+                torch.cuda.synchronize()
+                phase("kernel", kernel="flash_decode", B=b, attend=attend, G=g, hd=HD, S=DECODE_T,
+                      dtype=str(dtype).split(".")[-1], rtol=FLASH_RTOL, atol=FLASH_ATOL,
+                      **{f"max_abs_err_n{n}": f"{e[1]:.3g}" for n, e in errs.items()})
+                check(all(np.isfinite(e[1]) and e[0] <= 0 for e in errs.values()),
+                      f"flash_decode kernel disagrees with its plain version at B={b} {attend} "
+                      f"{dtype}: {errs}")
+                worst = max(worst, *(e[1] for e in errs.values()))
     return worst
 
 
@@ -647,33 +728,40 @@ def train_against_cpu():
 
 # -- the thesis workflow through the CLIs --------------------------------------
 
-CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv")
+CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv", "cli_transformer")
 
 
 def launch_counts():
     return {"gru_fwd": hopper_gru.launches, "gru_bwd": hopper_gru.bwd_launches,
-            "p2cp": hopper_p2cp.launches, "min_dist": hopper_min_dist.launches}
+            "p2cp": hopper_p2cp.launches, "min_dist": hopper_min_dist.launches,
+            "flash_decode": hopper_attention.launches}
 
 
 def reset_launch_counts():
     hopper_gru.launches = hopper_gru.bwd_launches = hopper_p2cp.launches = 0
-    hopper_min_dist.launches = 0
+    hopper_min_dist.launches = hopper_attention.launches = 0
 
 
-def n_batches(lengths, batch_size):
-    """The batches BucketedLoader makes of sentences of these lengths."""
+def batch_buckets(lengths, batch_size):
+    """The bucket length of each batch BucketedLoader makes of sentences of
+    these lengths."""
     per_bucket = {}
     for length in lengths:
         bucket = pick_bucket(length, DEFAULT_BUCKETS)
         per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
-    return sum(-(-n // batch_size) for n in per_bucket.values())
+    return [bucket for bucket, n in sorted(per_bucket.items()) for _ in range(-(-n // batch_size))]
 
 
-def thesis_config(name, path, changes):
+def n_batches(lengths, batch_size):
+    return len(batch_buckets(lengths, batch_size))
+
+
+def thesis_config(name, path, changes, added=None):
     """Write configs/model_free/<name>.yaml to ``path`` with the value of
-    each top-level key in ``changes`` replaced, line by line; returns the
-    config as the CLI reads it, after checking that no other key differs
-    from the repository's."""
+    each top-level key in ``changes`` replaced, line by line, and the keys of
+    ``added`` appended; returns the config as the CLI reads it, after checking
+    that no other key differs from the repository's."""
+    added = added or {}
     src = os.path.join(THESIS_CONFIGS, f"{name}.yaml")
     with open(src) as f:
         lines = f.read().splitlines()
@@ -681,12 +769,13 @@ def thesis_config(name, path, changes):
     for line in lines:
         key = line.split(":", 1)[0]
         out.append(f"{key}: {changes[key]}" if key in changes else line)
+    out += [f"{key}: {value}" for key, value in added.items()]
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")
     cfg, original = config_file.load(path), config_file.load(src)
     changed = {k for k in cfg.keys() | original.keys() if cfg.get(k) != original.get(k)}
-    check(changed <= set(changes) and set(cfg) == set(original),
-          f"{name}: keys {sorted(changed)} changed, only {sorted(changes)} may")
+    check(changed <= set(changes) | set(added) and set(cfg) == set(original) | set(added),
+          f"{name}: keys {sorted(changed)} changed, only {sorted(changes)} and {sorted(added)} may")
     return cfg
 
 
@@ -798,8 +887,12 @@ def cli_path(tmp):
                              {"datadir": vcv, "vocab_filepath": vocab_path,
                               "state_dict_filepath": os.path.join(out, "checkpoints", "best_model"),
                               "save_to": os.path.join(tmp, "vcv_synthesis")}),
+        "cli_transformer": ("train_transformer", corpus_keys),
     }
-    cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes)
+    transformer_weights = os.path.join(tmp, "transformer", "best_model")
+    added = {"cli_transformer": {"state_dict_filepath": transformer_weights,
+                                 "save_to": os.path.join(tmp, "transformer_outputs")}}
+    cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes, added.get(p))
             for p, (name, changes) in configs.items()}
 
     train_cfg = cfgs["cli_train"]
@@ -821,26 +914,41 @@ def cli_path(tmp):
                   n_batches(lengths("valid_seq_dict").values(), batch),
                   n_batches(test_lengths.values(), batch))
     sentences = {p: synthesis_sentences(p) for p in ("cli_generate", "cli_generate_vcv")}
+    # The transformer test CLI batches at max(batch_size, 64) on the card and
+    # decodes each batch over its bucket length T with bf16 caches: 4 layers
+    # x (self, cross-channel) flash_decode launches a step.
+    tf_cfg = cfgs["cli_transformer"]
+    tf_buckets = batch_buckets(test_lengths.values(), max(tf_cfg["batch_size"], 64))
+    tf_layers = tf_cfg["model_kwargs"]["num_layers"]
     none = dict.fromkeys(KERNELS, 0)
     # Two BiGRU layers: one forward (and in training one backward) launch
     # each; one P2CP launch per eval step and per test batch (the
     # per-sentence metrics); 4 TVs x (prediction, target) per test batch.
     expected = {
-        "cli_train": {"gru_fwd": 2 * (epochs * (tr + va) + te), "gru_bwd": 2 * epochs * tr,
+        "cli_train": {**none, "gru_fwd": 2 * (epochs * (tr + va) + te), "gru_bwd": 2 * epochs * tr,
                       "p2cp": epochs * va + te, "min_dist": 8 * te},
         "cli_test": {**none, "gru_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te},
         **{p: {**none, "gru_fwd": 2 * -(-len(s) // 8)} for p, s in sentences.items()},
+        "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 8 * len(tf_buckets),
+                            "flash_decode": sum(2 * tf_layers * t for t in tf_buckets)},
     }
+    transformer = ArtSpeechTransformer(
+        len(vocabulary), len(tf_cfg["articulators"]), num_feat=2 * tf_cfg.get("n_samples", 50),
+        **model_kwargs_from_cfg(tf_cfg), generator=torch.Generator().manual_seed(3))
+    save_params(transformer_weights, transformer)
+    del transformer
     phase("cli", train_batches_per_epoch=tr, valid_batches=va, test_batches=te,
-          test_frames=sum(test_lengths.values()),
+          transformer_test_buckets=tf_buckets, test_frames=sum(test_lengths.values()),
           **{f"{p}_sentences": len(s) for p, s in sentences.items()})
 
     modules = {"cli_train": train_phoneme_to_articulation, "cli_test": test_phoneme_to_articulation,
                "cli_generate": generate_vocal_tract_shape,
-               "cli_generate_vcv": generate_vocal_tract_shape}
+               "cli_generate_vcv": generate_vocal_tract_shape,
+               "cli_transformer": test_phoneme_to_articulation_transformer}
     outputs = {"cli_train": out, "cli_test": os.path.join(tmp, "test_run"),
                "cli_generate": os.path.join(tmp, "generate_run"),
-               "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run")}
+               "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run"),
+               "cli_transformer": os.path.join(tmp, "transformer_run")}
     results, launches, seconds = {}, {}, {}
     for p in CLI_PATHS:
         reset_launch_counts()
@@ -853,6 +961,8 @@ def cli_path(tmp):
                                           f"expected {expected[p]}")
     check(launches["cli_train"]["min_dist"] > 0 and launches["cli_test"]["min_dist"] > 0,
           "the test paths launched no min_dist kernel")
+    check(launches["cli_transformer"]["flash_decode"] > 0,
+          "the transformer test CLI launched no flash_decode kernel")
 
     # What the CLIs wrote.
     for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
@@ -866,9 +976,10 @@ def cli_path(tmp):
     check(all(np.isfinite(v) for r in records for k, v in r.items() if k != "ts"),
           "non-finite epoch metrics")
     n_arts = len(arts) + 1  # with the upper incisor
-    for p in ("cli_train", "cli_test"):
-        frames, tv_rows = check_test_outputs(os.path.join(outputs[p], "test_outputs", "0"),
-                                             test_lengths, n_arts)
+    test_dirs = {p: os.path.join(outputs[p], "test_outputs", "0") for p in ("cli_train", "cli_test")}
+    test_dirs["cli_transformer"] = cfgs["cli_transformer"]["save_to"]
+    for p, test_dir in test_dirs.items():
+        frames, tv_rows = check_test_outputs(test_dir, test_lengths, n_arts)
         with open(os.path.join(outputs[p], "test_results.json")) as f:
             written = flat(json.load(f))
         check(written == flat(results[p]) and all(np.isfinite(v) for v in written.values()),
@@ -929,6 +1040,113 @@ def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
           f"card and CPU pick other places of constriction: {shares}")
 
 
+# -- the transformer's KV-cached decode -----------------------------------------
+
+def thesis_transformer(device):
+    """The transformer of configs/model_free/train_transformer.yaml at full
+    width (dropout accepted and inactive in eval mode), weights from seed 0."""
+    cfg = config_file.load(os.path.join(THESIS_CONFIGS, "train_transformer.yaml"))
+    return ArtSpeechTransformer(VOCAB, len(cfg["articulators"]), num_feat=2 * cfg.get("n_samples", 50),
+                                **model_kwargs_from_cfg(cfg),
+                                generator=torch.Generator().manual_seed(0), device=device)
+
+
+def decode_inputs(b, t, seed):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, VOCAB, (b, t)).astype(np.int32), np.full(b, t, np.int32)
+
+
+def decode_path():
+    """make_fast_generate at T = 128, B = 12 and 64, f32 and bf16 caches:
+    launches exactly 2 * layers * T flash_decode a batch and nothing else,
+    finite contours, frames/s and the device breakdown. Returns the
+    flash_decode launches of the four counted runs."""
+    model = thesis_transformer(None)
+    per_batch = 2 * model.num_layers * DECODE_T
+    total = 0
+    for b in DECODE_BATCHES:
+        tokens, lengths = decode_inputs(b, DECODE_T, seed=b)
+        for cache in ("float32", "bfloat16"):
+            generate = make_fast_generate(model, cache)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out = generate(tokens, lengths)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expected = {**dict.fromkeys(KERNELS, 0), "flash_decode": per_batch}
+            check(counts == expected, f"decode B={b} {cache}: launches {counts}, expected {expected}")
+            check(tuple(out.shape) == (b, DECODE_T, 10, 2, 50) and bool(torch.isfinite(out).all()),
+                  f"decode B={b} {cache}: shape {tuple(out.shape)} or non-finite contours")
+            total += counts["flash_decode"]
+            ms = host_ms(lambda: generate(tokens, lengths), 2)
+            phase("decode", B=b, T=DECODE_T, cache=cache, decode_ms=f"{ms:.6g}",
+                  frames_per_s=f"{b * DECODE_T / ms * 1e3:.6g}",
+                  flash_decode_launches=counts["flash_decode"], expected=per_batch)
+            device_breakdown(lambda: generate(tokens, lengths), ms, f"decode_B{b}_{cache}", steps=1,
+                             host_ops=False)
+    generate_band(model)
+    return total
+
+
+def generate_band(model):
+    """The cached decode with f32 caches against the buffer re-decode at
+    B = 12 over BAND_T: where the buffer is faster is make_auto_generate's
+    band."""
+    fast = make_fast_generate(model)
+    band = []
+    for t in BAND_T:
+        tokens, lengths = decode_inputs(12, t, seed=t)
+        src, src_lengths = torch.as_tensor(tokens, device="cuda"), torch.as_tensor(lengths, device="cuda")
+        cached_ms = host_ms(lambda: fast(tokens, lengths), 1)
+        buffer_ms = host_ms(lambda: model.generate(src, src_lengths), 1)
+        if buffer_ms < cached_ms:
+            band.append(t)
+        phase("decode", band_sweep=f"B=12,T={t}", cached_f32_ms=f"{cached_ms:.6g}",
+              buffer_ms=f"{buffer_ms:.6g}", faster="buffer" if buffer_ms < cached_ms else "cached")
+    phase("decode", buffer_wins_at=band or "none")
+
+
+def decode_against_cpu():
+    """The same seeded full-width transformer on the card and on the CPU:
+    one flash_decode_attend call at the B = 12 cross-channel shape; forward
+    and encode (B = 2, T = 16, ragged) within TRANSFORMER_TOL; a T = 16
+    decode with f32 caches whose every frame is within TRANSFORMER_TOL of
+    what the CPU forward predicts from the card's earlier frames (the decode
+    feeds each frame back and amplifies rounding noise from step to step, so
+    the end-to-end gap is printed, and the first frame checked)."""
+    k, v, q = flash_inputs(flash_groups(12)["inter"], torch.float32, seed=5)
+    got = hopper_attention.flash_decode_attend(k, v, q, 77).cpu()
+    cpu = hopper_attention.flash_decode_attend(k.cpu(), v.cpu(), q.cpu(), 77)
+    attend_excess, attend_err = flash_excess(got, cpu)
+    rng = np.random.default_rng(8)
+    b, t = 2, 16
+    tokens, lengths = rng.integers(0, VOCAB, (b, t)).astype(np.int32), np.array([t, 9], np.int32)
+    tgt = rng.uniform(size=(b, t, 10, 100)).astype(np.float32)
+    tgt_lengths = np.array([t, 11], np.int32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = thesis_transformer(device)
+        args = [torch.as_tensor(x, device=device) for x in (tokens, tgt, lengths, tgt_lengths)]
+        with torch.no_grad():
+            out[device] = {"forward": model(*args).cpu(),
+                           "encode": model.encode(args[0], args[2])[0].cpu(),
+                           "decode": make_fast_generate(model, device=device)(tokens, lengths).cpu()}
+        if device == "cpu":
+            frames = out["cuda"]["decode"].reshape(b, t, 10, 100)
+            shifted = torch.cat([torch.zeros_like(frames[:, :1]), frames[:, :-1]], dim=1)
+            with torch.no_grad():
+                teacher = model(torch.as_tensor(tokens), shifted, torch.as_tensor(lengths))
+    errs = {k: (out["cuda"][k] - out["cpu"][k]).abs().max().item() for k in ("forward", "encode")}
+    errs["decode_per_frame"] = (out["cuda"]["decode"] - teacher).abs().max().item()
+    gap = (out["cuda"]["decode"] - out["cpu"]["decode"]).abs()
+    errs["decode_first_frame"] = gap[:, 0].max().item()
+    phase("decode", against_cpu_tol=TRANSFORMER_TOL, attend_max_abs_err=f"{attend_err:.3g}",
+          decode_end_to_end_max_abs_diff=f"{gap.max().item():.3g}",
+          **{f"max_abs_err_{k}": f"{v:.3g}" for k, v in errs.items()})
+    check(attend_excess <= 0, f"flash_decode on the card and on the CPU disagree: {attend_err}")
+    check(all(v <= TRANSFORMER_TOL for v in errs.values()), f"card and CPU transformer disagree: {errs}")
+
+
 # -- timing --------------------------------------------------------------------
 
 def gru_bound_ms(t, b, h, n_dir, elem_bytes):
@@ -975,14 +1193,83 @@ def min_dist_bound_ms(rows, shapes):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def device_breakdown(run_once, step_ms, tag, steps=3):
+def flash_bound_ms(n_rows, g, elem_bytes):
+    """K and V rows read once, q read and the output written once in f32;
+    a multiply-add per element for the score and one for PV."""
+    bytes_moved = 2 * n_rows * HD * g * elem_bytes + 2 * HD * g * 4
+    ops = 4 * n_rows * HD * g
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def kernel_device_ms(fn, calls, name):
+    """Mean device ms per call of the kernels whose name holds ``name``, from
+    a torch.profiler trace of ``calls`` calls of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+    return total / 1e3 / calls if total > 0 else None  # None: the trace held no device time
+
+
+def time_flash_decode():
+    """The kernel at the B = 12 and B = 64 cross-channel caches, n_rows =
+    128, f32 and bf16 caches: back to back over copies of the caches that
+    together overflow the 50 MB L2 (the decode streams 8 caches between two
+    reads of one), by profiler device time, its plain version,
+    scaled_dot_product_attention on the same data laid out (G, 1, 1, hd) x
+    (G, 1, n, hd) (permuted before the timed region), and the bound."""
+    results = {}
+    for b in DECODE_BATCHES:
+        g = flash_groups(b)["inter"]
+        for dtype in (torch.float32, torch.bfloat16):
+            elem = torch.finfo(dtype).bits // 8
+            copies = max(2, -(-200_000_000 // (2 * DECODE_T * HD * g * elem)))
+            sets = [flash_inputs(g, dtype, seed=i) for i in range(copies)]
+            sdpa_sets = [(q.T.reshape(g, 1, 1, HD).to(dtype).contiguous(),
+                          k.permute(2, 0, 1)[:, None].contiguous(),
+                          v.permute(2, 0, 1)[:, None].contiguous()) for k, v, q in sets]
+            cycle, sdpa_cycle = itertools.cycle(sets), itertools.cycle(sdpa_sets)
+
+            def kernel():
+                return hopper_attention.flash_decode_attend(*next(cycle), DECODE_T)
+
+            def plain():
+                return hopper_attention.flash_decode_attend_reference(*next(cycle), DECODE_T)
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(*next(sdpa_cycle), scale=1.0)
+
+            k, v, q = sets[0]
+            lib_diff = (library().float().reshape(g, HD).T
+                        - hopper_attention.flash_decode_attend(k, v, q, DECODE_T)).abs().max().item()
+            cycle, sdpa_cycle = itertools.cycle(sets), itertools.cycle(sdpa_sets)
+            bound_ms, bound_by = flash_bound_ms(DECODE_T, g, elem)
+            results[(b, dtype)] = dict(
+                ms=cuda_ms(kernel, 100), device_ms=kernel_device_ms(kernel, 50, "flash_decode_kernel"),
+                plain_ms=cuda_ms(plain, 10), bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms(library, 50))
+            phase("timing", kernel="flash_decode", B=b, attend="inter", G=g, hd=HD, n_rows=DECODE_T,
+                  dtype=str(dtype).split(".")[-1], cache_copies=copies,
+                  library_max_abs_diff=f"{lib_diff:.3g}", **fmt(results[(b, dtype)]))
+            del sets, sdpa_sets
+    return results
+
+
+def device_breakdown(run_once, step_ms, tag, steps=3, host_ops=True):
     """Where a step's time goes on the card: kernel launches and device-busy
     ms per step from a torch.profiler trace, the device's idle share against
-    the untraced step time, and the top kernels."""
+    the untraced step time, and the top kernels. ``host_ops=False`` traces the
+    device only (the decode's ~90k host ops a batch make a CPU trace slow to
+    collect; the kernel figures are the same)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(steps):
             run_once()
         torch.cuda.synchronize()
@@ -1178,7 +1465,7 @@ def main():
 
     build_all()
     errs = {"gru_fwd": gru_fwd_vs_plain(), "p2cp": p2cp_vs_plain(),
-            "min_dist": min_dist_vs_plain()}
+            "min_dist": min_dist_vs_plain(), "flash_decode": flash_decode_vs_plain()}
     errs["gru_bwd"], bwd_rel_err = gru_bwd_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
         synthesis_launches = main_path(tmp)
@@ -1190,9 +1477,13 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
         test_step_against_cpu(*test_step_inputs)
+    decode_launches = decode_path()
+    decode_against_cpu()
 
+    flash = time_flash_decode()
     numbers = {"gru_fwd": time_gru_fwd()[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
-               "p2cp": time_p2cp(), "min_dist": time_min_dist()}
+               "p2cp": time_p2cp(), "min_dist": time_min_dist(),
+               "flash_decode": flash[(12, torch.float32)]}
     time_synthesis()
     time_training()
     time_test_step()
@@ -1200,12 +1491,18 @@ def main():
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
-                   **{p: cli_launches[p][k] for p in CLI_PATHS}} for k in KERNELS}
+                   **{p: cli_launches[p][k] for p in CLI_PATHS},
+                   "decode": decode_launches if k == "flash_decode" else 0} for k in KERNELS}
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
     shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
               "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
-                  f"({n},{m})" for n, m in TV_SHAPES.values()) + " summed,float32"}
-    extra = {"gru_bwd": {"rel_err": bwd_rel_err}}
+                  f"({n},{m})" for n, m in TV_SHAPES.values()) + " summed,float32",
+              "flash_decode": f"inter B=12: S={DECODE_T},hd={HD},G={flash_groups(12)['inter']},"
+                              f"n_rows={DECODE_T},float32"}
+    extra = {"gru_bwd": {"rel_err": bwd_rel_err},
+             "flash_decode": {"device_ms": flash[(12, torch.float32)]["device_ms"],
+                              "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
+                                           for (b, d), r in flash.items()}}}
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)

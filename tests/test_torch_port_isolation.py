@@ -12,6 +12,9 @@
   launch.
 - The CLIs' ``main`` and the test step raise without a GPU unless the CPU is
   asked for.
+- So do ``ArtSpeechTransformer``, ``make_fast_generate``,
+  ``make_auto_generate`` and the transformer test CLI; a decode on the CPU
+  takes the flash decode-attend's plain version without counting a launch.
 """
 
 import argparse
@@ -31,10 +34,16 @@ from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech, SimpleArtSpeech
 from artspeech_tpu_torch.cli import (
     generate_vocal_tract_shape,
     test_phoneme_to_articulation,
+    test_phoneme_to_articulation_transformer,
     train_phoneme_to_articulation,
 )
 from artspeech_tpu_torch.eval.articulation import make_test_step, run_test
-from artspeech_tpu_torch.ops import _build, hopper_gru, hopper_min_dist, hopper_p2cp
+from artspeech_tpu_torch.models.transformer import (
+    ArtSpeechTransformer,
+    make_auto_generate,
+    make_fast_generate,
+)
+from artspeech_tpu_torch.ops import _build, hopper_attention, hopper_gru, hopper_min_dist, hopper_p2cp
 from artspeech_tpu_torch.synth import pipeline
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
@@ -249,3 +258,32 @@ def test_cli_mains_and_test_step_raise_without_cuda_and_without_device(tmp_path)
         make_test_step(model, RECOGNITION_ARTICULATORS)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_test(model, [], RECOGNITION_ARTICULATORS, 1.0)
+
+
+TINY_TRANSFORMER = {"embed_dim": 8, "num_heads": 2, "num_layers": 1, "num_feat": 6,
+                    "encoder_ff_dim": 8}
+
+
+def test_transformer_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ArtSpeechTransformer(12, 3, **TINY_TRANSFORMER)
+    model = ArtSpeechTransformer(12, 3, **TINY_TRANSFORMER, device="cpu")
+    for make in (make_fast_generate, make_auto_generate):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(model)
+    args = argparse.Namespace(device="cuda", output_dir=str(tmp_path), checkpoint_filepath=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_phoneme_to_articulation_transformer.main({}, args, tracker=None)
+
+
+def test_cpu_decode_takes_the_plain_attend_without_a_launch():
+    model = ArtSpeechTransformer(12, 3, **TINY_TRANSFORMER, device="cpu")
+    src = torch.tensor([[1, 2, 3, 4, 5], [6, 7, 8, 0, 0]], dtype=torch.int32)
+    lengths = torch.tensor([5, 3], dtype=torch.int32)
+    before = hopper_attention.launches
+    for cache_dtype in (None, "bfloat16"):
+        out = make_fast_generate(model, cache_dtype, device="cpu")(src, lengths)
+        assert out.shape == (2, 5, 3, 2, 3) and bool(torch.isfinite(out).all())
+    assert hopper_attention.launches == before
+    assert "flash_decode" not in _build._libraries
