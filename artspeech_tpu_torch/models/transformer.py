@@ -1,11 +1,16 @@
 """Multi-channel transformer for phoneme-to-articulation, method D
-(counterpart of artspeech_tpu/models/transformer.py): its serving path.
+(counterpart of artspeech_tpu/models/transformer.py): its training and
+serving paths.
 
 - ``ArtSpeechTransformer``: token encoder, multi-channel decoder (per-channel
   causal self attention, cross-channel interactions, cross attention to the
   encoder memory, feed-forward) and the per-articulator heads, with
-  ``forward`` (teacher-forced), ``encode`` and ``generate`` (the buffer
-  re-decode).
+  ``forward`` (teacher-forced, in eval or training mode), ``encode`` and
+  ``generate`` (the buffer re-decode).
+- In training mode the cross-channel pair attention goes through
+  ``ops/hopper_train_attention.fused_causal_attend`` (the hand-written
+  forward and backward kernels on the card); see
+  ``ChannelInteractionsLayer``.
 - ``make_fast_generate``: the KV-cached decode, whose every attend over the
   caches goes through ``ops/hopper_attention.flash_decode_attend`` (the
   hand-written kernel on the card).
@@ -17,14 +22,16 @@ leading ``(C,)`` or ``(C, C-1)`` axes, in flax's layout (Dense kernels
 ``out`` ``(H, hd, E)``), and runs as one batched product over them: there is
 no Python loop over channels. The JAX package folds each LayerNorm's affine
 into the next Dense kernel; the port applies it as it stands (the same
-function up to float reassociation).
+function up to float reassociation), except in the training-mode pair
+attention, which folds it as JAX's ``FusedChannelInteractions`` does.
 
 Construction takes a CPU ``torch.Generator`` for the random weights (None: one
 seeded with 0; lecun-normal kernels, as flax initialises them), drawn on the
 CPU and then moved, and a ``device``: ``cuda`` unless the caller passes
-``device="cpu"``. Only serving is ported: ``forward`` in training mode with
-dropout > 0 raises (training is ROADMAP Queue 1, item 7); in eval mode the
-configs' ``dropout`` is accepted and inactive, as in JAX.
+``device="cpu"``. In training mode (``.train()``) with dropout > 0,
+``forward`` needs a ``torch.Generator`` on the model's device for the
+dropout masks, as ``ArtSpeech.forward`` does; in eval mode the dropout is
+inactive, as in JAX.
 """
 
 import math
@@ -36,7 +43,8 @@ from torch import nn
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
 from artspeech_tpu_torch.models.heads import LAYER_NORM_EPS, ContourDecoder, layer_norm, lecun_normal_
-from artspeech_tpu_torch.ops import hopper_attention
+from artspeech_tpu_torch.ops import hopper_attention, hopper_train_attention
+from artspeech_tpu_torch.ops.gru import apply_dropout
 from artspeech_tpu_torch.utils.masks import make_padding_mask
 
 
@@ -51,8 +59,8 @@ def sinusoidal_positions(max_len: int, dim: int) -> torch.Tensor:
 
 
 class PositionalEncoding(nn.Module):
-    """Adds the sinusoidal table over the second-to-last axis (eval only:
-    the JAX module's dropout is inactive at inference)."""
+    """Adds the sinusoidal table over the second-to-last axis (its dropout is
+    applied by the caller)."""
 
     def __init__(self, dim: int, max_len: int = 5000):
         super().__init__()
@@ -60,6 +68,22 @@ class PositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.table[: x.shape[-2]]
+
+
+def _drop(x, rate: float, generator: Optional[torch.Generator]):
+    """flax ``nn.Dropout(rate)`` on x, one mask element per element of x;
+    ``generator`` None means no dropout (eval mode, or rate 0)."""
+    return x if generator is None or rate == 0.0 else apply_dropout(x, rate, generator)
+
+
+def _keep_mask(shape, rate: float, generator: Optional[torch.Generator], device):
+    """A pre-scaled keep mask (1 / (1 - rate) where kept, 0 elsewhere) of
+    ``shape``, broadcast by the caller as flax broadcasts attention dropout;
+    None without dropout."""
+    if generator is None or rate == 0.0:
+        return None
+    keep_prob = 1.0 - rate
+    return (torch.rand(shape, generator=generator, device=device) < keep_prob).float() / keep_prob
 
 
 def _norm_f32(x):
@@ -78,14 +102,16 @@ def _ln_norm(x, eps: float = LAYER_NORM_EPS):
     return (x - mu) * torch.rsqrt(var + eps)
 
 
-def lean_attention(query, key, value, mask=None):
+def lean_attention(query, key, value, mask=None, keep=None):
     """flax dot-product attention with the softmax normaliser folded into the
-    output, inference form (JAX transformer.py:97).
+    output (JAX transformer.py:97).
 
     query (..., L, H, hd), key/value (..., S, H, hd), mask broadcastable to
     (..., H, L, S), True = keep -> (..., L, H, hd). Masked scores become
     ``finfo.min``, not -inf, so a fully masked row (a length-0 dummy) gets a
-    uniform, finite softmax, as in JAX.
+    uniform, finite softmax, as in JAX. ``keep``, a pre-scaled dropout keep
+    mask broadcastable to (..., H, L, S), drops probabilities after the
+    normaliser is taken, as flax's attention dropout does.
     """
     hd = query.shape[-1]
     s = torch.einsum("...qhd,...khd->...hqk", query / math.sqrt(hd), key)
@@ -94,6 +120,8 @@ def lean_attention(query, key, value, mask=None):
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     z = e.sum(dim=-1, keepdim=True)  # (..., h, q, 1)
+    if keep is not None:
+        e = e * keep
     o = torch.einsum("...hqk,...khd->...qhd", e, value)
     return o / z.transpose(-3, -2)  # z -> (..., q, h, 1)
 
@@ -141,11 +169,11 @@ class MultiHeadParams(nn.Module):
         self.out_bias = _zeros((*prefix, e))
 
 
-def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None):
+def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None, keep=None):
     """Multi-head attention with ``n`` stacked parameter sets.
 
-    q_in (B, n, L, E), k_in/v_in (B, n, S, E), mask broadcastable to
-    (B, n, H, L, S) -> (B, n, L, E).
+    q_in (B, n, L, E), k_in/v_in (B, n, S, E), mask and the pre-scaled
+    dropout ``keep`` broadcastable to (B, n, H, L, S) -> (B, n, L, E).
     """
     e = q_in.shape[-1]
     h, hd = p.query_bias.shape[-2:]
@@ -155,7 +183,8 @@ def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None):
         b = getattr(p, f"{name}_bias").reshape(n, 1, h, hd)
         return torch.einsum("bnle,nehd->bnlhd", x, w) + b
 
-    o = lean_attention(project(q_in, "query"), project(k_in, "key"), project(v_in, "value"), mask)
+    o = lean_attention(project(q_in, "query"), project(k_in, "key"), project(v_in, "value"),
+                       mask, keep)
     return (torch.einsum("bnlhd,nhde->bnle", o, p.out_kernel.reshape(n, h, hd, e))
             + p.out_bias.reshape(n, 1, e))
 
@@ -179,16 +208,19 @@ class ChannelProcessingLayer(nn.Module):
         b = getattr(self, f"dense{i}_bias").reshape(self.n, 1, self.e)
         return torch.relu(torch.einsum("bnle,nef->bnlf", x, w) + b)
 
-    def forward(self, src, tgt, mask=None):
+    def forward(self, src, tgt, mask=None, keep=None):
         """src (B, n or 1, S, E) keys/values source; tgt (B, n, L, E) queries
-        source; mask broadcastable to (B, 1, L, S), True = keep -> (B, n, L, E)."""
+        source; mask broadcastable to (B, 1, L, S), True = keep; ``keep`` a
+        pre-scaled attention-dropout mask (n, L, S), one a parameter set,
+        broadcast over batch and heads -> (B, n, L, E)."""
         scale = self.ln_scale.reshape(self.n, 1, self.e)
         bias = self.ln_bias.reshape(self.n, 1, self.e)
         src_ln = _norm_f32(src) * scale + bias
         tgt_ln = src_ln if tgt is src else _norm_f32(tgt) * scale + bias
         query = self._mlp(0, tgt_ln)
         out = stacked_attention(self.attn, self.n, query, self._mlp(1, src_ln),
-                                self._mlp(2, src_ln), None if mask is None else mask[:, None])
+                                self._mlp(2, src_ln), None if mask is None else mask[:, None],
+                                None if keep is None else keep[:, None])
         return query + out
 
 
@@ -197,23 +229,83 @@ class ChannelInteractionsLayer(nn.Module):
     other channel; the C-1 results are concatenated, normalised and projected
     back (JAX transformer.py:238, vmapped over the channel in
     ``MultiChannelDecoderLayer``): parameters (C, C-1, ...) for the pairs,
-    (C, ...) for the projection."""
+    (C, ...) for the projection.
 
-    def __init__(self, c: int, e: int, h: int, generator):
+    In eval mode the pairs run as the stacked ``ChannelProcessingLayer`` with
+    the full ``tgt_mask``. In training mode they run as JAX's
+    ``FusedChannelInteractions`` (transformer.py:341-510; the same parameters,
+    so the same weights): the LayerNorm affines folded into the Q/K/V MLP
+    kernels, q/k/v projected pair-major to (C, C-1, B, H, L, hd) = (G, L, hd),
+    and the attention through ``hopper_train_attention.fused_causal_attend``
+    (on the card, the hand-written kernels), which never materialises the
+    (B, C, C-1, H, L, L) scores, then the out projection and the query
+    residual. That attend masks causally only: under a causal mask every key
+    of a valid query is valid, and padded queries get no cotangent from the
+    masked loss, so it differs from the eval path only at padded query
+    positions, which the loss never reads (JAX transformer.py:373-377).
+    """
+
+    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0):
         super().__init__()
-        self.c = c
+        self.c, self.dropout = c, dropout
         self.pairs = ChannelProcessingLayer((c, c - 1), e, h, generator)
         self.ln_scale, self.ln_bias = _ones((c, (c - 1) * e)), _zeros((c, (c - 1) * e))
         self.dense_kernel = _kernel((c, (c - 1) * e, e), (c - 1) * e, generator)
         self.dense_bias = _zeros((c, e))
 
-    def forward(self, proc, mask=None):
-        """proc (B, C, L, E) -> (B, C, L, E)."""
+    def _fused_pairs(self, proc, generator):
+        """The training-mode pairs (JAX transformer.py:395-496): proc (B, C, L,
+        E) -> the dropped concat (B, C, L, (C-1) E)."""
         b, c, l, e = proc.shape
-        others = _expand_others(proc, c)  # queries: (B, C, C-1, L, E)
-        own = proc[:, :, None].expand_as(others)  # keys and values: the channel itself
-        outs = self.pairs(own.reshape(b, -1, l, e), others.reshape(b, -1, l, e), mask)
-        concat = outs.reshape(b, c, c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
+        p, a = self.pairs, self.pairs.attn
+        h, hd = a.query_bias.shape[-2:]
+        rate = self.dropout
+        # The reference drops these inputs twice (decoder and layer): one
+        # drop at the composed rate is the same distribution (JAX :399-403).
+        composed = 1.0 - (1.0 - rate) ** 2
+        src_n = _norm_f32(_drop(proc, composed, generator))  # (B, C, L, E)
+        others_n = _norm_f32(_drop(_expand_others(proc, c), composed, generator))
+
+        def fold(i):
+            w = getattr(p, f"dense{i}_kernel")  # (C, C-1, E, E)
+            bias = torch.einsum("cje,cjef->cjf", p.ln_bias, w) + getattr(p, f"dense{i}_bias")
+            return p.ln_scale[..., None] * w, bias[:, :, None, None]
+
+        (qk, qb), (kk, kb), (vk, vb) = fold(0), fold(1), fold(2)
+        # Queries from the other channels, keys and values from the
+        # channel's own frames, pair-major: (C, C-1, B, L, E).
+        q_mlp = torch.relu(torch.einsum("bcjle,cjef->cjblf", others_n, qk) + qb)
+        k_mlp = torch.relu(torch.einsum("bcle,cjef->cjblf", src_n, kk) + kb)
+        v_mlp = torch.relu(torch.einsum("bcle,cjef->cjblf", src_n, vk) + vb)
+
+        def heads(x, name):  # -> (G, L, hd), G = (C, C-1, B, H) merged
+            y = (torch.einsum("cjblf,cjfhd->cjbhld", x, getattr(a, f"{name}_kernel"))
+                 + getattr(a, f"{name}_bias")[:, :, None, :, None])
+            return y.reshape(-1, l, hd)
+
+        n_pairs = c * (c - 1)
+        keep = _keep_mask((n_pairs, l, l), rate, generator, proc.device)
+        if keep is None:
+            keep, n_pairs = torch.ones(1, l, l, device=proc.device), 1
+        av = hopper_train_attention.fused_causal_attend(
+            (heads(q_mlp, "query") * (1.0 / math.sqrt(hd))).contiguous(),
+            heads(k_mlp, "key").contiguous(), heads(v_mlp, "value").contiguous(), keep, n_pairs)
+        out_i = (torch.einsum("cjbhld,cjhde->cjble", av.reshape(c, c - 1, b, h, l, hd), a.out_kernel)
+                 + a.out_bias[:, :, None, None])
+        concat = (q_mlp + out_i).permute(2, 0, 3, 1, 4).reshape(b, c, l, (c - 1) * e)
+        return _drop(concat, rate, generator)
+
+    def forward(self, proc, mask=None, generator: Optional[torch.Generator] = None):
+        """proc (B, C, L, E) -> (B, C, L, E); ``mask`` the eval path's
+        (B or 1, 1, L, L) tgt_mask; ``generator`` the training dropout's."""
+        b, c, l, e = proc.shape
+        if self.training:
+            concat = self._fused_pairs(proc, generator)
+        else:
+            others = _expand_others(proc, c)  # queries: (B, C, C-1, L, E)
+            own = proc[:, :, None].expand_as(others)  # keys and values: the channel itself
+            outs = self.pairs(own.reshape(b, -1, l, e), others.reshape(b, -1, l, e), mask)
+            concat = outs.reshape(b, c, c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
         h = _norm_f32(concat) * self.ln_scale[:, None] + self.ln_bias[:, None]
         return torch.relu(torch.einsum("bclx,cxe->bcle", h, self.dense_kernel)
                           + self.dense_bias[:, None])
@@ -224,44 +316,59 @@ class MultiChannelDecoderLayer(nn.Module):
     attention to the encoder memory -> LN -> feed-forward with pre-LN
     (JAX transformer.py:582)."""
 
-    def __init__(self, c: int, e: int, h: int, generator):
+    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0):
         super().__init__()
+        self.c, self.dropout = c, dropout
         self.self_attn = ChannelProcessingLayer((c,), e, h, generator)
-        self.inter = ChannelInteractionsLayer(c, e, h, generator)
+        self.inter = ChannelInteractionsLayer(c, e, h, generator, dropout)
         self.mem_attn = ChannelProcessingLayer((c,), e, h, generator)
         self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
         self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
         self.dense_kernel, self.dense_bias = _kernel((e, e), e, generator), _zeros(e)
 
-    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None):
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                generator: Optional[torch.Generator] = None):
         """tgt (B, C, L, E), memory (B, S, E), tgt_mask (B or 1, 1, L, L),
-        memory_mask (B, 1, 1, S) -> (B, C, L, E)."""
-        proc = self.self_attn(tgt, tgt, tgt_mask)
-        inter = self.inter(proc, tgt_mask)
-        attended = self.mem_attn(memory[:, None], inter, memory_mask)
+        memory_mask (B, 1, 1, S) -> (B, C, L, E); ``generator`` draws the
+        training dropout (None: none)."""
+        rate, c, dev = self.dropout, self.c, tgt.device
+        l, s = tgt.shape[2], memory.shape[1]
+        tgt_d = _drop(tgt, rate, generator)
+        proc = self.self_attn(tgt_d, tgt_d, tgt_mask, _keep_mask((c, l, l), rate, generator, dev))
+        inter = self.inter(proc, tgt_mask, generator)
+        # One memory mask shared by every channel (JAX :657).
+        mem_d, inter_d = _drop(memory, rate, generator), _drop(inter, rate, generator)
+        attended = self.mem_attn(mem_d[:, None], inter_d, memory_mask,
+                                 _keep_mask((c, l, s), rate, generator, dev))
         attended = layer_norm(attended, self.ln0_scale, self.ln0_bias)
-        h = layer_norm(attended, self.ln1_scale, self.ln1_bias)
+        h = layer_norm(_drop(attended, rate, generator), self.ln1_scale, self.ln1_bias)
         return attended + torch.relu(h @ self.dense_kernel + self.dense_bias)
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer, ReLU feed-forward (JAX transformer.py:674)."""
 
-    def __init__(self, e: int, h: int, ff_dim: int, generator):
+    def __init__(self, e: int, h: int, ff_dim: int, generator, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.attn = MultiHeadParams((), e, h, generator)
         self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
         self.dense0_kernel, self.dense0_bias = _kernel((e, ff_dim), e, generator), _zeros(ff_dim)
         self.dense1_kernel, self.dense1_bias = _kernel((ff_dim, e), ff_dim, generator), _zeros(e)
         self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
 
-    def forward(self, x, mask=None):
-        """x (B, S, E), mask (B, 1, 1, S) keys kept -> (B, S, E)."""
+    def forward(self, x, mask=None, generator: Optional[torch.Generator] = None):
+        """x (B, S, E), mask (B, 1, 1, S) keys kept -> (B, S, E); ``generator``
+        draws the training dropout (None: none)."""
+        rate, s = self.dropout, x.shape[1]
         xs = x[:, None]
-        attn = stacked_attention(self.attn, 1, xs, xs, xs, None if mask is None else mask[:, None])
-        x = layer_norm(x + attn[:, 0], self.ln0_scale, self.ln0_bias)
-        ff = torch.relu(x @ self.dense0_kernel + self.dense0_bias) @ self.dense1_kernel + self.dense1_bias
-        return layer_norm(x + ff, self.ln1_scale, self.ln1_bias)
+        keep = _keep_mask((1, s, s), rate, generator, x.device)  # one (S, S) mask a layer
+        attn = stacked_attention(self.attn, 1, xs, xs, xs, None if mask is None else mask[:, None],
+                                 None if keep is None else keep[:, None])
+        x = layer_norm(x + _drop(attn[:, 0], rate, generator), self.ln0_scale, self.ln0_bias)
+        ff = _drop(torch.relu(x @ self.dense0_kernel + self.dense0_bias), rate, generator)
+        ff = ff @ self.dense1_kernel + self.dense1_bias
+        return layer_norm(x + _drop(ff, rate, generator), self.ln1_scale, self.ln1_bias)
 
 
 class ArtSpeechTransformer(nn.Module):
@@ -283,9 +390,10 @@ class ArtSpeechTransformer(nn.Module):
             self.src_embedding.weight.normal_(0.0, math.sqrt(1.0 / e), generator=gen)
         self.pos_encoding = PositionalEncoding(e)
         self.encoder_layers = nn.ModuleList(
-            TransformerEncoderLayer(e, num_heads, encoder_ff_dim, gen) for _ in range(num_layers))
+            TransformerEncoderLayer(e, num_heads, encoder_ff_dim, gen, dropout)
+            for _ in range(num_layers))
         self.decoder_layers = nn.ModuleList(
-            MultiChannelDecoderLayer(c, e, num_heads, gen) for _ in range(num_layers))
+            MultiChannelDecoderLayer(c, e, num_heads, gen, dropout) for _ in range(num_layers))
         self.tgt_embed_ln_scale, self.tgt_embed_ln_bias = _ones(num_feat), _zeros(num_feat)
         self.tgt_embed_dense_kernel = _kernel((num_feat, e), num_feat, gen)
         self.tgt_embed_dense_bias = _zeros(e)
@@ -295,42 +403,70 @@ class ArtSpeechTransformer(nn.Module):
         self.to(dev)
         self.eval()
 
-    def _encode(self, src, src_mask):
-        h = self.pos_encoding(self.src_embedding(src))
+    def _encode(self, src, src_mask, generator=None):
+        h = _drop(self.pos_encoding(self.src_embedding(src)), self.dropout, generator)
         enc_mask = None if src_mask is None else src_mask[:, None, None, :]  # keys masked
         for layer in self.encoder_layers:
-            h = layer(h, enc_mask)
+            h = layer(h, enc_mask, generator)
         return h
 
-    def _decode(self, tgt, memory, tgt_mask, memory_mask):
+    def _decode(self, tgt, memory, tgt_mask, memory_mask, generator=None):
         """tgt (B, L, C, F) -> (B, L, C, 2, D) sigmoid contours."""
         b, l, c, _ = tgt.shape
         h = layer_norm(tgt, self.tgt_embed_ln_scale, self.tgt_embed_ln_bias)
         h = torch.relu(h @ self.tgt_embed_dense_kernel + self.tgt_embed_dense_bias)
-        h = self.pos_encoding(h.permute(0, 2, 1, 3))  # (B, C, L, E)
+        h = _drop(self.pos_encoding(h.permute(0, 2, 1, 3)), self.dropout, generator)  # (B, C, L, E)
         for layer in self.decoder_layers:
-            h = layer(h, memory, tgt_mask, memory_mask)
+            h = layer(h, memory, tgt_mask, memory_mask, generator)
         h = h.permute(0, 2, 1, 3).reshape(b, l, c * self.embed_dim)
         h = layer_norm(h, self.head_ln_scale, self.head_ln_bias)
         return self.predictors(torch.relu(h @ self.head_dense_kernel + self.head_dense_bias))
 
-    def forward(self, src, tgt, src_lengths=None, tgt_lengths=None):
+    def forward(self, src, tgt, src_lengths=None, tgt_lengths=None,
+                generator: Optional[torch.Generator] = None):
         """Teacher-forced forward: src (B, S) token ids, tgt (B, L, C, F)
-        right-shifted targets -> (B, L, C, 2, D)."""
+        right-shifted targets -> (B, L, C, 2, D).
+
+        In training mode, with dropout > 0, ``generator`` (a ``torch.Generator``
+        on the model's device) draws every dropout mask of the JAX model's
+        ``deterministic=False`` forward, with flax's semantics (keep with
+        probability 1 - p, kept values scaled by 1 / (1 - p)):
+        - the positional encodings' outputs, encoder and decoder (JAX :42-52,
+          :768, :782);
+        - the encoder's attention probabilities, one (S, S) mask a layer
+          broadcast over batch and heads (``lean_attention`` :138-147 under
+          :686-692), and its residual and feed-forward drops (:693-698);
+        - the decoder's ``drop(tgt)`` (:613); its self- and memory-attention
+          probabilities, one mask a channel, broadcast over batch and heads
+          (split rngs, :605-612, :649-656);
+        - in the cross-channel interactions, the inputs at the composed rate
+          1 - (1 - p)^2 (:399-403), one attention keep mask a (c, j) pair,
+          (C (C-1), L, L), broadcast over batch and heads (:449-458), and the
+          concat drop (:496);
+        - ``drop(memory)``, one (B, S, E) mask shared by every channel
+          (:657), ``drop(inter)`` (:658) and the pre-feed-forward drop (:669).
+        torch draws other bits than JAX from any seed: the masks agree with
+        JAX's in distribution, not bit for bit. In eval mode nothing drops
+        and the generator is not needed.
+        """
+        gen = None
         if self.training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "ArtSpeechTransformer: training with dropout is not ported yet (ROADMAP Queue 1, "
-                "item 7, transformer training); call .eval() to serve")
+            if generator is None:
+                raise ValueError("ArtSpeechTransformer: dropout in training mode needs a "
+                                 "torch.Generator on the model's device (pass generator=...)")
+            gen = generator
         l = tgt.shape[1]
-        memory, memory_mask = self.encode(src, src_lengths)
+        src_mask = None if src_lengths is None else make_padding_mask(src_lengths, src.shape[1])
+        memory = self._encode(src, src_mask, gen)
+        memory_mask = None if src_mask is None else src_mask[:, None, None, :]
         tgt_mask = torch.tril(torch.ones(l, l, dtype=torch.bool, device=tgt.device))[None, None]
         if tgt_lengths is not None:
             tgt_mask = tgt_mask & make_padding_mask(tgt_lengths, l)[:, None, None, :]
-        return self._decode(tgt, memory, tgt_mask, memory_mask)
+        return self._decode(tgt, memory, tgt_mask, memory_mask, gen)
 
     def encode(self, src, src_lengths=None):
         """The encoder memory (B, S, E) and its mask (B, 1, 1, S) (None
-        without lengths)."""
+        without lengths), without dropout."""
         src_mask = None if src_lengths is None else make_padding_mask(src_lengths, src.shape[1])
         memory = self._encode(src, src_mask)
         return memory, None if src_mask is None else src_mask[:, None, None, :]

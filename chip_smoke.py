@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
-workflow through its CLIs and the transformer's KV-cached decode on one
-NVIDIA GPU, and check them.
+workflow through its CLIs, the transformer's KV-cached decode and its
+training on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -8,9 +8,9 @@ Usage, from the root of the repository, on a machine with one H100:
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles the five kernels,
-               ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode}.cu, one
-               nvcc each, all started together;
+  2. build   — compiles the six kernel libraries,
+               ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
+               train_attention}.cu, one nvcc each, all started together;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -22,7 +22,13 @@ Phases, each printing its own lines:
                indices equal, distances within 1e-6 relative; flash decode
                at hd = 16 over 128-row caches, G of the self and cross-channel
                caches at B = 1, 12 and 64, n_rows 1, 33 and 128, f32 and bf16
-               caches, within 1e-5 relative + 2e-5 absolute;
+               caches, within 1e-5 relative + 2e-5 absolute; the training
+               attention forward and backward (train_attention.cu) at hd = 16,
+               G = 360, 4,320 and 23,040 (B = 1, 12, 64 of the thesis
+               transformer) with L 32 and 128, L 512 and 37 at G = 360, the
+               all-ones and a seeded dropout keep mask: the forward within
+               2e-5, dQ/dK/dV within 1e-4 * max(|ref|, 1), and L = 513
+               refused;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -52,11 +58,14 @@ Phases, each printing its own lines:
                CSV row per test frame, finiteness, every kernel's launches on
                each CLI, and the test CLI's results against the train CLI's
                final test; then one test batch through the test step on the
-               card against the CPU; last the transformer test CLI from
-               configs/model_free/train_transformer.yaml (corpus paths and
-               database changed, state_dict_filepath and save_to added) with
-               seeded full-width weights on S05 at the card's generate batch
-               (64) with bf16 caches: launches, artifacts, TV CSVs;
+               card against the CPU; then the transformer train CLI from
+               configs/model_free/train_transformer.yaml (corpus paths,
+               database and num_epochs: 2 changed: fit with the training
+               attention kernels, then its autoregressive final test) and
+               last the transformer test CLI from the same config
+               (state_dict_filepath: the train run's best/state, and
+               save_to added) on S05 at the card's generate batch (64) with
+               bf16 caches: launches, artifacts, TV CSVs;
   7. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
@@ -66,7 +75,17 @@ Phases, each printing its own lines:
                {32, 64, 96, 112, 128} (make_auto_generate's band); and the
                card against the CPU: one attend, forward and encode within
                1e-4, a T = 16 decode with f32 caches within 1e-4 per frame;
-  8. timing  — CUDA-event times of each kernel, its plain version and a
+  8. train_transformer — the same transformer in training (dropout 0.1,
+               AdamW lr 1e-4 wd 1e-5) at T = 128: one train step at B = 12
+               and 64 with exactly 4 forward and 4 backward train_attention
+               launches (one each a decoder layer) and nothing else, step ms,
+               frames/s, the device breakdown and peak memory; the same step
+               with the pair attention materialised in plain torch (timed,
+               not used); an accum_steps sweep at B = 64 (microbatches 64,
+               16, 8, 4, 2); 20 steps on one batch (the loss must fall); and
+               one step at dropout 0 on the card against the CPU (as the
+               ArtSpeech one);
+  9. timing  — CUDA-event times of each kernel, its plain version and a
                PyTorch library call that computes the same function (a
                yardstick the port never calls), the bound, synthesis frames/s,
                train frames/s at B=12 and B=256 and test frames/s at B=12
@@ -75,7 +94,11 @@ Phases, each printing its own lines:
                B = 12 and B = 64 cross-channel caches with n_rows = 128, back
                to back (cycling cache copies that overflow the L2) and by
                profiler device time, against its bound, its plain version and
-               scaled_dot_product_attention.
+               scaled_dot_product_attention; the training attention forward
+               and backward at the B = 12 and B = 64 shapes (L = 128, the
+               dropout keep) the same way, against scaled_dot_product_attention
+               (is_causal, all-ones keep: forward, and forward + backward
+               minus forward).
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
@@ -99,6 +122,7 @@ from artspeech_tpu_torch.cli import (
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
     train_phoneme_to_articulation,
+    train_phoneme_to_articulation_transformer,
 )
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
 from artspeech_tpu_torch.core.config import DATASET_CONFIG, mm_per_unit
@@ -113,11 +137,24 @@ from artspeech_tpu_torch.geometry.area_function import tube_area_function
 from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
 from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_fast_generate
-from artspeech_tpu_torch.ops import _build, hopper_attention, hopper_gru, hopper_min_dist, hopper_p2cp
+from artspeech_tpu_torch.ops import (
+    _build,
+    hopper_attention,
+    hopper_gru,
+    hopper_min_dist,
+    hopper_p2cp,
+    hopper_train_attention,
+)
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
 from artspeech_tpu_torch.train import loop, state
-from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint, save_params
-from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
+from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
+from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss
+from artspeech_tpu_torch.train.step import (
+    make_artspeech_eval_step,
+    make_artspeech_train_step,
+    make_transformer_train_step,
+    shift_targets_right,
+)
 from artspeech_tpu_torch.utils.io import sequences_from_dict
 
 VOCAB, HIDDEN = 64, 128
@@ -146,8 +183,16 @@ REPLACES = {
     "p2cp": "artspeech_tpu/ops/pallas_kernels.py:31 (_p2cp_kernel, pallas_call at :76)",
     "min_dist": "artspeech_tpu/ops/pallas_kernels.py:41 (_min_dist_kernel, pallas_call at :76)",
     "flash_decode": "artspeech_tpu/ops/pallas_attention.py:86 (_flash_kernel, pallas_call at :157)",
+    "train_attention_fwd": "artspeech_tpu/ops/pallas_train_attention.py:100 (_fwd_kernel, "
+                           "pallas_call at :192)",
+    "train_attention_bwd": "artspeech_tpu/ops/pallas_train_attention.py:124 (_bwd_kernel, "
+                           "pallas_call at :215)",
 }
 KERNELS = tuple(REPLACES)
+#: The library (ops/csrc/<name>.cu) of each kernel.
+LIBRARY = {**{k: k for k in KERNELS}, "train_attention_fwd": "train_attention",
+           "train_attention_bwd": "train_attention"}
+LIBRARIES = tuple(dict.fromkeys(LIBRARY.values()))
 # min_dist rounds each squared distance as its plain version does, so both
 # pick the same pair; the distances differ by the sqrt's rounding at most.
 MIN_DIST_TOL = 1e-6
@@ -174,6 +219,15 @@ DECODE_T = 128
 DECODE_BATCHES = (12, 64)  # the thesis batch and the test CLI's generate batch on the card
 BAND_T = (32, 64, 96, 112, 128)
 TRANSFORMER_TOL = 1e-4  # card against CPU: forward, encode, per-frame decode
+#: Training attention against its plain version: the forward differs by the
+#: order of f32 sums and the online softmax's rescaling (absolute); the
+#: gradients sum L terms in another order (relative to max(|ref|, 1)).
+TRAIN_ATTN_FWD_TOL, TRAIN_ATTN_BWD_TOL = 2e-5, 1e-4
+TRAIN_ATTN_G = {1: 360, 12: 4320, 64: 23040}  # B * C * (C-1) * H of the thesis transformer
+TRAIN_ATTN_PAIRS = 90
+TRAIN_T = 128
+TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
+MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 
 
 def check(cond, message):
@@ -209,7 +263,7 @@ def rel_err(got, ref):
 
 
 def build_all():
-    names = KERNELS
+    names = LIBRARIES
     fresh = {n: not os.path.exists(_build.library_path(n)) for n in names}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
@@ -429,6 +483,68 @@ def flash_decode_vs_plain():
                       f"{dtype}: {errs}")
                 worst = max(worst, *(e[1] for e in errs.values()))
     return worst
+
+
+def train_attention_inputs(g, l, n_pairs, seed):
+    """Seeded q (pre-scaled), k, v, dO (G, L, hd) on the card and a keep mask:
+    the all-ones (1, L, L) with n_pairs = 1, or a dropout keep (p = 0.1)
+    (n_pairs, L, L) pre-scaled by 1 / 0.9."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(g, l, HD, generator=gen, device="cuda") for _ in range(4))
+    if n_pairs == 1:
+        keep = torch.ones(1, l, l, device="cuda")
+    else:
+        keep = (torch.rand(n_pairs, l, l, generator=gen, device="cuda") >= 0.1).float() / 0.9
+    return q * HD**-0.5, k, v, keep, do
+
+
+def train_attention_cases():
+    """(G, L): every batch's G at L 32 and 128, then L 512 and a length that
+    is no bucket (37) at B = 1."""
+    return [(g, l) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
+        (TRAIN_ATTN_G[1], 512), (TRAIN_ATTN_G[1], 37)]
+
+
+def train_attention_vs_plain():
+    """The forward and backward kernels against their plain versions at
+    every case, with the all-ones and the dropout keep; L = 513 refused.
+    Returns the largest absolute errors of the forward and of dQ/dK/dV."""
+    worst_fwd = worst_bwd = 0.0
+    for g, l in train_attention_cases():
+        for n_pairs in (1, TRAIN_ATTN_PAIRS):
+            q, k, v, keep, do = train_attention_inputs(g, l, n_pairs, seed=g + l + n_pairs)
+            out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, n_pairs)
+            grads = hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
+                                                                   n_pairs)
+            ref = hopper_train_attention.fused_causal_attend_reference(q, k, v, keep, n_pairs)
+            ref_grads = hopper_train_attention.fused_causal_attend_bwd_reference(q, k, v, keep,
+                                                                                 do, n_pairs)
+            torch.cuda.synchronize()
+            fwd_err = (out - ref).abs().max().item()
+            rel = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
+            bwd_abs = max((a - r).abs().max().item() for a, r in zip(grads, ref_grads))
+            phase("kernel", kernel="train_attention", G=g, L=l, hd=HD, n_pairs=n_pairs,
+                  keep="ones" if n_pairs == 1 else "dropout_0.1", fwd_tol=TRAIN_ATTN_FWD_TOL,
+                  bwd_tol=TRAIN_ATTN_BWD_TOL, max_abs_err_fwd=f"{fwd_err:.3g}",
+                  max_abs_err_bwd=f"{bwd_abs:.3g}",
+                  **{f"rel_err_{n}": f"{e:.3g}" for n, e in rel.items()})
+            check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL,
+                  f"train_attention forward disagrees with its plain version at G={g} L={l} "
+                  f"n_pairs={n_pairs}: {fwd_err}")
+            check(all(np.isfinite(e) and e <= TRAIN_ATTN_BWD_TOL for e in rel.values()),
+                  f"train_attention backward disagrees with its plain version at G={g} L={l} "
+                  f"n_pairs={n_pairs}: {rel}")
+            worst_fwd, worst_bwd = max(worst_fwd, fwd_err), max(worst_bwd, bwd_abs)
+            del q, k, v, keep, do, out, lse, grads, ref, ref_grads
+    q, k, v, keep, _ = train_attention_inputs(8, hopper_train_attention.MAX_L + 1, 1, seed=0)
+    try:
+        hopper_train_attention.fused_causal_attend(q, k, v, keep, 1)
+    except ValueError as err:
+        phase("kernel", kernel="train_attention", L=hopper_train_attention.MAX_L + 1,
+              refused=str(err).replace(" ", "_")[:80])
+    else:
+        raise RuntimeError("train_attention took L above MAX_L")
+    return worst_fwd, worst_bwd
 
 
 # -- the synthesis path ----------------------------------------------------------
@@ -728,18 +844,22 @@ def train_against_cpu():
 
 # -- the thesis workflow through the CLIs --------------------------------------
 
-CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv", "cli_transformer")
+CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv", "cli_train_transformer",
+             "cli_transformer")
 
 
 def launch_counts():
     return {"gru_fwd": hopper_gru.launches, "gru_bwd": hopper_gru.bwd_launches,
             "p2cp": hopper_p2cp.launches, "min_dist": hopper_min_dist.launches,
-            "flash_decode": hopper_attention.launches}
+            "flash_decode": hopper_attention.launches,
+            "train_attention_fwd": hopper_train_attention.launches_fwd,
+            "train_attention_bwd": hopper_train_attention.launches_bwd}
 
 
 def reset_launch_counts():
     hopper_gru.launches = hopper_gru.bwd_launches = hopper_p2cp.launches = 0
     hopper_min_dist.launches = hopper_attention.launches = 0
+    hopper_train_attention.launches_fwd = hopper_train_attention.launches_bwd = 0
 
 
 def batch_buckets(lengths, batch_size):
@@ -887,11 +1007,13 @@ def cli_path(tmp):
                              {"datadir": vcv, "vocab_filepath": vocab_path,
                               "state_dict_filepath": os.path.join(out, "checkpoints", "best_model"),
                               "save_to": os.path.join(tmp, "vcv_synthesis")}),
+        "cli_train_transformer": ("train_transformer", {**corpus_keys, "num_epochs": 2}),
         "cli_transformer": ("train_transformer", corpus_keys),
     }
-    transformer_weights = os.path.join(tmp, "transformer", "best_model")
-    added = {"cli_transformer": {"state_dict_filepath": transformer_weights,
-                                 "save_to": os.path.join(tmp, "transformer_outputs")}}
+    tf_out = os.path.join(tmp, "train_transformer_run")
+    added = {"cli_transformer": {
+        "state_dict_filepath": os.path.join(tf_out, "checkpoints", "best", "state"),
+        "save_to": os.path.join(tmp, "transformer_outputs")}}
     cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes, added.get(p))
             for p, (name, changes) in configs.items()}
 
@@ -899,9 +1021,10 @@ def cli_path(tmp):
     arts, batch, epochs = sorted(train_cfg["articulators"]), train_cfg["batch_size"], 2
     vocabulary = load_vocabulary(vocab_path)
 
-    def lengths(key):
-        dataset = ArtSpeechDataset(corpus, "gottingen", sequences_from_dict(corpus, train_cfg[key]),
-                                   vocabulary, arts, clip_tails=train_cfg["clip_tails"])
+    def lengths(key, cfg=train_cfg):
+        dataset = ArtSpeechDataset(corpus, "gottingen", sequences_from_dict(corpus, cfg[key]),
+                                   vocabulary, sorted(cfg["articulators"]),
+                                   clip_tails=cfg["clip_tails"])
         return {d["sentence_name"]: len(d["frame_ids"]) for d in dataset.data}
 
     def synthesis_sentences(p):
@@ -914,12 +1037,19 @@ def cli_path(tmp):
                   n_batches(lengths("valid_seq_dict").values(), batch),
                   n_batches(test_lengths.values(), batch))
     sentences = {p: synthesis_sentences(p) for p in ("cli_generate", "cli_generate_vcv")}
-    # The transformer test CLI batches at max(batch_size, 64) on the card and
-    # decodes each batch over its bucket length T with bf16 caches: 4 layers
-    # x (self, cross-channel) flash_decode launches a step.
+    # The transformer trains with one forward and one backward
+    # train_attention launch a decoder layer and step, validates with one
+    # P2CP launch a batch, and tests autoregressively: each test batch is
+    # decoded over its bucket length T with bf16 caches, 4 layers x (self,
+    # cross-channel) flash_decode launches a step. The train CLI tests at
+    # batch_size, the test CLI at max(batch_size, 64) on the card.
     tf_cfg = cfgs["cli_transformer"]
-    tf_buckets = batch_buckets(test_lengths.values(), max(tf_cfg["batch_size"], 64))
-    tf_layers = tf_cfg["model_kwargs"]["num_layers"]
+    tf_layers, tf_batch = tf_cfg["model_kwargs"]["num_layers"], tf_cfg["batch_size"]
+    tf_test_lengths = lengths("test_seq_dict", tf_cfg).values()
+    tf_buckets = batch_buckets(tf_test_lengths, max(tf_batch, 64))
+    tf_train_buckets = batch_buckets(tf_test_lengths, tf_batch)
+    tf_tr = n_batches(lengths("train_seq_dict", tf_cfg).values(), tf_batch)
+    tf_va = n_batches(lengths("valid_seq_dict", tf_cfg).values(), tf_batch)
     none = dict.fromkeys(KERNELS, 0)
     # Two BiGRU layers: one forward (and in training one backward) launch
     # each; one P2CP launch per eval step and per test batch (the
@@ -929,25 +1059,28 @@ def cli_path(tmp):
                       "p2cp": epochs * va + te, "min_dist": 8 * te},
         "cli_test": {**none, "gru_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te},
         **{p: {**none, "gru_fwd": 2 * -(-len(s) // 8)} for p, s in sentences.items()},
+        "cli_train_transformer": {
+            **none, "train_attention_fwd": tf_layers * epochs * tf_tr,
+            "train_attention_bwd": tf_layers * epochs * tf_tr,
+            "p2cp": epochs * tf_va + len(tf_train_buckets), "min_dist": 8 * len(tf_train_buckets),
+            "flash_decode": sum(2 * tf_layers * t for t in tf_train_buckets)},
         "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 8 * len(tf_buckets),
                             "flash_decode": sum(2 * tf_layers * t for t in tf_buckets)},
     }
-    transformer = ArtSpeechTransformer(
-        len(vocabulary), len(tf_cfg["articulators"]), num_feat=2 * tf_cfg.get("n_samples", 50),
-        **model_kwargs_from_cfg(tf_cfg), generator=torch.Generator().manual_seed(3))
-    save_params(transformer_weights, transformer)
-    del transformer
     phase("cli", train_batches_per_epoch=tr, valid_batches=va, test_batches=te,
+          transformer_train_batches_per_epoch=tf_tr, transformer_valid_batches=tf_va,
           transformer_test_buckets=tf_buckets, test_frames=sum(test_lengths.values()),
           **{f"{p}_sentences": len(s) for p, s in sentences.items()})
 
     modules = {"cli_train": train_phoneme_to_articulation, "cli_test": test_phoneme_to_articulation,
                "cli_generate": generate_vocal_tract_shape,
                "cli_generate_vcv": generate_vocal_tract_shape,
+               "cli_train_transformer": train_phoneme_to_articulation_transformer,
                "cli_transformer": test_phoneme_to_articulation_transformer}
     outputs = {"cli_train": out, "cli_test": os.path.join(tmp, "test_run"),
                "cli_generate": os.path.join(tmp, "generate_run"),
                "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run"),
+               "cli_train_transformer": tf_out,
                "cli_transformer": os.path.join(tmp, "transformer_run")}
     results, launches, seconds = {}, {}, {}
     for p in CLI_PATHS:
@@ -963,20 +1096,26 @@ def cli_path(tmp):
           "the test paths launched no min_dist kernel")
     check(launches["cli_transformer"]["flash_decode"] > 0,
           "the transformer test CLI launched no flash_decode kernel")
+    check(launches["cli_train_transformer"]["train_attention_bwd"] > 0,
+          "the transformer train CLI launched no train_attention kernel")
 
     # What the CLIs wrote.
-    for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
-                "checkpoints/last/state.pt", "checkpoints/last/aux.json",
-                "checkpoints/best_model", "test_results.json", "run/params.json",
-                "run/metrics.jsonl"):
-        check(os.path.isfile(os.path.join(out, sub)), f"the train CLI wrote no {sub}")
-    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
-        records = [json.loads(line) for line in f]
-    check([r["epoch"] for r in records] == list(range(epochs)), "metrics.jsonl epochs")
-    check(all(np.isfinite(v) for r in records for k, v in r.items() if k != "ts"),
-          "non-finite epoch metrics")
+    for run in (out, tf_out):
+        for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
+                    "checkpoints/last/state.pt", "checkpoints/last/aux.json",
+                    "checkpoints/best_model", "test_results.json", "run/params.json",
+                    "run/metrics.jsonl"):
+            check(os.path.isfile(os.path.join(run, sub)), f"the train CLI wrote no {run}/{sub}")
+        with open(os.path.join(run, "run", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        check([r["epoch"] for r in records] == list(range(epochs)), f"{run}: metrics.jsonl epochs")
+        check(all(np.isfinite(v) for r in records for k, v in r.items() if k != "ts"),
+              f"{run}: non-finite epoch metrics")
+        phase("cli", run=os.path.basename(run), **fmt({k: v for k, v in records[-1].items()
+                                                       if k != "ts"}))
     n_arts = len(arts) + 1  # with the upper incisor
-    test_dirs = {p: os.path.join(outputs[p], "test_outputs", "0") for p in ("cli_train", "cli_test")}
+    test_dirs = {p: os.path.join(outputs[p], "test_outputs", "0")
+                 for p in ("cli_train", "cli_test", "cli_train_transformer")}
     test_dirs["cli_transformer"] = cfgs["cli_transformer"]["save_to"]
     for p, test_dir in test_dirs.items():
         frames, tv_rows = check_test_outputs(test_dir, test_lengths, n_arts)
@@ -1042,13 +1181,16 @@ def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
 
 # -- the transformer's KV-cached decode -----------------------------------------
 
-def thesis_transformer(device):
+def thesis_transformer(device, dropout=None):
     """The transformer of configs/model_free/train_transformer.yaml at full
-    width (dropout accepted and inactive in eval mode), weights from seed 0."""
+    width (its dropout 0.1, inactive in eval mode, unless ``dropout`` is
+    given), weights from seed 0."""
     cfg = config_file.load(os.path.join(THESIS_CONFIGS, "train_transformer.yaml"))
+    kwargs = model_kwargs_from_cfg(cfg)
+    if dropout is not None:
+        kwargs["dropout"] = dropout
     return ArtSpeechTransformer(VOCAB, len(cfg["articulators"]), num_feat=2 * cfg.get("n_samples", 50),
-                                **model_kwargs_from_cfg(cfg),
-                                generator=torch.Generator().manual_seed(0), device=device)
+                                **kwargs, generator=torch.Generator().manual_seed(0), device=device)
 
 
 def decode_inputs(b, t, seed):
@@ -1147,6 +1289,197 @@ def decode_against_cpu():
     check(all(v <= TRANSFORMER_TOL for v in errs.values()), f"card and CPU transformer disagree: {errs}")
 
 
+# -- transformer training ------------------------------------------------------
+
+def transformer_state(device, dropout=None, lr=TRAIN["lr"]):
+    """The thesis transformer with AdamW at the config's lr and wd (lr 1e-4,
+    wd 1e-5, the same as the model-free trainer's)."""
+    return state.create_train_state(thesis_transformer(device, dropout), lr, TRAIN["wd"])
+
+
+def timed_step(step, st, batch, gen, tag, iters=5, breakdown=True):
+    """Host-clock ms of a train step, its peak device memory and (optionally)
+    its device breakdown."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = host_ms(lambda: step(st, batch, gen), iters)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if breakdown:
+        device_breakdown(lambda: step(st, batch, gen), step_ms, tag, steps=2)
+    return step_ms, peak_gib
+
+
+def train_transformer_path():
+    """One train step of the thesis transformer (dropout 0.1) at T = 128, B =
+    12 and 64: exactly one forward and one backward train_attention launch a
+    decoder layer and nothing else; its time, frames/s, peak memory and
+    device breakdown, against the same step with the pair attention
+    materialised in plain torch (no launch). Returns the launches of the
+    counted steps."""
+    total = dict.fromkeys(KERNELS, 0)
+    for b in TRAIN_BATCHES:
+        st = transformer_state(None)
+        layers = st.model.num_layers
+        batch = fixed_batch(b, TRAIN_T, seed=b, device="cuda", ragged=False)
+        step = make_transformer_train_step(TO_MM)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        loss = step(st, batch, gen)["loss"].item()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expected = {**dict.fromkeys(KERNELS, 0), "train_attention_fwd": layers,
+                    "train_attention_bwd": layers}
+        check(counts == expected, f"train step B={b}: launches {counts}, expected {expected}")
+        check(np.isfinite(loss), f"train step B={b}: loss {loss}")
+        total = {k: total[k] + counts[k] for k in KERNELS}
+        frames = b * TRAIN_T
+        step_ms, peak = timed_step(step, st, batch, gen, f"train_transformer_B{b}")
+        phase("train_transformer", B=b, T=TRAIN_T, pair_attention="kernel", loss=f"{loss:.6g}",
+              step_ms=f"{step_ms:.6g}", frames_per_s=f"{frames / step_ms * 1e3:.6g}",
+              peak_gib=f"{peak:.4g}", train_attention_fwd_launches=counts["train_attention_fwd"],
+              train_attention_bwd_launches=counts["train_attention_bwd"], expected=layers)
+        # The alternative the port does not take: the pair attention in
+        # plain torch, scores materialised, autograd through its ops.
+        saved = hopper_train_attention.fused_causal_attend
+        hopper_train_attention.fused_causal_attend = hopper_train_attention.fused_causal_attend_reference
+        try:
+            reset_launch_counts()
+            mat_ms, mat_peak = timed_step(step, st, batch, gen,
+                                          f"train_transformer_B{b}_materialised")
+            check(launch_counts() == dict.fromkeys(KERNELS, 0), "the materialised step launched")
+        finally:
+            hopper_train_attention.fused_causal_attend = saved
+        phase("train_transformer", B=b, T=TRAIN_T, pair_attention="materialised_plain_torch",
+              step_ms=f"{mat_ms:.6g}", frames_per_s=f"{frames / mat_ms * 1e3:.6g}",
+              peak_gib=f"{mat_peak:.4g}", kernel_path_faster=step_ms < mat_ms)
+        del st
+    accumulation_sweep()
+    return total
+
+
+def accumulation_sweep():
+    """The B = 64 step split into microbatches of MICROBATCHES sentences
+    (accum_steps 64 // mb), each with its launch count checked."""
+    b = TRAIN_BATCHES[-1]
+    st = transformer_state(None)
+    layers = st.model.num_layers
+    batch = fixed_batch(b, TRAIN_T, seed=b, device="cuda", ragged=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    steps = {mb: make_transformer_train_step(TO_MM, accum_steps=b // mb) for mb in MICROBATCHES}
+    times, peaks = {}, {}
+    for mb in MICROBATCHES:
+        reset_launch_counts()
+        steps[mb](st, batch, gen)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts["train_attention_fwd"] == counts["train_attention_bwd"] == layers * b // mb,
+              f"accum sweep microbatch {mb}: launches {counts}")
+        times[mb], peaks[mb] = timed_step(steps[mb], st, batch, gen, "", iters=2, breakdown=False)
+    for mb in MICROBATCHES:
+        phase("train_transformer", sweep=f"B={b},T={TRAIN_T}", microbatch=mb, accum_steps=b // mb,
+              step_ms=f"{times[mb]:.6g}", frames_per_s=f"{b * TRAIN_T / times[mb] * 1e3:.6g}",
+              peak_gib=f"{peaks[mb]:.4g}")
+    phase("train_transformer", sweep_fastest_microbatch=min(times, key=times.get))
+
+
+def transformer_loss_falls():
+    st = transformer_state(None, lr=1e-3)
+    batch = fixed_batch(TRAIN["batch"], TRAIN_T, seed=7, device="cuda", ragged=False)
+    step = make_transformer_train_step(TO_MM)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = [step(st, batch, gen)["loss"].item() for _ in range(20)]
+    phase("train_transformer", fixed_batch_lr=1e-3, dropout=TRAIN["dropout"],
+          loss_first=f"{losses[0]:.6g}", loss_last=f"{losses[-1]:.6g}",
+          ratio=f"{losses[-1] / losses[0]:.4f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+def transformer_train_against_cpu():
+    """One transformer train step (dropout 0, B=2, T=32 ragged, full width,
+    the same seeded weights) on the card and on the CPU, and its gradients in
+    float64 on the CPU (the pair attention materialised, the kernels being
+    float32 only).
+
+    The ArtSpeech step's rule (every gradient within 1e-4 relative) does
+    not hold for this model in float32 on any device: its LayerNorms take
+    the variance as E[x^2] - E[x]^2, as the JAX package does, and that
+    cancellation plus ReLU units within rounding of zero put the CPU's own
+    float32 gradients up to 1e-2 from float64 on a tensor (both figures are
+    printed). So:
+    - the metrics within 1e-4 relative;
+    - the card's gradients no further from float64 (global relative L2 over
+      all parameters) than twice the CPU's, or 1e-4;
+    - the updated parameters where |g| >= 100 * eps and both sides'
+      gradients have one sign: AdamW's first update moves a component by
+      lr * g / (|g| + eps) (and the same weight decay on both sides), which
+      two same-sign gradients of |g| >= 100 * eps can part by at most
+      lr * 1e-2, so a larger gap is the optimizer's; and every component
+      whose sign differs holds a gradient below 1e-2 of its tensor's
+      largest;
+    - the attention key biases' gradients (exactly zero in exact arithmetic)
+      below 1e-6 of the largest gradient on both sides.
+    The per-tensor relative figures are printed."""
+    batch = fixed_batch(2, 32, seed=9, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = transformer_state(device, dropout=0.0)
+        metrics = make_transformer_train_step(TO_MM, with_p2cp=True, device=device)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        out[device] = ({k: v.item() for k, v in metrics.items()},
+                       {n: p.grad.cpu().double() for n, p in st.model.named_parameters()},
+                       {n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    model = thesis_transformer("cpu", dropout=0.0).double().train()
+    saved = hopper_train_attention.fused_causal_attend
+    hopper_train_attention.fused_causal_attend = hopper_train_attention.fused_causal_attend_reference
+    try:
+        targets = batch["targets"].double()
+        outputs = model(batch["tokens"], shift_targets_right(targets), batch["lengths"],
+                        batch["lengths"])
+        masked_euclidean_loss(outputs, targets, batch["lengths"]).backward()
+    finally:
+        hopper_train_attention.fused_causal_attend = saved
+    exact = {n: p.grad for n, p in model.named_parameters()}
+    zero = {n for n in exact if n.endswith("key_bias")}
+
+    def global_err(grads):
+        num = sum(((grads[n] - exact[n]) ** 2).sum().item() for n in exact if n not in zero)
+        return (num / sum((exact[n] ** 2).sum().item() for n in exact if n not in zero)) ** 0.5
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    card, cpu = out["cuda"], out["cpu"]
+    metric_err = max(abs(card[0][k] - v) / max(abs(v), 1e-30) for k, v in cpu[0].items())
+    err_card, err_cpu = global_err(card[1]), global_err(cpu[1])
+    param_err, flips, flip_share = 0.0, 0, 0.0
+    for n, p in cpu[2].items():
+        g_card, g_cpu = card[1][n], cpu[1][n]
+        same = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_cpu.abs() >= 100 * 1e-8)
+        if same.any():
+            param_err = max(param_err, ((card[2][n] - p).abs()[same].max() / TRAIN["lr"]).item())
+        flipped = torch.sign(g_card) != torch.sign(g_cpu)
+        if flipped.any() and n not in zero:
+            flips += int(flipped.sum())
+            flip_share = max(flip_share, (g_cpu.abs()[flipped].max() / g_cpu.abs().max()).item())
+    largest = max(g.abs().max().item() for g in exact.values())
+    zero_share = max(out[d][1][n].abs().max().item() for d in out for n in zero) / largest
+    per_tensor = {"card_vs_cpu": max(rel(card[1][n], cpu[1][n]) for n in exact if n not in zero),
+                  "cpu_vs_f64": max(rel(cpu[1][n], exact[n]) for n in exact if n not in zero)}
+    phase("train_transformer", against_cpu="dropout=0,B=2,T=32", metric_rel_err=f"{metric_err:.3g}",
+          grads_vs_f64_global_rel_card=f"{err_card:.3g}", grads_vs_f64_global_rel_cpu=f"{err_cpu:.3g}",
+          grads_card_vs_cpu_max_rel_per_tensor=f"{per_tensor['card_vs_cpu']:.3g}",
+          grads_cpu_vs_f64_max_rel_per_tensor=f"{per_tensor['cpu_vs_f64']:.3g}",
+          params_diff_over_lr_same_sign_g_ge_100eps=f"{param_err:.3g}", sign_flips=flips,
+          sign_flip_max_share=f"{flip_share:.3g}", zero_grads_over_largest=f"{zero_share:.3g}")
+    check(metric_err <= 1e-4, f"card and CPU transformer steps disagree on the metrics: {metric_err}")
+    check(err_card <= max(2 * err_cpu, 1e-4),
+          f"the card's gradients are further from float64 ({err_card}) than twice the CPU's ({err_cpu})")
+    check(param_err <= 1e-2, f"card and CPU updated parameters part by {param_err} lr")
+    check(flip_share <= 1e-2, f"a gradient of {flip_share} of its tensor's largest flips sign")
+    check(zero_share <= 1e-6, f"key-bias gradients reach {zero_share} of the largest")
+
+
 # -- timing --------------------------------------------------------------------
 
 def gru_bound_ms(t, b, h, n_dir, elem_bytes):
@@ -1202,17 +1535,88 @@ def flash_bound_ms(n_rows, g, elem_bytes):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def train_attention_bound_ms(g, l, n_pairs, backward):
+    """Least time for the work over the causal (q, k) pairs: the forward
+    reads q, k, v and keep and writes the output and lse once, 4 hd
+    operations a pair (score and PV); the backward's function reads q, k, v,
+    keep and dO and writes dq, dk, dv once, 10 hd operations a pair (score,
+    dP, dV, dQ, dK)."""
+    pairs = g * l * (l + 1) // 2
+    rows = 4 * g * l * HD
+    keep = 4 * n_pairs * l * l
+    bytes_moved = 7 * rows + keep if backward else 4 * rows + keep + 4 * g * l
+    ops = (10 if backward else 4) * HD * pairs
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_train_attention():
+    """Both kernels at the B = 12 and B = 64 shapes (G = 4,320 and 23,040,
+    L = 128, hd 16, the dropout keep with 90 pairs; each call moves 100 MB or
+    more, past the 50 MB L2): back to back and by profiler device time,
+    their plain versions, the bound, and scaled_dot_product_attention on
+    (G, 1, L, hd) with is_causal and an all-ones keep (forward, and forward +
+    backward minus forward) as the yardstick."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for b in TRAIN_BATCHES:
+        g = TRAIN_ATTN_G[b]
+        q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=b)
+        out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
+        sq, sk, sv = (x[:, None] for x in (q, k, v))
+        gq, gk, gv = (x.clone().requires_grad_() for x in (sq, sk, sv))
+        ones = torch.ones(1, TRAIN_T, TRAIN_T, device="cuda")
+        lib_diff = (sdpa(sq, sk, sv, is_causal=True, scale=1.0)[:, 0]
+                    - hopper_train_attention.fused_causal_attend_fwd(q, k, v, ones, 1)[0]
+                    ).abs().max().item()
+
+        def fwd():
+            return hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
+
+        def bwd():
+            return hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
+                                                                  TRAIN_ATTN_PAIRS)
+
+        def lib_fwd():
+            return sdpa(sq, sk, sv, is_causal=True, scale=1.0)
+
+        def lib_both():
+            sdpa(gq, gk, gv, is_causal=True, scale=1.0).backward(do[:, None])
+
+        lib_fwd_ms = cuda_ms(lib_fwd, 20)
+        for name, fn, plain, backward in (
+                ("train_attention_fwd", fwd, lambda: hopper_train_attention.fused_causal_attend_reference(
+                    q, k, v, keep, TRAIN_ATTN_PAIRS), False),
+                ("train_attention_bwd", bwd, lambda: hopper_train_attention.fused_causal_attend_bwd_reference(
+                    q, k, v, keep, do, TRAIN_ATTN_PAIRS), True)):
+            bound_ms, bound_by = train_attention_bound_ms(g, TRAIN_T, TRAIN_ATTN_PAIRS, backward)
+            results[(name, b)] = dict(
+                ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, f"{name}_kernel"),
+                plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=cuda_ms(lib_both, 10) - lib_fwd_ms if backward else lib_fwd_ms)
+            phase("timing", kernel=name, B=b, G=g, L=TRAIN_T, hd=HD, n_pairs=TRAIN_ATTN_PAIRS,
+                  dtype="float32", library_max_abs_diff_fwd_ones=f"{lib_diff:.3g}",
+                  **fmt(results[(name, b)]))
+        del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
+    return results
+
+
 def kernel_device_ms(fn, calls, name):
     """Mean device ms per call of the kernels whose name holds ``name``, from
-    a torch.profiler trace of ``calls`` calls of ``fn``."""
+    a torch.profiler trace of ``calls`` calls of ``fn``; traced a second time
+    if the first trace holds none (the profiler has dropped a trace's device
+    events on this machine), None if neither does."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
-    return total / 1e3 / calls if total > 0 else None  # None: the trace held no device time
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+        if total > 0:
+            return total / 1e3 / calls
+    return None
 
 
 def time_flash_decode():
@@ -1448,7 +1852,8 @@ def time_training():
 
 
 def kernel_entry(name, launches, by_path, max_err, numbers, shape, **extra):
-    return {"name": name, "route": "cuda", "source": f"artspeech_tpu_torch/ops/csrc/{name}.cu",
+    return {"name": name, "route": "cuda",
+            "source": f"artspeech_tpu_torch/ops/csrc/{LIBRARY[name]}.cu",
             "replaces": REPLACES[name], "launches": launches, "launches_by_path": by_path,
             "max_abs_err": max_err, "ms": numbers["ms"], "plain_ms": numbers["plain_ms"],
             "bound_ms": numbers["bound_ms"], "bound_by": numbers["bound_by"],
@@ -1467,6 +1872,7 @@ def main():
     errs = {"gru_fwd": gru_fwd_vs_plain(), "p2cp": p2cp_vs_plain(),
             "min_dist": min_dist_vs_plain(), "flash_decode": flash_decode_vs_plain()}
     errs["gru_bwd"], bwd_rel_err = gru_bwd_vs_plain()
+    errs["train_attention_fwd"], errs["train_attention_bwd"] = train_attention_vs_plain()
     with tempfile.TemporaryDirectory() as tmp:
         synthesis_launches = main_path(tmp)
     against_cpu()
@@ -1479,11 +1885,17 @@ def main():
         test_step_against_cpu(*test_step_inputs)
     decode_launches = decode_path()
     decode_against_cpu()
+    train_transformer_launches = train_transformer_path()
+    transformer_loss_falls()
+    transformer_train_against_cpu()
 
     flash = time_flash_decode()
+    train_attention = time_train_attention()
     numbers = {"gru_fwd": time_gru_fwd()[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
-               "flash_decode": flash[(12, torch.float32)]}
+               "flash_decode": flash[(12, torch.float32)],
+               **{k: train_attention[(k, TRAIN["batch"])]
+                  for k in ("train_attention_fwd", "train_attention_bwd")}}
     time_synthesis()
     time_training()
     time_test_step()
@@ -1492,17 +1904,24 @@ def main():
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
                    **{p: cli_launches[p][k] for p in CLI_PATHS},
-                   "decode": decode_launches if k == "flash_decode" else 0} for k in KERNELS}
+                   "decode": decode_launches if k == "flash_decode" else 0,
+                   "train_transformer": train_transformer_launches[k]} for k in KERNELS}
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
     shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
               "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
                   f"({n},{m})" for n, m in TV_SHAPES.values()) + " summed,float32",
               "flash_decode": f"inter B=12: S={DECODE_T},hd={HD},G={flash_groups(12)['inter']},"
-                              f"n_rows={DECODE_T},float32"}
+                              f"n_rows={DECODE_T},float32",
+              **{k: f"B=12: G={TRAIN_ATTN_G[12]},L={TRAIN_T},hd={HD},"
+                    f"n_pairs={TRAIN_ATTN_PAIRS} (dropout 0.1 keep),float32"
+                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra = {"gru_bwd": {"rel_err": bwd_rel_err},
              "flash_decode": {"device_ms": flash[(12, torch.float32)]["device_ms"],
                               "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
-                                           for (b, d), r in flash.items()}}}
+                                           for (b, d), r in flash.items()}},
+             **{k: {"device_ms": train_attention[(k, TRAIN["batch"])]["device_ms"],
+                    "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
+                for k in ("train_attention_fwd", "train_attention_bwd")}}
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)

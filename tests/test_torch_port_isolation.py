@@ -15,6 +15,10 @@
 - So do ``ArtSpeechTransformer``, ``make_fast_generate``,
   ``make_auto_generate`` and the transformer test CLI; a decode on the CPU
   takes the flash decode-attend's plain version without counting a launch.
+- So do the transformer train CLI and its train and eval steps; the fused
+  training attention takes its plain versions on CPU tensors (forward and
+  backward, through a training step too) without counting a launch, and
+  raises on any other non-CUDA device.
 """
 
 import argparse
@@ -36,6 +40,7 @@ from artspeech_tpu_torch.cli import (
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
     train_phoneme_to_articulation,
+    train_phoneme_to_articulation_transformer,
 )
 from artspeech_tpu_torch.eval.articulation import make_test_step, run_test
 from artspeech_tpu_torch.models.transformer import (
@@ -43,10 +48,22 @@ from artspeech_tpu_torch.models.transformer import (
     make_auto_generate,
     make_fast_generate,
 )
-from artspeech_tpu_torch.ops import _build, hopper_attention, hopper_gru, hopper_min_dist, hopper_p2cp
+from artspeech_tpu_torch.ops import (
+    _build,
+    hopper_attention,
+    hopper_gru,
+    hopper_min_dist,
+    hopper_p2cp,
+    hopper_train_attention,
+)
 from artspeech_tpu_torch.synth import pipeline
 from artspeech_tpu_torch.train import loop, state
-from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
+from artspeech_tpu_torch.train.step import (
+    make_artspeech_eval_step,
+    make_artspeech_train_step,
+    make_transformer_eval_step,
+    make_transformer_train_step,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "artspeech_tpu_torch")
@@ -74,6 +91,9 @@ def _imported_roots(path):
 def test_no_forbidden_imports():
     sources = _sources()
     assert len(sources) > 20
+    for module in ("ops/hopper_train_attention.py", "models/transformer.py", "train/step.py",
+                   "cli/train_phoneme_to_articulation_transformer.py"):
+        assert os.path.join(PKG, module) in sources
     offending = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
                  for p in sources}
     assert {p: mods for p, mods in offending.items() if mods} == {}
@@ -287,3 +307,53 @@ def test_cpu_decode_takes_the_plain_attend_without_a_launch():
         assert out.shape == (2, 5, 3, 2, 3) and bool(torch.isfinite(out).all())
     assert hopper_attention.launches == before
     assert "flash_decode" not in _build._libraries
+
+
+def _attend_inputs(device):
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 6, 4)).astype(np.float32)).to(device)
+               for _ in range(3))
+    return q, k, v, torch.ones(1, 6, 6, device=device), 1
+
+
+def test_training_attention_takes_the_plain_versions_on_cpu_without_a_launch():
+    before = (hopper_train_attention.launches_fwd, hopper_train_attention.launches_bwd)
+    q, k, v, keep, n_pairs = _attend_inputs("cpu")
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    out = hopper_train_attention.fused_causal_attend(q, k, v, keep, n_pairs)
+    torch.testing.assert_close(
+        out, hopper_train_attention.fused_causal_attend_reference(q, k, v, keep, n_pairs),
+        rtol=0, atol=0)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
+    model = ArtSpeechTransformer(12, 3, **TINY_TRANSFORMER, dropout=0.1, device="cpu")
+    st = state.create_train_state(model, 1e-3)
+    batch = {"tokens": np.array([[1, 2, 3, 4], [5, 6, 0, 0]], np.int32),
+             "targets": np.full((2, 4, 3, 2, 3), 0.5, np.float32),
+             "lengths": np.array([4, 2], np.int32)}
+    metrics = make_transformer_train_step(1.0, device="cpu")(st, batch, torch.Generator())
+    assert torch.isfinite(metrics["loss"])
+    assert (hopper_train_attention.launches_fwd, hopper_train_attention.launches_bwd) == before
+    assert "train_attention" not in _build._libraries
+
+
+def test_training_attention_raises_on_other_devices():
+    before = (hopper_train_attention.launches_fwd, hopper_train_attention.launches_bwd)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_train_attention.fused_causal_attend(*_attend_inputs("meta"))
+    q, k, v, keep, n_pairs = _attend_inputs("cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, n_pairs)
+    with pytest.raises(ValueError, match="CUDA"):
+        hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, q, q[..., 0], q, n_pairs)
+    assert (hopper_train_attention.launches_fwd, hopper_train_attention.launches_bwd) == before
+
+
+def test_transformer_training_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    for make in (make_transformer_train_step, make_transformer_eval_step):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(1.0)
+    args = argparse.Namespace(device="cuda", output_dir=str(tmp_path), checkpoint_filepath=None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_phoneme_to_articulation_transformer.main({}, args, tracker=None)

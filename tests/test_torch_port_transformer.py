@@ -24,7 +24,8 @@ port's ``ArtSpeechTransformer`` on the CPU:
   ``state_dict_filepath``: ``test_results.json`` and the ``test_outputs/``
   tree (contours and TV CSVs) with the same keys and files, each number
   within the spread of the JAX CLI's own two decodes (see that test);
-- a training-mode forward with dropout raises; the CLI refuses bf16 compute.
+- a training-mode forward with dropout raises without a generator; the CLI
+  refuses bf16 compute.
 """
 
 import json
@@ -329,6 +330,6 @@ def test_training_forward_with_dropout_raises(setup):
     with torch.no_grad():  # eval mode: the dropout is accepted and inactive
         torch.testing.assert_close(model(src, tgt, src_lengths, tgt_lengths),
                                    setup["port"](src, tgt, src_lengths, tgt_lengths))
-    model.train()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
+    model.train()  # training mode: the dropout masks need a generator
+    with pytest.raises(ValueError, match="Generator"):
         model(src, tgt, src_lengths, tgt_lengths)
