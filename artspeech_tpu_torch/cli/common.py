@@ -27,7 +27,7 @@ def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
     The port computes in float32. A config that asks for another compute
     type (``compute_dtype: bfloat16`` at the top level, or ``dtype`` in the
     model's kwargs) raises: bf16 compute is not ported yet (ROADMAP Queue 1,
-    item 2). ``float32`` is accepted and dropped.
+    item 4). ``float32`` is accepted and dropped.
     """
     kwargs = dict(cfg.get(key) or {})
     for where, dtype in (("compute_dtype", cfg.get("compute_dtype")),
@@ -35,7 +35,7 @@ def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
         if dtype is not None and str(dtype).lower() not in _FLOAT32:
             raise NotImplementedError(
                 f"{where}: {dtype} is not ported: artspeech_tpu_torch computes in float32 "
-                f"(bf16 compute is ROADMAP Queue 1, item 2)")
+                f"(bf16 compute is ROADMAP Queue 1, item 4)")
     return kwargs
 
 

@@ -4,28 +4,35 @@
 Equivalent of reference generate_vocal_tract_shape_v2.py:270-450: run the
 synthesis pipeline and write inference_contours / air_column / xarticul /
 target_sequence.txt per sentence — the corpus later consumed by the
-phoneme-recognition evaluation. Ported: ``method: encoder_decoder``. The
-``mean_contour`` and ``autoencoder`` methods (ROADMAP Queue 1, items 6 and 9)
-and ``save_plots`` / ``save_videos`` (``synth/viz.py``, Queue 1, item 10)
-raise ``NotImplementedError``.
+phoneme-recognition evaluation. Ported: ``method: encoder_decoder`` and
+``method: autoencoder`` (the latent RNN -> frozen decoder -> denorm, with
+``aux_model_params`` and ``norm_stats_dir``). The ``mean_contour`` method
+(ROADMAP Queue 1, item 1) and ``save_plots`` / ``save_videos``
+(``synth/viz.py``, Queue 1, item 5) raise ``NotImplementedError``.
 
 Usage: python -m artspeech_tpu_torch.cli.generate_vocal_tract_shape \
            --config config.yaml [--device cpu]
 """
 
+import torch
+
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
+from artspeech_tpu_torch.cli.train_phoneme_to_principal_components import build_frozen_ae
 from artspeech_tpu_torch.core.config import DATASET_CONFIG
 from artspeech_tpu_torch.core.device import resolve_device
 from artspeech_tpu_torch.core.vocab import load_vocabulary
+from artspeech_tpu_torch.data.pc_datasets import load_norm_stats, stack_norm_stats
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
+from artspeech_tpu_torch.models.autoencoder import normalize_indices_dict
+from artspeech_tpu_torch.models.latent_rnn import (
+    PrincipalComponentsArtSpeech,
+    make_latent_rnn_synthesis_forward,
+)
 from artspeech_tpu_torch.synth.pipeline import SynthesisDataset, synthesize_corpus
 from artspeech_tpu_torch.train.checkpoint import load_params
 from artspeech_tpu_torch.utils.io import sequences_from_dict
 
-_NOT_PORTED = {
-    "mean_contour": "ROADMAP Queue 1, items 6 and 9 (models/mean_contour.py)",
-    "autoencoder": "ROADMAP Queue 1, items 6 and 9 (the PCA/autoencoder family)",
-}
+_NOT_PORTED = {"mean_contour": "ROADMAP Queue 1, item 1 (models/mean_contour.py)"}
 
 
 def build_forward(cfg, vocabulary, articulators, device):
@@ -35,6 +42,24 @@ def build_forward(cfg, vocabulary, articulators, device):
                           **model_kwargs_from_cfg(cfg, "model_params"), device=device)
         model.load_state_dict(load_params(cfg["state_dict_filepath"]))
         return model
+    if method == "autoencoder":
+        # Latent RNN -> frozen decoder -> denorm (reference v2:331-350).
+        indices_dict = normalize_indices_dict(cfg["indices_dict"])
+        arts = sorted(indices_dict.keys())
+        norm_stats = load_norm_stats(cfg.get("norm_stats_dir") or cfg["datadir"], arts)
+        denorm_mean, denorm_std = stack_norm_stats(norm_stats, arts)
+        # aux_model_params carries the frozen AE's widths (reference
+        # generate_vocal_tract_shape_autoencoder.yaml aux_model_params).
+        ae_cfg = {**cfg, **(cfg.get("aux_model_params") or {})}
+        _, decode_fn = build_frozen_ae(ae_cfg, indices_dict, require_encoder=False, device=device)
+        rnn = PrincipalComponentsArtSpeech(len(vocabulary), indices_dict,
+                                           **model_kwargs_from_cfg(cfg, "model_params"),
+                                           device=device)
+        rnn.load_state_dict(load_params(cfg["state_dict_filepath"]))
+        return make_latent_rnn_synthesis_forward(
+            rnn, decode_fn, torch.as_tensor(denorm_mean, device=device),
+            torch.as_tensor(denorm_std, device=device),
+            rescale_factor=cfg.get("rescale_factor", 1.0))
     if method in _NOT_PORTED:
         raise NotImplementedError(
             f"method: {method} is not ported to artspeech_tpu_torch yet: {_NOT_PORTED[method]}")
@@ -45,7 +70,7 @@ def main(cfg, args, tracker):
     device = resolve_device(args.device)
     if cfg.get("save_plots", False) or cfg.get("save_videos", False):
         raise NotImplementedError("save_plots / save_videos need synth/viz.py, which is not "
-                                  "ported to artspeech_tpu_torch yet (ROADMAP Queue 1, item 10)")
+                                  "ported to artspeech_tpu_torch yet (ROADMAP Queue 1, item 5)")
     database_name = cfg["database_name"]
     vocabulary = load_vocabulary(cfg["vocab_filepath"])
     articulators = sorted(cfg["articulators"])

@@ -14,37 +14,20 @@ needs a ``torch.Generator`` on the model's device for the dropout masks and
 raises without one.
 """
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.models.heads import ContourDecoder, lecun_normal_
+from artspeech_tpu_torch.models.heads import (
+    ContourDecoder,
+    default_generator,
+    flax_dense,
+    flax_embedding,
+)
 from artspeech_tpu_torch.ops.gru import BiGRU, apply_dropout
 from artspeech_tpu_torch.utils.masks import make_padding_mask
-
-
-def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
-    return generator if generator is not None else torch.Generator().manual_seed(0)
-
-
-def _embedding(vocab_size, embed_dim, generator):
-    """flax ``nn.Embed`` default init: N(0, 1/embed_dim)."""
-    embed = nn.Embedding(vocab_size, embed_dim)
-    with torch.no_grad():
-        embed.weight.normal_(0.0, math.sqrt(1.0 / embed_dim), generator=generator)
-    return embed
-
-
-def _dense(in_features, out_features, generator):
-    """flax ``nn.Dense`` default init (lecun normal kernel, zero bias)."""
-    dense = nn.Linear(in_features, out_features)
-    with torch.no_grad():
-        lecun_normal_(dense.weight, in_features, generator)
-        dense.bias.zero_()
-    return dense
 
 
 class ArtSpeech(nn.Module):
@@ -54,10 +37,10 @@ class ArtSpeech(nn.Module):
                  device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(generator)
-        self.embed = _embedding(vocab_size, embed_dim, gen)
+        gen = default_generator(generator)
+        self.embed = flax_embedding(vocab_size, embed_dim, gen)
         self.rnn = BiGRU(embed_dim, hidden_size, num_layers=2, dropout=dropout, generator=gen)
-        self.dense = _dense(2 * hidden_size, hidden_size, gen)
+        self.dense = flax_dense(2 * hidden_size, hidden_size, gen)
         self.decoder = ContourDecoder(hidden_size, n_articulators, n_samples, generator=gen)
         self.to(dev)
         self.eval()
@@ -84,10 +67,10 @@ class SimpleArtSpeech(nn.Module):
                  device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(generator)
+        gen = default_generator(generator)
         self.dropout = dropout
-        self.embed = _embedding(vocab_size, embed_dim, gen)
-        self.dense = _dense(embed_dim, hidden_size, gen)
+        self.embed = flax_embedding(vocab_size, embed_dim, gen)
+        self.dense = flax_dense(embed_dim, hidden_size, gen)
         self.decoder = ContourDecoder(hidden_size, n_articulators, n_samples, generator=gen)
         self.to(dev)
         self.eval()

@@ -41,6 +41,29 @@ def lecun_normal_(param: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    """The CPU generator a model draws its weights from: the caller's, or one
+    seeded with 0."""
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+def flax_embedding(vocab_size: int, embed_dim: int, generator) -> nn.Embedding:
+    """flax ``nn.Embed`` default init: N(0, 1/embed_dim)."""
+    embed = nn.Embedding(vocab_size, embed_dim)
+    with torch.no_grad():
+        embed.weight.normal_(0.0, math.sqrt(1.0 / embed_dim), generator=generator)
+    return embed
+
+
+def flax_dense(in_features: int, out_features: int, generator) -> nn.Linear:
+    """flax ``nn.Dense`` default init (lecun normal kernel, zero bias)."""
+    dense = nn.Linear(in_features, out_features)
+    with torch.no_grad():
+        lecun_normal_(dense.weight, in_features, generator)
+        dense.bias.zero_()
+    return dense
+
+
 class ContourDecoder(nn.Module):
     """(B, T, F) -> (B, T, Nart, 2, n_samples) contours in [0, 1]."""
 

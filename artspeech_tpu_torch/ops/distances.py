@@ -1,12 +1,14 @@
 """Batched contour distances (counterpart of artspeech_tpu/ops/distances.py:
 ``pairwise_distances``, ``min_distance``, ``mean_p2cp``,
-``mean_p2cp_channel_major``, ``euclidean_distance``,
-``pearson_correlation``).
+``mean_p2cp_channel_major``, ``min_pairwise_distance_channel_major``,
+``euclidean_distance``, ``pearson_correlation``).
 
 Shape-polymorphic over leading batch dims. On a CUDA tensor
 ``mean_p2cp_channel_major`` launches the P2CP kernel (ops/hopper_p2cp.py) and
 ``min_distance`` / ``min_distance_channel_major`` the min-distance kernel
 (ops/hopper_min_dist.py); on a CPU tensor each runs its plain formula.
+``min_pairwise_distance_channel_major`` is a plain differentiable formula on
+every device, as the JAX package computes it outside any Pallas kernel.
 """
 
 import torch
@@ -37,6 +39,18 @@ def min_distance_channel_major(u, v):
     """min_distance for channel-major (..., 2, N) / (..., 2, M) contours.
     CUDA: the min-distance kernel (forward only); CPU: the plain formula."""
     return hopper_min_dist.min_distance_channel_major(u, v)
+
+
+def min_pairwise_distance_channel_major(u, v):
+    """(...,) min_{i,j} |u_i - v_j| for channel-major (..., 2, N) / (..., 2, M)
+    contours: the min over both point axes of the squared distances
+    (``torch.amin``, whose gradient splits evenly among ties as JAX's ``min``
+    does), then a sqrt of the winner. Differentiable; the critical loss of
+    the latent RNN takes its gradient."""
+    dx = u[..., 0, :, None] - v[..., 0, None, :]
+    dy = u[..., 1, :, None] - v[..., 1, None, :]
+    sq = torch.amin(dx * dx + dy * dy, dim=(-2, -1))
+    return torch.sqrt(torch.clamp(sq, min=0.0))
 
 
 def mean_p2cp(u, v):

@@ -1,23 +1,27 @@
-"""Mask-aware GRU layers (counterpart of artspeech_tpu/ops/gru.py).
+"""Mask-aware GRU and LSTM layers (counterpart of artspeech_tpu/ops/gru.py).
 
 Sequences stay padded at bucketed lengths and the recurrence is masked: the
-hidden state freezes outside the valid region, so outputs at padded steps
-repeat the last valid state (torch ``pack_padded_sequence`` would give zeros).
-The input projection of every step is hoisted out of the time loop into one
-(T*B, E) x (E, 3H) product; only the recurrence runs in the kernel
-(ops/hopper_gru.py), time-major.
+hidden state (and the LSTM's cell state) freezes outside the valid region, so
+outputs at padded steps repeat the last valid state (torch
+``pack_padded_sequence`` would give zeros). The input projection of every
+step is hoisted out of the time loop into one (T*B, E) x (E, G*H) product;
+only the recurrence runs in the kernel (ops/hopper_gru.py, ops/hopper_lstm.py),
+time-major.
 
-Gate math follows torch semantics:
+GRU gate math follows torch semantics:
     r = sigmoid(x W_ir + b_ir + h W_hr + b_hr)
     z = sigmoid(x W_iz + b_iz + h W_hz + b_hz)
     n = tanh(x W_in + b_in + r * (h W_hn + b_hn))
     h' = (1 - z) * n + z * h
+and the LSTM's follows torch's gate order i, f, g, o:
+    c' = sigmoid(i) * tanh(g) + sigmoid(f) * c,  h' = sigmoid(o) * tanh(c')
 
-Parameters keep the JAX orientation: ``wi (E, 3H)``, ``bi (3H,)``,
-``wh (H, 3H)``, ``bh (3H,)``. The JAX package has two numerically identical
-BiGRU paths (direction-fused scan for B <= 16, time-major twin scans above);
-the port has one. Every layer is differentiable through
-``hopper_gru.GRUSequenceFn`` (the backward kernel on CUDA).
+Parameters keep the JAX orientation: ``wi (E, G*H)``, ``bi (G*H,)``,
+``wh (H, G*H)``, ``bh (G*H,)`` with G = 3 (GRU) or 4 (LSTM). The JAX package
+has two numerically identical bidirectional paths (direction-fused scan for
+B <= 16, time-major twin scans above); the port has one. Every layer is
+differentiable through ``hopper_gru.GRUSequenceFn`` or
+``hopper_lstm.LSTMSequenceFn`` (the backward kernels on CUDA).
 
 In training mode, dropout between stacked layers works as flax
 ``nn.Dropout``: keep with probability 1 - p, scale kept values by 1/(1 - p),
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from artspeech_tpu_torch.ops.hopper_gru import bigru_sequence, gru_sequence
+from artspeech_tpu_torch.ops.hopper_lstm import bilstm_sequence, lstm_sequence
 
 
 def apply_dropout(x: torch.Tensor, rate: float,
@@ -55,16 +60,19 @@ def torch_rnn_init(param: torch.Tensor, hidden_size: int,
         return param.uniform_(-bound, bound, generator=generator)
 
 
-class GRULayer(nn.Module):
-    """Single-direction masked GRU, time-major: (T, B, E) -> (T, B, H)
-    (the JAX ``GRULayer(time_major=True)``)."""
+class _RNNLayer(nn.Module):
+    """Single-direction masked recurrence, time-major: (T, B, E) -> (T, B, H).
+    Subclasses name the gate count and the kernel's sequence function."""
+
+    n_gates = 0
+    sequence = None
 
     def __init__(self, in_features: int, hidden_size: int, reverse: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.reverse = reverse
-        gates = 3 * hidden_size
+        gates = self.n_gates * hidden_size
         self.wi = nn.Parameter(torch.empty(in_features, gates))
         self.bi = nn.Parameter(torch.empty(gates))
         self.wh = nn.Parameter(torch.empty(hidden_size, gates))
@@ -75,16 +83,34 @@ class GRULayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x (T, B, E), mask (T, B), nonzero on valid steps -> (T, B, H)."""
         x_proj = x @ self.wi + self.bi
-        return gru_sequence(x_proj, self.wh, self.bh, mask, reverse=self.reverse)
+        return self.sequence(x_proj, self.wh, self.bh, mask, reverse=self.reverse)
 
 
-class BiGRU(nn.Module):
-    """Stacked bidirectional GRU: (B, T, E) -> (B, T, 2H).
+class GRULayer(_RNNLayer):
+    """Single-direction masked GRU (the JAX ``GRULayer(time_major=True)``)."""
+
+    n_gates = 3
+    sequence = staticmethod(gru_sequence)
+
+
+class LSTMLayer(_RNNLayer):
+    """Single-direction masked LSTM, gate order i, f, g, o (the JAX
+    ``LSTMLayer(time_major=True)``)."""
+
+    n_gates = 4
+    sequence = staticmethod(lstm_sequence)
+
+
+class _Bidirectional(nn.Module):
+    """Stacked bidirectional recurrence: (B, T, E) -> (B, T, 2H).
 
     ``layers`` holds, in order, layer 0 forward, layer 0 backward, layer 1
-    forward, ... (the JAX ``GRULayer_0..`` order). Both directions of a layer
-    share one input product and one kernel launch.
+    forward, ... (the JAX ``GRULayer_0..`` / ``LSTMLayer_0..`` order). Both
+    directions of a layer share one input product and one kernel launch.
     """
+
+    layer_cls = None
+    bi_sequence = None
 
     def __init__(self, in_features: int, hidden_size: int, num_layers: int = 2,
                  dropout: float = 0.0, generator: Optional[torch.Generator] = None):
@@ -96,7 +122,7 @@ class BiGRU(nn.Module):
         for layer in range(num_layers):
             width = in_features if layer == 0 else 2 * hidden_size
             for reverse in (False, True):
-                self.layers.append(GRULayer(width, hidden_size, reverse, generator))
+                self.layers.append(self.layer_cls(width, hidden_size, reverse, generator))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -107,12 +133,27 @@ class BiGRU(nn.Module):
         for layer in range(self.num_layers):
             fwd, bwd = self.layers[2 * layer], self.layers[2 * layer + 1]
             x_proj = out @ torch.cat([fwd.wi, bwd.wi], dim=1) + torch.cat([fwd.bi, bwd.bi])
-            out = bigru_sequence(
+            out = self.bi_sequence(
                 x_proj, torch.stack([fwd.wh, bwd.wh]), torch.stack([fwd.bh, bwd.bh]), mask_tm
             )
             if self.training and self.dropout > 0.0 and layer < self.num_layers - 1:
                 out = apply_dropout(out, self.dropout, generator)
         return out.transpose(0, 1)
+
+
+class BiGRU(_Bidirectional):
+    """Stacked bidirectional masked GRU (the JAX ``BiGRU``)."""
+
+    layer_cls = GRULayer
+    bi_sequence = staticmethod(bigru_sequence)
+
+
+class BiLSTM(_Bidirectional):
+    """Stacked bidirectional masked LSTM (the JAX ``BiLSTM``, the latent
+    RNN's ``rnn: LSTM``)."""
+
+    layer_cls = LSTMLayer
+    bi_sequence = staticmethod(bilstm_sequence)
 
 
 class GRUStack(nn.Module):

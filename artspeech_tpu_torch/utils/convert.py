@@ -2,8 +2,8 @@
 
 The input is a flax param tree as nested dicts of numpy arrays (``np.asarray``
 of each leaf); the output is a ``state_dict`` the port's module accepts. GRU,
-head and transformer weights keep the JAX orientation in the port, so the only
-transpose is the one of ``nn.Linear``, here.
+LSTM, head, PCA and transformer weights keep the JAX orientation in the port,
+so the only transpose is the one of ``nn.Linear``, here.
 """
 
 from typing import Dict, Mapping
@@ -16,13 +16,14 @@ def _t(array) -> torch.Tensor:
     return torch.from_numpy(np.array(array, dtype=np.float32))
 
 
-def _gru_layers(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
-    """``GRULayer_{i}/{wi,bi,wh,bh}`` -> ``{prefix}.layers.{i}.*``."""
+def _gru_layers(tree: Mapping, prefix: str, layer: str = "GRULayer") -> Dict[str, torch.Tensor]:
+    """``{layer}_{i}/{wi,bi,wh,bh}`` -> ``{prefix}.layers.{i}.*`` (``layer``
+    GRULayer or LSTMLayer)."""
     out = {}
     for i in range(len(tree)):
-        layer = tree[f"GRULayer_{i}"]
+        weights = tree[f"{layer}_{i}"]
         for name in ("wi", "bi", "wh", "bh"):
-            out[f"{prefix}.layers.{i}.{name}"] = _t(layer[name])
+            out[f"{prefix}.layers.{i}.{name}"] = _t(weights[name])
     return out
 
 
@@ -129,4 +130,47 @@ def transformer_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]
         out[f"{name}_{kind}"] = _t(params[name][kind])
         out[f"{name}_bias"] = _t(params[name]["bias"])
     out.update(_contour_heads(params["predictors"], "predictors"))
+    return out
+
+
+def latent_rnn_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``PrincipalComponentsArtSpeech`` params (its ``BiGRU_0`` or
+    ``BiLSTM_0``) -> the port's ``PrincipalComponentsArtSpeech``."""
+    if "BiGRU_0" in params:
+        rnn = _gru_layers(params["BiGRU_0"], "rnn")
+    else:
+        rnn = _gru_layers(params["BiLSTM_0"], "rnn", layer="LSTMLayer")
+    head = params["PrincipalComponentsPredictor_0"]
+    out = {"embed.weight": _t(params["Embed_0"]["embedding"]), **rnn,
+           **_linear(params["Dense_0"], "dense")}
+    for i in range(3):
+        out.update(_params(head[f"LayerNorm_{i}"], f"predictor.ln{i}",
+                           {"scale": "scale", "bias": "bias"}))
+        out.update(_linear(head[f"Dense_{i}"], f"predictor.dense{i}"))
+    return out
+
+
+def _articulator_net(tree: Mapping, prefix: str) -> Dict[str, torch.Tensor]:
+    """An ``Encoder``/``Decoder`` (``Dense_0..2``) or a ``PCAEncoder``/
+    ``PCADecoder`` (``eigenvalues``, ``eigenvectors``, ``mean``)."""
+    if "Dense_0" in tree:
+        out = {}
+        for i in range(3):
+            out.update(_linear(tree[f"Dense_{i}"], f"{prefix}.dense{i}"))
+        return out
+    return _params(tree, prefix, {name: name for name in ("eigenvalues", "eigenvectors", "mean")})
+
+
+def autoencoder_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``MultiArticulatorAutoencoder`` params (``encoders``/``decoders``),
+    or a ``MultiEncoder``'s or ``MultiDecoder``'s alone (``enc_*``/``dec_*``,
+    as the train CLI saves ``best_encoder`` and ``best_decoder``), AE or PCA
+    -> the port's module of the same class."""
+    out = {}
+    for key, tree in params.items():
+        if key in ("encoders", "decoders"):
+            for name, net in tree.items():
+                out.update(_articulator_net(net, f"{key}.{name}"))
+        else:
+            out.update(_articulator_net(tree, key))
     return out

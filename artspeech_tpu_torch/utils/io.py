@@ -1,5 +1,5 @@
 """Host-side IO helpers (copy of artspeech_tpu/utils/io.py:
-``npy_to_xarticul``, ``sequences_from_dict``)."""
+``npy_to_xarticul``, ``sequences_from_dict``, ``make_indices_dict``)."""
 
 import os
 from typing import Dict, List, Sequence, Tuple
@@ -37,3 +37,18 @@ def sequences_from_dict(
             )
         sequences.extend((subject, seq) for seq in use_seqs)
     return sequences
+
+
+def make_indices_dict(num_components: Dict[str, int]) -> Dict[str, List[int]]:
+    """Convert per-articulator component counts into latent index slots
+    (reference helpers.py:94-114).
+
+    >>> make_indices_dict({'a': 3, 'b': 3, 'c': 2})
+    {'a': [0, 1, 2], 'b': [3, 4, 5], 'c': [6, 7]}
+    """
+    indices_dict = {}
+    start = 0
+    for key, val in num_components.items():
+        indices_dict[key] = list(range(start, start + val))
+        start += val
+    return indices_dict

@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
 workflow through its CLIs, the transformer's KV-cached decode and its
-training on one NVIDIA GPU, and check them.
+training, and the autoencoder-based method (phonemes -> principal
+components) on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -8,9 +9,10 @@ Usage, from the root of the repository, on a machine with one H100:
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles the six kernel libraries,
+  2. build   — compiles the eight kernel libraries,
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
-               train_attention}.cu, one nvcc each, all started together;
+               train_attention,lstm_fwd,lstm_bwd}.cu, one nvcc each, all
+               started together;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -28,7 +30,14 @@ Phases, each printing its own lines:
                transformer) with L 32 and 128, L 512 and 37 at G = 360, the
                all-ones and a seeded dropout keep mask: the forward within
                2e-5, dQ/dK/dV within 1e-4 * max(|ref|, 1), and L = 513
-               refused;
+               refused; the LSTM forward and backward (lstm_fwd.cu,
+               lstm_bwd.cu) at H 16, 64 and 128, B 1, 3, 12 and 64, T 1, 7 and
+               128 (LSTM_CASES), both directions in one launch and each alone,
+               ragged lengths with a full row and a row of length 1, f32 and
+               bf16, held as the GRU kernels are (the forward's cell states
+               relative to max(|c|, 1)); the widest H each takes in f32
+               (forward 164, backward 160) run and agree, the next width and
+               H = 6 are refused;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -66,7 +75,22 @@ Phases, each printing its own lines:
                (state_dict_filepath: the train run's best/state, and
                save_to added) on S05 at the card's generate batch (64) with
                bf16 caches: launches, artifacts, TV CSVs;
-  7. decode  — the full-width transformer (train_transformer.yaml: embed 64,
+  7. pc      — the autoencoder-based method through its nine CLI runs over
+               the same corpus, from YAML files written from the text of
+               configs/autoencoder_based/ (only paths, the database,
+               num_epochs: 2, state-dict paths and, for the LSTM model,
+               model_kwargs.rnn / model_params.rnn changed):
+               calculate_normalization_statistics, train_articulatory_pca,
+               train and test_principal_components_autoencoder, then
+               train_phoneme_to_principal_components three times (the AE
+               config as it stands, rnn: GRU; the same with rnn: LSTM; the
+               PCA-based config), test_phoneme_to_principal_components on the
+               LSTM model and generate_vocal_tract_shape with method:
+               autoencoder from it. Every kernel's launches on each run
+               against counts worked out beforehand from the corpus's
+               batches, the files each writes, finiteness, and each test
+               CLI's results against its train CLI's final test;
+  8. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
                caches, with exactly 8 * T flash_decode launches a batch,
@@ -75,7 +99,7 @@ Phases, each printing its own lines:
                {32, 64, 96, 112, 128} (make_auto_generate's band); and the
                card against the CPU: one attend, forward and encode within
                1e-4, a T = 16 decode with f32 caches within 1e-4 per frame;
-  8. train_transformer — the same transformer in training (dropout 0.1,
+  9. train_transformer — the same transformer in training (dropout 0.1,
                AdamW lr 1e-4 wd 1e-5) at T = 128: one train step at B = 12
                and 64 with exactly 4 forward and 4 backward train_attention
                launches (one each a decoder layer) and nothing else, step ms,
@@ -85,7 +109,16 @@ Phases, each printing its own lines:
                16, 8, 4, 2); 20 steps on one batch (the loss must fall); and
                one step at dropout 0 on the card against the CPU (as the
                ArtSpeech one);
-  9. timing  — CUDA-event times of each kernel, its plain version and a
+ 10. latent_rnn — the latent RNN of train_autoencoder_based.yaml at full
+               width (embed 64, hidden 128, latent 35) with rnn: LSTM and
+               its composite loss over a seeded frozen autoencoder: one
+               train step at T = 128, B = 12 and 64 with exactly 2 + 2 lstm
+               launches and nothing else, the synthesis forward (RNN ->
+               frozen decoder -> denorm) at B = 16 with exactly 2, each with
+               frames/s and the device breakdown; 20 steps on one batch (the
+               loss must fall); one step on the card against the CPU, held
+               to float64 as the transformer's;
+ 11. timing  — CUDA-event times of each kernel, its plain version and a
                PyTorch library call that computes the same function (a
                yardstick the port never calls), the bound, synthesis frames/s,
                train frames/s at B=12 and B=256 and test frames/s at B=12
@@ -98,7 +131,9 @@ Phases, each printing its own lines:
                and backward at the B = 12 and B = 64 shapes (L = 128, the
                dropout keep) the same way, against scaled_dot_product_attention
                (is_causal, all-ones keep: forward, and forward + backward
-               minus forward).
+               minus forward); both LSTM kernels at T = 128, H = 128, B = 12
+               and 64 the same way, against cuDNN's nn.LSTM (forward, and
+               forward + backward minus forward).
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
@@ -117,12 +152,18 @@ import numpy as np
 import torch
 
 from artspeech_tpu_torch.cli import (
+    calculate_normalization_statistics,
     config_file,
     generate_vocal_tract_shape,
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
+    test_phoneme_to_principal_components,
+    test_principal_components_autoencoder,
+    train_articulatory_pca,
     train_phoneme_to_articulation,
     train_phoneme_to_articulation_transformer,
+    train_phoneme_to_principal_components,
+    train_principal_components_autoencoder,
 )
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
 from artspeech_tpu_torch.core.config import DATASET_CONFIG, mm_per_unit
@@ -131,16 +172,24 @@ from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, pick_bucket
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
+from artspeech_tpu_torch.data.pc_datasets import AutoencoderDataset, PrincipalComponentsDataset
 from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
 from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry.area_function import tube_area_function
 from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
+from artspeech_tpu_torch.losses.autoencoder import make_autoencoder_loss
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
+from artspeech_tpu_torch.models.autoencoder import MultiArticulatorAutoencoder, normalize_indices_dict
+from artspeech_tpu_torch.models.latent_rnn import (
+    PrincipalComponentsArtSpeech,
+    make_latent_rnn_synthesis_forward,
+)
 from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_fast_generate
 from artspeech_tpu_torch.ops import (
     _build,
     hopper_attention,
     hopper_gru,
+    hopper_lstm,
     hopper_min_dist,
     hopper_p2cp,
     hopper_train_attention,
@@ -149,6 +198,7 @@ from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_c
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
 from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss
+from artspeech_tpu_torch.train.pc_step import make_latent_rnn_train_step
 from artspeech_tpu_torch.train.step import (
     make_artspeech_eval_step,
     make_artspeech_train_step,
@@ -187,6 +237,8 @@ REPLACES = {
                            "pallas_call at :192)",
     "train_attention_bwd": "artspeech_tpu/ops/pallas_train_attention.py:124 (_bwd_kernel, "
                            "pallas_call at :215)",
+    "lstm_fwd": "artspeech_tpu/ops/pallas_gru.py:321 (_lstm_fwd_kernel, pallas_call at :465)",
+    "lstm_bwd": "artspeech_tpu/ops/pallas_gru.py:357 (_lstm_bwd_kernel, pallas_call at :507)",
 }
 KERNELS = tuple(REPLACES)
 #: The library (ops/csrc/<name>.cu) of each kernel.
@@ -228,6 +280,22 @@ TRAIN_ATTN_PAIRS = 90
 TRAIN_T = 128
 TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
 MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
+#: The LSTM kernels against their plain versions, (T, B, H): the latent
+#: RNN's B = 12 and B = 64 at T = 128 and H = 128, and T in {1, 7, 128},
+#: B in {1, 3, 12, 64}, H in {16, 64, 128} around them; each in f32 and
+#: bf16, both directions in one launch and each alone, ragged lengths with a
+#: full row and (B > 1) a row of length 1. Then the widest H each kernel
+#: takes in f32 (forward 164, backward 160), and the next width, refused.
+LSTM_CASES = [(128, 12, 128), (128, 64, 128), (7, 3, 64), (1, 1, 16), (7, 64, 16),
+              (128, 3, 64), (1, 12, 128)]
+LSTM_EDGE = {"lstm_fwd": (164, 168), "lstm_bwd": (160, 164)}  # f32 (widest taken, refused)
+LSTM_SHAPES = [(128, 12, 128), (128, 64, 128)]  # timed: (T, B, H)
+PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
+#: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
+#: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
+#: over a seeded frozen autoencoder (in 100, hidden 50), trained at its batch
+#: (12) and at 64, T = 128; the synthesis forward at bench.py's B = 16.
+LATENT_T, LATENT_BATCHES, SYNTH_B = 128, (12, 64), 16
 
 
 def check(cond, message):
@@ -549,6 +617,122 @@ def train_attention_vs_plain():
 
 # -- the synthesis path ----------------------------------------------------------
 
+def lstm_inputs(t, b, h, n_dir, dtype, seed):
+    """Seeded x_proj (T, B, D*4H), w_h (D, H, 4H), b_h (D, 4H) and a ragged
+    mask (T, B) with a full row and, for B > 1, a row of length 1."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn(t, b, n_dir * 4 * h, generator=g) * 0.5
+    wh = torch.randn(n_dir, h, 4 * h, generator=g) * 0.1
+    bh = torch.randn(n_dir, 4 * h, generator=g) * 0.1
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[-1] = 1
+    lengths[0] = t
+    mask = torch.arange(t)[:, None] < lengths[None, :]
+    return [v.to(dtype).cuda() for v in (xp, wh, bh)] + [mask.cuda()]
+
+
+LSTM_LAYOUTS = (("bidirectional", 2, 0b10), ("forward", 1, 0), ("reverse", 1, 1))
+
+
+def lstm_fwd_vs_plain():
+    """The forward kernel against its plain version at LSTM_CASES, both
+    directions in one launch and each alone: ys within F32_TOL (bf16:
+    BF16_TOL, h in (-1, 1)); the cell states, unbounded, within the same
+    figure relative to max(|c|, 1); and the inference launch (no cell
+    states) writes the same ys. Returns the largest f32 ys error at the
+    latent RNN's shape."""
+    worst = 0.0
+    for t, b, h in LSTM_CASES:
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            errs = {}
+            for name, n_dir, rev_bits in LSTM_LAYOUTS:
+                xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=t + b + h + n_dir)
+                ys, cs = hopper_lstm.lstm_forward(xp, wh, bh, mask, rev_bits, with_cells=True)
+                inference, _ = hopper_lstm.lstm_forward(xp, wh, bh, mask, rev_bits)
+                ref_ys, ref_cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, rev_bits,
+                                                                     with_cells=True)
+                torch.cuda.synchronize()
+                errs[f"ys_{name}"] = (ys.float() - ref_ys.float()).abs().max().item()
+                errs[f"cs_{name}"] = rel_err(cs, ref_cs)
+                check(torch.equal(ys, inference), f"lstm_fwd without cell states differs at "
+                                                  f"{(t, b, h)} {dtype} {name}")
+            phase("kernel", kernel="lstm_fwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
+                  tol=tol, **{f"err_{k}": f"{v:.3g}" for k, v in errs.items()})
+            check(all(np.isfinite(v) and v <= tol for v in errs.values()),
+                  f"lstm_fwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            if dtype == torch.float32 and (t, b, h) == LSTM_SHAPES[0]:
+                worst = max(v for k, v in errs.items() if k.startswith("ys_"))
+    return worst
+
+
+def lstm_bwd_vs_plain():
+    """The backward kernel against its plain version (dx_proj, dW_h, db_h,
+    relative to max(|ref|, 1)) at LSTM_CASES, from the plain forward's ys and
+    cell states. Returns the largest f32 absolute error at the latent RNN's
+    shape and the largest f32 relative one."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for t, b, h in LSTM_CASES:
+        for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+            errs, abs_errs = {}, {}
+            for name, n_dir, rev_bits in LSTM_LAYOUTS:
+                xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=2 * t + b + h + n_dir)
+                ys, cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, rev_bits,
+                                                            with_cells=True)
+                gy = torch.randn(t, b, n_dir * h, generator=torch.Generator().manual_seed(b),
+                                 device="cpu").to(dtype).cuda()
+                got = hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, rev_bits)
+                ref = hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, rev_bits)
+                torch.cuda.synchronize()
+                for part, a, r in zip(("dx", "dW", "db"), got, ref):
+                    errs[f"{name}_{part}"] = rel_err(a, r)
+                    abs_errs[f"{name}_{part}"] = (a.float() - r.float()).abs().max().item()
+            phase("kernel", kernel="lstm_bwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
+                  tol=tol, **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()})
+            check(all(np.isfinite(v) and v <= tol for v in errs.values()),
+                  f"lstm_bwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            if dtype == torch.float32:
+                worst_rel = max(worst_rel, *errs.values())
+                if (t, b, h) == LSTM_SHAPES[0]:
+                    worst_abs = max(abs_errs.values())
+    return worst_abs, worst_rel
+
+
+def lstm_widths():
+    """The widest H each kernel takes in f32 runs and agrees with its plain
+    version (T = 7, B = 3, both directions); the next multiple of 4, and an
+    H that is not one, are refused with a ValueError."""
+    for kernel, (widest, refused) in LSTM_EDGE.items():
+        xp, wh, bh, mask = lstm_inputs(7, 3, widest, 2, torch.float32, seed=widest)
+        ys, cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, 0b10, with_cells=True)
+        if kernel == "lstm_fwd":
+            got = hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10, with_cells=True)
+            err = max(rel_err(a, r) for a, r in zip(got, (ys, cs)))
+            tol = F32_TOL
+        else:
+            gy = torch.randn_like(ys)
+            got = hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, 0b10)
+            ref = hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, 0b10)
+            err, tol = max(rel_err(a, r) for a, r in zip(got, ref)), BWD_F32_TOL
+        torch.cuda.synchronize()
+        refusals, reason = {}, ""
+        for h in (refused, 6):
+            xp, wh, bh, mask = lstm_inputs(7, 3, h, 2, torch.float32, seed=h)
+            try:
+                if kernel == "lstm_fwd":
+                    hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10)
+                else:
+                    ys = torch.zeros(7, 3, 2 * h, device="cuda")
+                    hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, ys, ys, 0b10)
+                refusals[h] = "ran"
+            except ValueError as exc:
+                refusals[h] = "refused"
+                reason = str(exc)
+        phase("kernel", kernel=kernel, widest_f32_H=widest, rel_err=f"{err:.3g}", tol=tol,
+              **{f"H{h}": v for h, v in refusals.items()}, reason=reason.replace(" ", "_")[:80])
+        check(err <= tol, f"{kernel} at H={widest}: {err}")
+        check(all(v == "refused" for v in refusals.values()), f"{kernel} took {refusals}")
+
+
 class Sentences:
     """Seeded in-memory sentences with the SynthesisDataset interface."""
 
@@ -853,13 +1037,15 @@ def launch_counts():
             "p2cp": hopper_p2cp.launches, "min_dist": hopper_min_dist.launches,
             "flash_decode": hopper_attention.launches,
             "train_attention_fwd": hopper_train_attention.launches_fwd,
-            "train_attention_bwd": hopper_train_attention.launches_bwd}
+            "train_attention_bwd": hopper_train_attention.launches_bwd,
+            "lstm_fwd": hopper_lstm.launches, "lstm_bwd": hopper_lstm.bwd_launches}
 
 
 def reset_launch_counts():
     hopper_gru.launches = hopper_gru.bwd_launches = hopper_p2cp.launches = 0
     hopper_min_dist.launches = hopper_attention.launches = 0
     hopper_train_attention.launches_fwd = hopper_train_attention.launches_bwd = 0
+    hopper_lstm.launches = hopper_lstm.bwd_launches = 0
 
 
 def batch_buckets(lengths, batch_size):
@@ -876,24 +1062,44 @@ def n_batches(lengths, batch_size):
     return len(batch_buckets(lengths, batch_size))
 
 
-def thesis_config(name, path, changes, added=None):
-    """Write configs/model_free/<name>.yaml to ``path`` with the value of
-    each top-level key in ``changes`` replaced, line by line, and the keys of
-    ``added`` appended; returns the config as the CLI reads it, after checking
-    that no other key differs from the repository's."""
+def thesis_config(name, path, changes, added=None, folder=THESIS_CONFIGS):
+    """Write ``folder``/<name>.yaml to ``path`` with the value of each
+    top-level key in ``changes`` replaced, line by line, and the keys of
+    ``added`` appended; a key ``parent.child`` of ``changes`` replaces, or
+    adds, the child's line in the block of the top-level mapping ``parent``.
+    Returns the config as the CLI reads it, after checking that no other key
+    differs from the repository's."""
     added = added or {}
-    src = os.path.join(THESIS_CONFIGS, f"{name}.yaml")
+    src = os.path.join(folder, f"{name}.yaml")
     with open(src) as f:
         lines = f.read().splitlines()
+    nested = {tuple(k.split(".", 1)): v for k, v in changes.items() if "." in k}
     out = []
     for line in lines:
         key = line.split(":", 1)[0]
         out.append(f"{key}: {changes[key]}" if key in changes else line)
+    for (parent, child), value in nested.items():
+        at = out.index(f"{parent}:") + 1
+        block = at
+        while block < len(out) and out[block].startswith("  "):
+            block += 1
+        entry = f"  {child}: {value}"
+        mine = [i for i in range(at, block) if out[i].strip().split(":", 1)[0] == child]
+        if mine:
+            out[mine[0]] = entry
+        else:
+            out.insert(at, entry)
     out += [f"{key}: {value}" for key, value in added.items()]
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")
     cfg, original = config_file.load(path), config_file.load(src)
     changed = {k for k in cfg.keys() | original.keys() if cfg.get(k) != original.get(k)}
+    for parent in {p for p, _ in nested}:
+        children = {c for p, c in nested if p == parent}
+        strip = lambda d: {k: v for k, v in (d or {}).items() if k not in children}  # noqa: E731
+        check(strip(cfg[parent]) == strip(original[parent]),
+              f"{name}: {parent} changed beyond {sorted(children)}")
+        changed.discard(parent)
     check(changed <= set(changes) | set(added) and set(cfg) == set(original) | set(added),
           f"{name}: keys {sorted(changed)} changed, only {sorted(changes)} and {sorted(added)} may")
     return cfg
@@ -1179,6 +1385,160 @@ def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
           f"card and CPU pick other places of constriction: {shares}")
 
 
+# -- the autoencoder-based method through its CLIs -------------------------------
+
+PC_PATHS = ("pc_norm_stats", "pc_train_pca", "pc_train_ae", "pc_test_ae", "pc_train_ae_gru",
+            "pc_train_ae_lstm", "pc_train_pca_gru", "pc_test_lstm", "pc_generate")
+
+
+def pc_path(tmp, corpus, vocab_path):
+    """The autoencoder-based method through its nine CLI runs on the card,
+    over the [cli] corpus, from YAML files written from the text of
+    configs/autoencoder_based/ (only paths, the database, num_epochs: 2,
+    state-dict paths and, for the LSTM model, model_kwargs.rnn /
+    model_params.rnn changed). Returns the launch counts and wall seconds of
+    each run."""
+    corpus_keys = {"database_name": "gottingen", "datadir": corpus, "vocab_filepath": vocab_path}
+    out = {p: os.path.join(tmp, p) for p in PC_PATHS}
+    ae_ckpts = os.path.join(out["pc_train_ae"], "checkpoints")
+    ae_paths = {"encoder_state_dict_filepath": os.path.join(ae_ckpts, "best_encoder"),
+                "decoder_state_dict_filepath": os.path.join(ae_ckpts, "best_decoder")}
+    pca = os.path.join(out["pc_train_pca"], "pca")
+    lstm = os.path.join(out["pc_train_ae_lstm"], "checkpoints")
+    configs = {
+        "pc_norm_stats": ("norm_stats", corpus_keys),
+        "pc_train_pca": ("train_articulatory_pca", corpus_keys),
+        "pc_train_ae": ("train_autoencoder", {**corpus_keys, "num_epochs": 2}),
+        "pc_test_ae": ("test_autoencoder", {"database_name": "gottingen", "datadir": corpus,
+                                            "checkpoint_dir": os.path.join(ae_ckpts, "best")}),
+        "pc_train_ae_gru": ("train_autoencoder_based", {**corpus_keys, "num_epochs": 2, **ae_paths}),
+        "pc_train_ae_lstm": ("train_autoencoder_based", {**corpus_keys, "num_epochs": 2, **ae_paths,
+                                                         "model_kwargs.rnn": "LSTM"}),
+        "pc_train_pca_gru": ("train_pca_based", {
+            **corpus_keys, "num_epochs": 2,
+            "encoder_state_dict_filepath": os.path.join(pca, "encoder"),
+            "decoder_state_dict_filepath": os.path.join(pca, "decoder")}),
+        "pc_test_lstm": ("test_autoencoder_based", {
+            **corpus_keys, **ae_paths, "state_dict_filepath": os.path.join(lstm, "best", "state"),
+            "model_kwargs.rnn": "LSTM"}),
+        "pc_generate": ("generate_vocal_tract_shape_autoencoder", {
+            **corpus_keys, "state_dict_filepath": os.path.join(lstm, "best_model"),
+            "decoder_state_dict_filepath": ae_paths["decoder_state_dict_filepath"],
+            "norm_stats_dir": corpus, "save_to": os.path.join(tmp, "pc_synthesis"),
+            "model_params.rnn": "LSTM"}),
+    }
+    cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes, folder=PC_CONFIGS)
+            for p, (name, changes) in configs.items()}
+
+    # Counted beforehand from the corpus: the autoencoder validates with one
+    # P2CP launch a frame batch and tests with two (the eval step's metric
+    # and the per-articulator errors); a latent-RNN forward is one launch of
+    # its kernel a BiGRU/BiLSTM layer (2), a train step adds 2 backward
+    # launches, a valid batch one P2CP launch, a test batch one P2CP and 8
+    # min_dist launches (4 TVs of predictions and targets); the synthesis,
+    # one forward a batch of 8 sentences.
+    vocabulary = load_vocabulary(vocab_path)
+    arts = sorted(normalize_indices_dict(cfgs["pc_train_ae"]["indices_dict"]))
+
+    def frames(p, key):
+        cfg = cfgs[p]
+        n = len(AutoencoderDataset(corpus, "gottingen", sequences_from_dict(corpus, cfg[key]),
+                                   arts, clip_tails=cfg.get("clip_tails", True)))
+        return -(-n // cfg["batch_size"])
+
+    def lengths(p, key):
+        cfg = cfgs[p]
+        dataset = PrincipalComponentsDataset(corpus, "gottingen",
+                                             sequences_from_dict(corpus, cfg[key]), vocabulary,
+                                             arts, clip_tails=cfg.get("clip_tails", True))
+        return {d["sentence_name"]: len(d["frame_ids"]) for d in dataset.data}
+
+    none, epochs = dict.fromkeys(KERNELS, 0), 2
+    ae_va, ae_te = frames("pc_train_ae", "valid_seq_dict"), frames("pc_train_ae", "test_seq_dict")
+    expected = {"pc_norm_stats": none, "pc_train_pca": none,
+                "pc_train_ae": {**none, "p2cp": epochs * ae_va + 2 * ae_te},
+                "pc_test_ae": {**none, "p2cp": 2 * frames("pc_test_ae", "test_seq_dict")}}
+    for p, fwd, bwd in (("pc_train_ae_gru", "gru_fwd", "gru_bwd"),
+                        ("pc_train_ae_lstm", "lstm_fwd", "lstm_bwd"),
+                        ("pc_train_pca_gru", "gru_fwd", "gru_bwd")):
+        batch = cfgs[p]["batch_size"]
+        tr, va, te = (n_batches(lengths(p, key).values(), batch)
+                      for key in ("train_seq_dict", "valid_seq_dict", "test_seq_dict"))
+        expected[p] = {**none, fwd: 2 * (epochs * (tr + va) + te), bwd: 2 * epochs * tr,
+                       "p2cp": epochs * va + te, "min_dist": 8 * te}
+    test_lengths = lengths("pc_test_lstm", "test_seq_dict")
+    te = n_batches(test_lengths.values(), cfgs["pc_test_lstm"]["batch_size"])
+    expected["pc_test_lstm"] = {**none, "lstm_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te}
+    gen = cfgs["pc_generate"]
+    sentences = DATABASE_COLLECTORS["gottingen"](corpus).collect_data(
+        sequences_from_dict(corpus, gen["seq_dict"]))
+    expected["pc_generate"] = {**none, "lstm_fwd": 2 * -(-len(sentences) // 8)}
+    phase("pc", ae_valid_frame_batches=ae_va, ae_test_frame_batches=ae_te,
+          latent_test_sentences=len(test_lengths), synthesis_sentences=len(sentences))
+
+    modules = {"pc_norm_stats": calculate_normalization_statistics,
+               "pc_train_pca": train_articulatory_pca,
+               "pc_train_ae": train_principal_components_autoencoder,
+               "pc_test_ae": test_principal_components_autoencoder,
+               "pc_train_ae_gru": train_phoneme_to_principal_components,
+               "pc_train_ae_lstm": train_phoneme_to_principal_components,
+               "pc_train_pca_gru": train_phoneme_to_principal_components,
+               "pc_test_lstm": test_phoneme_to_principal_components,
+               "pc_generate": generate_vocal_tract_shape}
+    results, launches, seconds = {}, {}, {}
+    for p in PC_PATHS:
+        reset_launch_counts()
+        results[p], seconds[p] = run_cli(modules[p], os.path.join(tmp, f"{p}.yaml"), out[p])
+        launches[p] = launch_counts()
+        phase("pc", cli=p, seconds=f"{seconds[p]:.3f}",
+              **{f"{k}_launches": v for k, v in launches[p].items() if v or expected[p][k]},
+              **{f"{k}_expected": v for k, v in expected[p].items() if v})
+        check(launches[p] == expected[p], f"{p}: kernel launches {launches[p]}, "
+                                          f"expected {expected[p]}")
+    check(launches["pc_train_ae_lstm"]["lstm_bwd"] > 0 and launches["pc_generate"]["lstm_fwd"] > 0,
+          "the LSTM latent RNN launched no lstm kernel")
+
+    # What the CLIs wrote.
+    check(finite_npys(os.path.join(corpus, "normalization_statistics")) == 2 * len(arts),
+          "normalization statistics")
+    for part in ("encoder", "decoder"):
+        check(os.path.isfile(os.path.join(pca, part)), f"train_articulatory_pca wrote no {part}")
+    for sub in ("best/state.pt", "last/state.pt", "best_encoder", "best_decoder"):
+        check(os.path.isfile(os.path.join(ae_ckpts, sub)), f"the AE train CLI wrote no {sub}")
+    ae_tests = {p: os.path.join(out[p], "test_outputs") for p in ("pc_train_ae", "pc_test_ae")}
+    for name in ("latents.npy", "latent_covariance.npy", "nomograms.npz", "test_results.json"):
+        check(all(os.path.isfile(os.path.join(d, name)) for d in ae_tests.values()), name)
+    check(os.path.isfile(os.path.join(ae_tests["pc_test_ae"], "latent_histograms.npz")),
+          "latent_histograms.npz")
+    ae_train, ae_test = flat(results["pc_train_ae"]), flat(results["pc_test_ae"])
+    diff = max(abs(ae_test[k] - v) for k, v in ae_train.items())
+    check(ae_test.keys() == ae_train.keys() and diff <= 1e-6 and
+          all(np.isfinite(v) for v in ae_train.values()),
+          f"the AE test CLI differs from the train CLI's final test by {diff}")
+    phase("pc", cli="pc_test_ae", p2cp_mm=f"{results['pc_test_ae']['p2cp_mm']:.6g}",
+          vs_train_cli_max_abs_diff=f"{diff:.3g}")
+    n_arts = len(arts) + 1  # with the upper incisor
+    for p in ("pc_train_ae_gru", "pc_train_ae_lstm", "pc_train_pca_gru", "pc_test_lstm"):
+        frames_seen, tv_rows = check_test_outputs(os.path.join(out[p], "test_outputs", "0"),
+                                                  test_lengths, n_arts)
+        check(all(np.isfinite(v) for v in flat(results[p]).values()), f"{p}: non-finite results")
+        phase("pc", cli=p, test_frames=frames_seen, tv_csv_rows=tv_rows,
+              p2cp_mm=f"{results[p]['p2cp_mm']:.6g}")
+    # The test config batches 8 sentences, the train config 12: the frozen
+    # decoder's products and the batch reductions run at other shapes, so
+    # the two agree to float32 rounding relative to each value (p2cp_mm is
+    # tens of millimetres), not to 1e-6 absolute as the [cli] pair does.
+    lstm_train, lstm_test = flat(results["pc_train_ae_lstm"]), flat(results["pc_test_lstm"])
+    diff = max(abs(lstm_test[k] - v) / max(abs(v), 1.0) for k, v in lstm_train.items())
+    phase("pc", test_cli_vs_train_cli_final_test_max_rel_diff=f"{diff:.3g}", tol=1e-6)
+    check(lstm_test.keys() == lstm_train.keys() and diff <= 1e-6,
+          f"the latent-RNN test CLI differs from the train CLI's final test by {diff} relative")
+    synthesized = check_synthesis(gen["save_to"], sentences, n_arts)
+    check(len(results["pc_generate"]) == len(sentences), "pc_generate: sentences written")
+    phase("pc", cli="pc_generate", sentences=len(sentences), frames=synthesized, finite=True)
+    return launches, seconds
+
+
 # -- the transformer's KV-cached decode -----------------------------------------
 
 def thesis_transformer(device, dropout=None):
@@ -1440,7 +1800,18 @@ def transformer_train_against_cpu():
     finally:
         hopper_train_attention.fused_causal_attend = saved
     exact = {n: p.grad for n, p in model.named_parameters()}
-    zero = {n for n in exact if n.endswith("key_bias")}
+    step_against_f64("train_transformer", "dropout=0,B=2,T=32", out, exact,
+                     zero={n for n in exact if n.endswith("key_bias")})
+
+
+def step_against_f64(tag, label, out, exact, zero=frozenset()):
+    """Hold one train step on the card to the same step on the CPU and to
+    float64 gradients (the rules of transformer_train_against_cpu).
+
+    ``out[device]`` is (metrics, float64 copies of the gradients, the
+    updated parameters) of the step on ``cuda`` and on ``cpu``; ``exact``
+    the float64 gradients; ``zero`` the parameters whose exact gradient is
+    zero (held to 1e-6 of the largest gradient instead)."""
 
     def global_err(grads):
         num = sum(((grads[n] - exact[n]) ** 2).sum().item() for n in exact if n not in zero)
@@ -1463,21 +1834,172 @@ def transformer_train_against_cpu():
             flips += int(flipped.sum())
             flip_share = max(flip_share, (g_cpu.abs()[flipped].max() / g_cpu.abs().max()).item())
     largest = max(g.abs().max().item() for g in exact.values())
-    zero_share = max(out[d][1][n].abs().max().item() for d in out for n in zero) / largest
+    zero_share = max((out[d][1][n].abs().max().item() for d in out for n in zero),
+                     default=0.0) / largest
     per_tensor = {"card_vs_cpu": max(rel(card[1][n], cpu[1][n]) for n in exact if n not in zero),
                   "cpu_vs_f64": max(rel(cpu[1][n], exact[n]) for n in exact if n not in zero)}
-    phase("train_transformer", against_cpu="dropout=0,B=2,T=32", metric_rel_err=f"{metric_err:.3g}",
+    phase(tag, against_cpu=label, metric_rel_err=f"{metric_err:.3g}",
           grads_vs_f64_global_rel_card=f"{err_card:.3g}", grads_vs_f64_global_rel_cpu=f"{err_cpu:.3g}",
           grads_card_vs_cpu_max_rel_per_tensor=f"{per_tensor['card_vs_cpu']:.3g}",
           grads_cpu_vs_f64_max_rel_per_tensor=f"{per_tensor['cpu_vs_f64']:.3g}",
           params_diff_over_lr_same_sign_g_ge_100eps=f"{param_err:.3g}", sign_flips=flips,
-          sign_flip_max_share=f"{flip_share:.3g}", zero_grads_over_largest=f"{zero_share:.3g}")
-    check(metric_err <= 1e-4, f"card and CPU transformer steps disagree on the metrics: {metric_err}")
+          sign_flip_max_share=f"{flip_share:.3g}",
+          **({"zero_grads_over_largest": f"{zero_share:.3g}"} if zero else {}))
+    check(metric_err <= 1e-4, f"card and CPU {tag} steps disagree on the metrics: {metric_err}")
     check(err_card <= max(2 * err_cpu, 1e-4),
           f"the card's gradients are further from float64 ({err_card}) than twice the CPU's ({err_cpu})")
     check(param_err <= 1e-2, f"card and CPU updated parameters part by {param_err} lr")
     check(flip_share <= 1e-2, f"a gradient of {flip_share} of its tensor's largest flips sign")
-    check(zero_share <= 1e-6, f"key-bias gradients reach {zero_share} of the largest")
+    check(zero_share <= 1e-6, f"exactly-zero gradients reach {zero_share} of the largest")
+
+
+# -- the latent RNN at full width ------------------------------------------------
+
+def latent_config():
+    """train_autoencoder_based.yaml and its indices_dict (10 articulators,
+    latent 35)."""
+    cfg = config_file.load(os.path.join(PC_CONFIGS, "train_autoencoder_based.yaml"))
+    return cfg, normalize_indices_dict(cfg["indices_dict"])
+
+
+def pc_stats():
+    """Seeded per-articulator statistics (10, 2, 50): means of contours in
+    [0, 1], standard deviations of a few hundredths."""
+    rng = np.random.default_rng(4)
+    mean = rng.uniform(0.3, 0.7, (len(RECOGNITION_ARTICULATORS), 2, 50)).astype(np.float32)
+    std = rng.uniform(0.02, 0.08, (len(RECOGNITION_ARTICULATORS), 2, 50)).astype(np.float32)
+    return mean, std
+
+
+def latent_loss(device, dtype=torch.float32):
+    """The config's composite loss (beta 0.5 / 3 / 1, the LA, TTCD and TBCD
+    critical loss) over a frozen autoencoder at the config's widths (in 100,
+    hidden 50) with seeded weights. Returns (loss_fn, decode, mean, std), the
+    statistics as numpy."""
+    cfg, indices = latent_config()
+    ae = MultiArticulatorAutoencoder(indices, 100, 50, generator=torch.Generator().manual_seed(4),
+                                     device=device).to(dtype).requires_grad_(False)
+    mean, std = pc_stats()
+    loss_fn = make_autoencoder_loss(
+        ae.encode, ae.decode, sorted(cfg["TV_to_phoneme_map"]), sorted(indices),
+        beta1=cfg["beta1"], beta2=cfg["beta2"], beta3=cfg["beta3"],
+        rescale_factor=cfg["rescale_factor"],
+        denorm_mean=torch.as_tensor(mean, dtype=dtype, device=device),
+        denorm_std=torch.as_tensor(std, dtype=dtype, device=device))
+    return loss_fn, ae.decode, mean, std
+
+
+def latent_model(device, rnn="LSTM"):
+    """The config's latent RNN (embed 64, hidden 128, its rnn_dropout 0) with
+    ``rnn``, weights from seed 0."""
+    _, indices = latent_config()
+    return PrincipalComponentsArtSpeech(VOCAB, indices, rnn=rnn,
+                                        generator=torch.Generator().manual_seed(0), device=device)
+
+
+def pc_batch(b, t, seed, device, ragged=True):
+    """A seeded latent-RNN batch: fixed_batch's tokens and smooth contours,
+    normalized with pc_stats; incisor references; critical frames of the
+    three TVs drawn at random."""
+    batch = fixed_batch(b, t, seed, "cpu", ragged)
+    mean, std = pc_stats()
+    rng = np.random.default_rng(seed)
+    references = np.stack([smooth_contours(t, rng, n_art=1) for _ in range(b)])
+    batch.update(targets=(batch["targets"] - torch.from_numpy(mean)) / torch.from_numpy(std),
+                 references=torch.from_numpy(references),
+                 critical_masks=torch.from_numpy(rng.integers(0, 2, (b, 3, t)).astype(np.int32)))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def latent_rnn_path():
+    """The full-width LSTM latent RNN on the card: one train step (AdamW at
+    the config's lr and wd) at T = 128 and B = 12, 64 with exactly 2 forward
+    and 2 backward lstm launches and nothing else; the synthesis forward
+    (RNN -> frozen decoder -> denorm) at B = 16 with exactly 2 forward
+    launches; each with frames/s and its device breakdown. Returns the
+    launches of one pass of each."""
+    cfg, _ = latent_config()
+    loss_fn, decode, mean, std = latent_loss("cuda")
+    step = make_latent_rnn_train_step(loss_fn, decode, mean, std, TO_MM, cfg["rescale_factor"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    total = dict.fromkeys(KERNELS, 0)
+    for b in LATENT_BATCHES:
+        st = state.create_train_state(latent_model("cuda"), cfg["learning_rate"], cfg["weight_decay"])
+        batch = pc_batch(b, LATENT_T, seed=b, device="cuda", ragged=False)
+        reset_launch_counts()
+        loss = step(st, batch, gen)["loss"].item()
+        counts = launch_counts()
+        expected = {**dict.fromkeys(KERNELS, 0), "lstm_fwd": 2, "lstm_bwd": 2}
+        check(counts == expected, f"latent RNN train step B={b}: launches {counts}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        step_ms, peak_gib = timed_step(step, st, batch, gen, f"latent_rnn_train_B{b}")
+        phase("latent_rnn", step="train", B=b, T=LATENT_T, rnn="LSTM", loss=f"{loss:.6g}",
+              step_ms=f"{step_ms:.6g}", frames_per_s=f"{b * LATENT_T / step_ms * 1e3:.6g}",
+              lstm_fwd_launches=counts["lstm_fwd"], lstm_bwd_launches=counts["lstm_bwd"],
+              peak_gib=f"{peak_gib:.3f}")
+    model = latent_model("cuda")
+    forward = make_latent_rnn_synthesis_forward(
+        model, decode, torch.as_tensor(mean, device="cuda"), torch.as_tensor(std, device="cuda"),
+        rescale_factor=cfg["rescale_factor"])
+    batch = pc_batch(SYNTH_B, LATENT_T, seed=16, device="cuda", ragged=False)
+
+    def synthesize():
+        with torch.inference_mode():
+            return forward(batch["tokens"], batch["lengths"])
+
+    reset_launch_counts()
+    shapes = synthesize()
+    counts = launch_counts()
+    check(counts == {**dict.fromkeys(KERNELS, 0), "lstm_fwd": 2},
+          f"latent RNN synthesis forward: launches {counts}")
+    check(tuple(shapes.shape) == (SYNTH_B, LATENT_T, 10, 2, 50) and bool(torch.isfinite(shapes).all()),
+          "synthesis shapes")
+    total = {k: total[k] + v for k, v in counts.items()}
+    synth_ms = host_ms(synthesize, 10)
+    phase("latent_rnn", step="synthesis", B=SYNTH_B, T=LATENT_T, rnn="LSTM",
+          step_ms=f"{synth_ms:.6g}", frames_per_s=f"{SYNTH_B * LATENT_T / synth_ms * 1e3:.6g}",
+          lstm_fwd_launches=counts["lstm_fwd"], shape=tuple(shapes.shape))
+    device_breakdown(synthesize, synth_ms, "latent_rnn_synthesis_B16")
+    return total
+
+
+def latent_rnn_loss_falls():
+    cfg, _ = latent_config()
+    loss_fn, decode, mean, std = latent_loss("cuda")
+    st = state.create_train_state(latent_model("cuda"), 1e-3, cfg["weight_decay"])
+    step = make_latent_rnn_train_step(loss_fn, decode, mean, std, TO_MM, cfg["rescale_factor"])
+    batch = pc_batch(LATENT_BATCHES[0], LATENT_T, seed=3, device="cuda")
+    losses = [step(st, batch)["loss"].item() for _ in range(20)]
+    phase("latent_rnn", fixed_batch_lr=1e-3, loss_first=f"{losses[0]:.6g}",
+          loss_last=f"{losses[-1]:.6g}", ratio=f"{losses[-1] / losses[0]:.4f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+def latent_rnn_train_against_cpu():
+    """One latent-RNN train step (LSTM, B=2, T=32 ragged, full width, the
+    same seeded weights) on the card and on the CPU, held to the float64
+    gradients on the CPU as the transformer's step is
+    (transformer_train_against_cpu): the predictor's LayerNorms take the
+    variance as E[x^2] - E[x]^2, as the JAX package's do."""
+    cfg, _ = latent_config()
+    batch = pc_batch(2, 32, seed=9, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        loss_fn, decode, mean, std = latent_loss(device)
+        st = state.create_train_state(latent_model(device), TRAIN["lr"], TRAIN["wd"])
+        metrics = make_latent_rnn_train_step(loss_fn, decode, mean, std, TO_MM,
+                                             cfg["rescale_factor"], with_p2cp=True, device=device)(
+            st, {k: v.to(device) for k, v in batch.items()})
+        out[device] = ({k: v.item() for k, v in metrics.items()},
+                       {n: p.grad.cpu().double() for n, p in st.model.named_parameters()},
+                       {n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    model = latent_model("cpu").double().train()
+    loss_fn, _, _, _ = latent_loss("cpu", torch.float64)
+    pcs = model(batch["tokens"], batch["lengths"])
+    loss_fn(pcs, batch["targets"].double(), batch["references"].double(), batch["lengths"],
+            batch["critical_masks"]).backward()
+    step_against_f64("latent_rnn", "rnn=LSTM,B=2,T=32", out,
+                     {n: p.grad for n, p in model.named_parameters()})
 
 
 # -- timing --------------------------------------------------------------------
@@ -1602,18 +2124,21 @@ def time_train_attention():
 
 
 def kernel_device_ms(fn, calls, name):
-    """Mean device ms per call of the kernels whose name holds ``name``, from
-    a torch.profiler trace of ``calls`` calls of ``fn``; traced a second time
-    if the first trace holds none (the profiler has dropped a trace's device
-    events on this machine), None if neither does."""
+    """Mean device ms per call of the kernels whose name holds ``name`` (or
+    one of the names of a tuple), from a torch.profiler trace of ``calls``
+    calls of ``fn``; traced a second time if the first trace holds none (the
+    profiler sometimes drops a trace's device events), None if
+    neither does."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else name
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages() if name in e.key)
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if any(n in e.key for n in names))
         if total > 0:
             return total / 1e3 / calls
     return None
@@ -1750,6 +2275,77 @@ def time_gru_bwd():
     return results[(BENCH_T, BENCH_B)]
 
 
+def lstm_bound_ms(t, b, h, n_dir, elem_bytes):
+    """Least time for the forward's work: x_proj, W_h, b_h and the mask read
+    and ys written once; the recurrent product plus ~16 elementwise
+    operations per hidden unit (four activations, the cell, its tanh, the
+    masked carries) over the f32 peak."""
+    gates = 4 * h
+    bytes_moved = elem_bytes * (t * b * n_dir * gates + n_dir * h * gates + n_dir * gates
+                                + t * b * n_dir * h) + 4 * t * b
+    flops = n_dir * t * b * (2 * h * gates + 16 * h)
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def lstm_bwd_bound_ms(t, b, h, n_dir, elem_bytes):
+    """Least time for the backward's work: x_proj, ys, the cell states, g,
+    the mask, W_h and b_h read and dx_proj written once, dW_h and db_h
+    written once in f32; three (B, H) x (H, 4H)-sized products a step and
+    direction (recompute, dh, dW) plus ~40 elementwise operations per hidden
+    unit, over the f32 peak."""
+    gates = 4 * h
+    bytes_moved = (elem_bytes * (2 * t * b * n_dir * gates + 3 * t * b * n_dir * h
+                                 + n_dir * h * gates + n_dir * gates)
+                   + 4 * t * b + 4 * n_dir * (h * gates + gates))
+    flops = n_dir * t * b * (3 * 2 * h * gates + 40 * h)
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def time_lstm():
+    """Both LSTM kernels at LSTM_SHAPES (T = 128, H = 128, both directions,
+    f32): back to back and by profiler device time (the backward's with its
+    two partial-sum kernels), their plain versions, the bounds, and cuDNN's
+    nn.LSTM on full-length rows as the yardstick (forward; forward +
+    backward minus forward, which also computes the input projection's
+    gradients). Returns {kernel: {B: numbers}}."""
+    results = {"lstm_fwd": {}, "lstm_bwd": {}}
+    for t, b, h in LSTM_SHAPES:
+        xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=1)
+        ys, cs = hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10, with_cells=True)
+        gy = torch.randn(t, b, 2 * h, device="cuda")
+
+        def fwd():
+            return hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10)
+
+        def bwd():
+            return hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, 0b10)
+
+        cudnn = torch.nn.LSTM(h, h, bidirectional=True).cuda()
+        x = torch.randn(t, b, h, device="cuda", requires_grad=True)
+        with torch.inference_mode():
+            cudnn_fwd_ms = cuda_ms(lambda: cudnn(x), 20)
+        cudnn_train_fwd_ms = cuda_ms(lambda: cudnn(x), 20)
+        cudnn_both_ms = cuda_ms(lambda: cudnn(x)[0].backward(gy), 20)
+        for name, fn, plain, bound, library_ms in (
+                ("lstm_fwd", fwd,
+                 lambda: hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, 0b10),
+                 lstm_bound_ms(t, b, h, 2, 4), cudnn_fwd_ms),
+                ("lstm_bwd", bwd,
+                 lambda: hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, 0b10),
+                 lstm_bwd_bound_ms(t, b, h, 2, 4), cudnn_both_ms - cudnn_train_fwd_ms)):
+            device_names = (f"{name}_kernel", "sum_partials") if name == "lstm_bwd" else name
+            results[name][b] = dict(ms=cuda_ms(fn, 20),
+                                    device_ms=kernel_device_ms(fn, 10, device_names),
+                                    plain_ms=cuda_ms(plain, 3), bound_ms=bound[0],
+                                    bound_by=bound[1], library_ms=library_ms)
+            phase("timing", kernel=name, T=t, B=b, H=h, directions=2, dtype="float32",
+                  cudnn_fwd_ms=f"{cudnn_fwd_ms:.6g}", cudnn_fwd_bwd_ms=f"{cudnn_both_ms:.6g}",
+                  **fmt(results[name][b]))
+    return results
+
+
 def time_p2cp():
     u, v = p2cp_inputs(P2CP_ROWS, seed=9)
     kernel_ms = cuda_ms(lambda: hopper_p2cp.mean_p2cp_channel_major(u, v), 50)
@@ -1873,6 +2469,9 @@ def main():
             "min_dist": min_dist_vs_plain(), "flash_decode": flash_decode_vs_plain()}
     errs["gru_bwd"], bwd_rel_err = gru_bwd_vs_plain()
     errs["train_attention_fwd"], errs["train_attention_bwd"] = train_attention_vs_plain()
+    errs["lstm_fwd"] = lstm_fwd_vs_plain()
+    errs["lstm_bwd"], lstm_bwd_rel_err = lstm_bwd_vs_plain()
+    lstm_widths()
     with tempfile.TemporaryDirectory() as tmp:
         synthesis_launches = main_path(tmp)
     against_cpu()
@@ -1883,11 +2482,19 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
         test_step_against_cpu(*test_step_inputs)
+        t0 = time.perf_counter()
+        pc_launches, pc_seconds = pc_path(tmp, *test_step_inputs[1:3])
+        phase("pc", seconds=f"{time.perf_counter() - t0:.3f}")
     decode_launches = decode_path()
     decode_against_cpu()
     train_transformer_launches = train_transformer_path()
     transformer_loss_falls()
     transformer_train_against_cpu()
+    t0 = time.perf_counter()
+    latent_launches = latent_rnn_path()
+    latent_rnn_loss_falls()
+    latent_rnn_train_against_cpu()
+    phase("latent_rnn", seconds=f"{time.perf_counter() - t0:.3f}")
 
     flash = time_flash_decode()
     train_attention = time_train_attention()
@@ -1896,16 +2503,20 @@ def main():
                "flash_decode": flash[(12, torch.float32)],
                **{k: train_attention[(k, TRAIN["batch"])]
                   for k in ("train_attention_fwd", "train_attention_bwd")}}
+    lstm = time_lstm()
+    numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
     time_synthesis()
     time_training()
     time_test_step()
-    phase("timing", **{f"{p}_wall_s": f"{s:.3f}" for p, s in cli_seconds.items()})
+    phase("timing", **{f"{p}_wall_s": f"{s:.3f}" for p, s in {**cli_seconds, **pc_seconds}.items()})
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
                    **{p: cli_launches[p][k] for p in CLI_PATHS},
                    "decode": decode_launches if k == "flash_decode" else 0,
-                   "train_transformer": train_transformer_launches[k]} for k in KERNELS}
+                   "train_transformer": train_transformer_launches[k],
+                   **{p: pc_launches[p][k] for p in PC_PATHS},
+                   "latent_rnn": latent_launches[k]} for k in KERNELS}
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
     shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
               "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
@@ -1914,14 +2525,20 @@ def main():
                               f"n_rows={DECODE_T},float32",
               **{k: f"B=12: G={TRAIN_ATTN_G[12]},L={TRAIN_T},hd={HD},"
                     f"n_pairs={TRAIN_ATTN_PAIRS} (dropout 0.1 keep),float32"
-                 for k in ("train_attention_fwd", "train_attention_bwd")}}
+                 for k in ("train_attention_fwd", "train_attention_bwd")},
+              **{k: "T={},B={},H={},directions=2,float32".format(*LSTM_SHAPES[0])
+                 for k in ("lstm_fwd", "lstm_bwd")}}
     extra = {"gru_bwd": {"rel_err": bwd_rel_err},
+             **{k: {"device_ms": lstm[k][LSTM_SHAPES[0][1]]["device_ms"],
+                    "by_shape": {f"B={b}": r for b, r in lstm[k].items()}}
+                for k in ("lstm_fwd", "lstm_bwd")},
              "flash_decode": {"device_ms": flash[(12, torch.float32)]["device_ms"],
                               "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
                                            for (b, d), r in flash.items()}},
              **{k: {"device_ms": train_attention[(k, TRAIN["batch"])]["device_ms"],
                     "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
+    extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)

@@ -19,6 +19,7 @@
   training attention takes its plain versions on CPU tensors (forward and
   backward, through a training step too) without counting a launch, and
   raises on any other non-CUDA device.
+- So do the autoencoder-based method's models, steps, test harness and CLIs.
 """
 
 import argparse
@@ -39,9 +40,20 @@ from artspeech_tpu_torch.cli import (
     generate_vocal_tract_shape,
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
+    test_phoneme_to_principal_components,
+    test_principal_components_autoencoder,
     train_phoneme_to_articulation,
     train_phoneme_to_articulation_transformer,
+    train_phoneme_to_principal_components,
+    train_principal_components_autoencoder,
 )
+from artspeech_tpu_torch.eval import autoencoder as pc_eval
+from artspeech_tpu_torch.models.autoencoder import (
+    MultiArticulatorAutoencoder,
+    MultiDecoder,
+    MultiEncoder,
+)
+from artspeech_tpu_torch.models.latent_rnn import PrincipalComponentsArtSpeech
 from artspeech_tpu_torch.eval.articulation import make_test_step, run_test
 from artspeech_tpu_torch.models.transformer import (
     ArtSpeechTransformer,
@@ -57,7 +69,7 @@ from artspeech_tpu_torch.ops import (
     hopper_train_attention,
 )
 from artspeech_tpu_torch.synth import pipeline
-from artspeech_tpu_torch.train import loop, state
+from artspeech_tpu_torch.train import loop, pc_step, state
 from artspeech_tpu_torch.train.step import (
     make_artspeech_eval_step,
     make_artspeech_train_step,
@@ -278,6 +290,30 @@ def test_cli_mains_and_test_step_raise_without_cuda_and_without_device(tmp_path)
         make_test_step(model, RECOGNITION_ARTICULATORS)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_test(model, [], RECOGNITION_ARTICULATORS, 1.0)
+
+
+def test_principal_components_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    indices = {"lower-lip": 2, "tongue": 2}
+    stats = np.zeros((2, 2, 3), np.float32)
+    for build in (lambda: MultiArticulatorAutoencoder(indices, 6, 4),
+                  lambda: MultiEncoder(indices, 6, 4), lambda: MultiDecoder(indices, 6, 4),
+                  lambda: PrincipalComponentsArtSpeech(12, indices, 8, 8, rnn="LSTM"),
+                  lambda: pc_step.make_autoencoder_train_step(indices, 0.1, stats, stats, 1.0),
+                  lambda: pc_step.make_autoencoder_eval_step(indices, 0.1, stats, stats, 1.0),
+                  lambda: pc_step.make_latent_rnn_train_step(None, None, stats, stats, 1.0),
+                  lambda: pc_step.make_latent_rnn_eval_step(None, None, stats, stats, 1.0),
+                  lambda: pc_eval.nomograms(None, 4, stats, stats)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    model = PrincipalComponentsArtSpeech(12, indices, 8, 8, rnn="LSTM", device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pc_eval.run_latent_rnn_test(model, None, [], sorted(indices), stats, stats, 1.0)
+    args = argparse.Namespace(device="cuda", output_dir=str(tmp_path), checkpoint_filepath=None)
+    for cli in (train_principal_components_autoencoder, test_principal_components_autoencoder,
+                train_phoneme_to_principal_components, test_phoneme_to_principal_components):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main({}, args, tracker=None)
 
 
 TINY_TRANSFORMER = {"embed_dim": 8, "num_heads": 2, "num_layers": 1, "num_feat": 6,

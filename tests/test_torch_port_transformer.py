@@ -317,7 +317,7 @@ def test_cli_defaults_and_refusals(setup, tmp_path, monkeypatch):
         transformer.make_fast_generate(setup["port"], "float16", device="cpu")
     cfg = {**setup["base"], "model_kwargs": {**MODEL, "dtype": "bfloat16"},
            "state_dict_filepath": str(setup["root"] / "ckpts" / "best_model")}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         _run("artspeech_tpu_torch", "test_phoneme_to_articulation_transformer", cfg,
              tmp_path / "out", monkeypatch, tmp_path)
 
