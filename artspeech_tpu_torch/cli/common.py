@@ -15,27 +15,41 @@ import os
 import time
 from typing import Callable, Dict
 
+import torch
+
 from artspeech_tpu_torch.cli import config_file
 from artspeech_tpu_torch.utils.tracking import make_tracker
 
-_FLOAT32 = ("float32", "fp32")
+#: Compute dtypes the port takes, by their config spellings; float32 is the
+#: models' default, so it is dropped from the kwargs.
+_COMPUTE_DTYPES = {"float32": None, "fp32": None, "bfloat16": torch.bfloat16,
+                   "bf16": torch.bfloat16}
 
 
 def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
-    """Model constructor kwargs from a config.
+    """Model constructor kwargs from a config, with the compute dtype.
 
-    The port computes in float32. A config that asks for another compute
-    type (``compute_dtype: bfloat16`` at the top level, or ``dtype`` in the
-    model's kwargs) raises: bf16 compute is not ported yet (ROADMAP Queue 1,
-    item 4). ``float32`` is accepted and dropped.
+    As in JAX (cli/common.py:51-52), two spellings select bf16 compute with
+    float32 parameters: ``compute_dtype: bfloat16`` at the top level, which
+    does not override an explicit per-model ``dtype``, and ``dtype`` in the
+    model's kwargs. ``float32``/``fp32`` (the default) are dropped,
+    ``bfloat16``/``bf16`` become ``dtype=torch.bfloat16``; any other dtype
+    raises ``NotImplementedError``.
     """
     kwargs = dict(cfg.get(key) or {})
-    for where, dtype in (("compute_dtype", cfg.get("compute_dtype")),
-                         (f"{key}.dtype", kwargs.pop("dtype", None))):
-        if dtype is not None and str(dtype).lower() not in _FLOAT32:
+    if cfg.get("compute_dtype") is not None:
+        kwargs.setdefault("dtype", cfg["compute_dtype"])
+    if "dtype" in kwargs:
+        name = str(kwargs["dtype"]).lower()
+        if name not in _COMPUTE_DTYPES:
             raise NotImplementedError(
-                f"{where}: {dtype} is not ported: artspeech_tpu_torch computes in float32 "
-                f"(bf16 compute is ROADMAP Queue 1, item 4)")
+                f"compute dtype {kwargs['dtype']} is not ported: artspeech_tpu_torch computes "
+                f"in float32 or bfloat16")
+        dtype = _COMPUTE_DTYPES[name]
+        if dtype is None:
+            del kwargs["dtype"]
+        else:
+            kwargs["dtype"] = dtype
     return kwargs
 
 

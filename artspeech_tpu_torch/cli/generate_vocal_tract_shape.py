@@ -4,11 +4,12 @@
 Equivalent of reference generate_vocal_tract_shape_v2.py:270-450: run the
 synthesis pipeline and write inference_contours / air_column / xarticul /
 target_sequence.txt per sentence — the corpus later consumed by the
-phoneme-recognition evaluation. Ported: ``method: encoder_decoder`` and
-``method: autoencoder`` (the latent RNN -> frozen decoder -> denorm, with
-``aux_model_params`` and ``norm_stats_dir``). The ``mean_contour`` method
-(ROADMAP Queue 1, item 1) and ``save_plots`` / ``save_videos``
-(``synth/viz.py``, Queue 1, item 5) raise ``NotImplementedError``.
+phoneme-recognition evaluation. All three methods: ``encoder_decoder``,
+``mean_contour`` (``state_dict_filepath``: the mean_contour_table.npz) and
+``autoencoder`` (the latent RNN -> frozen decoder -> denorm, with
+``aux_model_params`` and ``norm_stats_dir``). ``save_plots`` /
+``save_videos`` (``synth/viz.py``, ROADMAP Queue 1, item 5) raise
+``NotImplementedError``.
 
 Usage: python -m artspeech_tpu_torch.cli.generate_vocal_tract_shape \
            --config config.yaml [--device cpu]
@@ -24,6 +25,7 @@ from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data.pc_datasets import load_norm_stats, stack_norm_stats
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
 from artspeech_tpu_torch.models.autoencoder import normalize_indices_dict
+from artspeech_tpu_torch.models.mean_contour import MeanContourTable, make_mean_contour_forward
 from artspeech_tpu_torch.models.latent_rnn import (
     PrincipalComponentsArtSpeech,
     make_latent_rnn_synthesis_forward,
@@ -32,9 +34,6 @@ from artspeech_tpu_torch.synth.pipeline import SynthesisDataset, synthesize_corp
 from artspeech_tpu_torch.train.checkpoint import load_params
 from artspeech_tpu_torch.utils.io import sequences_from_dict
 
-_NOT_PORTED = {"mean_contour": "ROADMAP Queue 1, item 1 (models/mean_contour.py)"}
-
-
 def build_forward(cfg, vocabulary, articulators, device):
     method = cfg.get("method", "encoder_decoder")
     if method == "encoder_decoder":
@@ -42,6 +41,9 @@ def build_forward(cfg, vocabulary, articulators, device):
                           **model_kwargs_from_cfg(cfg, "model_params"), device=device)
         model.load_state_dict(load_params(cfg["state_dict_filepath"]))
         return model
+    if method == "mean_contour":
+        return make_mean_contour_forward(MeanContourTable.load(cfg["state_dict_filepath"]),
+                                         device=device)
     if method == "autoencoder":
         # Latent RNN -> frozen decoder -> denorm (reference v2:331-350).
         indices_dict = normalize_indices_dict(cfg["indices_dict"])
@@ -60,9 +62,6 @@ def build_forward(cfg, vocabulary, articulators, device):
             rnn, decode_fn, torch.as_tensor(denorm_mean, device=device),
             torch.as_tensor(denorm_std, device=device),
             rescale_factor=cfg.get("rescale_factor", 1.0))
-    if method in _NOT_PORTED:
-        raise NotImplementedError(
-            f"method: {method} is not ported to artspeech_tpu_torch yet: {_NOT_PORTED[method]}")
     raise ValueError(f"Unknown synthesis method: {method}")
 
 

@@ -156,6 +156,7 @@ def run_test(
     outputs_dir: Optional[str] = None,
     regularize_out: bool = False,
     save_artifacts: bool = True,
+    loss_agg: str = "batch",
     device: DeviceLike = None,
 ) -> Dict:
     """Evaluate over a loader; write contour npys + TV CSVs; return the
@@ -164,11 +165,15 @@ def run_test(
 
     ``forward_fn`` is the model on ``device`` (``cuda`` unless the caller
     passes ``device="cpu"``); ``loader`` yields ``(batch, meta)`` pairs of
-    numpy arrays, as ``BucketedLoader`` does. The loss is the mean over
-    batches of each batch's masked frame-mean loss
-    (encoder_decoder/evaluation.py:58-63,87); the per-sentence mean of the
-    mean-contour harness is not ported with it.
+    numpy arrays, as ``BucketedLoader`` does. ``loss_agg`` picks the loss's
+    aggregation, as in JAX: "batch" is the mean over batches of each batch's
+    masked frame-mean loss (encoder_decoder/evaluation.py:58-63,87);
+    "sentence" the mean over sentences of each sentence's ``med`` averaged
+    over articulators (the mean-contour harness,
+    phoneme_wise_mean_contour/__init__.py:180,241).
     """
+    if loss_agg not in ("batch", "sentence"):
+        raise ValueError(f"loss_agg must be 'batch' or 'sentence': {loss_agg!r}")
     dev = resolve_device(device)
     articulators = sorted(articulators)
     test_step, tv_articulators = make_test_step(forward_fn, articulators,
@@ -182,12 +187,15 @@ def run_test(
         valid = lengths > 0
         for k in acc:
             acc[k].append(result["metrics"][k][valid])
-        losses.append(float(result["loss"]))
+        if loss_agg == "sentence":
+            losses.append(acc["med"][-1].mean(axis=1))
+        else:
+            losses.append(np.asarray([float(result["loss"])]))
 
         if outputs_dir is not None and save_artifacts:
             _write_batch_artifacts(result, meta, lengths, tv_articulators, outputs_dir)
 
-    info = {"loss": float(np.mean(losses))}
+    info = {"loss": float(np.mean(np.concatenate(losses)))}
     stacked = {k: np.concatenate(v, axis=0) for k, v in acc.items()}
     for i_art, art in enumerate(articulators):
         info[art] = {

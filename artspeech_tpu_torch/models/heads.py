@@ -9,6 +9,11 @@ fused into one (256 -> 2*n_samples) product as in the JAX package.
 Parameters keep the JAX (flax) layout and orientation: ``ln{i}_scale``,
 ``ln{i}_bias`` (Nart, F); ``dense{i}_kernel`` (Nart, in, out) and
 ``dense{i}_bias`` (Nart, out) for i = 0..3 (Dense_2 = x, Dense_3 = y).
+
+A model's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
+dtype: parameters stay float32, and each Dense casts its input, kernel and
+bias to it, each LayerNorm takes its statistics in float32 and returns it,
+as flax's ``dtype=`` does (JAX models/heads.py:56-102).
 """
 
 import math
@@ -21,11 +26,26 @@ from torch import nn
 LAYER_NORM_EPS = 1e-6
 
 
-def layer_norm(x, scale, bias, eps: float = LAYER_NORM_EPS):
+def cast(x, dtype: Optional[torch.dtype]):
+    """x in the compute dtype (unchanged when it is None: float32)."""
+    return x if dtype is None else x.to(dtype)
+
+
+def at_least_f32(x):
+    """x promoted to at least float32 (bf16 up; float32 and float64 as they
+    are), as flax promotes statistics and JAX's explicit float32 casts do."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def layer_norm(x, scale, bias, eps: float = LAYER_NORM_EPS, dtype: Optional[torch.dtype] = None):
     """flax LayerNorm over the last axis: Var = E[x^2] - E[x]^2, clipped at 0.
 
-    ``scale``/``bias`` broadcast against ``x``.
+    ``scale``/``bias`` broadcast against ``x``. With a ``dtype`` (flax's
+    ``LayerNorm(dtype=...)``) the statistics and the affine are float32 and
+    the result is cast to it.
     """
+    if dtype is not None:
+        return layer_norm(at_least_f32(x), scale, bias, eps).to(dtype)
     mean = x.mean(dim=-1, keepdim=True)
     var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
     mul = torch.rsqrt(var + eps) * scale
@@ -68,10 +88,12 @@ class ContourDecoder(nn.Module):
     """(B, T, F) -> (B, T, Nart, 2, n_samples) contours in [0, 1]."""
 
     def __init__(self, in_features: int, n_articulators: int, n_samples: int = 50,
-                 hidden: int = 256, generator: Optional[torch.Generator] = None):
+                 hidden: int = 256, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.n_articulators = n_articulators
         self.n_samples = n_samples
+        self.dtype = dtype
         widths = [(in_features, hidden), (hidden, hidden), (hidden, n_samples),
                   (hidden, n_samples)]
         for i, width in enumerate((in_features, hidden, hidden)):
@@ -84,17 +106,17 @@ class ContourDecoder(nn.Module):
             self.register_parameter(f"dense{i}_bias", nn.Parameter(torch.zeros(n_articulators, fan_out)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        lead = x.shape[:-1]
+        lead, dt = x.shape[:-1], self.dtype
         h = x.reshape(1, -1, x.shape[-1])  # (1, M, F), shared by every head
         for i in range(2):
             h = layer_norm(h, getattr(self, f"ln{i}_scale")[:, None, :],
-                           getattr(self, f"ln{i}_bias")[:, None, :])  # (Nart, M, F)
-            h = torch.baddbmm(getattr(self, f"dense{i}_bias")[:, None, :], h,
-                              getattr(self, f"dense{i}_kernel"))
+                           getattr(self, f"ln{i}_bias")[:, None, :], dtype=dt)  # (Nart, M, F)
+            h = torch.baddbmm(cast(getattr(self, f"dense{i}_bias")[:, None, :], dt), h,
+                              cast(getattr(self, f"dense{i}_kernel"), dt))
             h = torch.relu(h)
-        h = layer_norm(h, self.ln2_scale[:, None, :], self.ln2_bias[:, None, :])
+        h = layer_norm(h, self.ln2_scale[:, None, :], self.ln2_bias[:, None, :], dtype=dt)
         w = torch.cat([self.dense2_kernel, self.dense3_kernel], dim=-1)  # (Nart, 256, 2D)
         b = torch.cat([self.dense2_bias, self.dense3_bias], dim=-1)
-        xy = torch.baddbmm(b[:, None, :], h, w)  # (Nart, M, 2D) = [x_pos | y_pos]
+        xy = torch.baddbmm(cast(b[:, None, :], dt), h, cast(w, dt))  # (Nart, M, 2D) = [x_pos | y_pos]
         xy = xy.reshape(self.n_articulators, *lead, 2, self.n_samples)
         return torch.sigmoid(torch.movedim(xy, 0, len(lead)))

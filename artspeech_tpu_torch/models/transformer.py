@@ -27,8 +27,20 @@ attention, which folds it as JAX's ``FusedChannelInteractions`` does.
 
 Construction takes a CPU ``torch.Generator`` for the random weights (None: one
 seeded with 0; lecun-normal kernels, as flax initialises them), drawn on the
-CPU and then moved, and a ``device``: ``cuda`` unless the caller passes
-``device="cpu"``. In training mode (``.train()``) with dropout > 0,
+CPU and then moved, a ``device``: ``cuda`` unless the caller passes
+``device="cpu"``, and a compute ``dtype`` (None: float32; ``torch.bfloat16``
+for train_transformer_bf16.yaml). Parameters stay float32; the forward casts
+where the JAX model casts (JAX transformer.py:201-290, :384-393, :590-764):
+the embedding's output; every Dense, Q/K/V MLP and attention projection
+(input, kernel and bias); the attention's scores, softmax and sum in the
+compute dtype, as flax's ``MultiHeadDotProductAttention(dtype=...)`` runs
+``lean_attention``; float32 statistics in every LayerNorm, whose output is in
+the compute dtype where flax's ``LayerNorm(dtype=...)`` gives one. The
+training-mode pair attention runs in float32 around
+``fused_causal_attend`` and casts back, exactly as JAX (:461-467), so its
+kernels take float32 only. The KV-cached decode computes in float32 whatever
+the model's dtype (JAX casts the encoder memory up the same way) and keeps
+its own cache dtype. In training mode (``.train()``) with dropout > 0,
 ``forward`` needs a ``torch.Generator`` on the model's device for the
 dropout masks, as ``ArtSpeech.forward`` does; in eval mode the dropout is
 inactive, as in JAX.
@@ -42,7 +54,14 @@ import torch
 from torch import nn
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.models.heads import LAYER_NORM_EPS, ContourDecoder, layer_norm, lecun_normal_
+from artspeech_tpu_torch.models.heads import (
+    LAYER_NORM_EPS,
+    ContourDecoder,
+    at_least_f32,
+    cast,
+    layer_norm,
+    lecun_normal_,
+)
 from artspeech_tpu_torch.ops import hopper_attention, hopper_train_attention
 from artspeech_tpu_torch.ops.gru import apply_dropout
 from artspeech_tpu_torch.utils.masks import make_padding_mask
@@ -67,7 +86,7 @@ class PositionalEncoding(nn.Module):
         self.register_buffer("table", sinusoidal_positions(max_len, dim), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.table[: x.shape[-2]]
+        return x + self.table[: x.shape[-2]].to(x.dtype)  # the caller's dtype, as JAX
 
 
 def _drop(x, rate: float, generator: Optional[torch.Generator]):
@@ -87,8 +106,9 @@ def _keep_mask(shape, rate: float, generator: Optional[torch.Generator], device)
 
 
 def _norm_f32(x):
-    """flax LayerNorm statistics without the affine: E[x^2] - E[x]^2, clamped
-    at 0 (JAX transformer.py:84)."""
+    """flax LayerNorm statistics without the affine, in at least float32:
+    E[x^2] - E[x]^2, clamped at 0 (JAX transformer.py:84)."""
+    x = at_least_f32(x)
     mu = x.mean(dim=-1, keepdim=True)
     var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mu * mu, min=0.0)
     return (x - mu) * torch.rsqrt(var + LAYER_NORM_EPS)
@@ -121,7 +141,7 @@ def lean_attention(query, key, value, mask=None, keep=None):
     e = torch.exp(s - m)
     z = e.sum(dim=-1, keepdim=True)  # (..., h, q, 1)
     if keep is not None:
-        e = e * keep
+        e = e * keep.to(e.dtype)
     o = torch.einsum("...hqk,...khd->...qhd", e, value)
     return o / z.transpose(-3, -2)  # z -> (..., q, h, 1)
 
@@ -169,8 +189,10 @@ class MultiHeadParams(nn.Module):
         self.out_bias = _zeros((*prefix, e))
 
 
-def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None, keep=None):
-    """Multi-head attention with ``n`` stacked parameter sets.
+def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None, keep=None,
+                      dtype=None):
+    """Multi-head attention with ``n`` stacked parameter sets, in the compute
+    ``dtype`` (None: float32).
 
     q_in (B, n, L, E), k_in/v_in (B, n, S, E), mask and the pre-scaled
     dropout ``keep`` broadcastable to (B, n, H, L, S) -> (B, n, L, E).
@@ -181,12 +203,12 @@ def stacked_attention(p: MultiHeadParams, n: int, q_in, k_in, v_in, mask=None, k
     def project(x, name):
         w = getattr(p, f"{name}_kernel").reshape(n, e, h, hd)
         b = getattr(p, f"{name}_bias").reshape(n, 1, h, hd)
-        return torch.einsum("bnle,nehd->bnlhd", x, w) + b
+        return torch.einsum("bnle,nehd->bnlhd", cast(x, dtype), cast(w, dtype)) + cast(b, dtype)
 
     o = lean_attention(project(q_in, "query"), project(k_in, "key"), project(v_in, "value"),
                        mask, keep)
-    return (torch.einsum("bnlhd,nhde->bnle", o, p.out_kernel.reshape(n, h, hd, e))
-            + p.out_bias.reshape(n, 1, e))
+    return (torch.einsum("bnlhd,nhde->bnle", o, cast(p.out_kernel.reshape(n, h, hd, e), dtype))
+            + cast(p.out_bias.reshape(n, 1, e), dtype))
 
 
 class ChannelProcessingLayer(nn.Module):
@@ -194,9 +216,9 @@ class ChannelProcessingLayer(nn.Module):
     ``prefix`` stacked parameter sets batched as one product. The same
     LayerNorm normalises src and tgt, as in the reference."""
 
-    def __init__(self, prefix: Sequence[int], e: int, h: int, generator):
+    def __init__(self, prefix: Sequence[int], e: int, h: int, generator, dtype=None):
         super().__init__()
-        self.n, self.e = int(np.prod(prefix)), e
+        self.n, self.e, self.dtype = int(np.prod(prefix)), e, dtype
         self.ln_scale, self.ln_bias = _ones((*prefix, e)), _zeros((*prefix, e))
         for i in range(3):  # query, key, value MLPs (flax Dense_0/1/2)
             self.register_parameter(f"dense{i}_kernel", _kernel((*prefix, e, e), e, generator))
@@ -204,9 +226,10 @@ class ChannelProcessingLayer(nn.Module):
         self.attn = MultiHeadParams(prefix, e, h, generator)
 
     def _mlp(self, i, x):
+        dt = self.dtype
         w = getattr(self, f"dense{i}_kernel").reshape(self.n, self.e, self.e)
         b = getattr(self, f"dense{i}_bias").reshape(self.n, 1, self.e)
-        return torch.relu(torch.einsum("bnle,nef->bnlf", x, w) + b)
+        return torch.relu(torch.einsum("bnle,nef->bnlf", cast(x, dt), cast(w, dt)) + cast(b, dt))
 
     def forward(self, src, tgt, mask=None, keep=None):
         """src (B, n or 1, S, E) keys/values source; tgt (B, n, L, E) queries
@@ -220,7 +243,7 @@ class ChannelProcessingLayer(nn.Module):
         query = self._mlp(0, tgt_ln)
         out = stacked_attention(self.attn, self.n, query, self._mlp(1, src_ln),
                                 self._mlp(2, src_ln), None if mask is None else mask[:, None],
-                                None if keep is None else keep[:, None])
+                                None if keep is None else keep[:, None], self.dtype)
         return query + out
 
 
@@ -245,10 +268,10 @@ class ChannelInteractionsLayer(nn.Module):
     positions, which the loss never reads (JAX transformer.py:373-377).
     """
 
-    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0):
+    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0, dtype=None):
         super().__init__()
-        self.c, self.dropout = c, dropout
-        self.pairs = ChannelProcessingLayer((c, c - 1), e, h, generator)
+        self.c, self.dropout, self.dtype = c, dropout, dtype
+        self.pairs = ChannelProcessingLayer((c, c - 1), e, h, generator, dtype)
         self.ln_scale, self.ln_bias = _ones((c, (c - 1) * e)), _zeros((c, (c - 1) * e))
         self.dense_kernel = _kernel((c, (c - 1) * e, e), (c - 1) * e, generator)
         self.dense_bias = _zeros((c, e))
@@ -257,7 +280,7 @@ class ChannelInteractionsLayer(nn.Module):
         """The training-mode pairs (JAX transformer.py:395-496): proc (B, C, L,
         E) -> the dropped concat (B, C, L, (C-1) E)."""
         b, c, l, e = proc.shape
-        p, a = self.pairs, self.pairs.attn
+        p, a, dt = self.pairs, self.pairs.attn, self.dtype
         h, hd = a.query_bias.shape[-2:]
         rate = self.dropout
         # The reference drops these inputs twice (decoder and layer): one
@@ -269,29 +292,32 @@ class ChannelInteractionsLayer(nn.Module):
         def fold(i):
             w = getattr(p, f"dense{i}_kernel")  # (C, C-1, E, E)
             bias = torch.einsum("cje,cjef->cjf", p.ln_bias, w) + getattr(p, f"dense{i}_bias")
-            return p.ln_scale[..., None] * w, bias[:, :, None, None]
+            return cast(p.ln_scale[..., None] * w, dt), cast(bias[:, :, None, None], dt)
 
         (qk, qb), (kk, kb), (vk, vb) = fold(0), fold(1), fold(2)
+        others_n, src_n = cast(others_n, dt), cast(src_n, dt)
         # Queries from the other channels, keys and values from the
         # channel's own frames, pair-major: (C, C-1, B, L, E).
         q_mlp = torch.relu(torch.einsum("bcjle,cjef->cjblf", others_n, qk) + qb)
         k_mlp = torch.relu(torch.einsum("bcle,cjef->cjblf", src_n, kk) + kb)
         v_mlp = torch.relu(torch.einsum("bcle,cjef->cjblf", src_n, vk) + vb)
 
-        def heads(x, name):  # -> (G, L, hd), G = (C, C-1, B, H) merged
-            y = (torch.einsum("cjblf,cjfhd->cjbhld", x, getattr(a, f"{name}_kernel"))
-                 + getattr(a, f"{name}_bias")[:, :, None, :, None])
-            return y.reshape(-1, l, hd)
+        def heads(x, name):  # -> (G, L, hd) in >= float32, G = (C, C-1, B, H) merged
+            y = (torch.einsum("cjblf,cjfhd->cjbhld", x, cast(getattr(a, f"{name}_kernel"), dt))
+                 + cast(getattr(a, f"{name}_bias")[:, :, None, :, None], dt))
+            if name == "query":
+                y = y * (1.0 / math.sqrt(hd))  # in the compute dtype, as JAX
+            return at_least_f32(y.reshape(-1, l, hd)).contiguous()
 
         n_pairs = c * (c - 1)
         keep = _keep_mask((n_pairs, l, l), rate, generator, proc.device)
         if keep is None:
             keep, n_pairs = torch.ones(1, l, l, device=proc.device), 1
         av = hopper_train_attention.fused_causal_attend(
-            (heads(q_mlp, "query") * (1.0 / math.sqrt(hd))).contiguous(),
-            heads(k_mlp, "key").contiguous(), heads(v_mlp, "value").contiguous(), keep, n_pairs)
-        out_i = (torch.einsum("cjbhld,cjhde->cjble", av.reshape(c, c - 1, b, h, l, hd), a.out_kernel)
-                 + a.out_bias[:, :, None, None])
+            heads(q_mlp, "query"), heads(k_mlp, "key"), heads(v_mlp, "value"), keep, n_pairs)
+        av = cast(av.reshape(c, c - 1, b, h, l, hd), dt)
+        out_i = (torch.einsum("cjbhld,cjhde->cjble", av, cast(a.out_kernel, dt))
+                 + cast(a.out_bias[:, :, None, None], dt))
         concat = (q_mlp + out_i).permute(2, 0, 3, 1, 4).reshape(b, c, l, (c - 1) * e)
         return _drop(concat, rate, generator)
 
@@ -306,9 +332,10 @@ class ChannelInteractionsLayer(nn.Module):
             own = proc[:, :, None].expand_as(others)  # keys and values: the channel itself
             outs = self.pairs(own.reshape(b, -1, l, e), others.reshape(b, -1, l, e), mask)
             concat = outs.reshape(b, c, c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
+        dt = self.dtype
         h = _norm_f32(concat) * self.ln_scale[:, None] + self.ln_bias[:, None]
-        return torch.relu(torch.einsum("bclx,cxe->bcle", h, self.dense_kernel)
-                          + self.dense_bias[:, None])
+        return torch.relu(torch.einsum("bclx,cxe->bcle", cast(h, dt), cast(self.dense_kernel, dt))
+                          + cast(self.dense_bias[:, None], dt))
 
 
 class MultiChannelDecoderLayer(nn.Module):
@@ -316,12 +343,12 @@ class MultiChannelDecoderLayer(nn.Module):
     attention to the encoder memory -> LN -> feed-forward with pre-LN
     (JAX transformer.py:582)."""
 
-    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0):
+    def __init__(self, c: int, e: int, h: int, generator, dropout: float = 0.0, dtype=None):
         super().__init__()
-        self.c, self.dropout = c, dropout
-        self.self_attn = ChannelProcessingLayer((c,), e, h, generator)
-        self.inter = ChannelInteractionsLayer(c, e, h, generator, dropout)
-        self.mem_attn = ChannelProcessingLayer((c,), e, h, generator)
+        self.c, self.dropout, self.dtype = c, dropout, dtype
+        self.self_attn = ChannelProcessingLayer((c,), e, h, generator, dtype)
+        self.inter = ChannelInteractionsLayer(c, e, h, generator, dropout, dtype)
+        self.mem_attn = ChannelProcessingLayer((c,), e, h, generator, dtype)
         self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
         self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
         self.dense_kernel, self.dense_bias = _kernel((e, e), e, generator), _zeros(e)
@@ -340,17 +367,21 @@ class MultiChannelDecoderLayer(nn.Module):
         mem_d, inter_d = _drop(memory, rate, generator), _drop(inter, rate, generator)
         attended = self.mem_attn(mem_d[:, None], inter_d, memory_mask,
                                  _keep_mask((c, l, s), rate, generator, dev))
-        attended = layer_norm(attended, self.ln0_scale, self.ln0_bias)
-        h = layer_norm(_drop(attended, rate, generator), self.ln1_scale, self.ln1_bias)
-        return attended + torch.relu(h @ self.dense_kernel + self.dense_bias)
+        dt = self.dtype
+        attended = layer_norm(attended, self.ln0_scale, self.ln0_bias, dtype=dt)
+        h = layer_norm(at_least_f32(_drop(attended, rate, generator)), self.ln1_scale,
+                       self.ln1_bias)
+        return attended + torch.relu(cast(h, dt) @ cast(self.dense_kernel, dt)
+                                     + cast(self.dense_bias, dt))
 
 
 class TransformerEncoderLayer(nn.Module):
     """Post-LN encoder layer, ReLU feed-forward (JAX transformer.py:674)."""
 
-    def __init__(self, e: int, h: int, ff_dim: int, generator, dropout: float = 0.0):
+    def __init__(self, e: int, h: int, ff_dim: int, generator, dropout: float = 0.0,
+                 dtype=None):
         super().__init__()
-        self.dropout = dropout
+        self.dropout, self.dtype = dropout, dtype
         self.attn = MultiHeadParams((), e, h, generator)
         self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
         self.dense0_kernel, self.dense0_bias = _kernel((e, ff_dim), e, generator), _zeros(ff_dim)
@@ -360,15 +391,18 @@ class TransformerEncoderLayer(nn.Module):
     def forward(self, x, mask=None, generator: Optional[torch.Generator] = None):
         """x (B, S, E), mask (B, 1, 1, S) keys kept -> (B, S, E); ``generator``
         draws the training dropout (None: none)."""
-        rate, s = self.dropout, x.shape[1]
+        rate, s, dt = self.dropout, x.shape[1], self.dtype
         xs = x[:, None]
         keep = _keep_mask((1, s, s), rate, generator, x.device)  # one (S, S) mask a layer
         attn = stacked_attention(self.attn, 1, xs, xs, xs, None if mask is None else mask[:, None],
-                                 None if keep is None else keep[:, None])
-        x = layer_norm(x + _drop(attn[:, 0], rate, generator), self.ln0_scale, self.ln0_bias)
-        ff = _drop(torch.relu(x @ self.dense0_kernel + self.dense0_bias), rate, generator)
-        ff = ff @ self.dense1_kernel + self.dense1_bias
-        return layer_norm(x + _drop(ff, rate, generator), self.ln1_scale, self.ln1_bias)
+                                 None if keep is None else keep[:, None], dt)
+        x = layer_norm(x + _drop(attn[:, 0], rate, generator), self.ln0_scale, self.ln0_bias,
+                       dtype=dt)
+        ff = cast(x, dt) @ cast(self.dense0_kernel, dt) + cast(self.dense0_bias, dt)
+        ff = _drop(torch.relu(ff), rate, generator)
+        ff = ff @ cast(self.dense1_kernel, dt) + cast(self.dense1_bias, dt)
+        return layer_norm(x + _drop(ff, rate, generator), self.ln1_scale, self.ln1_bias,
+                          dtype=dt)
 
 
 class ArtSpeechTransformer(nn.Module):
@@ -377,7 +411,8 @@ class ArtSpeechTransformer(nn.Module):
 
     def __init__(self, vocab_size: int, num_articulators: int, embed_dim: int = 64,
                  num_heads: int = 4, num_layers: int = 4, num_feat: int = 100,
-                 dropout: float = 0.0, encoder_ff_dim: int = 2048, *,
+                 dropout: float = 0.0, encoder_ff_dim: int = 2048,
+                 dtype: Optional[torch.dtype] = None, *,
                  generator: Optional[torch.Generator] = None, device: DeviceLike = None):
         super().__init__()
         dev = resolve_device(device)
@@ -385,26 +420,29 @@ class ArtSpeechTransformer(nn.Module):
         c, e = num_articulators, embed_dim
         self.num_articulators, self.embed_dim, self.num_heads = c, e, num_heads
         self.num_layers, self.num_feat, self.dropout = num_layers, num_feat, dropout
+        self.dtype = dtype
         self.src_embedding = nn.Embedding(vocab_size, e)
         with torch.no_grad():  # flax nn.Embed's default init: N(0, 1/embed_dim)
             self.src_embedding.weight.normal_(0.0, math.sqrt(1.0 / e), generator=gen)
         self.pos_encoding = PositionalEncoding(e)
         self.encoder_layers = nn.ModuleList(
-            TransformerEncoderLayer(e, num_heads, encoder_ff_dim, gen, dropout)
+            TransformerEncoderLayer(e, num_heads, encoder_ff_dim, gen, dropout, dtype)
             for _ in range(num_layers))
         self.decoder_layers = nn.ModuleList(
-            MultiChannelDecoderLayer(c, e, num_heads, gen, dropout) for _ in range(num_layers))
+            MultiChannelDecoderLayer(c, e, num_heads, gen, dropout, dtype)
+            for _ in range(num_layers))
         self.tgt_embed_ln_scale, self.tgt_embed_ln_bias = _ones(num_feat), _zeros(num_feat)
         self.tgt_embed_dense_kernel = _kernel((num_feat, e), num_feat, gen)
         self.tgt_embed_dense_bias = _zeros(e)
         self.head_ln_scale, self.head_ln_bias = _ones(c * e), _zeros(c * e)
         self.head_dense_kernel, self.head_dense_bias = _kernel((c * e, e), c * e, gen), _zeros(e)
-        self.predictors = ContourDecoder(e, c, num_feat // 2, generator=gen)
+        self.predictors = ContourDecoder(e, c, num_feat // 2, generator=gen, dtype=dtype)
         self.to(dev)
         self.eval()
 
     def _encode(self, src, src_mask, generator=None):
-        h = _drop(self.pos_encoding(self.src_embedding(src)), self.dropout, generator)
+        embed = cast(self.src_embedding(src), self.dtype)
+        h = _drop(self.pos_encoding(embed), self.dropout, generator)
         enc_mask = None if src_mask is None else src_mask[:, None, None, :]  # keys masked
         for layer in self.encoder_layers:
             h = layer(h, enc_mask, generator)
@@ -413,14 +451,16 @@ class ArtSpeechTransformer(nn.Module):
     def _decode(self, tgt, memory, tgt_mask, memory_mask, generator=None):
         """tgt (B, L, C, F) -> (B, L, C, 2, D) sigmoid contours."""
         b, l, c, _ = tgt.shape
-        h = layer_norm(tgt, self.tgt_embed_ln_scale, self.tgt_embed_ln_bias)
-        h = torch.relu(h @ self.tgt_embed_dense_kernel + self.tgt_embed_dense_bias)
+        dt = self.dtype
+        h = layer_norm(tgt, self.tgt_embed_ln_scale, self.tgt_embed_ln_bias, dtype=dt)
+        h = torch.relu(h @ cast(self.tgt_embed_dense_kernel, dt) + cast(self.tgt_embed_dense_bias, dt))
         h = _drop(self.pos_encoding(h.permute(0, 2, 1, 3)), self.dropout, generator)  # (B, C, L, E)
         for layer in self.decoder_layers:
             h = layer(h, memory, tgt_mask, memory_mask, generator)
         h = h.permute(0, 2, 1, 3).reshape(b, l, c * self.embed_dim)
-        h = layer_norm(h, self.head_ln_scale, self.head_ln_bias)
-        return self.predictors(torch.relu(h @ self.head_dense_kernel + self.head_dense_bias))
+        h = layer_norm(h, self.head_ln_scale, self.head_ln_bias, dtype=dt)
+        return self.predictors(torch.relu(h @ cast(self.head_dense_kernel, dt)
+                                          + cast(self.head_dense_bias, dt)))
 
     def forward(self, src, tgt, src_lengths=None, tgt_lengths=None,
                 generator: Optional[torch.Generator] = None):
@@ -585,6 +625,7 @@ def make_fast_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] =
         src_lengths = None if src_lengths is None else torch.as_tensor(src_lengths, device=dev)
         b, s = src.shape
         memory, memory_mask = model.encode(src, src_lengths)
+        memory = memory.float()  # a bf16-compute model's memory, cast up as JAX does
         neg = torch.finfo(memory.dtype).min
         mem_bias = (torch.zeros(b, 1, 1, s, device=dev) if memory_mask is None
                     else torch.where(memory_mask, 0.0, neg))

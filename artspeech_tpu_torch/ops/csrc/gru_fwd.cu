@@ -41,6 +41,14 @@
 // Small batch tiles (BT = 4) spread the batch over more SMs, which shortens
 // each step; tensor cores (wgmma), TMA prefetch of x_proj and keeping W_h in
 // registers across a cluster are left for later work.
+//
+// The wide instance. The resident kernel needs H % 4 == 0 (float4 reads of
+// h), 3H <= 1024 (a thread a column) and W_h in shared memory (f32 up to
+// H = 136, bf16 up to H = 188). Every other H up to 1024 takes
+// gru_fwd_wide_kernel: the same step with W_h read from global memory every
+// step (the (H, 3H) f32 W_h at H = 1024 is 12 MiB, held by the 50 MB L2),
+// each of 512 threads looping over its gate columns, and scalar reads of h.
+// Only the carry and the gates stay in shared memory (BT * 4H f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -139,12 +147,104 @@ __global__ void gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ w
   }
 }
 
+constexpr int WIDE_THREADS = 512;
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+gru_fwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                    const T* __restrict__ bh, const float* __restrict__ mask,
+                    T* __restrict__ ys, int n_steps, int batch, int hidden, int n_dir,
+                    int rev_bits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int gates = 3 * hidden;
+  float* h_s = reinterpret_cast<float*>(smem);  // (BT, H)
+  float* g_s = h_s + BT * hidden;               // (BT, 3H)
+
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * BT;
+  const int tid = threadIdx.x;
+  const bool reverse = (rev_bits >> d) & 1;
+  const T* w_d = wh + (size_t)d * hidden * gates;
+  const T* b_d = bh + (size_t)d * gates;
+  for (int i = tid; i < BT * hidden; i += blockDim.x) h_s[i] = 0.0f;
+  __syncthreads();
+
+  const size_t x_row = (size_t)n_dir * gates;
+  const size_t y_row = (size_t)n_dir * hidden;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = reverse ? n_steps - 1 - s : s;
+    for (int c = tid; c < gates; c += blockDim.x) {
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < hidden; ++k) {
+        const float wk = to_f32(w_d[(size_t)k * gates + c]);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) acc[r] = fmaf(h_s[r * hidden + k], wk, acc[r]);
+      }
+      const float bias = to_f32(b_d[c]);
+#pragma unroll
+      for (int r = 0; r < BT; ++r) g_s[r * gates + c] = acc[r] + bias;
+    }
+    __syncthreads();
+
+    for (int e = tid; e < BT * hidden; e += blockDim.x) {
+      const int r = e / hidden;
+      const int j = e - r * hidden;
+      const int b = b0 + r;
+      if (b >= batch) continue;
+      const T* x = xp + ((size_t)t * batch + b) * x_row + (size_t)d * gates;
+      const float* g = g_s + r * gates;
+      const float rg = sigmoid_f32(to_f32(x[j]) + g[j]);
+      const float zg = sigmoid_f32(to_f32(x[hidden + j]) + g[hidden + j]);
+      const float ng = tanhf(to_f32(x[2 * hidden + j]) + rg * g[2 * hidden + j]);
+      const float h_prev = h_s[e];
+      const float cand = (1.0f - zg) * ng + zg * h_prev;
+      const float m = mask[(size_t)t * batch + b];
+      const T out = from_f32<T>(m != 0.0f ? cand : h_prev);
+      h_s[e] = to_f32(out);
+      ys[((size_t)t * batch + b) * y_row + (size_t)d * hidden + j] = out;
+    }
+    __syncthreads();
+  }
+}
+
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
+
+size_t resident_smem_bytes(int hidden, int elem_bytes) {
+  const size_t gates = 3 * (size_t)hidden;
+  return ((hidden * gates * elem_bytes + 15) & ~(size_t)15) + BT * (hidden + gates) * 4;
+}
+
+// The resident kernel takes H % 4 == 0, 3H <= 1024 and W_h in shared memory.
+bool resident(int hidden, int elem_bytes) {
+  return hidden % 4 == 0 && 3 * hidden <= 1024 &&
+         resident_smem_bytes(hidden, elem_bytes) <= MAX_SMEM;
+}
+
+template <typename T>
+int launch_wide(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
+                int n_steps, int batch, int hidden, int n_dir, int rev_bits, void* stream) {
+  const size_t smem = (size_t)BT * 4 * hidden * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(gru_fwd_wide_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((batch + BT - 1) / BT, n_dir);
+  gru_fwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
+      static_cast<const float*>(mask), static_cast<T*>(ys), n_steps, batch, hidden, n_dir,
+      rev_bits);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
            int n_steps, int batch, int hidden, int n_dir, int rev_bits, void* stream) {
   const int gates = 3 * hidden;
-  const size_t w_bytes = ((size_t)hidden * gates * sizeof(T) + 15) & ~(size_t)15;
-  const size_t smem = w_bytes + (size_t)BT * (hidden + gates) * sizeof(float);
+  const size_t smem = resident_smem_bytes(hidden, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(gru_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -162,22 +262,25 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, voi
 
 extern "C" {
 
-// Shared memory one block needs, in bytes (the wrapper refuses larger shapes).
-size_t gru_fwd_smem_bytes(int hidden, int elem_bytes) {
-  const size_t gates = 3 * (size_t)hidden;
-  return ((hidden * gates * elem_bytes + 15) & ~(size_t)15) + BT * (hidden + gates) * 4;
-}
+// 1 when H in this storage type takes the resident kernel, 0 when the wide one.
+int gru_fwd_resident(int hidden, int elem_bytes) { return resident(hidden, elem_bytes); }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024. Returns
+// cudaGetLastError() of the launch.
 int gru_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
             int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype,
             void* stream) {
+  if (hidden < 1 || hidden > 1024 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const bool res = resident(hidden, dtype == 0 ? 4 : 2);
   if (dtype == 0)
-    return launch<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits, stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
-                                 rev_bits, stream);
-  return (int)cudaErrorInvalidValue;
+    return res ? launch<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
+                               stream)
+               : launch_wide<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
+                                    rev_bits, stream);
+  return res ? launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
+                                     rev_bits, stream)
+             : launch_wide<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
+                                          rev_bits, stream);
 }
 
 }  // extern "C"

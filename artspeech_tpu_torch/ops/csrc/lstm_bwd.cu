@@ -70,6 +70,18 @@
 //   in tile order: no atomicAdd into the output, the same result every run.
 // Tensor cores (wgmma) and prefetch of the next step's inputs are left for
 // later work.
+//
+// The wide instance. The cluster kernel needs H % 4 == 0, 2H <= 1024 and
+// half of W_h in a CTA's shared memory (f32 up to H = 160, bf16 up to
+// H = 220). Every other H up to 1024 takes lstm_bwd_wide_kernel: one block
+// of 512 threads a (direction, batch tile), no cluster, W_h read from
+// global memory (the L2 holds it: 16 MiB at H = 1024 in f32), as
+// gru_bwd.cu's wide kernel does it: the recompute a thread per gate column
+// in turn, the dh product a warp per row k of W_h with a fixed butterfly of
+// shuffles (deterministic), db_h in shared memory, and the resident dW_h
+// epilogue once per chunk of 512 columns. Shared memory: h_prev, dh, dc and
+// the product (BT, H), the gates and their rounded gradients (BT, 4H), db_h
+// (4H), in f32: 208 H bytes, 212,992 B at H = 1024.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -378,6 +390,224 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   }
 }
 
+constexpr int WIDE_THREADS = 512;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
+
+size_t wide_smem_bytes(int hidden) {
+  const size_t loop = sizeof(float) * ((size_t)BT * (4 * hidden + 8 * hidden) + 4 * hidden);
+  const size_t epilogue = (size_t)RC * KT * sizeof(float);
+  return loop > epilogue ? loop : epilogue;
+}
+
+bool resident(int hidden, int elem_bytes) {
+  return hidden % 4 == 0 && 2 * hidden <= 1024 && smem_bytes(hidden, elem_bytes) <= MAX_SMEM;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                     const T* __restrict__ bh, const float* __restrict__ mask,
+                     const T* __restrict__ ys, const T* __restrict__ cs,
+                     const T* __restrict__ gy, T* __restrict__ dxp, T* dhg,
+                     float* __restrict__ dw_part, float* __restrict__ db_part, int n_steps,
+                     int batch, int hidden, int n_dir, int rev_bits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int gates = 4 * hidden;
+  const int bh_size = BT * hidden;
+  float* hp_s = reinterpret_cast<float*>(smem);  // (BT, H)
+  float* g_s = hp_s + bh_size;                   // (BT, 4H): gates, then their f32 gradients
+  float* gc_s = g_s + BT * gates;                // (BT, 4H): the gradients rounded, as f32
+  float* dh_s = gc_s + BT * gates;               // (BT, H): dh without the W_h^T product
+  float* dc_s = dh_s + bh_size;                  // (BT, H): dc
+  float* part_s = dc_s + bh_size;                // (BT, H): the W_h^T product
+  float* db_s = part_s + bh_size;                // (4H): db_h
+
+  const int d = blockIdx.y;
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int b0 = tile * BT;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const bool reverse = (rev_bits >> d) & 1;
+  const size_t x_row = (size_t)n_dir * gates;
+  const size_t y_row = (size_t)n_dir * hidden;
+  const T* w_d = wh + (size_t)d * hidden * gates;
+  const T* b_d = bh + (size_t)d * gates;
+
+  for (int i = tid; i < bh_size; i += blockDim.x) dh_s[i] = dc_s[i] = part_s[i] = 0.0f;
+  for (int c = tid; c < gates; c += blockDim.x) db_s[c] = 0.0f;
+  load_h_prev(hp_s, ys, n_steps - 1, n_steps, batch, hidden, b0, d, y_row, reverse);
+  __syncthreads();
+
+  for (int s = n_steps - 1; s >= 0; --s) {
+    const int t = reverse ? n_steps - 1 - s : s;
+    const int t_prev = reverse ? n_steps - s : s - 1;
+
+    // 1. Recompute h_prev @ W_h + b_h, a thread per gate column in turn.
+    for (int c = tid; c < gates; c += blockDim.x) {
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < hidden; ++k) {
+        const float wk = to_f32(w_d[(size_t)k * gates + c]);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) acc[r] = fmaf(hp_s[r * hidden + k], wk, acc[r]);
+      }
+      const float bias = to_f32(b_d[c]);
+#pragma unroll
+      for (int r = 0; r < BT; ++r) g_s[r * gates + c] = acc[r] + bias;
+    }
+    __syncthreads();
+
+    // 2. The cell backward over the (BT, H) tile, as the cluster kernel.
+    for (int e = tid; e < bh_size; e += blockDim.x) {
+      const int r = e / hidden;
+      const int j = e - r * hidden;
+      const int b = b0 + r;
+      float* g = g_s + r * gates + j;
+      float* gc = gc_s + r * gates + j;
+      if (b >= batch) {
+        g[0] = g[hidden] = g[2 * hidden] = g[3 * hidden] = 0.0f;
+        gc[0] = gc[hidden] = gc[2 * hidden] = gc[3 * hidden] = 0.0f;
+        continue;
+      }
+      const float carry = dh_s[e] + part_s[e];
+      const size_t row = (size_t)t * batch + b;
+      const size_t unit = (size_t)d * hidden + j;
+      const T* x = xp + row * x_row + (size_t)d * gates + j;
+      const float ig = sigmoid_f32(g[0] + to_f32(x[0]));
+      const float fg = sigmoid_f32(g[hidden] + to_f32(x[hidden]));
+      const float gg = tanhf(g[2 * hidden] + to_f32(x[2 * hidden]));
+      const float og = sigmoid_f32(g[3 * hidden] + to_f32(x[3 * hidden]));
+      const float c_prev = s > 0 ? to_f32(cs[((size_t)t_prev * batch + b) * y_row + unit]) : 0.0f;
+      const float c_new = fg * c_prev + ig * gg;
+      const float th = tanhf(c_new);
+      const float m = mask[row];
+      const float dh_tot = to_f32(gy[row * y_row + unit]) + carry;
+      const float dh_c = m * dh_tot;
+      const float dc = dc_s[e];
+      float dc_c = m * dc;
+      const float d_o = dh_c * th;
+      dc_c = dc_c + dh_c * og * (1.0f - th * th);
+      const float d_f = dc_c * c_prev;
+      const float d_i = dc_c * gg;
+      const float d_g = dc_c * ig;
+      dc_s[e] = (1.0f - m) * dc + dc_c * fg;
+      dh_s[e] = (1.0f - m) * dh_tot;
+
+      const float gi = d_i * ig * (1.0f - ig);
+      const float gf = d_f * fg * (1.0f - fg);
+      const float gg_ = d_g * (1.0f - gg * gg);
+      const float go = d_o * og * (1.0f - og);
+      const T ci = from_f32<T>(gi), cf = from_f32<T>(gf), cg_ = from_f32<T>(gg_),
+              co = from_f32<T>(go);
+      T* dx = dxp + row * x_row + (size_t)d * gates + j;
+      T* dg = dhg + row * x_row + (size_t)d * gates + j;
+      dx[0] = dg[0] = ci;
+      dx[hidden] = dg[hidden] = cf;
+      dx[2 * hidden] = dg[2 * hidden] = cg_;
+      dx[3 * hidden] = dg[3 * hidden] = co;
+      g[0] = gi;
+      g[hidden] = gf;
+      g[2 * hidden] = gg_;
+      g[3 * hidden] = go;
+      gc[0] = to_f32(ci);
+      gc[hidden] = to_f32(cf);
+      gc[2 * hidden] = to_f32(cg_);
+      gc[3 * hidden] = to_f32(co);
+    }
+    __syncthreads();
+
+    // 3. db_h; the product dgates_c @ W_h^T, a warp a row k of W_h; the next
+    //    h_prev.
+    for (int c = tid; c < gates; c += blockDim.x) {
+      float acc = db_s[c];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc += g_s[r * gates + c];
+      db_s[c] = acc;
+    }
+    for (int k = warp; k < hidden; k += n_warps) {
+      const T* wk = w_d + (size_t)k * gates;
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+      for (int c = lane; c < gates; c += 32) {
+        const float w = to_f32(wk[c]);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) acc[r] = fmaf(gc_s[r * gates + c], w, acc[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int r = 0; r < BT; ++r) part_s[r * hidden + k] = acc[r];
+      }
+    }
+    if (s > 0) load_h_prev(hp_s, ys, s - 1, n_steps, batch, hidden, b0, d, y_row, reverse);
+    __syncthreads();
+  }
+
+  // Epilogue: the cluster kernel's, once per chunk of blockDim.x columns.
+  for (int c = tid; c < gates; c += blockDim.x)
+    db_part[((size_t)d * n_tiles + tile) * gates + c] = db_s[c];
+  float* h_stage = reinterpret_cast<float*>(smem);  // (RC, KT)
+  const int n_pairs = n_steps * BT;
+  for (int c0 = 0; c0 < gates; c0 += blockDim.x) {
+    const int c = c0 + tid;
+    for (int k0 = 0; k0 < hidden; k0 += KT) {
+      float acc[KT];
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) acc[kk] = 0.0f;
+      for (int j0 = 0; j0 < n_pairs; j0 += RC) {
+        const int rows = min(RC, n_pairs - j0);
+        __syncthreads();
+        for (int i = tid; i < rows * KT; i += blockDim.x) {
+          const int jj = i / KT;
+          const int k = k0 + (i - jj * KT);
+          const int st = (j0 + jj) / BT;
+          const int b = b0 + (j0 + jj) - st * BT;
+          float v = 0.0f;
+          if (st > 0 && b < batch && k < hidden) {
+            const int tp = reverse ? n_steps - st : st - 1;
+            v = to_f32(ys[((size_t)tp * batch + b) * y_row + (size_t)d * hidden + k]);
+          }
+          h_stage[i] = v;
+        }
+        __syncthreads();
+        if (c < gates) {
+          for (int jj = 0; jj < rows; ++jj) {
+            const int st = (j0 + jj) / BT;
+            const int b = b0 + (j0 + jj) - st * BT;
+            if (b >= batch) continue;
+            const int t = reverse ? n_steps - 1 - st : st;
+            const float gv = to_f32(dhg[((size_t)t * batch + b) * x_row + (size_t)d * gates + c]);
+            const float4* h4 = reinterpret_cast<const float4*>(h_stage + jj * KT);
+#pragma unroll
+            for (int q = 0; q < KT / 4; ++q) {
+              const float4 hv = h4[q];
+              acc[4 * q + 0] = fmaf(hv.x, gv, acc[4 * q + 0]);
+              acc[4 * q + 1] = fmaf(hv.y, gv, acc[4 * q + 1]);
+              acc[4 * q + 2] = fmaf(hv.z, gv, acc[4 * q + 2]);
+              acc[4 * q + 3] = fmaf(hv.w, gv, acc[4 * q + 3]);
+            }
+          }
+        }
+      }
+      if (c < gates) {
+        float* out = dw_part + ((size_t)d * n_tiles + tile) * hidden * gates;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+          if (k0 + kk < hidden) out[(size_t)(k0 + kk) * gates + c] = acc[kk];
+      }
+    }
+  }
+}
+
 // out[d][i] = sum over tiles, in tile order, of part[d][tile][i].
 __global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out,
                              int n_tiles, int width, int n_dir) {
@@ -406,18 +636,31 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, con
            const void* cs, const void* gy, void* dxp, void* dhg, float* dw_part, float* db_part,
            float* dw, float* db, int n_steps, int batch, int hidden, int n_dir, int rev_bits,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(hidden, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(lstm_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((2 * hidden + 31) / 32) * 32;
+  const bool res = resident(hidden, sizeof(T));
+  const size_t smem = res ? smem_bytes(hidden, sizeof(T)) : wide_smem_bytes(hidden);
   const int n_tiles = (batch + BT - 1) / BT;
-  dim3 grid(CLUSTER * n_tiles, n_dir);
-  lstm_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
-      static_cast<const float*>(mask), static_cast<const T*>(ys), static_cast<const T*>(cs),
-      static_cast<const T*>(gy), static_cast<T*>(dxp), static_cast<T*>(dhg), dw_part, db_part,
-      n_steps, batch, hidden, n_dir, rev_bits);
+  if (res) {
+    cudaError_t err = cudaFuncSetAttribute(lstm_bwd_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int threads = ((2 * hidden + 31) / 32) * 32;
+    dim3 grid(CLUSTER * n_tiles, n_dir);
+    lstm_bwd_kernel<T><<<grid, threads, smem, stream>>>(
+        static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
+        static_cast<const float*>(mask), static_cast<const T*>(ys), static_cast<const T*>(cs),
+        static_cast<const T*>(gy), static_cast<T*>(dxp), static_cast<T*>(dhg), dw_part,
+        db_part, n_steps, batch, hidden, n_dir, rev_bits);
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(lstm_bwd_wide_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid(n_tiles, n_dir);
+    lstm_bwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, stream>>>(
+        static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
+        static_cast<const float*>(mask), static_cast<const T*>(ys), static_cast<const T*>(cs),
+        static_cast<const T*>(gy), static_cast<T*>(dxp), static_cast<T*>(dhg), dw_part,
+        db_part, n_steps, batch, hidden, n_dir, rev_bits);
+  }
   int code = (int)cudaGetLastError();
   if (code != 0) return code;
   const int gates = 4 * hidden;
@@ -430,13 +673,13 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, con
 
 extern "C" {
 
-// Shared memory one CTA needs, in bytes (the wrapper refuses larger shapes).
-size_t lstm_bwd_smem_bytes(int hidden, int elem_bytes) { return smem_bytes(hidden, elem_bytes); }
+// 1 when H in this storage type takes the cluster kernel, 0 when the wide one.
+int lstm_bwd_resident(int hidden, int elem_bytes) { return resident(hidden, elem_bytes); }
 
 // Batch rows per cluster: the wrapper sizes the partials (D, ceil(B / BT), ...).
 int lstm_bwd_batch_tile(void) { return BT; }
 
-// dtype: 0 = float32, 1 = bfloat16. dhg is scratch (T, B, D*4H) in the
+// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024. dhg is scratch (T, B, D*4H) in the
 // storage type; dw_part (D, tiles, H, 4H) and db_part (D, tiles, 4H) are f32
 // scratch; dw (D, H, 4H) and db (D, 4H) are f32 outputs. Returns the first
 // nonzero cudaError_t of the launches, else 0.
@@ -449,6 +692,7 @@ int lstm_bwd(const void* xp, const void* wh, const void* bh, const void* mask, c
   float* f_dw = static_cast<float*>(dw);
   float* f_db = static_cast<float*>(db);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hidden < 1 || hidden > 1024) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(xp, wh, bh, mask, ys, cs, gy, dxp, dhg, f_dw_part, f_db_part, f_dw,
                          f_db, n_steps, batch, hidden, n_dir, rev_bits, s);

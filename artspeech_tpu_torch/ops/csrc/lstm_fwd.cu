@@ -53,6 +53,16 @@
 // way: 128 KB a step and CTA through L2 against 8 KB of h through the
 // cluster; the cluster keeps every weight read in shared memory. Tensor
 // cores (wgmma) and TMA prefetch of x_proj are left for later work.
+//
+// The wide instance. The cluster kernel needs H % 4 == 0, 2H <= 1024 (a
+// thread a column of its half) and half of W_h in a CTA's shared memory
+// (f32 up to H = 164, bf16 up to H = 232). Every other H up to 1024 takes
+// lstm_fwd_wide_kernel: one block of 512 threads a (direction, batch tile),
+// no cluster, W_h read from global memory every step (the L2 holds it:
+// 16 MiB at H = 1024 in f32), each thread looping over its gate columns,
+// scalar reads of h. The carries h and c and the gates stay in shared
+// memory (BT * 6H f32); h is updated in place, since the step's product has
+// read all of it before the first update.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -107,7 +117,8 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   const int cols = 4 * units;    // their gate columns
   const int gates = 4 * hidden;
   T* w_s = reinterpret_cast<T*>(smem);                                                // (H, cols)
-  float* h_s = reinterpret_cast<float*>(smem + align16((size_t)hidden * cols * sizeof(T)));  // (2, BT, H)
+  // (2, BT, H)
+  float* h_s = reinterpret_cast<float*>(smem + align16((size_t)hidden * cols * sizeof(T)));
   float* g_s = h_s + 2 * BT * hidden;  // (BT, cols)
   float* c_s = g_s + BT * cols;        // (BT, units)
   float* h_peer = cluster.map_shared_rank(h_s, (unsigned)(rank ^ 1));
@@ -198,6 +209,99 @@ __global__ void __cluster_dims__(CLUSTER, 1, 1)
   }
 }
 
+constexpr int WIDE_THREADS = 512;
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
+
+bool resident(int hidden, int elem_bytes) {
+  return hidden % 4 == 0 && 2 * hidden <= 1024 && smem_bytes(hidden, elem_bytes) <= MAX_SMEM;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+lstm_fwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                     const T* __restrict__ bh, const float* __restrict__ mask,
+                     T* __restrict__ ys, T* __restrict__ cs, int n_steps, int batch, int hidden,
+                     int n_dir, int rev_bits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int gates = 4 * hidden;
+  float* h_s = reinterpret_cast<float*>(smem);  // (BT, H)
+  float* c_s = h_s + BT * hidden;               // (BT, H)
+  float* g_s = c_s + BT * hidden;               // (BT, 4H)
+
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * BT;
+  const int tid = threadIdx.x;
+  const bool reverse = (rev_bits >> d) & 1;
+  const T* w_d = wh + (size_t)d * hidden * gates;
+  const T* b_d = bh + (size_t)d * gates;
+  for (int i = tid; i < 2 * BT * hidden; i += blockDim.x) h_s[i] = 0.0f;  // h and c
+  __syncthreads();
+
+  const size_t x_row = (size_t)n_dir * gates;
+  const size_t y_row = (size_t)n_dir * hidden;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = reverse ? n_steps - 1 - s : s;
+    for (int c = tid; c < gates; c += blockDim.x) {
+      float acc[BT];
+#pragma unroll
+      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
+#pragma unroll 4
+      for (int k = 0; k < hidden; ++k) {
+        const float wk = to_f32(w_d[(size_t)k * gates + c]);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) acc[r] = fmaf(h_s[r * hidden + k], wk, acc[r]);
+      }
+      const float bias = to_f32(b_d[c]);
+#pragma unroll
+      for (int r = 0; r < BT; ++r) g_s[r * gates + c] = acc[r] + bias;
+    }
+    __syncthreads();
+
+    for (int e = tid; e < BT * hidden; e += blockDim.x) {
+      const int r = e / hidden;
+      const int j = e - r * hidden;
+      const int b = b0 + r;
+      if (b >= batch) continue;
+      const size_t row = (size_t)t * batch + b;
+      const T* x = xp + row * x_row + (size_t)d * gates + j;
+      const float* g = g_s + r * gates + j;
+      const float ig = sigmoid_f32(g[0] + to_f32(x[0]));
+      const float fg = sigmoid_f32(g[hidden] + to_f32(x[hidden]));
+      const float gg = tanhf(g[2 * hidden] + to_f32(x[2 * hidden]));
+      const float og = sigmoid_f32(g[3 * hidden] + to_f32(x[3 * hidden]));
+      const float c_prev = c_s[e];
+      const float c_new = fg * c_prev + ig * gg;
+      const float h_cand = og * tanhf(c_new);
+      const bool valid = mask[row] != 0.0f;
+      const T h_out = from_f32<T>(valid ? h_cand : h_s[e]);
+      const T c_out = from_f32<T>(valid ? c_new : c_prev);
+      h_s[e] = to_f32(h_out);
+      c_s[e] = to_f32(c_out);
+      const size_t out = row * y_row + (size_t)d * hidden + j;
+      ys[out] = h_out;
+      if (cs != nullptr) cs[out] = c_out;
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_wide(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
+                void* cs, int n_steps, int batch, int hidden, int n_dir, int rev_bits,
+                void* stream) {
+  const size_t smem = (size_t)BT * 6 * hidden * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(lstm_fwd_wide_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((batch + BT - 1) / BT, n_dir);
+  lstm_fwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
+      static_cast<const float*>(mask), static_cast<T*>(ys), static_cast<T*>(cs), n_steps, batch,
+      hidden, n_dir, rev_bits);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* xp, const void* wh, const void* bh, const void* mask, void* ys, void* cs,
            int n_steps, int batch, int hidden, int n_dir, int rev_bits, void* stream) {
@@ -218,21 +322,25 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, voi
 
 extern "C" {
 
-// Shared memory one CTA needs, in bytes (the wrapper refuses larger shapes).
-size_t lstm_fwd_smem_bytes(int hidden, int elem_bytes) { return smem_bytes(hidden, elem_bytes); }
+// 1 when H in this storage type takes the cluster kernel, 0 when the wide one.
+int lstm_fwd_resident(int hidden, int elem_bytes) { return resident(hidden, elem_bytes); }
 
-// dtype: 0 = float32, 1 = bfloat16. cs may be null. Returns cudaGetLastError()
-// of the launch.
+// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024. cs may be null. Returns
+// cudaGetLastError() of the launch.
 int lstm_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys, void* cs,
              int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype,
              void* stream) {
+  if (hidden < 1 || hidden > 1024 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const bool res = resident(hidden, dtype == 0 ? 4 : 2);
   if (dtype == 0)
-    return launch<float>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir, rev_bits,
-                         stream);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir,
-                                 rev_bits, stream);
-  return (int)cudaErrorInvalidValue;
+    return res ? launch<float>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir,
+                               rev_bits, stream)
+               : launch_wide<float>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir,
+                                    rev_bits, stream);
+  return res ? launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir,
+                                     rev_bits, stream)
+             : launch_wide<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden,
+                                          n_dir, rev_bits, stream);
 }
 
 }  // extern "C"

@@ -48,6 +48,25 @@
 // The TPU kernels' G_BLOCK and 128-multiple L have no counterpart: any L up
 // to 512 and any G (blocks past G idle) are taken. wgmma and TMA are later
 // work.
+//
+// The wide instances. The kernels above hold a row of hd floats per thread
+// in registers and all L rows of a group in shared memory, so they take
+// hd <= 32 and L <= 512, and the backward's block fits only while
+// 4 (4 L HD + 2 L) bytes a group stay within 232,448 (not at L = 512 with
+// hd > 16). Every other shape, hd up to 128, takes the wide kernels,
+// which give a row to a warp instead of a thread: lane l holds elements
+// l, l + 32, ... of the warp's row (NPL = ceil(hd / 32) of them, rounded up
+// to 1, 2 or 4), each dot product is a butterfly of shuffles (every lane
+// ends with the same sum, so all lanes take the same softmax steps), and the
+// other side's rows are read from global memory by the warp in coalesced
+// 128-byte spans (they stay in L1 and L2: a group's K and V at L = 512,
+// hd = 128 are 512 KiB). No shared memory; L stays within MAX_L, the
+// longest default bucket.
+// - forward: a warp a query row, keys 0..q in order, the same online
+//   softmax as above; four warps a block;
+// - backward, two launches: dQ a warp a query row (it also writes
+//   D_q = dO_q . out_q into a (G, L) scratch), then dK and dV a warp a key
+//   row over queries L-1 down to k, reading D from the scratch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -275,6 +294,165 @@ train_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// ---- wide instances: a warp a row ------------------------------------------
+
+constexpr int WIDE_WARPS = 4;  // rows a block
+
+// Elements l, l + 32, ... (NPL of them) of an hd-float row, zero past hd.
+template <int NPL>
+__device__ inline void load_lanes(float* dst, const float* __restrict__ row, int hd, int lane) {
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    dst[i] = d < hd ? row[d] : 0.0f;
+  }
+}
+
+template <int NPL>
+__device__ inline void store_lanes(float* row, const float* src, int hd, int lane) {
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) row[d] = src[i];
+  }
+}
+
+// Sum over the warp by a fixed xor butterfly: every lane gets the same value.
+__device__ inline float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int NPL>
+__device__ inline float lane_dot(const float* a, const float* __restrict__ row, int hd, int lane) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) s = fmaf(a[i], row[d], s);
+  }
+  return warp_sum(s);
+}
+
+template <int NPL>
+__device__ inline void lane_axpy(float* acc, float w, const float* __restrict__ row, int hd,
+                                 int lane) {
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < hd) acc[i] = fmaf(w, row[d], acc[i]);
+  }
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+train_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ keep,
+                                float* __restrict__ out, float* __restrict__ lse, int g_total,
+                                int l, int hd, int groups_per_pair) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);  // g * L + r
+  if (row >= (size_t)g_total * l) return;
+  const size_t g = row / l;
+  const int r = (int)(row - g * l);
+  const float* kg = k + g * l * hd;
+  const float* vg = v + g * l * hd;
+  const float* keep_r = keep + ((g / groups_per_pair) * l + r) * l;
+  float qr[NPL], acc[NPL];
+  load_lanes<NPL>(qr, q + row * hd, hd, lane);
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
+  float m = -INFINITY, z = 0.0f;
+  for (int j = 0; j <= r; ++j) {
+    const float s = lane_dot<NPL>(qr, kg + (size_t)j * hd, hd, lane);
+    if (s > m) {
+      const float alpha = expf(m - s);  // 0 at the first key
+      z *= alpha;
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) acc[i] *= alpha;
+      m = s;
+    }
+    const float p = expf(s - m);
+    z += p;
+    lane_axpy<NPL>(acc, p * keep_r[j], vg + (size_t)j * hd, hd, lane);
+  }
+  const float inv_z = 1.0f / z;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) acc[i] *= inv_z;
+  store_lanes<NPL>(out + row * hd, acc, hd, lane);
+  if (lane == 0) lse[row] = m + logf(z);
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+train_attention_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ keep,
+                               const float* __restrict__ out, const float* __restrict__ lse,
+                               const float* __restrict__ dout, float* __restrict__ dq,
+                               float* __restrict__ dsum, int g_total, int l, int hd,
+                               int groups_per_pair) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);
+  if (row >= (size_t)g_total * l) return;
+  const size_t g = row / l;
+  const int r = (int)(row - g * l);
+  const float* kg = k + g * l * hd;
+  const float* vg = v + g * l * hd;
+  const float* keep_r = keep + ((g / groups_per_pair) * l + r) * l;
+  float qr[NPL], dor[NPL], acc[NPL];
+  load_lanes<NPL>(qr, q + row * hd, hd, lane);
+  load_lanes<NPL>(dor, dout + row * hd, hd, lane);
+  const float d_r = lane_dot<NPL>(dor, out + row * hd, hd, lane);
+  if (lane == 0) dsum[row] = d_r;
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
+  const float lse_r = lse[row];
+  for (int j = 0; j <= r; ++j) {
+    const float* kj = kg + (size_t)j * hd;
+    const float p = expf(lane_dot<NPL>(qr, kj, hd, lane) - lse_r);
+    const float dp = lane_dot<NPL>(dor, vg + (size_t)j * hd, hd, lane) * keep_r[j];
+    lane_axpy<NPL>(acc, p * (dp - d_r), kj, hd, lane);
+  }
+  store_lanes<NPL>(dq + row * hd, acc, hd, lane);
+}
+
+template <int NPL>
+__global__ void __launch_bounds__(32 * WIDE_WARPS)
+train_attention_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ keep,
+                                const float* __restrict__ lse, const float* __restrict__ dout,
+                                const float* __restrict__ dsum, float* __restrict__ dk,
+                                float* __restrict__ dv, int g_total, int l, int hd,
+                                int groups_per_pair) {
+  const int lane = threadIdx.x & 31;
+  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);  // g * L + c
+  if (row >= (size_t)g_total * l) return;
+  const size_t g = row / l;
+  const int c = (int)(row - g * l);
+  const float* qg = q + g * l * hd;
+  const float* dog = dout + g * l * hd;
+  const float* lse_g = lse + g * l;
+  const float* dsum_g = dsum + g * l;
+  const float* keep_g = keep + (g / groups_per_pair) * l * l;
+  float kc[NPL], vc[NPL], dka[NPL], dva[NPL];
+  load_lanes<NPL>(kc, k + row * hd, hd, lane);
+  load_lanes<NPL>(vc, v + row * hd, hd, lane);
+#pragma unroll
+  for (int i = 0; i < NPL; ++i) dka[i] = dva[i] = 0.0f;
+  for (int i = l - 1; i >= c; --i) {
+    const float* qi = qg + (size_t)i * hd;
+    const float* doi = dog + (size_t)i * hd;
+    const float kp = keep_g[(size_t)i * l + c];
+    const float p = expf(lane_dot<NPL>(kc, qi, hd, lane) - lse_g[i]);
+    const float dp = lane_dot<NPL>(vc, doi, hd, lane) * kp;
+    lane_axpy<NPL>(dva, p * kp, doi, hd, lane);
+    lane_axpy<NPL>(dka, p * (dp - dsum_g[i]), qi, hd, lane);
+  }
+  store_lanes<NPL>(dk + row * hd, dka, hd, lane);
+  store_lanes<NPL>(dv + row * hd, dva, hd, lane);
+}
+
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
@@ -287,8 +465,51 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 bool valid_shape(int g, int l, int hd, int n_pairs) {
-  return g >= 1 && l >= 1 && l <= MAX_L && hd >= 1 && hd <= 32 && n_pairs >= 1 &&
+  return g >= 1 && l >= 1 && l <= MAX_L && hd >= 1 && hd <= 128 && n_pairs >= 1 &&
          g % n_pairs == 0;
+}
+
+// The kernels that hold rows in registers and shared memory take the shape.
+bool resident_fwd(int l, int hd) { return hd <= 32 && l <= MAX_L; }
+bool resident_bwd(int l, int hd) {
+  return hd <= 32 && l <= MAX_L && bwd_smem_bytes(l, hd <= 16 ? 16 : 32) <= MAX_SMEM;
+}
+
+int wide_blocks(int g, int l) {
+  return (int)(((size_t)g * l + WIDE_WARPS - 1) / WIDE_WARPS);
+}
+
+template <int NPL>
+int launch_fwd_wide(const void* q, const void* k, const void* v, const void* keep, void* out,
+                    void* lse, int g, int l, int hd, int n_pairs, cudaStream_t stream) {
+  train_attention_fwd_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(keep), static_cast<float*>(out), static_cast<float*>(lse), g, l,
+      hd, g / n_pairs);
+  return (int)cudaGetLastError();
+}
+
+template <int NPL>
+int launch_bwd_wide(const void* q, const void* k, const void* v, const void* keep,
+                    const void* out, const void* lse, const void* dout, void* dq, void* dk,
+                    void* dv, void* dsum, int g, int l, int hd, int n_pairs,
+                    cudaStream_t stream) {
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fkeep = static_cast<const float*>(keep);
+  const float* flse = static_cast<const float*>(lse);
+  const float* fdout = static_cast<const float*>(dout);
+  float* fdsum = static_cast<float*>(dsum);
+  train_attention_dq_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+      fq, fk, fv, fkeep, static_cast<const float*>(out), flse, fdout, static_cast<float*>(dq),
+      fdsum, g, l, hd, g / n_pairs);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  train_attention_dkv_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+      fq, fk, fv, fkeep, flse, fdout, fdsum, static_cast<float*>(dk), static_cast<float*>(dv), g,
+      l, hd, g / n_pairs);
+  return (int)cudaGetLastError();
 }
 
 template <int HD>
@@ -326,28 +547,46 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* keep, co
 extern "C" {
 
 // q, k, v: (G, L, hd) f32; keep: (n_pairs, L, L) f32; out: (G, L, hd) f32;
-// lse: (G, L) f32. 1 <= L <= 512, 1 <= hd <= 32, n_pairs divides G. Returns
-// the first nonzero cudaError_t of the launch, else 0.
+// lse: (G, L) f32. 1 <= L <= 512, 1 <= hd <= 128, n_pairs divides G. Returns the
+// first nonzero cudaError_t of the launch, else 0.
 int train_attention_fwd(const void* q, const void* k, const void* v, const void* keep, void* out,
                         void* lse, int g, int l, int hd, int n_pairs, void* stream) {
   if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
-                  : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  if (resident_fwd(l, hd))
+    return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
+                    : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  // Within MAX_L every hd <= 32 is resident, so the wide forward sees hd > 32.
+  return hd <= 64 ? launch_fwd_wide<2>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
+                  : launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
 }
 
-// As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32, and the
-// gradients dq, dk, dv (G, L, hd) f32. The shared memory a block needs,
-// 4 * (4 L HD + 2 L) bytes per group (HD: hd rounded up to 16 or 32), must
-// stay within 232,448 bytes.
+// As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32, the
+// gradients dq, dk, dv (G, L, hd) f32, and dsum, (G, L) f32 scratch that
+// the wide kernels fill with D_q = dO_q . out_q.
 int train_attention_bwd(const void* q, const void* k, const void* v, const void* keep,
                         const void* out, const void* lse, const void* dout, void* dq, void* dk,
-                        void* dv, int g, int l, int hd, int n_pairs, void* stream) {
+                        void* dv, void* dsum, int g, int l, int hd, int n_pairs, void* stream) {
   if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return hd <= 16
-             ? launch_bwd<16>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s)
-             : launch_bwd<32>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s);
+  if (resident_bwd(l, hd))
+    return hd <= 16
+               ? launch_bwd<16>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s)
+               : launch_bwd<32>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s);
+  if (hd <= 32)
+    return launch_bwd_wide<1>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
+                              s);
+  if (hd <= 64)
+    return launch_bwd_wide<2>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
+                              s);
+  return launch_bwd_wide<4>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
+                            s);
+}
+
+// 1 when the forward (backward = 0) or backward (backward = 1) at (L, hd)
+// takes the kernels that hold rows in registers, 0 when the wide ones.
+int train_attention_resident(int l, int hd, int backward) {
+  return backward ? resident_bwd(l, hd) : resident_fwd(l, hd);
 }
 
 }  // extern "C"

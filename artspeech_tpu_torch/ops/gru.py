@@ -23,6 +23,12 @@ B <= 16, time-major twin scans above); the port has one. Every layer is
 differentiable through ``hopper_gru.GRUSequenceFn`` or
 ``hopper_lstm.LSTMSequenceFn`` (the backward kernels on CUDA).
 
+A layer's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
+dtype (JAX ops/gru.py:74-79): the parameters stay float32 and are cast to it,
+with the input, for the input product and the recurrence, which then runs in
+it (gate math in float32, the carry rounded to it after every step, as the
+kernels do).
+
 In training mode, dropout between stacked layers works as flax
 ``nn.Dropout``: keep with probability 1 - p, scale kept values by 1/(1 - p),
 after every layer but the last. Its mask is drawn from a ``torch.Generator``
@@ -34,6 +40,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from artspeech_tpu_torch.models.heads import cast
 from artspeech_tpu_torch.ops.hopper_gru import bigru_sequence, gru_sequence
 from artspeech_tpu_torch.ops.hopper_lstm import bilstm_sequence, lstm_sequence
 
@@ -68,10 +75,12 @@ class _RNNLayer(nn.Module):
     sequence = None
 
     def __init__(self, in_features: int, hidden_size: int, reverse: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.reverse = reverse
+        self.dtype = dtype
         gates = self.n_gates * hidden_size
         self.wi = nn.Parameter(torch.empty(in_features, gates))
         self.bi = nn.Parameter(torch.empty(gates))
@@ -82,8 +91,10 @@ class _RNNLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """x (T, B, E), mask (T, B), nonzero on valid steps -> (T, B, H)."""
-        x_proj = x @ self.wi + self.bi
-        return self.sequence(x_proj, self.wh, self.bh, mask, reverse=self.reverse)
+        dt = self.dtype
+        x_proj = cast(x, dt) @ cast(self.wi, dt) + cast(self.bi, dt)
+        return self.sequence(x_proj, cast(self.wh, dt), cast(self.bh, dt), mask,
+                             reverse=self.reverse)
 
 
 class GRULayer(_RNNLayer):
@@ -113,11 +124,13 @@ class _Bidirectional(nn.Module):
     bi_sequence = None
 
     def __init__(self, in_features: int, hidden_size: int, num_layers: int = 2,
-                 dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.hidden_size = hidden_size
         self.num_layers = num_layers
         self.dropout = dropout
+        self.dtype = dtype
         self.layers = nn.ModuleList()
         for layer in range(num_layers):
             width = in_features if layer == 0 else 2 * hidden_size
@@ -128,14 +141,15 @@ class _Bidirectional(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, T, E), mask (B, T) -> (B, T, 2H); ``generator`` draws the
         dropout masks in training mode."""
+        dt = self.dtype
         out = x.transpose(0, 1)  # (T, B, E)
         mask_tm = mask.transpose(0, 1)
         for layer in range(self.num_layers):
             fwd, bwd = self.layers[2 * layer], self.layers[2 * layer + 1]
-            x_proj = out @ torch.cat([fwd.wi, bwd.wi], dim=1) + torch.cat([fwd.bi, bwd.bi])
-            out = self.bi_sequence(
-                x_proj, torch.stack([fwd.wh, bwd.wh]), torch.stack([fwd.bh, bwd.bh]), mask_tm
-            )
+            x_proj = (cast(out, dt) @ cast(torch.cat([fwd.wi, bwd.wi], dim=1), dt)
+                      + cast(torch.cat([fwd.bi, bwd.bi]), dt))
+            out = self.bi_sequence(x_proj, cast(torch.stack([fwd.wh, bwd.wh]), dt),
+                                   cast(torch.stack([fwd.bh, bwd.bh]), dt), mask_tm)
             if self.training and self.dropout > 0.0 and layer < self.num_layers - 1:
                 out = apply_dropout(out, self.dropout, generator)
         return out.transpose(0, 1)
@@ -160,12 +174,13 @@ class GRUStack(nn.Module):
     """Stacked unidirectional GRU: (B, T, E) -> (B, T, H)."""
 
     def __init__(self, in_features: int, hidden_size: int, num_layers: int = 1,
-                 dropout: float = 0.0, generator: Optional[torch.Generator] = None):
+                 dropout: float = 0.0, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dropout = dropout
         self.layers = nn.ModuleList(
             GRULayer(in_features if layer == 0 else hidden_size, hidden_size,
-                     generator=generator)
+                     generator=generator, dtype=dtype)
             for layer in range(num_layers)
         )
 

@@ -29,8 +29,9 @@ from artspeech_tpu_torch.ops import _build
 #: Kernel launches so far (the plain version does not count).
 launches = 0
 
-#: Largest head dim the kernel holds in registers (csrc/flash_decode.cu).
-MAX_HEAD_DIM = 64
+#: Largest head dim the kernels take (csrc/flash_decode.cu: registers up to
+#: 64, the wide instance's shared memory above).
+MAX_HEAD_DIM = 256
 
 _CACHE_DTYPES = (torch.float32, torch.bfloat16)
 _lib = None

@@ -3,14 +3,24 @@
 Counterpart of artspeech_tpu/ops/pallas_gru.py:gru_sequence (the fused Pallas
 time loop, ``_gru_fwd_kernel`` and ``_gru_bwd_kernel`` wired by a custom VJP).
 The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``;
-:class:`GRUSequenceFn` wires them as a ``torch.autograd.Function``.
+:class:`GRUSequenceFn` wires them as a ``torch.autograd.Function``. Each
+takes every H from 1 to ``MAX_HIDDEN``: a kernel with W_h resident in shared
+memory where it fits (the thesis' H = 128), a wide one that reads W_h through
+the L2 elsewhere.
 
-- A CPU tensor takes the plain versions, :func:`gru_sequence_reference` and
-  :func:`gru_sequence_backward_reference`.
+Also the counterpart of artspeech_tpu/ops/pallas_kernels.py:
+gru_sequence_pallas, the batch-major one-direction forward that JAX keeps as
+a measured reference: :func:`gru_sequence_batch_major` on ``csrc/gru_seq.cu``.
+No model path calls it, in JAX or here.
+
+- A CPU tensor takes the plain versions, :func:`gru_sequence_reference`,
+  :func:`gru_sequence_backward_reference` and
+  :func:`gru_sequence_batch_major_reference`.
 - A CUDA tensor takes the kernels, or the call raises. Nothing falls back.
 
-``launches`` counts forward kernel launches and ``bwd_launches`` backward
-ones, so a run can show that its GRUs went through the kernels.
+``launches`` counts forward kernel launches, ``bwd_launches`` backward ones
+and ``launches_seq`` those of the batch-major kernel, so a run can show that
+its GRUs went through the kernels.
 """
 
 import ctypes
@@ -23,11 +33,17 @@ from artspeech_tpu_torch.ops import _build
 launches = 0
 #: Backward kernel launches so far (the plain version does not count).
 bwd_launches = 0
+#: Batch-major kernel launches so far (the plain version does not count).
+launches_seq = 0
+
+#: Widest hidden size the kernels take.
+MAX_HIDDEN = 1024
+#: Largest batch tile the batch-major kernel takes.
+MAX_BATCH_TILE = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"gru_fwd": (5, 6), "gru_bwd": (12, 6)}
+_POINTERS_INTS = {"gru_fwd": (5, 6), "gru_bwd": (12, 6), "gru_seq": (5, 4)}
 _libs = {}
 
 
@@ -39,9 +55,9 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_size_t
+        resident = getattr(lib, f"{name}_resident")
+        resident.argtypes = [ctypes.c_int, ctypes.c_int]
+        resident.restype = ctypes.c_int
         if name == "gru_bwd":
             lib.gru_bwd_batch_tile.argtypes = []
             lib.gru_bwd_batch_tile.restype = ctypes.c_int
@@ -144,8 +160,6 @@ def gru_sequence_backward_reference(x_proj, w_h, b_h, mask, ys, g, reverse=False
 
 
 def _check(x_proj, w_h, b_h, mask, n_dir, name):
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"gru kernel needs CUDA tensors, got {x_proj.device}")
     if x_proj.dtype not in _DTYPES:
         raise ValueError(f"gru kernel takes float32 or bfloat16, got {x_proj.dtype}")
     if x_proj.dim() != 3 or w_h.dim() != 3 or b_h.dim() != 2 or mask.dim() != 2:
@@ -167,13 +181,17 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
             raise ValueError(f"gru kernel: {arg} must be contiguous")
     if mask.device != x_proj.device:
         raise ValueError("gru kernel: mask must be on x_proj's device")
-    if hidden % 4 or gates > 1024:
-        raise ValueError(f"gru kernel takes H % 4 == 0 and H <= 340, got H={hidden}")
-    smem = getattr(_library(name), f"{name}_smem_bytes")(hidden, x_proj.element_size())
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"{name} kernel: H={hidden} in {x_proj.dtype} needs {smem} B of shared memory, "
-            f"more than the {_MAX_SMEM} B a block may use")
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"gru kernel takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"gru kernel needs CUDA tensors, got {x_proj.device}")
+
+
+def resident(name, hidden, dtype):
+    """Whether kernel ``name`` ("gru_fwd" or "gru_bwd") runs H in ``dtype``
+    with W_h resident in shared memory (else its wide instance)."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    return bool(getattr(_library(name), f"{name}_resident")(hidden, elem))
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
@@ -322,3 +340,106 @@ def bigru_sequence(x_proj, w_h, b_h, mask):
         (T, B, 2H): the forward direction's states, then the backward one's.
     """
     return GRUSequenceFn.apply(x_proj, w_h, b_h, mask, 0b10)
+
+
+# -- the batch-major recurrence (pallas_kernels.py:gru_sequence_pallas) -------
+
+def gru_sequence_batch_major_reference(x_proj, w_h, b_h, mask):
+    """Plain PyTorch batch-major masked GRU, one direction, f32 (a loop over T).
+
+    The TPU kernel's step (JAX pallas_kernels.py:_gru_seq_kernel): the carry
+    starts at zero and updates as ``m * h_new + (1 - m) * h``.
+
+    Args:
+        x_proj: (B, T, 3H) hoisted input projections; w_h: (H, 3H); b_h: (3H,);
+        mask: (B, T), nonzero on valid steps.
+    Returns:
+        (B, T, H) float32.
+    """
+    batch, n_steps, gates = x_proj.shape
+    hidden = gates // 3
+    x_proj, w, b = x_proj.float(), w_h.float(), b_h.float()
+    m_all = (mask != 0).float()
+    h = torch.zeros(batch, hidden, dtype=torch.float32, device=x_proj.device)
+    out = torch.empty(batch, n_steps, hidden, dtype=torch.float32, device=x_proj.device)
+    for t in range(n_steps):
+        hg = h @ w + b
+        xg = x_proj[:, t]
+        r = torch.sigmoid(xg[:, :hidden] + hg[:, :hidden])
+        z = torch.sigmoid(xg[:, hidden:2 * hidden] + hg[:, hidden:2 * hidden])
+        n = torch.tanh(xg[:, 2 * hidden:] + r * hg[:, 2 * hidden:])
+        m = m_all[:, t, None]
+        h = m * ((1.0 - z) * n + z * h) + (1.0 - m) * h
+        out[:, t] = h
+    return out
+
+
+def batch_major_resident(hidden, batch_tile=16):
+    """Whether the batch-major kernel keeps W_h resident in shared memory at
+    this width and tile (else it reads W_h through the L2 every step)."""
+    return bool(_library("gru_seq").gru_seq_resident(hidden, batch_tile))
+
+
+def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
+    global launches_seq
+    batch, n_steps, gates = x_proj.shape
+    hidden = gates // 3
+    for arg, t in (("x_proj", x_proj), ("w_h", w_h), ("b_h", b_h)):
+        if t.device != x_proj.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"gru_seq kernel: {arg} must be a contiguous float32 tensor on "
+                             f"{x_proj.device}")
+    if mask.device != x_proj.device:
+        raise ValueError("gru_seq kernel: mask must be on x_proj's device")
+    out = torch.empty(batch, n_steps, hidden, dtype=torch.float32, device=x_proj.device)
+    if batch == 0 or n_steps == 0:
+        return out
+    mask_f = mask.to(torch.float32).contiguous()
+    with torch.cuda.device(x_proj.device):
+        err = _library("gru_seq").gru_seq(
+            x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
+            batch, n_steps, hidden, batch_tile, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gru_seq kernel launch failed with CUDA error {err}")
+    launches_seq += 1
+    return out
+
+
+def gru_sequence_batch_major(x_proj, w_h, b_h, mask, batch_tile: int = 16):
+    """Masked GRU recurrence, one direction, forward only, batch-major: the
+    counterpart of JAX ``gru_sequence_pallas``.
+
+    Args:
+        x_proj: (B, T, 3H) float32 hoisted input projections (x @ w_i + b_i).
+        w_h: (H, 3H) float32; b_h: (3H,) float32; mask: (B, T), nonzero (True)
+            on valid steps.
+        batch_tile: batch rows a block of the kernel walks together (the TPU
+            kernel's tile, 16 by default), 1 to ``MAX_BATCH_TILE``. It does
+            not change the result.
+    Returns:
+        (B, T, H) float32 hidden states; at padded steps they repeat the last
+        valid one. A CPU tensor takes
+        :func:`gru_sequence_batch_major_reference`; a CUDA tensor takes the
+        kernel, or the call raises. Not differentiable, like the TPU kernel.
+    """
+    if x_proj.dim() != 3 or x_proj.shape[-1] % 3:
+        raise ValueError(f"gru_sequence_batch_major: x_proj must be (B, T, 3H), got "
+                         f"{tuple(x_proj.shape)}")
+    batch, n_steps, gates = x_proj.shape
+    hidden = gates // 3
+    if (tuple(w_h.shape) != (hidden, gates) or tuple(b_h.shape) != (gates,)
+            or tuple(mask.shape) != (batch, n_steps)):
+        raise ValueError(f"gru_sequence_batch_major shapes: w_h (H, 3H), b_h (3H,), mask (B, T); "
+                         f"got {tuple(w_h.shape)}, {tuple(b_h.shape)}, {tuple(mask.shape)} for "
+                         f"x_proj {tuple(x_proj.shape)}")
+    if x_proj.dtype != torch.float32:
+        raise TypeError(f"gru_sequence_batch_major takes float32, got {x_proj.dtype}")
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"gru_sequence_batch_major takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
+    if not 1 <= batch_tile <= MAX_BATCH_TILE:
+        raise ValueError(f"gru_sequence_batch_major: batch_tile must be in [1, "
+                         f"{MAX_BATCH_TILE}], got {batch_tile}")
+    if x_proj.device.type == "cpu":
+        return gru_sequence_batch_major_reference(x_proj, w_h, b_h, mask)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"gru_seq kernel needs CUDA tensors, got {x_proj.device}")
+    return _launch_seq(x_proj, w_h, b_h, mask, batch_tile)

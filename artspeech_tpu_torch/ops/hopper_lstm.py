@@ -3,7 +3,10 @@
 Counterpart of artspeech_tpu/ops/pallas_gru.py:lstm_sequence (the fused
 Pallas time loop, ``_lstm_fwd_kernel`` and ``_lstm_bwd_kernel`` wired by a
 custom VJP). The kernels are ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``;
-:class:`LSTMSequenceFn` wires them as a ``torch.autograd.Function``.
+:class:`LSTMSequenceFn` wires them as a ``torch.autograd.Function``. Each
+takes every H from 1 to ``MAX_HIDDEN``: a two-CTA cluster kernel with W_h
+resident in shared memory where it fits (the latent RNN's H = 128), a wide
+one that reads W_h through the L2 elsewhere.
 
 - A CPU tensor takes the plain versions, :func:`lstm_sequence_reference` and
   :func:`lstm_sequence_backward_reference`.
@@ -27,8 +30,10 @@ launches = 0
 #: Backward kernel launches so far (the plain version does not count).
 bwd_launches = 0
 
+#: Widest hidden size the kernels take.
+MAX_HIDDEN = 1024
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
 #: Each kernel's entry point: (device pointers, ints), then the stream.
 _POINTERS_INTS = {"lstm_fwd": (6, 6), "lstm_bwd": (13, 6)}
 _libs = {}
@@ -42,9 +47,9 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        smem = getattr(lib, f"{name}_smem_bytes")
-        smem.argtypes = [ctypes.c_int, ctypes.c_int]
-        smem.restype = ctypes.c_size_t
+        resident = getattr(lib, f"{name}_resident")
+        resident.argtypes = [ctypes.c_int, ctypes.c_int]
+        resident.restype = ctypes.c_int
         if name == "lstm_bwd":
             lib.lstm_bwd_batch_tile.argtypes = []
             lib.lstm_bwd_batch_tile.restype = ctypes.c_int
@@ -172,8 +177,6 @@ def lstm_sequence_backward_reference(x_proj, w_h, b_h, mask, ys, cs, g, reverse=
 
 
 def _check(x_proj, w_h, b_h, mask, n_dir, name):
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"lstm kernel needs CUDA tensors, got {x_proj.device}")
     if x_proj.dtype not in _DTYPES:
         raise ValueError(f"lstm kernel takes float32 or bfloat16, got {x_proj.dtype}")
     if x_proj.dim() != 3 or w_h.dim() != 3 or b_h.dim() != 2 or mask.dim() != 2:
@@ -195,13 +198,17 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
             raise ValueError(f"lstm kernel: {arg} must be contiguous")
     if mask.device != x_proj.device:
         raise ValueError("lstm kernel: mask must be on x_proj's device")
-    if hidden % 4 or hidden > 512:
-        raise ValueError(f"lstm kernel takes H % 4 == 0 and H <= 512, got H={hidden}")
-    smem = getattr(_library(name), f"{name}_smem_bytes")(hidden, x_proj.element_size())
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"{name} kernel: H={hidden} in {x_proj.dtype} needs {smem} B of shared memory a "
-            f"block, more than the {_MAX_SMEM} B a block may use")
+    if not 1 <= hidden <= MAX_HIDDEN:
+        raise ValueError(f"lstm kernel takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"lstm kernel needs CUDA tensors, got {x_proj.device}")
+
+
+def resident(name, hidden, dtype):
+    """Whether kernel ``name`` ("lstm_fwd" or "lstm_bwd") runs H in ``dtype``
+    as the cluster kernel with W_h in shared memory (else its wide instance)."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    return bool(getattr(_library(name), f"{name}_resident")(hidden, elem))
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):

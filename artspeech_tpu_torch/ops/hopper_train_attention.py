@@ -14,13 +14,14 @@ wires them as a ``torch.autograd.Function``.
 - Any other device raises.
 
 On every device the call raises for what the kernels do not take: tensors
-other than float32, tensors that are not contiguous, ``L`` above ``MAX_L``,
-a head dim above ``MAX_HEAD_DIM``, a ``G`` that ``n_pairs`` does not divide,
-and shapes whose backward block would need more than 232,448 bytes of shared
-memory (``L = 512`` with ``hd = 32``). The TPU wrapper's tile rules
-(``supported``, ``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
-``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported: the kernels
-take any L from 1 to ``MAX_L`` and any G.
+other than float32, tensors that are not contiguous, a head dim above
+``MAX_HEAD_DIM``, ``L`` above ``MAX_L`` and a ``G`` that ``n_pairs`` does
+not divide. The kernels take any G: up to hd = 32 (and, in the backward,
+while a group's rows fit a block's shared memory) those that hold a row in a
+thread's registers, the thesis transformer's hd = 16 among them; elsewhere
+the wide ones, a row a warp. The TPU wrapper's tile rules (``supported``,
+``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
+``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported.
 
 ``launches_fwd`` and ``launches_bwd`` count kernel launches.
 """
@@ -39,10 +40,8 @@ launches_bwd = 0
 #: Longest sequence the kernels take: the largest default bucket
 #: (data/batching.py DEFAULT_BUCKETS).
 MAX_L = 512
-#: Largest head dim the kernels hold in registers (csrc/train_attention.cu).
-MAX_HEAD_DIM = 32
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
-_THREADS = 128  # threads a block; a block takes 128 // span groups when L <= 64
+#: Largest head dim the kernels take (csrc/train_attention.cu).
+MAX_HEAD_DIM = 128
 
 _lib = None
 
@@ -53,19 +52,18 @@ def _library():
         lib = _build.load("train_attention")
         lib.train_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.train_attention_fwd.restype = ctypes.c_int
-        lib.train_attention_bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.train_attention_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.train_attention_bwd.restype = ctypes.c_int
+        lib.train_attention_resident.argtypes = [ctypes.c_int] * 3
+        lib.train_attention_resident.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _bwd_smem_bytes(l: int, hd: int) -> int:
-    """Shared memory of the backward kernel's block (the larger of the two):
-    Q, K, V, dO rows (hd rounded up to 16 or 32) and two row statistics for
-    each of its groups."""
-    span = -(-l // 32) * 32
-    groups = max(1, _THREADS // span)
-    return 4 * groups * (4 * l * (16 if hd <= 16 else 32) + 2 * l)
+def resident(l: int, hd: int, backward: bool) -> bool:
+    """Whether the forward (or backward) at (L, hd) runs the kernels that
+    hold a row in a thread's registers (else the wide ones, a row a warp)."""
+    return bool(_library().train_attention_resident(l, hd, int(backward)))
 
 
 def _causal_scores(q, k):
@@ -125,11 +123,6 @@ def fused_causal_attend_bwd_reference(q, k, v, keep, do, n_pairs: int):
 
 def _check(q, k, v, keep, n_pairs):
     dev = q.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_causal_attend takes CPU tensors (plain version) or CUDA tensors "
-                         f"(kernel), got {dev}")
-    if any(t.device != dev for t in (k, v, keep)):
-        raise ValueError("fused_causal_attend: q, k, v and keep must be on one device")
     if any(t.dtype != torch.float32 for t in (q, k, v, keep)):
         raise TypeError(f"fused_causal_attend takes float32 tensors, got "
                         f"{[str(t.dtype) for t in (q, k, v, keep)]}")
@@ -147,10 +140,11 @@ def _check(q, k, v, keep, n_pairs):
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"fused_causal_attend: head dim {hd} outside the kernels' "
                          f"[1, {MAX_HEAD_DIM}]")
-    if _bwd_smem_bytes(l, hd) > _MAX_SMEM:
-        raise ValueError(f"fused_causal_attend: L={l} with hd={hd} needs "
-                         f"{_bwd_smem_bytes(l, hd)} B of shared memory a block in the backward, "
-                         f"more than the {_MAX_SMEM} B a Hopper block may use")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_causal_attend takes CPU tensors (plain version) or CUDA tensors "
+                         f"(kernel), got {dev}")
+    if any(t.device != dev for t in (k, v, keep)):
+        raise ValueError("fused_causal_attend: q, k, v and keep must be on one device")
 
 
 def _stream(dev):
@@ -193,10 +187,11 @@ def fused_causal_attend_bwd(q, k, v, keep, out, lse, do, n_pairs: int):
             raise ValueError(f"train_attention backward kernel: {name} must be a contiguous "
                              f"float32 {tuple(shape)} tensor on {dev}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dsum = torch.empty_like(lse)  # the wide kernels' D_q = dO_q . out_q
     err = _library().train_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), g, l, hd, n_pairs,
-        _stream(dev))
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), g, l, hd,
+        n_pairs, _stream(dev))
     if err != 0:
         raise RuntimeError(f"train_attention backward kernel launch failed with CUDA error {err}")
     launches_bwd += 1

@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
 workflow through its CLIs, the transformer's KV-cached decode and its
-training, and the autoencoder-based method (phonemes -> principal
-components) on one NVIDIA GPU, and check them.
+training, the autoencoder-based method (phonemes -> principal
+components), the mean-contour baseline and the bf16 configs on one NVIDIA
+GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -9,10 +10,10 @@ Usage, from the root of the repository, on a machine with one H100:
 
 Phases, each printing its own lines:
   1. device  — requires CUDA; prints the card's name and power limit;
-  2. build   — compiles the eight kernel libraries,
+  2. build   — compiles the nine kernel libraries,
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
-               train_attention,lstm_fwd,lstm_bwd}.cu, one nvcc each, all
-               started together;
+               train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
+               all started together;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -35,9 +36,24 @@ Phases, each printing its own lines:
                128 (LSTM_CASES), both directions in one launch and each alone,
                ragged lengths with a full row and a row of length 1, f32 and
                bf16, held as the GRU kernels are (the forward's cell states
-               relative to max(|c|, 1)); the widest H each takes in f32
-               (forward 164, backward 160) run and agree, the next width and
-               H = 6 are refused;
+               relative to max(|c|, 1));
+     gru_seq — the batch-major GRU (gru_seq.cu, row 7) against its plain
+               version in f32 within 1e-5 (GRU_SEQ_CASES: B not a multiple
+               of the tile, ragged rows of length T and 1, T = 1, H 16 and
+               128 with W_h resident, 256 with W_h read through the L2); H
+               above 1,024 refused; then its path (a measured reference, as
+               in JAX): one call each at B = 16 and 256, T = 128, H = 128,
+               with exactly one launch each;
+     widths  — every widened kernel against its plain version at widths the
+               resident kernels refuse, at the same limits: the GRU forward
+               and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
+               the LSTM at H 168, 256 and 1,024, the training attention at
+               hd 48, 64 and 128 with L 37, 128 and 512 and at hd 32 with
+               L 512, the decode at hd 80, 128 and 256 (f32 and bf16
+               caches); the instance each width takes (the thesis widths keep
+               the resident kernels), the new outer bounds refused (H 1,025,
+               hd 129, L 513, decode hd 257), and one timing of each wide
+               instance;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -74,7 +90,12 @@ Phases, each printing its own lines:
                last the transformer test CLI from the same config
                (state_dict_filepath: the train run's best/state, and
                save_to added) on S05 at the card's generate batch (64) with
-               bf16 caches: launches, artifacts, TV CSVs;
+               bf16 caches: launches, artifacts, TV CSVs; then the bf16
+               configs, train_model_free_bf16.yaml and
+               train_transformer_bf16.yaml (num_epochs: 2 and the same
+               path edits), with the f32 runs' launches, and each bf16
+               model's forward on the card against the CPU's bf16 forward
+               (bf16_against_cpu);
   7. pc      — the autoencoder-based method through its nine CLI runs over
                the same corpus, from YAML files written from the text of
                configs/autoencoder_based/ (only paths, the database,
@@ -90,6 +111,11 @@ Phases, each printing its own lines:
                against counts worked out beforehand from the corpus's
                batches, the files each writes, finiteness, and each test
                CLI's results against its train CLI's final test;
+     mean_contour — the mean-contour baseline through its train, test and
+               generate CLIs from configs/mean_contour/ over the same corpus:
+               the table, the P2CP and min_dist launches of each test step,
+               artifacts, finiteness, the test CLI against the train CLI's
+               final test;
   8. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
@@ -133,7 +159,9 @@ Phases, each printing its own lines:
                (is_causal, all-ones keep: forward, and forward + backward
                minus forward); both LSTM kernels at T = 128, H = 128, B = 12
                and 64 the same way, against cuDNN's nn.LSTM (forward, and
-               forward + backward minus forward).
+               forward + backward minus forward); the batch-major GRU at
+               B = 16 and 256 beside gru_fwd with one direction on the same
+               work, its plain version and cuDNN's one-direction nn.GRU.
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
@@ -158,11 +186,13 @@ from artspeech_tpu_torch.cli import (
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
     test_phoneme_to_principal_components,
+    test_phoneme_wise_mean_contour,
     test_principal_components_autoencoder,
     train_articulatory_pca,
     train_phoneme_to_articulation,
     train_phoneme_to_articulation_transformer,
     train_phoneme_to_principal_components,
+    train_phoneme_wise_mean_contour,
     train_principal_components_autoencoder,
 )
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
@@ -239,6 +269,7 @@ REPLACES = {
                            "pallas_call at :215)",
     "lstm_fwd": "artspeech_tpu/ops/pallas_gru.py:321 (_lstm_fwd_kernel, pallas_call at :465)",
     "lstm_bwd": "artspeech_tpu/ops/pallas_gru.py:357 (_lstm_bwd_kernel, pallas_call at :507)",
+    "gru_seq": "artspeech_tpu/ops/pallas_kernels.py:142 (_gru_seq_kernel, pallas_call at :198)",
 }
 KERNELS = tuple(REPLACES)
 #: The library (ops/csrc/<name>.cu) of each kernel.
@@ -262,6 +293,9 @@ CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S0
 # differences of the model outputs; there the values still agree).
 TEST_STEP_TOL = 1e-4
 TV_SAME_PAIR_SHARE = 0.99
+#: bf16 forward, card against CPU, relative to max |ref|: four bf16 rounding
+#: steps (2^-8 each) of a sigmoid output in [0, 1]; see bf16_against_cpu.
+BF16_FORWARD_TOL = 2.0**-6
 #: flash decode against its plain version: both read the same cache values
 #: (bf16 widened exactly) and differ by the order of f32 sums and the online
 #: softmax's rescaling.
@@ -284,12 +318,22 @@ MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 #: RNN's B = 12 and B = 64 at T = 128 and H = 128, and T in {1, 7, 128},
 #: B in {1, 3, 12, 64}, H in {16, 64, 128} around them; each in f32 and
 #: bf16, both directions in one launch and each alone, ragged lengths with a
-#: full row and (B > 1) a row of length 1. Then the widest H each kernel
-#: takes in f32 (forward 164, backward 160), and the next width, refused.
+#: full row and (B > 1) a row of length 1. Wider H: [widths].
 LSTM_CASES = [(128, 12, 128), (128, 64, 128), (7, 3, 64), (1, 1, 16), (7, 64, 16),
               (128, 3, 64), (1, 12, 128)]
-LSTM_EDGE = {"lstm_fwd": (164, 168), "lstm_bwd": (160, 164)}  # f32 (widest taken, refused)
 LSTM_SHAPES = [(128, 12, 128), (128, 64, 128)]  # timed: (T, B, H)
+#: [gru_seq] cases (B, T, H, batch tile): B not a multiple of the tile, ragged
+#: rows, T = 1, H 16 and 128 (W_h resident) and 256 (W_h through the L2).
+GRU_SEQ_CASES = [(21, 37, 16, 16), (16, 128, 128, 16), (5, 11, 16, 4), (3, 1, 128, 16),
+                 (37, 13, 256, 16), (9, 128, 128, 4)]
+GRU_SEQ_TIMED_B = (16, 256)
+#: [widths]: hidden sizes the resident recurrent kernels refused (H % 4 != 0,
+#: 3H or 2H above 1,024 threads, W_h above a block's shared memory).
+WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 1024)}
+#: (hd, L) of the training attention beyond its resident kernels.
+WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [(32, 512)]
+WIDE_FLASH_HD = (80, 128, 256)
+WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
 PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
 #: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
 #: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
@@ -512,12 +556,12 @@ def flash_groups(b, c=10, heads=4):
     return {"self": b * c * heads, "inter": b * c * (c - 1) * heads}
 
 
-def flash_inputs(g, dtype, seed, s=DECODE_T):
+def flash_inputs(g, dtype, seed, s=DECODE_T, hd=HD):
     """Seeded caches (S, hd, G) in ``dtype`` and a pre-scaled f32 query (hd, G)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    k = torch.randn(s, HD, g, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(s, HD, g, generator=gen, device="cuda").to(dtype)
-    q = torch.randn(HD, g, generator=gen, device="cuda") * HD**-0.5
+    k = torch.randn(s, hd, g, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(s, hd, g, generator=gen, device="cuda").to(dtype)
+    q = torch.randn(hd, g, generator=gen, device="cuda") * hd**-0.5
     return k, v, q
 
 
@@ -553,17 +597,17 @@ def flash_decode_vs_plain():
     return worst
 
 
-def train_attention_inputs(g, l, n_pairs, seed):
+def train_attention_inputs(g, l, n_pairs, seed, hd=HD):
     """Seeded q (pre-scaled), k, v, dO (G, L, hd) on the card and a keep mask:
     the all-ones (1, L, L) with n_pairs = 1, or a dropout keep (p = 0.1)
     (n_pairs, L, L) pre-scaled by 1 / 0.9."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(g, l, HD, generator=gen, device="cuda") for _ in range(4))
+    q, k, v, do = (torch.randn(g, l, hd, generator=gen, device="cuda") for _ in range(4))
     if n_pairs == 1:
         keep = torch.ones(1, l, l, device="cuda")
     else:
         keep = (torch.rand(n_pairs, l, l, generator=gen, device="cuda") >= 0.1).float() / 0.9
-    return q * HD**-0.5, k, v, keep, do
+    return q * hd**-0.5, k, v, keep, do
 
 
 def train_attention_cases():
@@ -697,40 +741,260 @@ def lstm_bwd_vs_plain():
     return worst_abs, worst_rel
 
 
-def lstm_widths():
-    """The widest H each kernel takes in f32 runs and agrees with its plain
-    version (T = 7, B = 3, both directions); the next multiple of 4, and an
-    H that is not one, are refused with a ValueError."""
-    for kernel, (widest, refused) in LSTM_EDGE.items():
-        xp, wh, bh, mask = lstm_inputs(7, 3, widest, 2, torch.float32, seed=widest)
-        ys, cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, 0b10, with_cells=True)
-        if kernel == "lstm_fwd":
-            got = hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10, with_cells=True)
-            err = max(rel_err(a, r) for a, r in zip(got, (ys, cs)))
-            tol = F32_TOL
-        else:
-            gy = torch.randn_like(ys)
-            got = hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, 0b10)
-            ref = hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, 0b10)
-            err, tol = max(rel_err(a, r) for a, r in zip(got, ref)), BWD_F32_TOL
+# -- [gru_seq]: the batch-major GRU (row 7) ---------------------------------------
+
+def gru_seq_inputs(b, t, h, seed):
+    """Seeded batch-major x_proj (B, T, 3H), w_h (H, 3H), b_h (3H) and a
+    ragged mask (B, T) with a full row and (B > 1) a row of length 1."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn(b, t, 3 * h, generator=g) * 0.5
+    wh = torch.randn(h, 3 * h, generator=g) * 0.1
+    bh = torch.randn(3 * h, generator=g) * 0.1
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[-1] = 1
+    lengths[0] = t
+    mask = torch.arange(t)[None, :] < lengths[:, None]
+    return [v.cuda() for v in (xp, wh, bh, mask)]
+
+
+def gru_seq_vs_plain():
+    """The batch-major kernel against its plain version in f32 within
+    F32_TOL: B not a multiple of the tile, ragged rows (one of length T, one
+    of length 1), T = 1, H 16 and 128 (W_h resident) and 256 (W_h above the
+    shared-memory fit, read through the L2), tiles 16 and 4. Returns the
+    largest absolute error."""
+    worst = 0.0
+    for b, t, h, tile in GRU_SEQ_CASES:
+        xp, wh, bh, mask = gru_seq_inputs(b, t, h, seed=b + t + h)
+        got = hopper_gru.gru_sequence_batch_major(xp, wh, bh, mask, batch_tile=tile)
+        ref = hopper_gru.gru_sequence_batch_major_reference(xp, wh, bh, mask)
         torch.cuda.synchronize()
-        refusals, reason = {}, ""
-        for h in (refused, 6):
-            xp, wh, bh, mask = lstm_inputs(7, 3, h, 2, torch.float32, seed=h)
-            try:
-                if kernel == "lstm_fwd":
-                    hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10)
-                else:
-                    ys = torch.zeros(7, 3, 2 * h, device="cuda")
-                    hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, ys, ys, 0b10)
-                refusals[h] = "ran"
-            except ValueError as exc:
-                refusals[h] = "refused"
-                reason = str(exc)
-        phase("kernel", kernel=kernel, widest_f32_H=widest, rel_err=f"{err:.3g}", tol=tol,
-              **{f"H{h}": v for h, v in refusals.items()}, reason=reason.replace(" ", "_")[:80])
-        check(err <= tol, f"{kernel} at H={widest}: {err}")
-        check(all(v == "refused" for v in refusals.values()), f"{kernel} took {refusals}")
+        err = (got - ref).abs().max().item()
+        resident = hopper_gru.batch_major_resident(h, tile)
+        phase("gru_seq", B=b, T=t, H=h, batch_tile=tile, w_h="resident" if resident else "L2",
+              dtype="float32", tol=F32_TOL, max_abs_err=f"{err:.3g}")
+        check(np.isfinite(err) and err <= F32_TOL,
+              f"gru_seq kernel disagrees with its plain version at B={b} T={t} H={h}: {err}")
+        worst = max(worst, err)
+    check(hopper_gru.batch_major_resident(HIDDEN, 16)
+          and not hopper_gru.batch_major_resident(256, 16), "gru_seq's W_h placement changed")
+    xp, wh, bh, mask = gru_seq_inputs(2, 3, hopper_gru.MAX_HIDDEN + 1, seed=0)
+    try:
+        hopper_gru.gru_sequence_batch_major(xp, wh, bh, mask)
+    except ValueError as err:
+        phase("gru_seq", H=hopper_gru.MAX_HIDDEN + 1, refused=str(err).replace(" ", "_")[:80])
+    else:
+        raise RuntimeError("gru_seq took H above MAX_HIDDEN")
+    return worst
+
+
+def gru_seq_path():
+    """Row 7's path: as in JAX, no model calls the batch-major kernel; it is
+    a measured reference. The path is the two calls it is measured at,
+    bench.py's batch (16) and 256, each at T = 128, H = 128, f32, the
+    default tile, with the counts set to 0 before and read after: exactly
+    one launch each, finite (B, T, H) outputs. Returns the launches."""
+    reset_launch_counts()
+    outs = [hopper_gru.gru_sequence_batch_major(*gru_seq_inputs(b, BENCH_T, HIDDEN, seed=b))
+            for b in GRU_SEQ_TIMED_B]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    phase("gru_seq", path_launches=launches["gru_seq"],
+          shapes=",".join(f"B={b}" for b in GRU_SEQ_TIMED_B))
+    check(launches == {**dict.fromkeys(KERNELS, 0), "gru_seq": len(GRU_SEQ_TIMED_B)},
+          f"gru_seq path launches {launches}")
+    check(all(o.shape == (b, BENCH_T, HIDDEN) and torch.isfinite(o).all().item()
+              for o, b in zip(outs, GRU_SEQ_TIMED_B)), "gru_seq path outputs")
+    return launches["gru_seq"]
+
+
+def time_gru_seq():
+    """The batch-major kernel at T = 128, H = 128, f32, B = 16 (bench.py's
+    shape) and 256, beside its plain version, gru_fwd with one direction on
+    the same work (time-major inputs, ready-made), cuDNN's one-direction
+    nn.GRU forward and the bound (gru_bound_ms with one direction). Returns
+    {B: numbers}."""
+    results = {}
+    for b in GRU_SEQ_TIMED_B:
+        t, h = BENCH_T, HIDDEN
+        xp, wh, bh, mask = gru_seq_inputs(b, t, h, seed=b)
+        xp_tm, mask_tm = xp.transpose(0, 1).contiguous(), mask.T.contiguous()
+        ms = cuda_ms(lambda: hopper_gru.gru_sequence_batch_major(xp, wh, bh, mask), 20)
+        plain_ms = cuda_ms(lambda: hopper_gru.gru_sequence_batch_major_reference(xp, wh, bh,
+                                                                                  mask), 3)
+        gru_fwd_ms = cuda_ms(lambda: hopper_gru.gru_forward(xp_tm, wh[None], bh[None], mask_tm, 0),
+                             20)
+        cudnn = torch.nn.GRU(h, h, batch_first=True).cuda()
+        x = torch.randn(b, t, h, device="cuda")
+        with torch.inference_mode():
+            library_ms = cuda_ms(lambda: cudnn(x), 20)
+        bound_ms, bound_by = gru_bound_ms(t, b, h, 1, 4)
+        results[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms, gru_fwd_one_direction_ms=gru_fwd_ms)
+        phase("timing", kernel="gru_seq", T=t, B=b, H=h, directions=1, batch_tile=16,
+              dtype="float32", **fmt(results[b]))
+    return results
+
+
+# -- [widths]: every widened kernel at widths the resident kernels refuse ---------
+
+def width_errors(kernel, h, dtype):
+    """One recurrent kernel ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd") at
+    hidden size h, both directions in one launch (T = 9, B = 5: a partial
+    batch tile, ragged rows), against its plain version: the largest error,
+    absolute for the forwards' h (relative to max(|c|, 1) for the LSTM's cell
+    states), relative to max(|ref|, 1) for the backwards."""
+    t, b = 9, 5
+    if kernel.startswith("gru"):
+        mod, inputs = hopper_gru, gru_inputs(t, b, h, 2, dtype, seed=h)
+        ys = mod.gru_forward_reference(*inputs, 0b10)
+        if kernel == "gru_fwd":
+            return (mod.gru_forward(*inputs, 0b10).float() - ys.float()).abs().max().item()
+        gy = torch.randn_like(ys.float()).to(dtype)
+        return max(rel_err(a, r) for a, r in zip(mod.gru_backward(*inputs, ys, gy, 0b10),
+                                                 mod.gru_backward_reference(*inputs, ys, gy, 0b10)))
+    mod, inputs = hopper_lstm, lstm_inputs(t, b, h, 2, dtype, seed=h)
+    ys, cs = mod.lstm_forward_reference(*inputs, 0b10, with_cells=True)
+    if kernel == "lstm_fwd":
+        got_ys, got_cs = mod.lstm_forward(*inputs, 0b10, with_cells=True)
+        return max((got_ys.float() - ys.float()).abs().max().item(), rel_err(got_cs, cs))
+    gy = torch.randn_like(ys.float()).to(dtype)
+    return max(rel_err(a, r) for a, r in zip(mod.lstm_backward(*inputs, ys, cs, gy, 0b10),
+                                             mod.lstm_backward_reference(*inputs, ys, cs, gy,
+                                                                         0b10)))
+
+
+def refused(fn):
+    """The ValueError's message if fn() raises one, else None."""
+    try:
+        fn()
+    except ValueError as err:
+        return str(err)
+    return None
+
+
+def widths():
+    """Every widened kernel against its plain version at widths that the
+    resident kernels refuse, at the existing limits, with the instance each
+    width takes; the new outer bounds refused; one timing of each wide
+    instance. Returns {kernel: wide-instance timing}."""
+    for kernel in ("gru_fwd", "gru_bwd", "lstm_fwd", "lstm_bwd"):
+        mod = hopper_gru if kernel.startswith("gru") else hopper_lstm
+        check(mod.resident(kernel, HIDDEN, torch.float32), f"{kernel} left its resident kernel "
+                                                           f"at H={HIDDEN}")
+        for h in WIDE_RNN_H[kernel[:4]]:
+            for dtype in (torch.float32, torch.bfloat16):
+                fwd = kernel.endswith("fwd")
+                tol = (F32_TOL if fwd else BWD_F32_TOL) if dtype == torch.float32 else (
+                    BF16_TOL if fwd else BWD_BF16_TOL)
+                err = width_errors(kernel, h, dtype)
+                torch.cuda.synchronize()
+                phase("widths", kernel=kernel, H=h, dtype=str(dtype).split(".")[-1],
+                      instance="resident" if mod.resident(kernel, h, dtype) else "wide", tol=tol,
+                      err=f"{err:.3g}")
+                check(np.isfinite(err) and err <= tol,
+                      f"{kernel} disagrees with its plain version at H={h} {dtype}: {err}")
+        h = mod.MAX_HIDDEN + 1
+        xp, wh, bh, mask = (gru_inputs if kernel.startswith("gru") else lstm_inputs)(
+            2, 1, h, 1, torch.float32, seed=0)
+        zeros = torch.zeros(2, 1, h, device="cuda")
+        reason = refused({"gru_fwd": lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0),
+                          "gru_bwd": lambda: hopper_gru.gru_backward(xp, wh, bh, mask, zeros,
+                                                                     zeros, 0),
+                          "lstm_fwd": lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0),
+                          "lstm_bwd": lambda: hopper_lstm.lstm_backward(xp, wh, bh, mask, zeros,
+                                                                        zeros, zeros, 0)}[kernel])
+        phase("widths", kernel=kernel, H=h, refused=str(reason).replace(" ", "_")[:80])
+        check(reason is not None, f"{kernel} took H={h}")
+
+    for hd, l in WIDE_TRAIN_ATTN:
+        for n_pairs in (1, 2):
+            q, k, v, keep, do = train_attention_inputs(8, l, n_pairs, seed=hd + l, hd=hd)
+            out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, n_pairs)
+            grads = hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
+                                                                   n_pairs)
+            ref = hopper_train_attention.fused_causal_attend_reference(q, k, v, keep, n_pairs)
+            ref_grads = hopper_train_attention.fused_causal_attend_bwd_reference(q, k, v, keep,
+                                                                                 do, n_pairs)
+            torch.cuda.synchronize()
+            fwd_err = (out - ref).abs().max().item()
+            bwd_err = max(rel_err(a, r) for a, r in zip(grads, ref_grads))
+            phase("widths", kernel="train_attention", hd=hd, L=l, G=8, n_pairs=n_pairs,
+                  fwd_instance="resident" if hopper_train_attention.resident(l, hd, False)
+                  else "wide",
+                  bwd_instance="resident" if hopper_train_attention.resident(l, hd, True)
+                  else "wide", fwd_tol=TRAIN_ATTN_FWD_TOL, bwd_tol=TRAIN_ATTN_BWD_TOL,
+                  max_abs_err_fwd=f"{fwd_err:.3g}", rel_err_bwd=f"{bwd_err:.3g}")
+            check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL
+                  and np.isfinite(bwd_err) and bwd_err <= TRAIN_ATTN_BWD_TOL,
+                  f"train_attention disagrees at hd={hd} L={l}: {fwd_err}, {bwd_err}")
+    for hd, l in ((hopper_train_attention.MAX_HEAD_DIM + 1, 8), (16, hopper_train_attention.MAX_L + 1)):
+        q, k, v, keep, _ = train_attention_inputs(2, l, 1, seed=0, hd=hd)
+        reason = refused(lambda: hopper_train_attention.fused_causal_attend(q, k, v, keep, 1))
+        phase("widths", kernel="train_attention", hd=hd, L=l,
+              refused=str(reason).replace(" ", "_")[:80])
+        check(reason is not None, f"train_attention took hd={hd} L={l}")
+
+    for hd in WIDE_FLASH_HD:
+        for dtype in (torch.float32, torch.bfloat16):
+            g = flash_groups(1)["self"]
+            k, v, q = flash_inputs(g, dtype, seed=hd, hd=hd)
+            errs = {n: flash_excess(hopper_attention.flash_decode_attend(k, v, q, n),
+                                    hopper_attention.flash_decode_attend_reference(k, v, q, n))
+                    for n in (1, 3, 33, DECODE_T)}
+            torch.cuda.synchronize()
+            phase("widths", kernel="flash_decode", hd=hd, G=g, dtype=str(dtype).split(".")[-1],
+                  rtol=FLASH_RTOL, atol=FLASH_ATOL,
+                  **{f"max_abs_err_n{n}": f"{e[1]:.3g}" for n, e in errs.items()})
+            check(all(np.isfinite(e[1]) and e[0] <= 0 for e in errs.values()),
+                  f"flash_decode disagrees at hd={hd} {dtype}: {errs}")
+    k, v, q = flash_inputs(40, torch.float32, seed=0, hd=hopper_attention.MAX_HEAD_DIM + 1)
+    reason = refused(lambda: hopper_attention.flash_decode_attend(k, v, q, 1))
+    phase("widths", kernel="flash_decode", hd=hopper_attention.MAX_HEAD_DIM + 1,
+          refused=str(reason).replace(" ", "_")[:80])
+    check(reason is not None, "flash_decode took hd above MAX_HEAD_DIM")
+    return time_wide_instances()
+
+
+def time_wide_instances():
+    """Each wide instance at one shape, f32: the recurrences at H = 256
+    (T = 128, B = 16, both directions), the training attention at hd = 64
+    (G = 4,320, L = 128, the dropout keep), the decode at hd = 128 (the
+    B = 12 cross-channel G, 128 rows)."""
+    t, b, h = BENCH_T, BENCH_B, WIDE_TIMED_H
+    results = {}
+    xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=7)
+    ys = hopper_gru.gru_forward(xp, wh, bh, mask, 0b10)
+    results["gru_fwd"] = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
+    results["gru_bwd"] = cuda_ms(lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, ys, 0b10),
+                                 5)
+    xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=7)
+    ys, cs = hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10, with_cells=True)
+    results["lstm_fwd"] = cuda_ms(lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10), 5)
+    results["lstm_bwd"] = cuda_ms(
+        lambda: hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, ys, 0b10), 5)
+    g, hd = TRAIN_ATTN_G[12], WIDE_TIMED_ATTN_HD
+    q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=7, hd=hd)
+    out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
+    results["train_attention_fwd"] = cuda_ms(
+        lambda: hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS), 5)
+    results["train_attention_bwd"] = cuda_ms(
+        lambda: hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
+                                                               TRAIN_ATTN_PAIRS), 5)
+    del q, k, v, keep, do, out, lse
+    g_flash = flash_groups(12)["inter"]
+    k, v, q = flash_inputs(g_flash, torch.float32, seed=7, hd=WIDE_TIMED_FLASH_HD)
+    results["flash_decode"] = cuda_ms(lambda: hopper_attention.flash_decode_attend(k, v, q,
+                                                                                    DECODE_T), 20)
+    shapes = {"gru_fwd": f"T={t},B={b},H={h},directions=2", "gru_bwd": f"T={t},B={b},H={h}",
+              "lstm_fwd": f"T={t},B={b},H={h},directions=2", "lstm_bwd": f"T={t},B={b},H={h}",
+              "train_attention_fwd": f"G={g},L={TRAIN_T},hd={hd}",
+              "train_attention_bwd": f"G={g},L={TRAIN_T},hd={hd}",
+              "flash_decode": f"G={g_flash},S={DECODE_T},hd={WIDE_TIMED_FLASH_HD}"}
+    for name, ms in results.items():
+        phase("timing", kernel=name, instance="wide", shape=shapes[name], dtype="float32",
+              ms=f"{ms:.6g}")
+    return {name: {"wide_ms": ms, "wide_shape": shapes[name]} for name, ms in results.items()}
 
 
 class Sentences:
@@ -1029,7 +1293,7 @@ def train_against_cpu():
 # -- the thesis workflow through the CLIs --------------------------------------
 
 CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv", "cli_train_transformer",
-             "cli_transformer")
+             "cli_transformer", "cli_train_bf16", "cli_train_transformer_bf16")
 
 
 def launch_counts():
@@ -1038,14 +1302,15 @@ def launch_counts():
             "flash_decode": hopper_attention.launches,
             "train_attention_fwd": hopper_train_attention.launches_fwd,
             "train_attention_bwd": hopper_train_attention.launches_bwd,
-            "lstm_fwd": hopper_lstm.launches, "lstm_bwd": hopper_lstm.bwd_launches}
+            "lstm_fwd": hopper_lstm.launches, "lstm_bwd": hopper_lstm.bwd_launches,
+            "gru_seq": hopper_gru.launches_seq}
 
 
 def reset_launch_counts():
     hopper_gru.launches = hopper_gru.bwd_launches = hopper_p2cp.launches = 0
     hopper_min_dist.launches = hopper_attention.launches = 0
     hopper_train_attention.launches_fwd = hopper_train_attention.launches_bwd = 0
-    hopper_lstm.launches = hopper_lstm.bwd_launches = 0
+    hopper_lstm.launches = hopper_lstm.bwd_launches = hopper_gru.launches_seq = 0
 
 
 def batch_buckets(lengths, batch_size):
@@ -1215,6 +1480,9 @@ def cli_path(tmp):
                               "save_to": os.path.join(tmp, "vcv_synthesis")}),
         "cli_train_transformer": ("train_transformer", {**corpus_keys, "num_epochs": 2}),
         "cli_transformer": ("train_transformer", corpus_keys),
+        "cli_train_bf16": ("train_model_free_bf16", {**corpus_keys, "num_epochs": 2}),
+        "cli_train_transformer_bf16": ("train_transformer_bf16",
+                                       {**corpus_keys, "num_epochs": 2}),
     }
     tf_out = os.path.join(tmp, "train_transformer_run")
     added = {"cli_transformer": {
@@ -1273,6 +1541,11 @@ def cli_path(tmp):
         "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 8 * len(tf_buckets),
                             "flash_decode": sum(2 * tf_layers * t for t in tf_buckets)},
     }
+    # The bf16 configs are the f32 ones with compute_dtype: bfloat16, so the
+    # same launches (the GRU kernels in bf16; the training attention in f32
+    # around its kernel, as JAX).
+    expected["cli_train_bf16"] = expected["cli_train"]
+    expected["cli_train_transformer_bf16"] = expected["cli_train_transformer"]
     phase("cli", train_batches_per_epoch=tr, valid_batches=va, test_batches=te,
           transformer_train_batches_per_epoch=tf_tr, transformer_valid_batches=tf_va,
           transformer_test_buckets=tf_buckets, test_frames=sum(test_lengths.values()),
@@ -1282,12 +1555,16 @@ def cli_path(tmp):
                "cli_generate": generate_vocal_tract_shape,
                "cli_generate_vcv": generate_vocal_tract_shape,
                "cli_train_transformer": train_phoneme_to_articulation_transformer,
-               "cli_transformer": test_phoneme_to_articulation_transformer}
+               "cli_transformer": test_phoneme_to_articulation_transformer,
+               "cli_train_bf16": train_phoneme_to_articulation,
+               "cli_train_transformer_bf16": train_phoneme_to_articulation_transformer}
     outputs = {"cli_train": out, "cli_test": os.path.join(tmp, "test_run"),
                "cli_generate": os.path.join(tmp, "generate_run"),
                "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run"),
                "cli_train_transformer": tf_out,
-               "cli_transformer": os.path.join(tmp, "transformer_run")}
+               "cli_transformer": os.path.join(tmp, "transformer_run"),
+               "cli_train_bf16": os.path.join(tmp, "train_bf16_run"),
+               "cli_train_transformer_bf16": os.path.join(tmp, "train_transformer_bf16_run")}
     results, launches, seconds = {}, {}, {}
     for p in CLI_PATHS:
         reset_launch_counts()
@@ -1306,7 +1583,7 @@ def cli_path(tmp):
           "the transformer train CLI launched no train_attention kernel")
 
     # What the CLIs wrote.
-    for run in (out, tf_out):
+    for run in (out, tf_out, outputs["cli_train_bf16"], outputs["cli_train_transformer_bf16"]):
         for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
                     "checkpoints/last/state.pt", "checkpoints/last/aux.json",
                     "checkpoints/best_model", "test_results.json", "run/params.json",
@@ -1321,7 +1598,8 @@ def cli_path(tmp):
                                                        if k != "ts"}))
     n_arts = len(arts) + 1  # with the upper incisor
     test_dirs = {p: os.path.join(outputs[p], "test_outputs", "0")
-                 for p in ("cli_train", "cli_test", "cli_train_transformer")}
+                 for p in ("cli_train", "cli_test", "cli_train_transformer", "cli_train_bf16",
+                           "cli_train_transformer_bf16")}
     test_dirs["cli_transformer"] = cfgs["cli_transformer"]["save_to"]
     for p, test_dir in test_dirs.items():
         frames, tv_rows = check_test_outputs(test_dir, test_lengths, n_arts)
@@ -1341,7 +1619,57 @@ def cli_path(tmp):
         frames = check_synthesis(cfgs[p]["save_to"], s, n_arts)
         check(len(results[p]) == len(s), f"{p}: {len(results[p])} sentences written")
         phase("cli", cli=p, sentences=len(s), frames=frames, finite=True)
+    bf16_against_cpu(outputs, cfgs, corpus, vocab_path)
     return launches, seconds, (best_state, corpus, vocab_path, train_cfg)
+
+
+def bf16_against_cpu(outputs, cfgs, corpus, vocab_path):
+    """The bf16 models the bf16 train CLIs left (best/state), on one test
+    batch: the forward on the card in bf16 against the same forward on the
+    CPU in bf16 (the plain versions), within BF16_FORWARD_TOL of max |ref|
+    or, where larger, twice the distance of the CPU's bf16 output from its
+    float32 output on the same weights (the bound tests/test_torch_port_bf16.py
+    holds the port to against flax)."""
+    vocabulary = load_vocabulary(vocab_path)
+    for p in ("cli_train_bf16", "cli_train_transformer_bf16"):
+        cfg = cfgs[p]
+        arts = sorted(cfg["articulators"])
+        dataset = ArtSpeechDataset(corpus, "gottingen",
+                                   sequences_from_dict(corpus, cfg["test_seq_dict"]), vocabulary,
+                                   arts, clip_tails=cfg["clip_tails"])
+        batch, _ = next(iter(BucketedLoader(dataset, cfg["batch_size"], shuffle=False)))
+        params = load_params(os.path.join(outputs[p], "checkpoints", "best", "state"))
+        kwargs = model_kwargs_from_cfg(cfg)
+        check(kwargs.get("dtype") == torch.bfloat16, f"{p}: the config's dtype is {kwargs}")
+        outs = {}
+        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                              ("cpu", torch.float32)):
+            kw = {**kwargs, "dtype": None if dtype == torch.float32 else dtype}
+            tokens, lengths = (torch.as_tensor(batch[k], device=device)
+                               for k in ("tokens", "lengths"))
+            if p == "cli_train_bf16":
+                model = ArtSpeech(len(vocabulary), len(arts), **kw, device=device)
+                model.load_state_dict(params)
+                args = (tokens, lengths)
+            else:
+                model = ArtSpeechTransformer(len(vocabulary), len(arts),
+                                             num_feat=2 * cfg.get("n_samples", 50), **kw,
+                                             device=device)
+                model.load_state_dict(params)
+                targets = torch.as_tensor(batch["targets"], device=device)
+                args = (tokens, shift_targets_right(targets), lengths, lengths)
+            with torch.inference_mode():
+                outs[(device, dtype)] = model(*args).float().cpu()
+        got, ref, f32 = outs[("cuda", torch.bfloat16)], outs[("cpu", torch.bfloat16)], \
+            outs[("cpu", torch.float32)]
+        valid = torch.arange(got.shape[1])[None, :] < torch.as_tensor(batch["lengths"])[:, None]
+        tol = max(BF16_FORWARD_TOL * ref.abs().max().item(),
+                  2 * (ref - f32).abs()[valid].max().item())
+        err = (got - ref).abs()[valid].max().item()
+        phase("cli", bf16_forward=p, card_vs_cpu_max_abs_err=f"{err:.3g}", tol=f"{tol:.3g}",
+              cpu_bf16_vs_f32=f"{(ref - f32).abs()[valid].max().item():.3g}")
+        check(torch.isfinite(got).all().item() and err <= tol,
+              f"{p}: the card's bf16 forward differs from the CPU's by {err} (tol {tol})")
 
 
 def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
@@ -1386,6 +1714,87 @@ def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
 
 
 # -- the autoencoder-based method through its CLIs -------------------------------
+
+MC_CONFIGS = os.path.join(REPO, "configs", "mean_contour")
+MC_PATHS = ("mc_train", "mc_test", "mc_generate")
+
+
+def mean_contour_path(tmp, corpus, vocab_path):
+    """The mean-contour baseline (method A) through its three CLIs on the
+    card, from YAML files written from the text of configs/mean_contour/
+    (only the corpus paths, the database, table_filepath / state_dict_filepath
+    and save_to changed) over the [cli] corpus: the train CLI (the table,
+    then its test with tract variables), the test CLI on that table and the
+    generate CLI with method: mean_contour. The table lookup is plain torch;
+    the test step launches one P2CP a batch and 8 min_dist (4 TVs x
+    prediction, target), which are counted, and the synthesis none. Checks
+    the table, the artifact trees, finiteness, and the test CLI's results
+    against the train CLI's final test. Returns the launches and wall
+    seconds of each run."""
+    corpus_keys = {"database_name": "gottingen", "datadir": corpus, "vocab_filepath": vocab_path}
+    out = {p: os.path.join(tmp, p) for p in MC_PATHS}
+    table_path = os.path.join(out["mc_train"], "mean_contour_table.npz")
+    configs = {
+        "mc_train": ("train_mean_contour", corpus_keys, None),
+        "mc_test": ("test_mean_contour", {**corpus_keys, "table_filepath": table_path}, None),
+        "mc_generate": ("generate_vocal_tract_shape_mean_contour",
+                        {**corpus_keys, "state_dict_filepath": table_path,
+                         "save_to": os.path.join(tmp, "mc_synthesis")}, None),
+    }
+    cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes, added,
+                             folder=MC_CONFIGS)
+            for p, (name, changes, added) in configs.items()}
+    vocabulary = load_vocabulary(vocab_path)
+    cfg = cfgs["mc_train"]
+    arts = sorted(cfg["articulators"])
+    test_lengths = {d["sentence_name"]: len(d["frame_ids"]) for d in ArtSpeechDataset(
+        corpus, "gottingen", sequences_from_dict(corpus, cfg["test_seq_dict"]), vocabulary, arts,
+        clip_tails=cfg["clip_tails"]).data}
+    te = n_batches(test_lengths.values(), cfg["batch_size"])
+    none = dict.fromkeys(KERNELS, 0)
+    expected = {"mc_train": {**none, "p2cp": te, "min_dist": 8 * te},
+                "mc_test": {**none, "p2cp": te, "min_dist": 8 * te}, "mc_generate": none}
+    modules = {"mc_train": train_phoneme_wise_mean_contour,
+               "mc_test": test_phoneme_wise_mean_contour, "mc_generate": generate_vocal_tract_shape}
+    results, launches, seconds = {}, {}, {}
+    for p in MC_PATHS:
+        reset_launch_counts()
+        results[p], seconds[p] = run_cli(modules[p], os.path.join(tmp, f"{p}.yaml"), out[p])
+        launches[p] = launch_counts()
+        phase("mean_contour", cli=p, seconds=f"{seconds[p]:.3f}",
+              **{f"{k}_launches": v for k, v in launches[p].items() if v or expected[p][k]},
+              **{f"{k}_expected": v for k, v in expected[p].items() if v})
+        check(launches[p] == expected[p], f"{p}: kernel launches {launches[p]}, "
+                                          f"expected {expected[p]}")
+    table = np.load(table_path)
+    check(table["table"].shape == (len(vocabulary), len(arts), 2, 50)
+          and np.isfinite(table["table"]).all() and not bool(table["positional"]),
+          f"mean_contour_table.npz: {table['table'].shape}")
+    n_arts = len(arts) + 1  # with the upper incisor
+    test_dirs = {"mc_train": os.path.join(out["mc_train"], "test_outputs", "0"),
+                 "mc_test": os.path.join(out["mc_test"], "test_outputs", "0")}
+    for p, test_dir in test_dirs.items():
+        frames, tv_rows = check_test_outputs(test_dir, test_lengths, n_arts)
+        with open(os.path.join(out[p], "test_results.json")) as f:
+            written = flat(json.load(f))
+        check(written == flat(results[p]) and all(np.isfinite(v) for v in written.values()),
+              f"{p}: test_results.json")
+        phase("mean_contour", cli=p, test_frames=frames, tv_csv_rows=tv_rows, finite=True,
+              loss=f"{results[p]['loss']:.6g}",
+              mean_p2cp_mm=f"{np.mean([results[p][a]['p2cp_mm'] for a in arts]):.6g}")
+    train_info, test_info = flat(results["mc_train"]), flat(results["mc_test"])
+    diff = max(abs(test_info[k] - v) for k, v in train_info.items())
+    phase("mean_contour", test_cli_vs_train_cli_final_test_max_abs_diff=f"{diff:.3g}", tol=1e-6)
+    check(test_info.keys() == train_info.keys() and diff <= 1e-6,
+          f"the mean-contour test CLI differs from the train CLI's final test by {diff}")
+    sentences = DATABASE_COLLECTORS["gottingen"](corpus).collect_data(
+        sequences_from_dict(corpus, cfgs["mc_generate"]["seq_dict"]))
+    frames = check_synthesis(cfgs["mc_generate"]["save_to"], sentences, n_arts)
+    check(len(results["mc_generate"]) == len(sentences),
+          f"mc_generate: {len(results['mc_generate'])} sentences written")
+    phase("mean_contour", cli="mc_generate", sentences=len(sentences), frames=frames, finite=True)
+    return launches, seconds
+
 
 PC_PATHS = ("pc_norm_stats", "pc_train_pca", "pc_train_ae", "pc_test_ae", "pc_train_ae_gru",
             "pc_train_ae_lstm", "pc_train_pca_gru", "pc_test_lstm", "pc_generate")
@@ -2471,7 +2880,11 @@ def main():
     errs["train_attention_fwd"], errs["train_attention_bwd"] = train_attention_vs_plain()
     errs["lstm_fwd"] = lstm_fwd_vs_plain()
     errs["lstm_bwd"], lstm_bwd_rel_err = lstm_bwd_vs_plain()
-    lstm_widths()
+    errs["gru_seq"] = gru_seq_vs_plain()
+    gru_seq_launches = gru_seq_path()
+    t0 = time.perf_counter()
+    wide = widths()
+    phase("widths", seconds=f"{time.perf_counter() - t0:.3f}")
     with tempfile.TemporaryDirectory() as tmp:
         synthesis_launches = main_path(tmp)
     against_cpu()
@@ -2485,6 +2898,9 @@ def main():
         t0 = time.perf_counter()
         pc_launches, pc_seconds = pc_path(tmp, *test_step_inputs[1:3])
         phase("pc", seconds=f"{time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
+        mc_launches, mc_seconds = mean_contour_path(tmp, *test_step_inputs[1:3])
+        phase("mean_contour", seconds=f"{time.perf_counter() - t0:.3f}")
     decode_launches = decode_path()
     decode_against_cpu()
     train_transformer_launches = train_transformer_path()
@@ -2505,10 +2921,13 @@ def main():
                   for k in ("train_attention_fwd", "train_attention_bwd")}}
     lstm = time_lstm()
     numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
+    gru_seq = time_gru_seq()
+    numbers["gru_seq"] = gru_seq[BENCH_B]
     time_synthesis()
     time_training()
     time_test_step()
-    phase("timing", **{f"{p}_wall_s": f"{s:.3f}" for p, s in {**cli_seconds, **pc_seconds}.items()})
+    phase("timing", **{f"{p}_wall_s": f"{s:.3f}"
+                       for p, s in {**cli_seconds, **pc_seconds, **mc_seconds}.items()})
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
@@ -2516,7 +2935,11 @@ def main():
                    "decode": decode_launches if k == "flash_decode" else 0,
                    "train_transformer": train_transformer_launches[k],
                    **{p: pc_launches[p][k] for p in PC_PATHS},
-                   "latent_rnn": latent_launches[k]} for k in KERNELS}
+                   **{p: mc_launches[p][k] for p in MC_PATHS},
+                   "latent_rnn": latent_launches[k],
+                   "gru_seq": gru_seq_launches if k == "gru_seq" else 0} for k in KERNELS}
+    unlaunched = [k for k in KERNELS if sum(by_path[k].values()) == 0]
+    check(not unlaunched, f"kernels launched on no path: {unlaunched}")
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
     shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
               "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
@@ -2527,7 +2950,8 @@ def main():
                     f"n_pairs={TRAIN_ATTN_PAIRS} (dropout 0.1 keep),float32"
                  for k in ("train_attention_fwd", "train_attention_bwd")},
               **{k: "T={},B={},H={},directions=2,float32".format(*LSTM_SHAPES[0])
-                 for k in ("lstm_fwd", "lstm_bwd")}}
+                 for k in ("lstm_fwd", "lstm_bwd")},
+              "gru_seq": f"B={BENCH_B},T={BENCH_T},H={HIDDEN},directions=1,batch_tile=16,float32"}
     extra = {"gru_bwd": {"rel_err": bwd_rel_err},
              **{k: {"device_ms": lstm[k][LSTM_SHAPES[0][1]]["device_ms"],
                     "by_shape": {f"B={b}": r for b, r in lstm[k].items()}}
@@ -2539,6 +2963,9 @@ def main():
                     "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
+    extra["gru_seq"] = {"by_shape": {f"B={b}": r for b, r in gru_seq.items()}}
+    for k, w in wide.items():
+        extra.setdefault(k, {}).update(w)
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)

@@ -20,6 +20,8 @@
   backward, through a training step too) without counting a launch, and
   raises on any other non-CUDA device.
 - So do the autoencoder-based method's models, steps, test harness and CLIs.
+- So do the mean-contour baseline's forward and CLIs; on the CPU its forward
+  is a plain gather.
 """
 
 import argparse
@@ -41,13 +43,16 @@ from artspeech_tpu_torch.cli import (
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
     test_phoneme_to_principal_components,
+    test_phoneme_wise_mean_contour,
     test_principal_components_autoencoder,
     train_phoneme_to_articulation,
     train_phoneme_to_articulation_transformer,
     train_phoneme_to_principal_components,
+    train_phoneme_wise_mean_contour,
     train_principal_components_autoencoder,
 )
 from artspeech_tpu_torch.eval import autoencoder as pc_eval
+from artspeech_tpu_torch.models import mean_contour
 from artspeech_tpu_torch.models.autoencoder import (
     MultiArticulatorAutoencoder,
     MultiDecoder,
@@ -314,6 +319,20 @@ def test_principal_components_entry_points_raise_without_cuda_and_without_device
                 train_phoneme_to_principal_components, test_phoneme_to_principal_components):
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main({}, args, tracker=None)
+
+
+def test_mean_contour_entry_points_raise_without_cuda_and_without_device(tmp_path):
+    _no_cuda()
+    table = mean_contour.MeanContourTable(np.arange(24, dtype=np.float32).reshape(3, 1, 2, 4),
+                                          np.ones(3, np.int64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mean_contour.make_mean_contour_forward(table)
+    args = argparse.Namespace(device="cuda", output_dir=str(tmp_path), checkpoint_filepath=None)
+    for cli in (train_phoneme_wise_mean_contour, test_phoneme_wise_mean_contour):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main({}, args, tracker=None)
+    got = mean_contour.make_mean_contour_forward(table, device="cpu")(torch.tensor([[2, 0]]))
+    assert got.device.type == "cpu" and torch.equal(got[0], torch.from_numpy(table.table[[2, 0]]))
 
 
 TINY_TRANSFORMER = {"embed_dim": 8, "num_heads": 2, "num_layers": 1, "num_feat": 6,

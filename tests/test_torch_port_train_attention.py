@@ -95,10 +95,8 @@ def _refusal_cases():
     return {
         "L_above_MAX_L": (dict(ok, q=t(2, 513, 4), k=t(2, 513, 4), v=t(2, 513, 4),
                                keep=t(1, 513, 513)), ValueError, "L=513"),
-        "head_dim_above_bound": (dict(ok, q=t(4, 8, 33), k=t(4, 8, 33), v=t(4, 8, 33)),
-                                 ValueError, "head dim 33"),
-        "shared_memory": (dict(ok, q=t(1, 512, 32), k=t(1, 512, 32), v=t(1, 512, 32),
-                               keep=t(1, 512, 512)), ValueError, "shared memory"),
+        "head_dim_above_bound": (dict(ok, q=t(4, 8, 129), k=t(4, 8, 129), v=t(4, 8, 129)),
+                                 ValueError, "head dim 129"),
         "float64": (dict(ok, q=t(4, 8, 4, dtype=torch.float64)), TypeError, "float32"),
         "non_contiguous": (dict(ok, q=t(4, 4, 8).transpose(1, 2)), ValueError, "contiguous"),
         "n_pairs_not_dividing_G": (dict(ok, keep=t(3, 8, 8), n_pairs=3), ValueError, "dividing"),

@@ -315,9 +315,9 @@ def test_cli_defaults_and_refusals(setup, tmp_path, monkeypatch):
         assert cache_dtype_from_cfg({"generate_cache_dtype": name}) is None
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         transformer.make_fast_generate(setup["port"], "float16", device="cpu")
-    cfg = {**setup["base"], "model_kwargs": {**MODEL, "dtype": "bfloat16"},
+    cfg = {**setup["base"], "model_kwargs": {**MODEL, "dtype": "float16"},
            "state_dict_filepath": str(setup["root"] / "ckpts" / "best_model")}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="float16 is not ported"):
         _run("artspeech_tpu_torch", "test_phoneme_to_articulation_transformer", cfg,
              tmp_path / "out", monkeypatch, tmp_path)
 
