@@ -27,124 +27,69 @@
 // bytes (x_proj is read once, ys written once) or operations.
 //
 // Design: the TPU kernel's sequential grid over time chunks has no Hopper
-// counterpart, so one thread block owns one (direction, batch tile of
-// BT rows) and loops over all T steps inside. W_h is loaded once into dynamic
-// shared memory and stays resident (H = 128: 196,608 B in f32, 98,304 B in
-// bf16); the carry h lives in shared memory in f32. Each step:
-//   1. thread c computes column c of hg for the BT rows of the tile, reading
-//      W_h[k][c] (consecutive threads, consecutive banks) and h[r][k] as
-//      float4 broadcasts;
-//   2. __syncthreads();
-//   3. threads run the elementwise gates over the (BT, H) tile, read x_proj
-//      and the mask, update h in shared memory and write ys;
-//   4. __syncthreads().
-// Small batch tiles (BT = 4) spread the batch over more SMs, which shortens
-// each step; tensor cores (wgmma), TMA prefetch of x_proj and keeping W_h in
-// registers across a cluster are left for later work.
+// counterpart, so the time loop runs inside the kernel. The step is the
+// cluster step of gru_step.cuh (shared with gru_seq.cu): a thread-block
+// cluster of C CTAs a (direction, tile of rows), each CTA holding the W_h
+// columns of H/C hidden units in shared memory, the carry crossing the
+// cluster through distributed shared memory once a step, and x_proj and the
+// mask loaded a step ahead. The wrapper (hopper_gru.gru_launch_geometry)
+// chooses C and the rows a cluster walks; this file
+// lays the time-major, D-direction addressing over that step and launches it
+// with cudaLaunchKernelEx.
 //
-// The wide instance. The resident kernel needs H % 4 == 0 (float4 reads of
-// h), 3H <= 1024 (a thread a column) and W_h in shared memory (f32 up to
-// H = 136, bf16 up to H = 188). Every other H up to 1024 takes
-// gru_fwd_wide_kernel: the same step with W_h read from global memory every
-// step (the (H, 3H) f32 W_h at H = 1024 is 12 MiB, held by the 50 MB L2),
-// each of 512 threads looping over its gate columns, and scalar reads of h.
-// Only the carry and the gates stay in shared memory (BT * 4H f32).
+// The wide instance. Where no cluster holds W_h in shared memory (the rule's
+// `resident` is false: f32 above H = 384 or so, or H with no even split),
+// gru_fwd_wide_kernel runs the same step with W_h read from global memory
+// every step (the (H, 3H) f32 W_h at H = 1024 is 12 MiB, held by the 50 MB
+// L2): one block of 512 threads a (direction, tile of BT rows), each thread
+// looping over its gate columns, scalar reads of h. Only the carry and the
+// gates stay in shared memory (BT * 4H f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "gru_step.cuh"
+
 namespace {
 
-constexpr int BT = 4;  // batch rows per block
+using gru_step::from_f32;
+using gru_step::sigmoid_f32;
+using gru_step::to_f32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int BT = 4;  // batch rows a block of the wide instance
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as jnp astype
-}
-
-__device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
-
+// Time-major addressing of direction d (gru_step::cluster_steps' layout).
 template <typename T>
-__global__ void gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
-                               const T* __restrict__ bh, const float* __restrict__ mask,
-                               T* __restrict__ ys, int n_steps, int batch, int hidden,
-                               int n_dir, int rev_bits) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int gates = 3 * hidden;
-  const size_t w_bytes = ((size_t)hidden * gates * sizeof(T) + 15) & ~(size_t)15;
-  T* w_s = reinterpret_cast<T*>(smem);
-  float* h_s = reinterpret_cast<float*>(smem + w_bytes);  // (BT, H)
-  float* g_s = h_s + BT * hidden;                          // (BT, 3H)
-
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const int tid = threadIdx.x;
-  const bool reverse = (rev_bits >> d) & 1;
-
-  const T* w_d = wh + (size_t)d * hidden * gates;
-  for (int i = tid; i < hidden * gates; i += blockDim.x) w_s[i] = w_d[i];
-  for (int i = tid; i < BT * hidden; i += blockDim.x) h_s[i] = 0.0f;
-  const float bias = tid < gates ? to_f32(bh[(size_t)d * gates + tid]) : 0.0f;
-  __syncthreads();
-
-  const size_t x_row = (size_t)n_dir * gates;   // x_proj stride per (t, b)
-  const size_t y_row = (size_t)n_dir * hidden;  // ys stride per (t, b)
-  const float4* h4 = reinterpret_cast<const float4*>(h_s);
-  const int h_quads = hidden / 4;
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-
-    // 1. hg[r][c] = sum_k h[r][k] * W[k][c] + b[c], one column per thread.
-    if (tid < gates) {
-      float acc[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
-      for (int q = 0; q < h_quads; ++q) {
-        const int k = 4 * q;
-        const float w0 = to_f32(w_s[(k + 0) * gates + tid]);
-        const float w1 = to_f32(w_s[(k + 1) * gates + tid]);
-        const float w2 = to_f32(w_s[(k + 2) * gates + tid]);
-        const float w3 = to_f32(w_s[(k + 3) * gates + tid]);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 hv = h4[r * h_quads + q];
-          acc[r] = fmaf(hv.x, w0, acc[r]);
-          acc[r] = fmaf(hv.y, w1, acc[r]);
-          acc[r] = fmaf(hv.z, w2, acc[r]);
-          acc[r] = fmaf(hv.w, w3, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) g_s[r * gates + tid] = acc[r] + bias;
-    }
-    __syncthreads();
-
-    // 3. Elementwise gates over the (BT, H) tile.
-    for (int e = tid; e < BT * hidden; e += blockDim.x) {
-      const int r = e / hidden;
-      const int j = e - r * hidden;
-      const int b = b0 + r;
-      if (b >= batch) continue;
-      const T* x = xp + ((size_t)t * batch + b) * x_row + (size_t)d * gates;
-      const float* g = g_s + r * gates;
-      const float rg = sigmoid_f32(to_f32(x[j]) + g[j]);
-      const float zg = sigmoid_f32(to_f32(x[hidden + j]) + g[hidden + j]);
-      const float ng = tanhf(to_f32(x[2 * hidden + j]) + rg * g[2 * hidden + j]);
-      const float h_prev = h_s[e];
-      const float cand = (1.0f - zg) * ng + zg * h_prev;
-      const float m = mask[(size_t)t * batch + b];
-      const T out = from_f32<T>(m != 0.0f ? cand : h_prev);
-      h_s[e] = to_f32(out);
-      ys[((size_t)t * batch + b) * y_row + (size_t)d * hidden + j] = out;
-    }
-    __syncthreads();
+struct TimeMajor {
+  const T* xp;
+  const T* w;
+  const T* b;
+  const float* mask_;
+  T* ys;
+  int batch, hidden, n_dir, d;
+  bool reverse;
+  __device__ int time(int s, int n_steps) const { return reverse ? n_steps - 1 - s : s; }
+  __device__ const T* x(int t, int bi) const {
+    return xp + ((size_t)t * batch + bi) * n_dir * 3 * hidden + (size_t)d * 3 * hidden;
   }
+  __device__ T* y(int t, int bi) const {
+    return ys + ((size_t)t * batch + bi) * n_dir * hidden + (size_t)d * hidden;
+  }
+  __device__ float mask(int t, int bi) const { return mask_[(size_t)t * batch + bi]; }
+  __device__ static float combine(float m, float cand, float h) { return m != 0.0f ? cand : h; }
+};
+
+template <typename T, int R>
+__global__ void __launch_bounds__(gru_step::MAX_THREADS)
+gru_fwd_cluster_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                       const T* __restrict__ bh, const float* __restrict__ mask,
+                       T* __restrict__ ys, int n_steps, int batch, int hidden, int n_dir,
+                       int rev_bits) {
+  const int d = blockIdx.y;
+  const TimeMajor<T> io{xp, wh + (size_t)d * hidden * 3 * hidden, bh + (size_t)d * 3 * hidden,
+                        mask, ys, batch, hidden, n_dir, d, ((rev_bits >> d) & 1) != 0};
+  gru_step::cluster_steps<T, R>(io, n_steps, batch, hidden);
 }
 
 constexpr int WIDE_THREADS = 512;
@@ -211,76 +156,78 @@ gru_fwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   }
 }
 
-constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
-
-size_t resident_smem_bytes(int hidden, int elem_bytes) {
-  const size_t gates = 3 * (size_t)hidden;
-  return ((hidden * gates * elem_bytes + 15) & ~(size_t)15) + BT * (hidden + gates) * 4;
-}
-
-// The resident kernel takes H % 4 == 0, 3H <= 1024 and W_h in shared memory.
-bool resident(int hidden, int elem_bytes) {
-  return hidden % 4 == 0 && 3 * hidden <= 1024 &&
-         resident_smem_bytes(hidden, elem_bytes) <= MAX_SMEM;
-}
 
 template <typename T>
 int launch_wide(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
-                int n_steps, int batch, int hidden, int n_dir, int rev_bits, void* stream) {
-  const size_t smem = (size_t)BT * 4 * hidden * sizeof(float);
+                int n_steps, int batch, int hidden, int n_dir, int rev_bits, int smem,
+                cudaStream_t stream) {
+  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > gru_step::MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gru_fwd_wide_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((batch + BT - 1) / BT, n_dir);
-  gru_fwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, (cudaStream_t)stream>>>(
+  gru_fwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, stream>>>(
       static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
       static_cast<const float*>(mask), static_cast<T*>(ys), n_steps, batch, hidden, n_dir,
       rev_bits);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+void (*cluster_kernel(int rows))(const T*, const T*, const T*, const float*, T*, int, int, int,
+                                 int, int) {
+  switch (rows) {
+    case 2: return gru_fwd_cluster_kernel<T, 2>;
+    case 4: return gru_fwd_cluster_kernel<T, 4>;
+    default: return gru_fwd_cluster_kernel<T, 8>;
+  }
+}
+
+template <typename T>
+int launch_cluster(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
+                   int n_steps, int batch, int hidden, int n_dir, int rev_bits, int cluster,
+                   int rows, int smem, cudaStream_t stream) {
+  if (!gru_step::valid_geometry(hidden, cluster, rows, smem, sizeof(T)))
+    return (int)cudaErrorInvalidValue;
+  return gru_step::launch_cluster(
+      cluster_kernel<T>(rows), cluster, (batch + rows - 1) / rows, n_dir,
+      gru_step::cluster_threads(hidden, cluster), smem, stream, static_cast<const T*>(xp),
+      static_cast<const T*>(wh), static_cast<const T*>(bh), static_cast<const float*>(mask),
+      static_cast<T*>(ys), n_steps, batch, hidden, n_dir, rev_bits);
 }
 
 template <typename T>
 int launch(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
-           int n_steps, int batch, int hidden, int n_dir, int rev_bits, void* stream) {
-  const int gates = 3 * hidden;
-  const size_t smem = resident_smem_bytes(hidden, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(gru_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((gates + 31) / 32) * 32;
-  dim3 grid((batch + BT - 1) / BT, n_dir);
-  gru_fwd_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
-      static_cast<const float*>(mask), static_cast<T*>(ys), n_steps, batch, hidden, n_dir,
-      rev_bits);
-  return (int)cudaGetLastError();
+           int n_steps, int batch, int hidden, int n_dir, int rev_bits, int cluster, int rows,
+           int smem, cudaStream_t stream) {
+  if (cluster == 0)
+    return launch_wide<T>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits, smem,
+                          stream);
+  return launch_cluster<T>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
+                           cluster, rows, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when H in this storage type takes the resident kernel, 0 when the wide one.
-int gru_fwd_resident(int hidden, int elem_bytes) { return resident(hidden, elem_bytes); }
-
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024. Returns
-// cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
+// geometry comes from hopper_gru.gru_launch_geometry: cluster CTAs (0: the
+// wide instance), rows a cluster walks (2, 4 or 8), and the dynamic shared
+// memory in bytes. Returns the first nonzero cudaError_t of the
+// launch (a geometry the kernel does not take, or a refused cluster), else 0.
 int gru_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
-            int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype,
-            void* stream) {
-  if (hidden < 1 || hidden > 1024 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
-  const bool res = resident(hidden, dtype == 0 ? 4 : 2);
+            int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype, int cluster,
+            int rows, int smem, void* stream) {
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return res ? launch<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
-                               stream)
-               : launch_wide<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
-                                    rev_bits, stream);
-  return res ? launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
-                                     rev_bits, stream)
-             : launch_wide<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir,
-                                          rev_bits, stream);
+    return launch<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits, cluster,
+                         rows, smem, s);
+  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
+                               cluster, rows, smem, s);
 }
 
 }  // extern "C"

@@ -20,69 +20,77 @@
 // b_h (3H), mask (B, T) f32, out (B, T, H). The kernel reads x_proj and
 // writes out in this layout; no transposed copy is made.
 //
-// What bounds it: T dependent steps, each a (tile, H) x (H, 3H) product and
+// What bounds it: T dependent steps, each a (rows, H) x (H, 3H) product and
 // the elementwise gates. At the bench shape (B = 16, T = 128, H = 128) the
 // products are 1.6 GFLOP in all against ~2.2 MB of x_proj and out: the
-// bound is the f32 operation rate (~0.02 ms), but the time is the latency of
-// T sequential steps on the few SMs that hold a batch tile.
+// bound is the f32 operation rate (~0.003 ms), but the time is the latency
+// of T sequential steps.
 //
-// Design. One block owns one tile of `tile` batch rows (the TPU kernel's
-// batch_tile, 16 by default) and loops over all T steps; the carry lives in
-// shared memory in f32, one row a batch row. Each step:
-//   1. thread c computes hg[r][c] for every row r of the tile (BT register
-//      accumulators, BT the tile rounded up to 4, 8, 16 or 32), looping over
-//      its gate columns c = tid, tid + blockDim, ...;
-//   2. __syncthreads();
-//   3. the block runs the gates over the (tile, H) elements, reading
-//      x_proj[b, t] row by row (neighbouring threads on neighbouring
-//      addresses) and updating the carry and out;
-//   4. __syncthreads().
-// Where W_h fits beside the carry and the gates in the 232,448 B of shared
-// memory a block may use (H = 128, tile 16: 196,608 + 32,768 B), it is
-// loaded once and stays resident, as in the TPU kernel; otherwise (wide H or
-// a large tile) the product reads W_h from global memory every step, where
-// the 50 MB L2 holds it (H = 1024: 12 MiB). Neighbouring threads read
-// neighbouring columns either way. Splitting the columns of a tile over a
-// cluster, tensor cores and prefetch of x_proj are later work.
+// Design: the cluster step of gru_step.cuh, the one gru_fwd.cu runs, with
+// batch-major addressing and the blend above as its mask formula. The TPU
+// kernel's batch tile (16 rows a grid step) is a TPU shape: on the card one
+// 16-row block left a step's 384 x 16 x 128 product on one SM. The launch
+// geometry comes from hopper_gru.gru_launch_geometry, the same rule and
+// the same geometry as gru_fwd with one direction; `tile` is checked and
+// does not change the launch or the result.
+//
+// The wide instance. Where no cluster holds W_h in shared memory (the
+// rule's `resident` is false), gru_seq_kernel runs one block of 512
+// threads a tile of BT rows, reading W_h through the L2 every step (H = 1024:
+// 12 MiB), the carry and the gates in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gru_step.cuh"
+
 namespace {
 
-constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
-constexpr int MAX_THREADS = 512;
+using gru_step::sigmoid_f32;
 
-__device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
+constexpr int BT = 4;  // batch rows a block of the wide instance
+constexpr int WIDE_THREADS = 512;
 
-__host__ __device__ inline int round_tile(int tile) {
-  return tile <= 4 ? 4 : tile <= 8 ? 8 : tile <= 16 ? 16 : 32;
+// Batch-major addressing (gru_step::cluster_steps' layout).
+struct BatchMajor {
+  const float* xp;
+  const float* w;
+  const float* b;
+  const float* mask_;
+  float* out;
+  int n_steps, hidden;
+  __device__ int time(int s, int) const { return s; }
+  __device__ const float* x(int t, int bi) const {
+    return xp + ((size_t)bi * n_steps + t) * 3 * hidden;
+  }
+  __device__ float* y(int t, int bi) const { return out + ((size_t)bi * n_steps + t) * hidden; }
+  __device__ float mask(int t, int bi) const { return mask_[(size_t)bi * n_steps + t]; }
+  __device__ static float combine(float m, float cand, float h) {
+    return m * cand + (1.0f - m) * h;
+  }
+};
+
+template <int R>
+__global__ void __launch_bounds__(gru_step::MAX_THREADS)
+gru_seq_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
+                       const float* __restrict__ bh, const float* __restrict__ mask,
+                       float* __restrict__ out, int batch, int n_steps, int hidden) {
+  const BatchMajor io{xp, wh, bh, mask, out, n_steps, hidden};
+  gru_step::cluster_steps<float, R>(io, n_steps, batch, hidden);
 }
 
-// Shared memory of a block: the carry (BT, H) and the gates (BT, 3H) in f32,
-// plus W_h (H, 3H) when resident.
-__host__ __device__ inline size_t smem_bytes(int hidden, int bt, bool resident) {
-  const size_t gates = 3 * (size_t)hidden;
-  return sizeof(float) * ((size_t)bt * (hidden + gates) + (resident ? hidden * gates : 0));
-}
-
-template <int BT, bool RESIDENT>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(WIDE_THREADS)
 gru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
                const float* __restrict__ bh, const float* __restrict__ mask,
-               float* __restrict__ out, int batch, int n_steps, int hidden, int tile) {
+               float* __restrict__ out, int batch, int n_steps, int hidden) {
   extern __shared__ __align__(16) float smem[];
   const int gates = 3 * hidden;
-  float* h_s = smem;                // (BT, H)
-  float* g_s = h_s + BT * hidden;   // (BT, 3H)
-  float* w_s = g_s + BT * gates;    // (H, 3H), resident only
-  const float* w = RESIDENT ? w_s : wh;
+  float* h_s = smem;               // (BT, H)
+  float* g_s = h_s + BT * hidden;  // (BT, 3H)
   const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * tile;
-  const int rows = min(tile, batch - b0);
+  const int b0 = blockIdx.x * BT;
+  const int rows = min(BT, batch - b0);
 
-  if (RESIDENT)
-    for (int i = tid; i < hidden * gates; i += blockDim.x) w_s[i] = wh[i];
   for (int i = tid; i < BT * hidden; i += blockDim.x) h_s[i] = 0.0f;
   __syncthreads();
 
@@ -95,7 +103,7 @@ gru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
       for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
 #pragma unroll 4
       for (int k = 0; k < hidden; ++k) {
-        const float wk = w[(size_t)k * gates + c];
+        const float wk = wh[(size_t)k * gates + c];
 #pragma unroll
         for (int r = 0; r < BT; ++r) acc[r] = fmaf(h_s[r * hidden + k], wk, acc[r]);
       }
@@ -105,7 +113,7 @@ gru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
     }
     __syncthreads();
 
-    // 3. The gates over the tile's (rows, H) elements.
+    // 2. The gates over the tile's (rows, H) elements.
     for (int e = tid; e < rows * hidden; e += blockDim.x) {
       const int r = e / hidden;
       const int j = e - r * hidden;
@@ -125,46 +133,41 @@ gru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
   }
 }
 
-template <int BT>
-int launch(const float* xp, const float* wh, const float* bh, const float* mask, float* out,
-           int batch, int n_steps, int hidden, int tile, cudaStream_t stream) {
-  const bool resident = smem_bytes(hidden, BT, true) <= MAX_SMEM;
-  const size_t smem = smem_bytes(hidden, BT, resident);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const int gates = 3 * hidden;
-  const int threads = gates >= MAX_THREADS ? MAX_THREADS : (gates + 31) / 32 * 32;
-  const int blocks = (batch + tile - 1) / tile;
-  cudaError_t err;
-  if (resident) {
-    err = cudaFuncSetAttribute(gru_seq_kernel<BT, true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_seq_kernel<BT, true><<<blocks, threads, smem, stream>>>(xp, wh, bh, mask, out, batch,
-                                                                n_steps, hidden, tile);
-  } else {
-    err = cudaFuncSetAttribute(gru_seq_kernel<BT, false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    gru_seq_kernel<BT, false><<<blocks, threads, smem, stream>>>(xp, wh, bh, mask, out, batch,
-                                                                 n_steps, hidden, tile);
-  }
+int launch_wide(const float* xp, const float* wh, const float* bh, const float* mask, float* out,
+                int batch, int n_steps, int hidden, int smem, cudaStream_t stream) {
+  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > gru_step::MAX_SMEM)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(gru_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gru_seq_kernel<<<(batch + BT - 1) / BT, WIDE_THREADS, smem, stream>>>(xp, wh, bh, mask, out, batch,
+                                                                   n_steps, hidden);
   return (int)cudaGetLastError();
+}
+
+void (*cluster_kernel(int rows))(const float*, const float*, const float*, const float*, float*,
+                                 int, int, int) {
+  switch (rows) {
+    case 2: return gru_seq_cluster_kernel<2>;
+    case 4: return gru_seq_cluster_kernel<4>;
+    default: return gru_seq_cluster_kernel<8>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when W_h stays resident in shared memory at this width and tile, else 0.
-int gru_seq_resident(int hidden, int tile) {
-  return smem_bytes(hidden, round_tile(tile), true) <= MAX_SMEM;
-}
-
 // x_proj (B, T, 3H), w_h (H, 3H), b_h (3H), mask (B, T), out (B, T, H), all
-// f32 and contiguous; 1 <= H <= 1024, 1 <= tile <= 32. Returns the first
-// nonzero cudaError_t of the launch, else 0.
+// f32 and contiguous; 1 <= H <= 1024, 1 <= tile <= 32. The launch geometry
+// comes from hopper_gru.gru_launch_geometry (one direction, f32): cluster
+// CTAs (0: the wide instance), rows a cluster walks (2, 4 or 8), and the
+// dynamic shared memory in bytes. Returns the first nonzero cudaError_t
+// of the launch (a geometry the kernel does not take, or a refused
+// cluster), else 0.
 int gru_seq(const void* xp, const void* wh, const void* bh, const void* mask, void* out,
-            int batch, int n_steps, int hidden, int tile, void* stream) {
+            int batch, int n_steps, int hidden, int tile, int cluster, int rows, int smem,
+            void* stream) {
   if (batch < 1 || n_steps < 1 || hidden < 1 || hidden > 1024 || tile < 1 || tile > 32)
     return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(xp);
@@ -173,12 +176,12 @@ int gru_seq(const void* xp, const void* wh, const void* bh, const void* mask, vo
   const float* m = static_cast<const float*>(mask);
   float* y = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (round_tile(tile)) {
-    case 4: return launch<4>(x, w, b, m, y, batch, n_steps, hidden, tile, s);
-    case 8: return launch<8>(x, w, b, m, y, batch, n_steps, hidden, tile, s);
-    case 16: return launch<16>(x, w, b, m, y, batch, n_steps, hidden, tile, s);
-    default: return launch<32>(x, w, b, m, y, batch, n_steps, hidden, tile, s);
-  }
+  if (cluster == 0) return launch_wide(x, w, b, m, y, batch, n_steps, hidden, smem, s);
+  if (!gru_step::valid_geometry(hidden, cluster, rows, smem, sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  return gru_step::launch_cluster(cluster_kernel(rows), cluster, (batch + rows - 1) / rows, 1,
+                                  gru_step::cluster_threads(hidden, cluster), smem, s, x, w, b, m,
+                                  y, batch, n_steps, hidden);
 }
 
 }  // extern "C"

@@ -1,0 +1,366 @@
+// The masked GRU forward time loop on a thread-block cluster, shared by
+// gru_fwd.cu (time-major, one or two directions, f32 or bf16) and gru_seq.cu
+// (batch-major, one direction, f32). Each file supplies a layout: where
+// x_proj, the mask and the outputs of (t, b) live, which time step walk step
+// s visits, and its mask formula. The step itself is here.
+//
+//   hg = h @ W_h + b_h                      (f32 accumulation)
+//   r  = sigmoid(x_r + hg_r),  z = sigmoid(x_z + hg_z)
+//   n  = tanh(x_n + r * hg_n)
+//   h' = combine(m, (1 - z) * n + z * h, h)
+//
+// What bounds it: T dependent steps, each a small (rows, H) x (H, 3H)
+// product and the gates. At the thesis batches the card is nearly idle: the
+// time is the latency of a step times T, not bytes or operations. So the
+// design spreads one step over as many SMs as the batch allows and keeps
+// every global-memory latency off the step's critical path.
+//
+// Geometry (chosen on the host by hopper_gru.gru_launch_geometry and passed
+// in): a cluster of C CTAs (C <= 8) owns one direction and a tile of R = 2,
+// 4 or 8 batch rows. CTA r of the cluster owns hidden units
+// [r*U, (r+1)*U), U = H/C, and their three gate columns, so every gate of a
+// unit is local. Its (H, 3U) slice of W_h stays in shared memory for all T
+// steps.
+//
+// Threads. LANES = 8 consecutive threads own one unit for the R rows of the
+// tile (8U threads a CTA): lane l sums k in the quads
+// {l, l + 8, l + 16, ...} of h, for the unit's three columns and the R rows,
+// reading h as float4 broadcasts and its W_h quads as 16-byte (8-byte in
+// bf16) loads laid out so that a warp reads consecutive addresses. Three
+// levels of __shfl_xor_sync over the 8 lanes sum them in a fixed order,
+// halving the rows a lane holds while it holds more than one
+// (reduce-scatter), so that each row's three sums end in the lane that
+// applies its gates. No block barrier separates the product from the gates.
+//
+// The carry. h lives in f32 in every CTA's shared memory, two (R, HP)
+// buffers (HP = H rounded up to 32, the padding kept zero): step s reads
+// buffer s & 1 and each CTA writes its units' new h into buffer (s + 1) & 1
+// of every CTA of the cluster, through distributed shared memory. One split
+// barrier a step, and it is the data's own: each buffer has an mbarrier in
+// every CTA, the stores are st.async with complete_tx, so they arrive on the
+// receiving CTA's mbarrier as they land, and a CTA waits (acquire, cluster
+// scope) on its own mbarrier for the step's rows * H * 4 bytes before the
+// next product; the output store and the rotation of the prefetched inputs
+// run between the arrive and the wait. A CTA posts each phase's byte count
+// (arrive.expect_tx) after the phase before it completed. With two
+// buffers no CTA overwrites h that a peer still reads: a CTA writes buffer
+// s & 1 again only in step s + 1, after it received step s's h from every
+// CTA, and every CTA stores its step-s h only after the reads of its step-s
+// product and gates (its 8 lanes meet in the shuffles first). Rows past the
+// batch are never written and never waited for.
+//
+// Inputs a step ahead. During step s a gate lane loads x_proj and the mask
+// of step s + 1 for its (row, unit) into registers, before the product; the
+// step never waits on a global load.
+//
+// Tensor cores are not used: at a few rows a cluster an m16 tile is mostly
+// padding and the step is latency bound, and TF32 would break the f32 limit
+// against the plain version over T steps.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace gru_step {
+
+namespace cg = cooperative_groups;
+
+constexpr int LANES = 8;          // threads that split k for one unit
+constexpr int MAX_THREADS = 512;  // threads a CTA
+constexpr int MAX_CLUSTER = 8;    // the portable cluster size
+constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as jnp astype
+}
+
+__device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Four consecutive values as f32 (16 bytes of f32, 8 of bf16; aligned).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+
+// H rounded up to a whole number of quads for every lane.
+__host__ __device__ inline int padded_hidden(int hidden) {
+  return (hidden + 4 * LANES - 1) / (4 * LANES) * (4 * LANES);
+}
+
+// Shared memory of one CTA: its (HP, 3U) slice of W_h in the storage type,
+// then two (rows, HP) f32 h buffers (HP = H rounded up to 32).
+__host__ __device__ inline size_t smem_bytes(int hidden, int cluster, int rows, int elem_bytes) {
+  const size_t hp = padded_hidden(hidden);
+  return align16(hp * 3 * (hidden / cluster) * elem_bytes) + 2 * (size_t)rows * hp * sizeof(float);
+}
+
+// Whether a geometry is one the kernel takes; the launch refuses others.
+inline bool valid_geometry(int hidden, int cluster, int rows, int smem, int elem_bytes) {
+  if (cluster < 1 || cluster > MAX_CLUSTER || (cluster & (cluster - 1)) || hidden % cluster)
+    return false;
+  if (rows != 2 && rows != 4 && rows != 8) return false;
+  const size_t need = smem_bytes(hidden, cluster, rows, elem_bytes);
+  return LANES * (hidden / cluster) <= MAX_THREADS && smem >= 0 && (size_t)smem >= need &&
+         (size_t)smem <= MAX_SMEM;
+}
+
+// Threads a CTA of the cluster step.
+inline int cluster_threads(int hidden, int cluster) { return LANES * (hidden / cluster); }
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The shared::cluster address of `local` (a shared::cta address) in CTA `rank`.
+__device__ __forceinline__ uint32_t map_rank(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  return remote;
+}
+
+// Stores v at `addr` of a CTA of the cluster; the 4 bytes complete on that
+// CTA's mbarrier `bar` (both shared::cluster addresses).
+__device__ __forceinline__ void store_arrive(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n"
+               :: "r"(addr), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+// The arrival of a phase that completes when `bytes` more bytes have landed.
+__device__ __forceinline__ void expect_bytes(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` of mbarrier `bar` has completed.
+__device__ __forceinline__ void wait_phase(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// The time loop of one CTA. io supplies (for this CTA's direction):
+//   w, b                 its (H, 3H) W_h and (3H) b_h;
+//   time(s, n)           the time index of walk step s;
+//   x(t, b), y(t, b)     pointers to the 3H gates of x_proj and the H outputs;
+//   mask(t, b)           the mask value;
+//   combine(m, cand, h)  the carry after the step.
+template <typename T, int R, typename Layout>
+__device__ __forceinline__ void cluster_steps(const Layout& io, int n_steps, int batch,
+                                              int hidden) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int units = hidden / csize;
+  const int hp = padded_hidden(hidden);
+  const int quads = hp / (4 * LANES);  // quads of k a lane sums
+  T* w_s = reinterpret_cast<T*>(smem);
+  float* h_s = reinterpret_cast<float*>(smem + align16((size_t)hp * 3 * units * sizeof(T)));
+
+  const int tid = threadIdx.x;
+  const int lane = tid % LANES;
+  const int j = tid / LANES;
+  const int u = rank * units + j;  // the hidden unit this thread owns
+  const int b0 = (blockIdx.x / csize) * R;
+
+  // W_h slice: value (k, gate p, local unit jj) at
+  // (((q * 3 + p) * units + jj) * LANES + l) * 4 + i, k = 4 * (l + LANES * q) + i,
+  // zero for k >= H.
+  for (int idx = tid; idx < hp * 3 * units; idx += blockDim.x) {
+    const int i = idx & 3;
+    int rest = idx >> 2;
+    const int l = rest % LANES;
+    rest /= LANES;
+    const int jj = rest % units;
+    rest /= units;
+    const int p = rest % 3;
+    const int k = 4 * (l + LANES * (rest / 3)) + i;
+    w_s[idx] = k < hidden ? io.w[(size_t)k * 3 * hidden + p * hidden + rank * units + jj]
+                          : from_f32<T>(0.0f);
+  }
+  for (int idx = tid; idx < 2 * R * hp; idx += blockDim.x) h_s[idx] = 0.0f;
+  const float br = to_f32(io.b[u]);
+  const float bz = to_f32(io.b[hidden + u]);
+  const float bn = to_f32(io.b[2 * hidden + u]);
+
+  // The tile row whose gates this lane applies (see the reduction below):
+  // lane l holds row l / (LANES / R), and the first lane of each LANES / R
+  // applies its gates.
+  const int spread = LANES / R;
+  const int row = lane / spread;
+  const int b = b0 + row;
+  const bool live = lane % spread == 0 && b < batch;
+  float xr = 0.0f, xz = 0.0f, xn = 0.0f, m = 0.0f;
+  if (live && n_steps > 0) {
+    const T* x = io.x(io.time(0, n_steps), b);
+    xr = to_f32(x[u]);
+    xz = to_f32(x[hidden + u]);
+    xn = to_f32(x[2 * hidden + u]);
+    m = io.mask(io.time(0, n_steps), b);
+  }
+  // One mbarrier a buffer; phase k of buffer i's completes when step
+  // 2k + 1 - i's h has landed: rows_live * H * 4 bytes from the cluster.
+  __shared__ __align__(8) uint64_t bars[2];
+  const uint32_t step_bytes = (uint32_t)(min(R, batch - b0) * hidden * sizeof(float));
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(shared_addr(&bars[i])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < 2; ++i) expect_bytes(shared_addr(&bars[i]), step_bytes);
+  }
+  // Every CTA's buffers and mbarriers are in place before any peer writes
+  // into them.
+  cluster.sync();
+
+  const unsigned seg = 0xffu << ((tid & 31) & ~(LANES - 1));  // this thread's 8 lanes
+  const size_t gate_stride = (size_t)units * LANES * 4;       // between gates p in w_s
+  const T* w_lane = w_s + (size_t)(j * LANES + lane) * 4;
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = io.time(s, n_steps);
+    // Inputs of the next step, loaded now and used one step later.
+    float xr1 = 0.0f, xz1 = 0.0f, xn1 = 0.0f, m1 = 0.0f;
+    if (live && s + 1 < n_steps) {
+      const int t1 = io.time(s + 1, n_steps);
+      const T* x = io.x(t1, b);
+      xr1 = to_f32(x[u]);
+      xz1 = to_f32(x[hidden + u]);
+      xn1 = to_f32(x[2 * hidden + u]);
+      m1 = io.mask(t1, b);
+    }
+    const float* h_cur = h_s + (s & 1) * R * hp;
+    float* h_nxt = h_s + ((s + 1) & 1) * R * hp;
+
+    // This lane's share of hg for the unit's three columns and the R rows.
+    float acc[3][R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[0][r] = acc[1][r] = acc[2][r] = 0.0f;
+    const float* h_lane = h_cur + 4 * lane;
+#pragma unroll 2
+    for (int q = 0; q < quads; ++q) {
+      const T* wq = w_lane + (size_t)3 * q * gate_stride;
+      const float4 w0 = load4(wq);
+      const float4 w1 = load4(wq + gate_stride);
+      const float4 w2 = load4(wq + 2 * gate_stride);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(h_lane + r * hp + 4 * LANES * q);
+        acc[0][r] = fmaf(hv.x, w0.x, acc[0][r]);
+        acc[0][r] = fmaf(hv.y, w0.y, acc[0][r]);
+        acc[0][r] = fmaf(hv.z, w0.z, acc[0][r]);
+        acc[0][r] = fmaf(hv.w, w0.w, acc[0][r]);
+        acc[1][r] = fmaf(hv.x, w1.x, acc[1][r]);
+        acc[1][r] = fmaf(hv.y, w1.y, acc[1][r]);
+        acc[1][r] = fmaf(hv.z, w1.z, acc[1][r]);
+        acc[1][r] = fmaf(hv.w, w1.w, acc[1][r]);
+        acc[2][r] = fmaf(hv.x, w2.x, acc[2][r]);
+        acc[2][r] = fmaf(hv.y, w2.y, acc[2][r]);
+        acc[2][r] = fmaf(hv.z, w2.z, acc[2][r]);
+        acc[2][r] = fmaf(hv.w, w2.w, acc[2][r]);
+      }
+    }
+    // Sum over the 8 lanes. While a lane holds more than one row, a level
+    // halves them (reduce-scatter): the lane with bit `off` set keeps the
+    // upper half, its partner the lower, each adding what the other sends.
+    // The levels left sum the one row in both partners (a + b and b + a
+    // round alike). Lane l ends with row l / (LANES / R).
+    int held = R;
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off /= 2) {
+      if (held > 1) {
+        const int half = held / 2;
+        const bool upper = (lane & off) != 0;
+#pragma unroll
+        for (int i = 0; i < R / 2; ++i) {
+          if (i < half) {
+#pragma unroll
+            for (int p = 0; p < 3; ++p) {
+              const float give = upper ? acc[p][i] : acc[p][i + half];
+              const float keep = upper ? acc[p][i + half] : acc[p][i];
+              acc[p][i] = keep + __shfl_xor_sync(seg, give, off);
+            }
+          }
+        }
+        held = half;
+      } else {
+#pragma unroll
+        for (int p = 0; p < 3; ++p) acc[p][0] += __shfl_xor_sync(seg, acc[p][0], off);
+      }
+    }
+
+    T out = from_f32<T>(0.0f);
+    if (live) {
+      const float sr = acc[0][0], sz = acc[1][0], sn = acc[2][0];
+      const float rg = sigmoid_f32(xr + (sr + br));
+      const float zg = sigmoid_f32(xz + (sz + bz));
+      const float ng = tanhf(xn + rg * (sn + bn));
+      const float h_prev = h_cur[row * hp + u];
+      const float cand = (1.0f - zg) * ng + zg * h_prev;
+      out = from_f32<T>(io.combine(m, cand, h_prev));
+      const float h_new = to_f32(out);
+      const uint32_t dst = shared_addr(h_nxt + row * hp + u);
+      const uint32_t bar = shared_addr(&bars[(s + 1) & 1]);
+      for (int c = 0; c < csize; ++c) store_arrive(map_rank(dst, c), h_new, map_rank(bar, c));
+    }
+    if (live) io.y(t, b)[u] = out;
+    xr = xr1;
+    xz = xz1;
+    xn = xn1;
+    m = m1;
+    // Step s's h has landed in buffer (s + 1) & 1 (phase s / 2 of its
+    // mbarrier); then post that mbarrier's next phase, step s + 2.
+    const uint32_t bar = shared_addr(&bars[(s + 1) & 1]);
+    wait_phase(bar, (s >> 1) & 1);
+    if (tid == 0) expect_bytes(bar, step_bytes);
+  }
+  // No CTA exits while a peer may still store into it.
+  cluster.sync();
+}
+
+// Launches kernel on clusters of `cluster` CTAs: grid (cluster * tiles,
+// n_dir), `threads` a CTA, `smem` bytes of dynamic shared memory. Returns the
+// first nonzero cudaError_t (a refused cluster included), else 0.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kernel)(Params...), int cluster, int tiles, int n_dir, int threads,
+                   int smem, cudaStream_t stream, Args... args) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster * tiles, n_dir, 1);
+  config.blockDim = dim3(threads, 1, 1);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace gru_step

@@ -6,11 +6,14 @@ The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``;
 :class:`GRUSequenceFn` wires them as a ``torch.autograd.Function``. Each
 takes every H from 1 to ``MAX_HIDDEN``: a kernel with W_h resident in shared
 memory where it fits (the thesis' H = 128), a wide one that reads W_h through
-the L2 elsewhere.
+the L2 elsewhere. The forward's resident kernel is the cluster step of
+``csrc/gru_step.cuh``, launched with the geometry of
+:func:`gru_launch_geometry`.
 
 Also the counterpart of artspeech_tpu/ops/pallas_kernels.py:
 gru_sequence_pallas, the batch-major one-direction forward that JAX keeps as
-a measured reference: :func:`gru_sequence_batch_major` on ``csrc/gru_seq.cu``.
+a measured reference: :func:`gru_sequence_batch_major` on ``csrc/gru_seq.cu``,
+the same cluster step with batch-major addressing and the same geometry.
 No model path calls it, in JAX or here.
 
 - A CPU tensor takes the plain versions, :func:`gru_sequence_reference`,
@@ -24,6 +27,7 @@ its GRUs went through the kernels.
 """
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,7 +47,7 @@ MAX_BATCH_TILE = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"gru_fwd": (5, 6), "gru_bwd": (12, 6), "gru_seq": (5, 4)}
+_POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 6), "gru_seq": (5, 7)}
 _libs = {}
 
 
@@ -55,14 +59,105 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        resident = getattr(lib, f"{name}_resident")
-        resident.argtypes = [ctypes.c_int, ctypes.c_int]
-        resident.restype = ctypes.c_int
         if name == "gru_bwd":
+            lib.gru_bwd_resident.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.gru_bwd_resident.restype = ctypes.c_int
             lib.gru_bwd_batch_tile.argtypes = []
             lib.gru_bwd_batch_tile.restype = ctypes.c_int
         _libs[name] = lib
     return lib
+
+
+# -- the launch geometry of the forward kernels (csrc/gru_step.cuh) -----------
+
+#: Threads that split k for one hidden unit (gru_step.cuh's LANES).
+LANES = 8
+#: Threads a CTA of the cluster step at most.
+MAX_THREADS = 512
+#: Bytes of shared memory one Hopper block may use.
+MAX_SMEM = 232448
+#: Batch rows a cluster may walk (the cluster step's instances), fewest first.
+CLUSTER_ROWS = (2, 4, 8)
+#: Cluster sizes, largest first (8 is the portable limit).
+CLUSTER_SIZES = (8, 4, 2, 1)
+#: Batch rows a block of a wide instance walks (gru_fwd.cu's and gru_seq.cu's BT).
+WIDE_ROWS = 4
+#: Streaming multiprocessors of an H100 SXM.
+H100_SMS = 132
+
+
+class GRUGeometry(NamedTuple):
+    """How the forward kernels launch at one shape (:func:`gru_launch_geometry`).
+
+    The kernels are passed ``cluster``, ``rows`` and ``smem_bytes`` and lay
+    out the same threads and grid from them; the other fields describe that
+    launch for the tests and for ``chip_smoke.py``'s prints.
+    """
+
+    resident: bool      #: W_h slices in shared memory (the cluster step), else the wide instance
+    cluster: int        #: CTAs a cluster (1: the wide instance's plain blocks)
+    rows: int           #: batch rows a cluster (or a wide block) walks
+    threads: int        #: threads a CTA
+    grid: Tuple[int, int]  #: CTAs along the batch, directions
+    ctas: int
+    smem_bytes: int     #: dynamic shared memory a CTA
+    waves: int          #: ceil(ctas / sm_count)
+
+
+def cluster_smem_bytes(hidden, cluster, rows, elem_bytes):
+    """Shared memory of one CTA of the cluster step (gru_step.cuh:smem_bytes):
+    its (HP, 3H/C) W_h slice in the storage type, 16-byte aligned, and two
+    (rows, HP) f32 h buffers, HP = H rounded up to 32."""
+    quad = 4 * LANES
+    hp = -(-hidden // quad) * quad
+    return -(-hp * 3 * (hidden // cluster) * elem_bytes // 16) * 16 + 2 * rows * hp * 4
+
+
+def gru_launch_geometry(batch, n_dir, hidden, elem_bytes, sm_count=H100_SMS):
+    """The launch of the GRU forward kernels (gru_fwd.cu with D = n_dir,
+    gru_seq.cu with D = 1) for a shape, from the shape and the card alone.
+
+    A cluster of C CTAs owns one direction and a tile of R batch rows; each
+    CTA owns U = H/C hidden units with 8 threads a unit, each thread summing
+    its share of k for all R rows. The candidates are R in 2, 4, 8 and C in
+    8, 4, 2, 1 with C dividing H, R <= 4C (never fewer CTAs than one 4-row
+    block a tile), 8U <= 512 threads, and a CTA's W_h slice and h buffers
+    within its shared memory. The rule takes the first candidate, fewest rows
+    first and then the largest cluster, that puts ceil(B/R) * D * C <=
+    ``sm_count`` CTAs on the step (one an SM, every cluster resident at
+    once); where none does, the candidate with the fewest CTAs. Fewer rows a
+    thread shortens its chain of FMAs; a larger cluster spreads a step over
+    more SMs, and a smaller one packs the card when the batch is large.
+    Without a candidate (W_h beyond a CTA's shared memory, or U > 64) the
+    wide instance runs: 4-row blocks of 512 threads reading W_h through the
+    L2.
+    """
+    candidates = [(rows, c) for rows in CLUSTER_ROWS for c in CLUSTER_SIZES
+                  if hidden % c == 0 and rows <= 4 * c
+                  and LANES * (hidden // c) <= MAX_THREADS
+                  and cluster_smem_bytes(hidden, c, rows, elem_bytes) <= MAX_SMEM]
+    if not candidates:
+        tiles = -(-batch // WIDE_ROWS)
+        return GRUGeometry(False, 1, WIDE_ROWS, MAX_THREADS, (tiles, n_dir), tiles * n_dir,
+                           WIDE_ROWS * 4 * hidden * 4, -(-tiles * n_dir // sm_count))
+
+    def ctas(rows, c):
+        return -(-batch // rows) * n_dir * c
+
+    rows, c = next(((r, c) for r, c in candidates if ctas(r, c) <= sm_count),
+                   min(candidates, key=lambda rc: ctas(*rc)))
+    return GRUGeometry(True, c, rows, LANES * (hidden // c), (c * -(-batch // rows), n_dir),
+                       ctas(rows, c), cluster_smem_bytes(hidden, c, rows, elem_bytes),
+                       -(-ctas(rows, c) // sm_count))
+
+
+def _geometry_args(geometry):
+    """The geometry as the kernels' entry points take it (cluster 0: wide)."""
+    return geometry.cluster if geometry.resident else 0, geometry.rows, geometry.smem_bytes
+
+
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def gru_sequence_reference(x_proj, w_h, b_h, mask, reverse=False):
@@ -189,9 +284,12 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
 
 def resident(name, hidden, dtype):
     """Whether kernel ``name`` ("gru_fwd" or "gru_bwd") runs H in ``dtype``
-    with W_h resident in shared memory (else its wide instance)."""
+    with W_h resident in shared memory (else its wide instance). The
+    forward's answer is :func:`gru_launch_geometry`'s and needs no card."""
     elem = torch.empty(0, dtype=dtype).element_size()
-    return bool(getattr(_library(name), f"{name}_resident")(hidden, elem))
+    if name == "gru_fwd":
+        return gru_launch_geometry(1, 1, hidden, elem).resident
+    return bool(_library(name).gru_bwd_resident(hidden, elem))
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
@@ -203,12 +301,14 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
     ys = torch.empty(n_steps, batch, n_dir * hidden, dtype=x_proj.dtype, device=x_proj.device)
     if n_steps == 0 or batch == 0:
         return ys
+    geometry = gru_launch_geometry(batch, n_dir, hidden, x_proj.element_size(),
+                                   _sm_count(x_proj.device))
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library("gru_fwd").gru_fwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(),
             ys.data_ptr(), n_steps, batch, hidden, n_dir, rev_bits,
-            _DTYPES[x_proj.dtype], stream)
+            _DTYPES[x_proj.dtype], *_geometry_args(geometry), stream)
     if err != 0:
         raise RuntimeError(f"gru_fwd kernel launch failed with CUDA error {err}")
     launches += 1
@@ -376,8 +476,10 @@ def gru_sequence_batch_major_reference(x_proj, w_h, b_h, mask):
 
 def batch_major_resident(hidden, batch_tile=16):
     """Whether the batch-major kernel keeps W_h resident in shared memory at
-    this width and tile (else it reads W_h through the L2 every step)."""
-    return bool(_library("gru_seq").gru_seq_resident(hidden, batch_tile))
+    this width (else it reads W_h through the L2 every step): the answer of
+    :func:`gru_launch_geometry`, the same as the forward kernel's with one
+    direction in f32. ``batch_tile`` does not change it."""
+    return gru_launch_geometry(1, 1, hidden, 4).resident
 
 
 def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
@@ -394,10 +496,12 @@ def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
     if batch == 0 or n_steps == 0:
         return out
     mask_f = mask.to(torch.float32).contiguous()
+    geometry = gru_launch_geometry(batch, 1, hidden, 4, _sm_count(x_proj.device))
     with torch.cuda.device(x_proj.device):
         err = _library("gru_seq").gru_seq(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
-            batch, n_steps, hidden, batch_tile, torch.cuda.current_stream().cuda_stream)
+            batch, n_steps, hidden, batch_tile, *_geometry_args(geometry),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gru_seq kernel launch failed with CUDA error {err}")
     launches_seq += 1
@@ -412,9 +516,11 @@ def gru_sequence_batch_major(x_proj, w_h, b_h, mask, batch_tile: int = 16):
         x_proj: (B, T, 3H) float32 hoisted input projections (x @ w_i + b_i).
         w_h: (H, 3H) float32; b_h: (3H,) float32; mask: (B, T), nonzero (True)
             on valid steps.
-        batch_tile: batch rows a block of the kernel walks together (the TPU
-            kernel's tile, 16 by default), 1 to ``MAX_BATCH_TILE``. It does
-            not change the result.
+        batch_tile: the TPU kernel's batch tile (16 by default), 1 to
+            ``MAX_BATCH_TILE``, as JAX's API takes it. It does not change the
+            result. On the card the launch geometry comes from
+            :func:`gru_launch_geometry` (the TPU's tiles do not carry over),
+            not from this tile.
     Returns:
         (B, T, H) float32 hidden states; at padded steps they repeat the last
         valid one. A CPU tensor takes

@@ -13,12 +13,17 @@ Phases, each printing its own lines:
   2. build   — compiles the nine kernel libraries,
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
                train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
-               all started together;
+               all started together; prints -Xptxas -v's registers and
+               spills of each gru_fwd and gru_seq kernel;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
                each alone, ragged lengths, f32 and bf16 (the backward also
-               against torch.autograd through the plain forward); P2CP at
+               against torch.autograd through the plain forward); the
+               forward also at GRU_FWD_CASES (B = 1, B not a multiple of the
+               cluster's rows, T = 1, H = 136, 20 and 6 whose units a CTA are
+               not a multiple of 4, B = 64), with a row of length 1, each
+               with its launch geometry (cluster size, rows); P2CP at
                R = 12*128*10 and R = 1001 rows; min-distance at the four
                tract-variable shapes with R = 12*128 and R = 1001 rows, and
                on ties (duplicated points, identical contours, a permutation):
@@ -38,12 +43,13 @@ Phases, each printing its own lines:
                bf16, held as the GRU kernels are (the forward's cell states
                relative to max(|c|, 1));
      gru_seq — the batch-major GRU (gru_seq.cu, row 7) against its plain
-               version in f32 within 1e-5 (GRU_SEQ_CASES: B not a multiple
-               of the tile, ragged rows of length T and 1, T = 1, H 16 and
-               128 with W_h resident, 256 with W_h read through the L2); H
-               above 1,024 refused; then its path (a measured reference, as
-               in JAX): one call each at B = 16 and 256, T = 128, H = 128,
-               with exactly one launch each;
+               version in f32 within 1e-5 (GRU_SEQ_CASES: B = 1, B not a
+               multiple of the tile or the cluster's rows, ragged rows of
+               length T and 1, T = 1, the cluster step at H 16, 20, 128, 136
+               and 256, the wide instance at 512); H above 1,024 refused;
+               then its path (a measured reference, as in JAX): one call each
+               at B = 16 and 256, T = 128, H = 128, with exactly one launch
+               each;
      widths  — every widened kernel against its plain version at widths the
                resident kernels refuse, at the same limits: the GRU forward
                and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
@@ -51,9 +57,12 @@ Phases, each printing its own lines:
                hd 48, 64 and 128 with L 37, 128 and 512 and at hd 32 with
                L 512, the decode at hd 80, 128 and 256 (f32 and bf16
                caches); the instance each width takes (the thesis widths keep
-               the resident kernels), the new outer bounds refused (H 1,025,
+               the resident kernels; gru_fwd's cluster step or wide instance
+               as GRU_FWD_INSTANCE says), the outer bounds refused (H 1,025,
                hd 129, L 513, decode hd 257), and one timing of each wide
-               instance;
+               instance beside the same PyTorch call (cuDNN's GRU and LSTM,
+               scaled_dot_product_attention) at its shape, and gru_fwd's
+               cluster step at H 256 beside cuDNN's GRU there;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -159,9 +168,12 @@ Phases, each printing its own lines:
                (is_causal, all-ones keep: forward, and forward + backward
                minus forward); both LSTM kernels at T = 128, H = 128, B = 12
                and 64 the same way, against cuDNN's nn.LSTM (forward, and
-               forward + backward minus forward); the batch-major GRU at
-               B = 16 and 256 beside gru_fwd with one direction on the same
-               work, its plain version and cuDNN's one-direction nn.GRU.
+               forward + backward minus forward); the GRU forward at B = 12,
+               16 and 256 and the batch-major GRU at B = 16 and 256 beside
+               gru_fwd with one direction on the same work, each with its
+               launch geometry (C, rows a cluster, CTAs, waves at one CTA
+               an SM) and microseconds a step, its plain
+               version and cuDNN's nn.GRU.
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
@@ -170,6 +182,7 @@ import csv
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -240,6 +253,16 @@ from artspeech_tpu_torch.utils.io import sequences_from_dict
 VOCAB, HIDDEN = 64, 128
 BENCH_B, BENCH_T = 16, 128
 KERNEL_SHAPES = [(128, 16, 128), (128, 256, 128)]  # (T, B, H)
+#: gru_fwd beyond KERNEL_SHAPES, (T, B, H): B = 1, B not a multiple of the
+#: cluster's rows (13), T = 1, H whose units a CTA (H/C) are not a multiple
+#: of 4 (136: C = 8, U = 17; 20: C = 4, U = 5; 6: C = 2, U = 3) and a batch
+#: that takes clusters of 2 and 4 (64); every forward case has a row of
+#: length T and one of length 1.
+GRU_FWD_CASES = [(128, 1, 128), (37, 13, 128), (1, 12, 128), (9, 5, 136), (9, 7, 20), (9, 5, 6),
+                 (17, 64, 128)]
+#: gru_fwd timed at T = 128, H = 128, both directions: the test step's batch
+#: (12), bench.py's (16) and the large train batch (256).
+GRU_FWD_TIMED_B = (12, 16, 256)
 F32_TOL = 1e-5
 # bf16: both sides round the carry to bf16 every step; one flip of the last
 # bit (2^-8 at |h| < 1) can propagate, so allow two steps of it.
@@ -322,18 +345,30 @@ MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 LSTM_CASES = [(128, 12, 128), (128, 64, 128), (7, 3, 64), (1, 1, 16), (7, 64, 16),
               (128, 3, 64), (1, 12, 128)]
 LSTM_SHAPES = [(128, 12, 128), (128, 64, 128)]  # timed: (T, B, H)
-#: [gru_seq] cases (B, T, H, batch tile): B not a multiple of the tile, ragged
-#: rows, T = 1, H 16 and 128 (W_h resident) and 256 (W_h through the L2).
+#: [gru_seq] cases (B, T, H, batch tile): B = 1, B not a multiple of the
+#: tile or of the cluster's rows, ragged rows, T = 1, H 16, 20, 128, 136 and
+#: 256 (the cluster step; 20 and 136 give 5 and 17 units a CTA) and 512 (the
+#: wide instance, W_h through the L2); the tile changes neither the launch
+#: nor the result.
 GRU_SEQ_CASES = [(21, 37, 16, 16), (16, 128, 128, 16), (5, 11, 16, 4), (3, 1, 128, 16),
-                 (37, 13, 256, 16), (9, 128, 128, 4)]
+                 (37, 13, 256, 16), (9, 128, 128, 4), (1, 9, 128, 16), (13, 6, 20, 1),
+                 (7, 5, 136, 8), (64, 17, 128, 16), (5, 9, 512, 4)]
 GRU_SEQ_TIMED_B = (16, 256)
 #: [widths]: hidden sizes the resident recurrent kernels refused (H % 4 != 0,
 #: 3H or 2H above 1,024 threads, W_h above a block's shared memory).
 WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 1024)}
+#: The instance gru_fwd takes at each of those H, (f32, bf16): the cluster
+#: step wherever a CTA's W_h slice fits (C = 2 at 6, 8 at 256 and at 512 in
+#: bf16), the wide one where it does not (1,024; 512 in f32) or where a CTA
+#: would hold more than 64 units (130 = 2 * 65).
+GRU_FWD_INSTANCE = {6: ("cluster", "cluster"), 130: ("wide", "wide"), 256: ("cluster", "cluster"),
+                    512: ("wide", "cluster"), 1024: ("wide", "wide")}
 #: (hd, L) of the training attention beyond its resident kernels.
 WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [(32, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
 WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
+#: gru_fwd's timed wide instance: at H = 256 it takes the cluster step.
+WIDE_TIMED_GRU_FWD_H = 512
 PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
 #: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
 #: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
@@ -374,26 +409,62 @@ def rel_err(got, ref):
     return ((got.float() - ref.float()).abs().max() / scale).item()
 
 
+#: Libraries whose kernels' registers and spills [build] prints.
+PTXAS_REPORTED = ("gru_fwd", "gru_seq")
+
+
+def ptxas_kernels(report):
+    """(kernel, registers, spill stores, spill loads) of each entry function
+    in an -Xptxas -v report; kernel is the function's name with its template
+    arguments (storage type, rows), as in gru_fwd_cluster_kernel<bf16,8>."""
+    kernels, name, spills = [], None, (0, 0)
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", mangled)
+            args = base.group(2) or "" if base else ""
+            targs = (["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []) \
+                + re.findall(r"Li(\d+)E", args)
+            name = (base.group(1) if base else mangled) + (f"<{','.join(targs)}>" if targs else "")
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            kernels.append((name, int(regs.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return kernels
+
+
 def build_all():
     names = LIBRARIES
     fresh = {n: not os.path.exists(_build.library_path(n)) for n in names}
     t0 = time.perf_counter()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with ThreadPoolExecutor(len(names)) as pool:
         for name, future in [(n, pool.submit(_build.build, n)) for n in names]:
             future.result()
             phase("build", kernel=name, compiled=fresh[name])
     phase("build", kernels=len(names), seconds=f"{time.perf_counter() - t0:.2f}")
+    for name in PTXAS_REPORTED:
+        for kernel, regs, stores, loads in ptxas_kernels(_build.ptxas_report(name)):
+            phase("build", library=name, kernel=kernel, registers=regs, spill_stores=stores,
+                  spill_loads=loads)
 
 
 # -- kernels against their plain versions -------------------------------------
 
-def gru_inputs(t, b, h, n_dir, dtype, seed):
-    """Seeded x_proj (T, B, D*3H), w_h (D, H, 3H), b_h (D, 3H), ragged mask (T, B)."""
+def gru_inputs(t, b, h, n_dir, dtype, seed, short_row=False):
+    """Seeded x_proj (T, B, D*3H), w_h (D, H, 3H), b_h (D, 3H), ragged mask (T, B)
+    with a row of length T and, with ``short_row`` and B > 1, one of length 1."""
     g = torch.Generator().manual_seed(seed)
     xp = torch.randn(t, b, n_dir * 3 * h, generator=g) * 0.5
     wh = torch.randn(n_dir, h, 3 * h, generator=g) * 0.1
     bh = torch.randn(n_dir, 3 * h, generator=g) * 0.1
     lengths = torch.randint(1, t + 1, (b,), generator=g)
+    if short_row and b > 1:
+        lengths[-1] = 1
     lengths[0] = t
     mask = torch.arange(t)[:, None] < lengths[None, :]
     return [v.to(dtype).cuda() for v in (xp, wh, bh)] + [mask.cuda()]
@@ -407,11 +478,26 @@ def bigru_backward_reference(xp, wh, bh, mask, ys, g):
     return hopper_gru.gru_backward_reference(xp, wh, bh, mask, ys, g, 0b10)
 
 
+def geometry_fields(b, n_dir, h, dtype):
+    """The launch of gru_fwd or gru_seq at a shape: instance, cluster size C,
+    rows a cluster, CTAs, threads a CTA, and the waves they take at one CTA
+    an SM."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    geo = hopper_gru.gru_launch_geometry(b, n_dir, h, elem,
+                                         torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(instance="cluster" if geo.resident else "wide", C=geo.cluster, rows=geo.rows,
+                ctas=geo.ctas, threads=geo.threads, waves=geo.waves)
+
+
 def gru_fwd_vs_plain():
+    """The forward kernel against its plain version at KERNEL_SHAPES and
+    GRU_FWD_CASES, both directions in one launch and each alone, f32 within
+    F32_TOL and bf16 within BF16_TOL. Returns the largest f32 error at the
+    bench shape."""
     worst = 0.0
-    for t, b, h in KERNEL_SHAPES:
+    for t, b, h in KERNEL_SHAPES + GRU_FWD_CASES:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=t + b)
+            xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=t + b + h, short_row=True)
             got = hopper_gru.bigru_sequence(xp, wh, bh, mask)
             torch.cuda.synchronize()
             err = (got.float() - bigru_reference(xp, wh, bh, mask).float()).abs().max().item()
@@ -423,8 +509,10 @@ def gru_fwd_vs_plain():
                 ref = hopper_gru.gru_sequence_reference(x_d, wh[d], bh[d], mask, reverse)
                 errs["reverse" if reverse else "forward"] = (one.float() - ref.float()).abs().max().item()
             torch.cuda.synchronize()
+            geo = geometry_fields(b, 2, h, dtype)
             phase("kernel", kernel="gru_fwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
-                  tol=tol, **{f"max_abs_err_{k}": v for k, v in errs.items()})
+                  tol=tol, C=geo["C"], rows=geo["rows"], instance=geo["instance"],
+                  **{f"max_abs_err_{k}": v for k, v in errs.items()})
             check(all(np.isfinite(v) and v <= tol for v in errs.values()),
                   f"gru kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
             if dtype == torch.float32 and (t, b) == (BENCH_T, BENCH_B):
@@ -759,10 +847,10 @@ def gru_seq_inputs(b, t, h, seed):
 
 def gru_seq_vs_plain():
     """The batch-major kernel against its plain version in f32 within
-    F32_TOL: B not a multiple of the tile, ragged rows (one of length T, one
-    of length 1), T = 1, H 16 and 128 (W_h resident) and 256 (W_h above the
-    shared-memory fit, read through the L2), tiles 16 and 4. Returns the
-    largest absolute error."""
+    F32_TOL at GRU_SEQ_CASES: B = 1, B not a multiple of the tile or the
+    cluster's rows, ragged rows (one of length T, one of length 1), T = 1,
+    the cluster step at H 16, 20, 128, 136 and 256 and the wide instance at
+    512, tiles 1 to 16. Returns the largest absolute error."""
     worst = 0.0
     for b, t, h, tile in GRU_SEQ_CASES:
         xp, wh, bh, mask = gru_seq_inputs(b, t, h, seed=b + t + h)
@@ -770,14 +858,14 @@ def gru_seq_vs_plain():
         ref = hopper_gru.gru_sequence_batch_major_reference(xp, wh, bh, mask)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        resident = hopper_gru.batch_major_resident(h, tile)
-        phase("gru_seq", B=b, T=t, H=h, batch_tile=tile, w_h="resident" if resident else "L2",
-              dtype="float32", tol=F32_TOL, max_abs_err=f"{err:.3g}")
+        geo = geometry_fields(b, 1, h, torch.float32)
+        phase("gru_seq", B=b, T=t, H=h, batch_tile=tile, instance=geo["instance"], C=geo["C"],
+              rows=geo["rows"], dtype="float32", tol=F32_TOL, max_abs_err=f"{err:.3g}")
         check(np.isfinite(err) and err <= F32_TOL,
               f"gru_seq kernel disagrees with its plain version at B={b} T={t} H={h}: {err}")
         worst = max(worst, err)
-    check(hopper_gru.batch_major_resident(HIDDEN, 16)
-          and not hopper_gru.batch_major_resident(256, 16), "gru_seq's W_h placement changed")
+    check(all(hopper_gru.batch_major_resident(h) for h in (16, 20, HIDDEN, 136, 256))
+          and not hopper_gru.batch_major_resident(512), "gru_seq's W_h placement changed")
     xp, wh, bh, mask = gru_seq_inputs(2, 3, hopper_gru.MAX_HIDDEN + 1, seed=0)
     try:
         hopper_gru.gru_sequence_batch_major(xp, wh, bh, mask)
@@ -830,9 +918,12 @@ def time_gru_seq():
             library_ms = cuda_ms(lambda: cudnn(x), 20)
         bound_ms, bound_by = gru_bound_ms(t, b, h, 1, 4)
         results[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms, gru_fwd_one_direction_ms=gru_fwd_ms)
+                          library_ms=library_ms, gru_fwd_one_direction_ms=gru_fwd_ms,
+                          us_per_step=ms * 1e3 / t,
+                          geometry=geometry_fields(b, 1, h, torch.float32))
         phase("timing", kernel="gru_seq", T=t, B=b, H=h, directions=1, batch_tile=16,
-              dtype="float32", **fmt(results[b]))
+              dtype="float32", **fmt({k: v for k, v in results[b].items() if k != "geometry"}),
+              **results[b]["geometry"])
     return results
 
 
@@ -889,9 +980,14 @@ def widths():
                     BF16_TOL if fwd else BWD_BF16_TOL)
                 err = width_errors(kernel, h, dtype)
                 torch.cuda.synchronize()
+                instance = "resident" if mod.resident(kernel, h, dtype) else "wide"
+                if kernel == "gru_fwd":
+                    instance = "cluster" if instance == "resident" else "wide"
+                    expected = GRU_FWD_INSTANCE[h][dtype == torch.bfloat16]
+                    check(instance == expected, f"gru_fwd takes the {instance} instance at H={h} "
+                                                f"{dtype}, expected {expected}")
                 phase("widths", kernel=kernel, H=h, dtype=str(dtype).split(".")[-1],
-                      instance="resident" if mod.resident(kernel, h, dtype) else "wide", tol=tol,
-                      err=f"{err:.3g}")
+                      instance=instance, tol=tol, err=f"{err:.3g}")
                 check(np.isfinite(err) and err <= tol,
                       f"{kernel} disagrees with its plain version at H={h} {dtype}: {err}")
         h = mod.MAX_HIDDEN + 1
@@ -957,15 +1053,25 @@ def widths():
 
 
 def time_wide_instances():
-    """Each wide instance at one shape, f32: the recurrences at H = 256
-    (T = 128, B = 16, both directions), the training attention at hd = 64
-    (G = 4,320, L = 128, the dropout keep), the decode at hd = 128 (the
-    B = 12 cross-channel G, 128 rows)."""
+    """Each wide instance at one shape, f32, beside one PyTorch call that
+    computes the same function there (a yardstick the port never calls):
+    gru_fwd at H = 512 (T = 128, B = 16, both directions; cuDNN's nn.GRU
+    forward); gru_bwd and the LSTM kernels at H = 256 (the same T, B and
+    directions; cuDNN's nn.GRU and nn.LSTM forward, and forward + backward
+    minus forward); the training attention at hd = 64 (G = 4,320, L = 128,
+    the dropout keep; scaled_dot_product_attention with is_causal, forward,
+    and forward + backward minus forward); the decode at hd = 128 (the
+    B = 12 cross-channel G, 128 rows; scaled_dot_product_attention over
+    (G, 1, 1, hd) x (G, 1, S, hd)). Beside gru_fwd's, its cluster step at
+    H = 256 (the width its wide instance ran at until the cluster step took
+    it) with cuDNN's forward there, under keys of their own."""
     t, b, h = BENCH_T, BENCH_B, WIDE_TIMED_H
-    results = {}
+    results, library = {}, {}
     xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=7)
     ys = hopper_gru.gru_forward(xp, wh, bh, mask, 0b10)
-    results["gru_fwd"] = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
+    check(hopper_gru.resident("gru_fwd", h, torch.float32),
+          f"gru_fwd at H={h} f32 was expected to take its cluster step")
+    cluster_ms = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
     results["gru_bwd"] = cuda_ms(lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, ys, 0b10),
                                  5)
     xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=7)
@@ -973,6 +1079,25 @@ def time_wide_instances():
     results["lstm_fwd"] = cuda_ms(lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10), 5)
     results["lstm_bwd"] = cuda_ms(
         lambda: hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, ys, 0b10), 5)
+    for rnn, fwd_name, bwd_name in ((torch.nn.GRU, "gru_fwd_h256", "gru_bwd"),
+                                    (torch.nn.LSTM, "lstm_fwd", "lstm_bwd")):
+        cudnn = rnn(h, h, bidirectional=True).cuda()
+        x = torch.randn(t, b, h, device="cuda", requires_grad=True)
+        gy = torch.randn(t, b, 2 * h, device="cuda")
+        with torch.inference_mode():
+            library[fwd_name] = cuda_ms(lambda: cudnn(x), 5)
+        train_fwd_ms = cuda_ms(lambda: cudnn(x), 5)
+        library[bwd_name] = cuda_ms(lambda: cudnn(x)[0].backward(gy), 5) - train_fwd_ms
+    h_fwd = WIDE_TIMED_GRU_FWD_H
+    check(not hopper_gru.resident("gru_fwd", h_fwd, torch.float32),
+          f"gru_fwd at H={h_fwd} f32 was expected to take its wide instance")
+    xp, wh, bh, mask = gru_inputs(t, b, h_fwd, 2, torch.float32, seed=7)
+    results["gru_fwd"] = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
+    cudnn = torch.nn.GRU(h_fwd, h_fwd, bidirectional=True).cuda()
+    x = torch.randn(t, b, h_fwd, device="cuda")
+    with torch.inference_mode():
+        library["gru_fwd"] = cuda_ms(lambda: cudnn(x), 5)
+    del xp, wh, bh, mask, ys, cs, cudnn, x
     g, hd = TRAIN_ATTN_G[12], WIDE_TIMED_ATTN_HD
     q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=7, hd=hd)
     out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
@@ -981,20 +1106,38 @@ def time_wide_instances():
     results["train_attention_bwd"] = cuda_ms(
         lambda: hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
                                                                TRAIN_ATTN_PAIRS), 5)
-    del q, k, v, keep, do, out, lse
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sq, sk, sv = (a[:, None] for a in (q, k, v))
+    gq, gk, gv = (a.clone().requires_grad_() for a in (sq, sk, sv))
+    library["train_attention_fwd"] = cuda_ms(lambda: sdpa(sq, sk, sv, is_causal=True, scale=1.0),
+                                             5)
+    library["train_attention_bwd"] = cuda_ms(
+        lambda: sdpa(gq, gk, gv, is_causal=True, scale=1.0).backward(do[:, None]), 5) - \
+        library["train_attention_fwd"]
+    del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
     g_flash = flash_groups(12)["inter"]
     k, v, q = flash_inputs(g_flash, torch.float32, seed=7, hd=WIDE_TIMED_FLASH_HD)
     results["flash_decode"] = cuda_ms(lambda: hopper_attention.flash_decode_attend(k, v, q,
                                                                                     DECODE_T), 20)
-    shapes = {"gru_fwd": f"T={t},B={b},H={h},directions=2", "gru_bwd": f"T={t},B={b},H={h}",
+    sdpa_in = (q.T.reshape(g_flash, 1, 1, WIDE_TIMED_FLASH_HD).contiguous(),
+               k.permute(2, 0, 1)[:, None].contiguous(), v.permute(2, 0, 1)[:, None].contiguous())
+    library["flash_decode"] = cuda_ms(lambda: sdpa(*sdpa_in, scale=1.0), 20)
+    shapes = {"gru_fwd": f"T={t},B={b},H={h_fwd},directions=2", "gru_bwd": f"T={t},B={b},H={h}",
               "lstm_fwd": f"T={t},B={b},H={h},directions=2", "lstm_bwd": f"T={t},B={b},H={h}",
               "train_attention_fwd": f"G={g},L={TRAIN_T},hd={hd}",
               "train_attention_bwd": f"G={g},L={TRAIN_T},hd={hd}",
               "flash_decode": f"G={g_flash},S={DECODE_T},hd={WIDE_TIMED_FLASH_HD}"}
+    cluster_shape = f"T={t},B={b},H={h},directions=2"
+    phase("timing", kernel="gru_fwd", instance="cluster", shape=cluster_shape, dtype="float32",
+          ms=f"{cluster_ms:.6g}", library_ms=f"{library['gru_fwd_h256']:.6g}")
     for name, ms in results.items():
         phase("timing", kernel=name, instance="wide", shape=shapes[name], dtype="float32",
-              ms=f"{ms:.6g}")
-    return {name: {"wide_ms": ms, "wide_shape": shapes[name]} for name, ms in results.items()}
+              ms=f"{ms:.6g}", library_ms=f"{library[name]:.6g}")
+    wide = {name: {"wide_ms": ms, "wide_shape": shapes[name], "wide_library_ms": library[name]}
+            for name, ms in results.items()}
+    wide["gru_fwd"].update(h256_cluster_ms=cluster_ms, h256_cluster_shape=cluster_shape,
+                           h256_cluster_library_ms=library["gru_fwd_h256"])
+    return wide
 
 
 class Sentences:
@@ -2643,8 +2786,13 @@ def host_ms(fn, iters):
 
 
 def time_gru_fwd():
+    """The forward kernel at T = 128, H = 128, both directions, f32, at
+    GRU_FWD_TIMED_B, beside its plain version, cuDNN's bidirectional
+    nn.GRU forward and the bound, with its launch geometry and microseconds
+    a step. Returns {(T, B): numbers}."""
     results = {}
-    for t, b, h in KERNEL_SHAPES:
+    t, h = BENCH_T, HIDDEN
+    for b in GRU_FWD_TIMED_B:
         xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=1)
         kernel_ms = cuda_ms(lambda: hopper_gru.bigru_sequence(xp, wh, bh, mask), 20)
         plain_ms = cuda_ms(lambda: bigru_reference(xp, wh, bh, mask), 3)
@@ -2654,9 +2802,12 @@ def time_gru_fwd():
             library_ms = cuda_ms(lambda: cudnn(x), 20)
         bound_ms, bound_by = gru_bound_ms(t, b, h, 2, 4)
         results[(t, b)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=library_ms)
+                               bound_by=bound_by, library_ms=library_ms,
+                               us_per_step=kernel_ms * 1e3 / t,
+                               geometry=geometry_fields(b, 2, h, torch.float32))
         phase("timing", kernel="gru_fwd", T=t, B=b, H=h, directions=2, dtype="float32",
-              **fmt(results[(t, b)]))
+              **fmt({k: v for k, v in results[(t, b)].items() if k != "geometry"}),
+              **results[(t, b)]["geometry"])
     return results
 
 
@@ -2914,7 +3065,8 @@ def main():
 
     flash = time_flash_decode()
     train_attention = time_train_attention()
-    numbers = {"gru_fwd": time_gru_fwd()[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
+    gru_fwd = time_gru_fwd()
+    numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
                "flash_decode": flash[(12, torch.float32)],
                **{k: train_attention[(k, TRAIN["batch"])]
@@ -2964,6 +3116,7 @@ def main():
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
     extra["gru_seq"] = {"by_shape": {f"B={b}": r for b, r in gru_seq.items()}}
+    extra["gru_fwd"] = {"by_shape": {f"B={b}": r for (_, b), r in gru_fwd.items()}}
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],

@@ -1,0 +1,70 @@
+"""The port's kernel builds track every source they compile, on the CPU.
+
+``_build.library_path`` names a kernel library by a hash of its
+``csrc/<name>.cu``, of every ``csrc`` header that file reaches through
+``#include "…"`` and of the nvcc flags, so that a library built from an
+older header is never loaded. These tests run over a temporary ``CSRC_DIR``
+(nothing is compiled: no nvcc is needed) and over the real sources, where
+the two GRU forward kernels share ``gru_step.cuh``.
+"""
+
+import os
+
+from artspeech_tpu_torch.ops import _build
+
+
+def _write(path, text):
+    with open(path, "w") as f:
+        f.write(text)
+
+
+def _csrc(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
+    _write(csrc / "k.cu", '#include <cuda_runtime.h>\n#include "step.cuh"\nint k() { return 1; }\n')
+    _write(csrc / "step.cuh", '#pragma once\n#include "inner.cuh"\n')
+    _write(csrc / "inner.cuh", "#pragma once\nconstexpr int STEP = 1;\n")
+    _write(csrc / "other.cuh", "#pragma once\n")
+    return csrc
+
+
+def test_editing_an_included_header_changes_the_library(tmp_path, monkeypatch):
+    csrc = _csrc(tmp_path, monkeypatch)
+    before = _build.library_path("k")
+    assert os.path.dirname(before) == str(tmp_path / "_build")
+    assert _build.library_path("k") == before  # stable while nothing changes
+    _write(csrc / "step.cuh", '#pragma once\n#include "inner.cuh"\n// edited\n')
+    after_header = _build.library_path("k")
+    assert after_header != before
+    _write(csrc / "inner.cuh", "#pragma once\nconstexpr int STEP = 2;\n")  # included by the header
+    assert _build.library_path("k") not in (before, after_header)
+
+
+def test_unrelated_files_do_not_change_the_library(tmp_path, monkeypatch):
+    csrc = _csrc(tmp_path, monkeypatch)
+    before = _build.library_path("k")
+    _write(csrc / "other.cuh", "#pragma once\n// not included by k.cu\n")
+    _write(csrc / "j.cu", '#include "step.cuh"\n')
+    assert _build.library_path("k") == before
+    assert _build.sources("k") == [str(csrc / n) for n in ("k.cu", "step.cuh", "inner.cuh")]
+
+
+def test_editing_the_source_or_the_flags_changes_the_library(tmp_path, monkeypatch):
+    csrc = _csrc(tmp_path, monkeypatch)
+    before = _build.library_path("k")
+    _write(csrc / "k.cu", '#include "step.cuh"\nint k() { return 2; }\n')
+    edited = _build.library_path("k")
+    assert edited != before
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-lineinfo"])
+    assert _build.library_path("k") != edited
+    assert _build.ptxas_report("k") == ""  # nothing was built
+
+
+def test_the_gru_forward_kernels_share_their_step():
+    step = os.path.join(_build.CSRC_DIR, "gru_step.cuh")
+    for name in ("gru_fwd", "gru_seq"):
+        assert _build.sources(name) == [os.path.join(_build.CSRC_DIR, f"{name}.cu"), step]
+    assert step not in _build.sources("gru_bwd")
+    assert _build._libraries.get("gru_fwd") is None  # nothing was built or loaded
