@@ -24,115 +24,129 @@
 //
 // No h_bound / c_bound. The TPU kernel rebuilds each chunk's entry cell
 // states in a first pass from c_bound, because one grid step sees one chunk
-// only. Here one cluster walks all T steps and reads any row: the carries
+// only. Here a cluster walks all T steps and reads any row: the carries
 // before traversal step s are ys and cs at traversal step s - 1 (on a padded
 // step both repeat the frozen carries, so this holds there too) and zero at
 // s = 0. cs is the forward's cell state after every step, which the forward
 // writes only when autograd needs it; the gates are recomputed from ys (one
-// product a step) instead of storing the (T, B, 4H) gate tensor.
+// product a step, in a prologue) instead of storing the (T, B, 4H) gate
+// tensor.
 //
-// Layout as lstm_fwd.cu: x_proj, dx_proj and the dhg scratch (T, B, D*4H);
-// w_h (D, H, 4H); b_h (D, 4H); mask (T, B) f32; ys, cs, g (T, B, D*H). D is
-// 1 or 2; direction d walks time backward iff bit d of rev_bits is set, and
-// both directions of a bidirectional layer run in one launch.
+// Layout as lstm_fwd.cu: x_proj and dx_proj (T, B, D*4H); w_h (D, H, 4H);
+// b_h (D, 4H); mask (T, B) f32; ys, cs, g (T, B, D*H). D is 1 or 2;
+// direction d walks time backward iff bit d of rev_bits is set, and both
+// directions of a bidirectional layer run in one launch.
 //
 // What bounds it: like the forward, T dependent steps of small products at
-// the latent RNN's batch; each step here does two (BT, H) x (H, 4H)-sized
-// products (the gate recompute and dh) plus the elementwise backward, so the
-// time is per-step latency, not bytes or operations.
+// the latent RNN's batch, so the time is per-step latency, not bytes or
+// operations.
 //
-// Design. W_h at H = 128 in f32 (262,144 B) does not fit one block's shared
-// memory, so, as in the forward, a cluster of two CTAs owns one (direction,
-// tile of BT batch rows); CTA r owns hidden units [r*H/2, (r+1)*H/2), their
-// four gate columns of W_h (one (H, 2H) half, row stride padded to an odd
-// number of 32-bit words, 131,584 B in f32) and the carries dh and dc of
-// those units, in f32 in shared memory.
-// - The recompute reads the full h_prev of the step from ys, so it needs
-//   nothing of the peer: thread c computes the CTA's gate column c, reading
-//   W_h by rows (neighbouring threads on neighbouring words).
-// - The cell backward of a unit needs only that unit's four gates: local.
-// - dh = dgates_c @ W_h^T sums over all 4H columns, half of them in each
-//   CTA. Each CTA computes its columns' partial sum for every k of h, with
-//   thread (half p, k) summing H of its columns (reading W_h by columns:
-//   neighbours one odd stride apart, so on different banks), and writes it
-//   into the buffer of the CTA that owns unit k (the peer's through
-//   distributed shared memory), indexed by source CTA and half. The next
-//   step adds the four partials in a fixed order, (CTA 0: half 0 + half 1)
-//   + (CTA 1: half 0 + half 1), the same on both CTAs and on every run. The
-//   partials are double-buffered and one cluster.sync() a step orders the
-//   writes before the reads.
-// - dW_h is not accumulated step by step: each step writes dgates_c to a
-//   scratch tensor, and after the loop each CTA computes its columns of its
-//   tile's partial dW_h = sum over its T*BT rows of h_prev^T dgates_c as a
-//   tiled product in the shared memory that W_h held (as gru_bwd.cu does).
-//   db_h is summed in a register of thread c during the loop.
-// - A second small kernel sums the per-tile f32 partials of dW_h and db_h
-//   in tile order: no atomicAdd into the output, the same result every run.
-// Tensor cores (wgmma) and prefetch of the next step's inputs are left for
-// later work.
+// Design: the cluster backward step of rnn_bwd_step.cuh (shared with
+// gru_bwd.cu), launched with the geometry of
+// hopper_gru.rnn_bwd_launch_geometry. The prologue recomputes the gates
+// from ys and reads c_prev from cs, off the serial chain, into an f32
+// scratch of six values a (step, row, unit): i, f, g, o, c_prev and
+// tanh(c'). The loop then runs only the product dgates_c @ W_h^T,
+// reduce-scattered over the cluster, and the cell's FMAs; dc stays in the
+// register of the unit's cell thread. The scratch slots of a step take its
+// dgates_c for the dW_h epilogue. The (H, 4H) f32 W_h (262,144 B at
+// H = 128) does not fit one block; the step splits it over up to 8 CTAs.
 //
-// The wide instance. The cluster kernel needs H % 4 == 0, 2H <= 1024 and
-// half of W_h in a CTA's shared memory (f32 up to H = 160, bf16 up to
-// H = 220). Every other H up to 1024 takes lstm_bwd_wide_kernel: one block
-// of 512 threads a (direction, batch tile), no cluster, W_h read from
-// global memory (the L2 holds it: 16 MiB at H = 1024 in f32), as
-// gru_bwd.cu's wide kernel does it: the recompute a thread per gate column
-// in turn, the dh product a warp per row k of W_h with a fixed butterfly of
-// shuffles (deterministic), db_h in shared memory, and the resident dW_h
-// epilogue once per chunk of 512 columns. Shared memory: h_prev, dh, dc and
-// the product (BT, H), the gates and their rounded gradients (BT, 4H), db_h
-// (4H), in f32: 208 H bytes, 212,992 B at H = 1024.
+// The wide instance. Where the cluster step does not run (the rule's
+// `resident` is false: H above 256, a thread a k of its dh product),
+// lstm_bwd_wide_kernel runs the same steps with W_h read from global memory
+// (the L2 holds it: 16 MiB at H = 1024 in f32): one block of 512 threads a
+// (direction, tile of BT rows), no cluster, the recompute a thread per gate
+// column in turn, the dh product a warp per row k of W_h with a fixed
+// butterfly of shuffles (deterministic), db_h in shared memory, dgates_c
+// into the f32 scratch (T, B, D*4H) and the dW_h epilogue after the loop.
+// Shared memory: h_prev, dh, dc and the product (BT, H), the gates and their
+// rounded gradients (BT, 4H), db_h (4H), in f32: 208 H bytes, 212,992 B at
+// H = 1024.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "rnn_bwd_step.cuh"
 
 namespace {
 
-constexpr int BT = 4;       // batch rows per cluster
-constexpr int CLUSTER = 2;  // CTAs per cluster, each owning half of the hidden units
-constexpr int KT = 32;      // rows of dW_h per pass of the epilogue
-constexpr int RC = 256;     // (step, row) pairs staged per chunk of the epilogue
+using dsmem::from_f32;
+using dsmem::sigmoid_f32;
+using dsmem::to_f32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int BT = 4;    // batch rows a block of the wide instance
+constexpr int KT = 32;   // rows of dW_h per pass of the wide epilogue
+constexpr int RC = 256;  // (step, row) pairs staged per chunk of the wide epilogue
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as jnp astype
-}
+// The LSTM's cell for rnn_bwd::cluster_backward.
+template <typename T>
+struct LstmCell {
+  static constexpr int G = 4;
+  static constexpr int V = 6;  // i, f, g, o, c_prev, tanh(c')
+  const T* xp;
+  const T* cs;
+  size_t x_row, y_row;
+  int hidden, batch, d;
 
-__device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
+  static constexpr int NI = 5;  // x_i, x_f, x_g, x_o, c_prev
 
-__host__ __device__ __forceinline__ size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
+  __device__ void load(int t, int t_prev, int b, int u, T* in) const {
+    const T* x = xp + ((size_t)t * batch + b) * x_row + (size_t)d * 4 * hidden + u;
+    in[0] = x[0];
+    in[1] = x[hidden];
+    in[2] = x[2 * hidden];
+    in[3] = x[3 * hidden];
+    in[4] = cs[((size_t)t_prev * batch + b) * y_row + (size_t)d * hidden + u];
+  }
 
-__device__ __forceinline__ int global_col(int c, int units, int hidden, int u0) {
-  const int p = c / units;
-  return p * hidden + u0 + (c - p * units);
-}
+  __device__ void values(const float* pre, float, const T* in, bool first, float* v) const {
+    const float i = sigmoid_f32(pre[0] + to_f32(in[0]));
+    const float f = sigmoid_f32(pre[1] + to_f32(in[1]));
+    const float g = tanhf(pre[2] + to_f32(in[2]));
+    const float o = sigmoid_f32(pre[3] + to_f32(in[3]));
+    const float c_prev = first ? 0.0f : to_f32(in[4]);
+    v[0] = i;
+    v[1] = f;
+    v[2] = g;
+    v[3] = o;
+    v[4] = c_prev;
+    v[5] = tanhf(f * c_prev + i * g);
+  }
 
-// Row stride of the resident half of W_h, in elements: its 2H columns plus
-// one 32-bit word. H is a multiple of 4, so a row is an even number of words
-// in f32 and bf16 alike, and the padded stride an odd one.
-__host__ __device__ __forceinline__ int w_stride(int cols, int elem_bytes) {
-  return cols + 4 / elem_bytes;
-}
+  __device__ float step(const float* v, float m, float dh_tot, float& dc, float* dx,
+                        float* dhg) const {
+    const float i = v[0], f = v[1], g = v[2], o = v[3], c_prev = v[4], th = v[5];
+    const float dh_c = m * dh_tot;
+    float dc_c = m * dc;
+    const float d_o = dh_c * th;
+    dc_c = dc_c + dh_c * o * (1.0f - th * th);
+    const float d_f = dc_c * c_prev;
+    const float d_i = dc_c * g;
+    const float d_g = dc_c * i;
+    dc = (1.0f - m) * dc + dc_c * f;
+    dx[0] = dhg[0] = d_i * i * (1.0f - i);
+    dx[1] = dhg[1] = d_f * f * (1.0f - f);
+    dx[2] = dhg[2] = d_g * (1.0f - g * g);
+    dx[3] = dhg[3] = d_o * o * (1.0f - o);
+    return (1.0f - m) * dh_tot;
+  }
+};
 
-// Bytes of shared memory one CTA uses: its half of W_h, then in f32 h_prev
-// (BT, H), the gates and their rounded gradients (BT, 2H) each, dh and dc
-// (BT, H/2) each and the partials (2 buffers, 2 CTAs, 2 halves, BT, H/2);
-// or the epilogue's (RC, KT) staging, whichever is larger.
-size_t smem_bytes(int hidden, int elem_bytes) {
-  const int units = hidden / 2;
-  const int cols = 2 * hidden;
-  const size_t loop = align16((size_t)hidden * w_stride(cols, elem_bytes) * elem_bytes) +
-                      (size_t)BT * (hidden + 2 * cols + 2 * units + 8 * units) * sizeof(float);
-  const size_t epilogue = (size_t)RC * KT * sizeof(float);
-  return loop > epilogue ? loop : epilogue;
+template <typename T, int R>
+__global__ void __launch_bounds__(rnn_bwd::THREADS, 2)
+lstm_bwd_cluster_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                        const T* __restrict__ bh, const float* __restrict__ mask,
+                        const T* __restrict__ ys, const T* __restrict__ cs,
+                        const T* __restrict__ gy, T* __restrict__ dxp, float* scratch,
+                        float* __restrict__ dw_part, float* __restrict__ db_part, int n_steps,
+                        int batch, int hidden, int n_dir, int rev_bits) {
+  const rnn_bwd::Problem<T> pb{xp, wh, bh, mask, ys, gy, dxp, scratch, dw_part, db_part,
+                               n_steps, batch, hidden, n_dir, rev_bits};
+  const LstmCell<T> cell{xp, cs, (size_t)n_dir * 4 * hidden, (size_t)n_dir * hidden, hidden,
+                         batch, (int)blockIdx.y};
+  rnn_bwd::cluster_backward<T, R>(pb, cell);
 }
 
 // Carry before traversal step s (the output of step s - 1; zero at s = 0),
@@ -151,247 +165,7 @@ __device__ void load_h_prev(float* hp, const T* ys, int s, int n_steps, int batc
   }
 }
 
-template <typename T>
-__global__ void __cluster_dims__(CLUSTER, 1, 1)
-    lstm_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
-                    const T* __restrict__ bh, const float* __restrict__ mask,
-                    const T* __restrict__ ys, const T* __restrict__ cs,
-                    const T* __restrict__ gy, T* __restrict__ dxp, T* dhg,
-                    float* __restrict__ dw_part, float* __restrict__ db_part, int n_steps,
-                    int batch, int hidden, int n_dir, int rev_bits) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int units = hidden / 2;
-  const int cols = 4 * units;
-  const int gates = 4 * hidden;
-  const int ws = w_stride(cols, sizeof(T));
-  const int bu = BT * units;
-  T* w_s = reinterpret_cast<T*>(smem);
-  float* hp_s = reinterpret_cast<float*>(smem + align16((size_t)hidden * ws * sizeof(T)));
-  float* g_s = hp_s + BT * hidden;  // (BT, cols): gates, then their f32 gradients
-  float* gc_s = g_s + BT * cols;    // (BT, cols): the gradients rounded, as f32
-  float* dh_s = gc_s + BT * cols;   // (BT, units): dh without the W_h^T product
-  float* dc_s = dh_s + bu;          // (BT, units): dc
-  float* part_s = dc_s + bu;        // (2 buffers, 2 source CTAs, 2 halves, BT, units)
-  float* part_peer = cluster.map_shared_rank(part_s, (unsigned)(rank ^ 1));
-
-  const int d = blockIdx.y;
-  const int tile = blockIdx.x / CLUSTER;
-  const int n_tiles = gridDim.x / CLUSTER;
-  const int b0 = tile * BT;
-  const int tid = threadIdx.x;
-  const bool reverse = (rev_bits >> d) & 1;
-  const int u0 = rank * units;
-  const size_t x_row = (size_t)n_dir * gates;
-  const size_t y_row = (size_t)n_dir * hidden;
-
-  const T* w_d = wh + (size_t)d * hidden * gates;
-  for (int i = tid; i < hidden * cols; i += blockDim.x) {
-    const int k = i / cols;
-    const int c = i - k * cols;
-    w_s[k * ws + c] = w_d[(size_t)k * gates + global_col(c, units, hidden, u0)];
-  }
-  for (int i = tid; i < 2 * bu; i += blockDim.x) dh_s[i] = 0.0f;  // dh_s and dc_s
-  for (int i = tid; i < 8 * bu; i += blockDim.x) part_s[i] = 0.0f;
-  const int my_col = tid < cols ? global_col(tid, units, hidden, u0) : 0;
-  const float bias = tid < cols ? to_f32(bh[(size_t)d * gates + my_col]) : 0.0f;
-  float db_acc = 0.0f;
-  load_h_prev(hp_s, ys, n_steps - 1, n_steps, batch, hidden, b0, d, y_row, reverse);
-  // Both CTAs are initialised before either writes into the other.
-  cluster.sync();
-
-  const float4* hp4 = reinterpret_cast<const float4*>(hp_s);
-  const int h_quads = hidden / 4;
-
-  for (int s = n_steps - 1; s >= 0; --s) {
-    const int t = reverse ? n_steps - 1 - s : s;
-    const int t_prev = reverse ? n_steps - s : s - 1;
-
-    // 1. Recompute the CTA's gate columns of h_prev @ W_h + b_h, one column
-    //    per thread, in the forward kernel's order of summation.
-    if (tid < cols) {
-      float acc[BT];
-#pragma unroll
-      for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
-      for (int q = 0; q < h_quads; ++q) {
-        const int k = 4 * q;
-        const float w0 = to_f32(w_s[(k + 0) * ws + tid]);
-        const float w1 = to_f32(w_s[(k + 1) * ws + tid]);
-        const float w2 = to_f32(w_s[(k + 2) * ws + tid]);
-        const float w3 = to_f32(w_s[(k + 3) * ws + tid]);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const float4 hv = hp4[r * h_quads + q];
-          acc[r] = fmaf(hv.x, w0, acc[r]);
-          acc[r] = fmaf(hv.y, w1, acc[r]);
-          acc[r] = fmaf(hv.z, w2, acc[r]);
-          acc[r] = fmaf(hv.w, w3, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < BT; ++r) g_s[r * cols + tid] = acc[r] + bias;
-    }
-    __syncthreads();
-
-    // 2. The cell backward over the CTA's (BT, units) tile. Each element
-    //    reads and overwrites only its own unit's four gate columns.
-    const float* pr = part_s + (s & 1) * 4 * bu;
-    for (int e = tid; e < bu; e += blockDim.x) {
-      const int r = e / units;
-      const int j = e - r * units;
-      const int b = b0 + r;
-      float* g = g_s + r * cols + j;
-      float* gc = gc_s + r * cols + j;
-      if (b >= batch) {
-        g[0] = g[units] = g[2 * units] = g[3 * units] = 0.0f;
-        gc[0] = gc[units] = gc[2 * units] = gc[3 * units] = 0.0f;
-        continue;
-      }
-      const float carry = dh_s[e] + ((pr[e] + pr[bu + e]) + (pr[2 * bu + e] + pr[3 * bu + e]));
-      const size_t row = (size_t)t * batch + b;
-      const size_t unit = (size_t)d * hidden + u0 + j;
-      const T* x = xp + row * x_row + (size_t)d * gates + u0 + j;
-      const float ig = sigmoid_f32(g[0] + to_f32(x[0]));
-      const float fg = sigmoid_f32(g[units] + to_f32(x[hidden]));
-      const float gg = tanhf(g[2 * units] + to_f32(x[2 * hidden]));
-      const float og = sigmoid_f32(g[3 * units] + to_f32(x[3 * hidden]));
-      const float c_prev = s > 0 ? to_f32(cs[((size_t)t_prev * batch + b) * y_row + unit]) : 0.0f;
-      const float c_new = fg * c_prev + ig * gg;
-      const float th = tanhf(c_new);
-      const float m = mask[row];
-      const float dh_tot = to_f32(gy[row * y_row + unit]) + carry;
-      const float dh_c = m * dh_tot;
-      const float dc = dc_s[e];
-      float dc_c = m * dc;
-      const float d_o = dh_c * th;
-      dc_c = dc_c + dh_c * og * (1.0f - th * th);
-      const float d_f = dc_c * c_prev;
-      const float d_i = dc_c * gg;
-      const float d_g = dc_c * ig;
-      dc_s[e] = (1.0f - m) * dc + dc_c * fg;
-      dh_s[e] = (1.0f - m) * dh_tot;
-
-      const float gi = d_i * ig * (1.0f - ig);
-      const float gf = d_f * fg * (1.0f - fg);
-      const float gg_ = d_g * (1.0f - gg * gg);
-      const float go = d_o * og * (1.0f - og);
-      const T ci = from_f32<T>(gi), cf = from_f32<T>(gf), cg_ = from_f32<T>(gg_),
-              co = from_f32<T>(go);
-      T* dx = dxp + row * x_row + (size_t)d * gates + u0 + j;
-      T* dg = dhg + row * x_row + (size_t)d * gates + u0 + j;
-      dx[0] = dg[0] = ci;
-      dx[hidden] = dg[hidden] = cf;
-      dx[2 * hidden] = dg[2 * hidden] = cg_;
-      dx[3 * hidden] = dg[3 * hidden] = co;
-      g[0] = gi;
-      g[units] = gf;
-      g[2 * units] = gg_;
-      g[3 * units] = go;
-      gc[0] = to_f32(ci);
-      gc[units] = to_f32(cf);
-      gc[2 * units] = to_f32(cg_);
-      gc[3 * units] = to_f32(co);
-    }
-    __syncthreads();
-
-    // 3. db_h, the partial products dgates_c @ W_h^T for the next step's
-    //    carry (into the owning CTA's buffer), and the next h_prev.
-    if (tid < cols) {
-#pragma unroll
-      for (int r = 0; r < BT; ++r) db_acc += g_s[r * cols + tid];
-      if (s > 0) {
-        const int half = tid / hidden;  // local columns [half*H, (half+1)*H)
-        const int k = tid - half * hidden;
-        const T* wk = w_s + k * ws + half * hidden;
-        const float4* gc4 = reinterpret_cast<const float4*>(gc_s + half * hidden);
-        const int row_quads = cols / 4;
-        float acc[BT];
-#pragma unroll
-        for (int r = 0; r < BT; ++r) acc[r] = 0.0f;
-        for (int q = 0; q < h_quads; ++q) {
-          const float w0 = to_f32(wk[4 * q + 0]);
-          const float w1 = to_f32(wk[4 * q + 1]);
-          const float w2 = to_f32(wk[4 * q + 2]);
-          const float w3 = to_f32(wk[4 * q + 3]);
-#pragma unroll
-          for (int r = 0; r < BT; ++r) {
-            const float4 gv = gc4[r * row_quads + q];
-            acc[r] = fmaf(gv.x, w0, acc[r]);
-            acc[r] = fmaf(gv.y, w1, acc[r]);
-            acc[r] = fmaf(gv.z, w2, acc[r]);
-            acc[r] = fmaf(gv.w, w3, acc[r]);
-          }
-        }
-        const int owner = k / units;
-        float* dst = (owner == rank ? part_s : part_peer) + ((s + 1) & 1) * 4 * bu +
-                     (rank * 2 + half) * bu + (k - owner * units);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) dst[r * units] = acc[r];
-      }
-    }
-    if (s > 0) load_h_prev(hp_s, ys, s - 1, n_steps, batch, hidden, b0, d, y_row, reverse);
-    cluster.sync();
-  }
-
-  // Epilogue: this CTA's columns of the tile's partial dW_h[k][c] = sum over
-  // its (step, row) pairs of h_prev[k] * dgates_c[c], KT rows of dW_h at a
-  // time, thread c owning column c. h_prev is staged through the shared
-  // memory W_h held; dgates_c is read back from the scratch this CTA wrote.
-  if (tid < cols) db_part[((size_t)d * n_tiles + tile) * gates + my_col] = db_acc;
-  float* h_stage = reinterpret_cast<float*>(smem);  // (RC, KT)
-  const int n_pairs = n_steps * BT;
-  for (int k0 = 0; k0 < hidden; k0 += KT) {
-    float acc[KT];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) acc[kk] = 0.0f;
-    for (int j0 = 0; j0 < n_pairs; j0 += RC) {
-      const int rows = min(RC, n_pairs - j0);
-      __syncthreads();
-      for (int i = tid; i < rows * KT; i += blockDim.x) {
-        const int jj = i / KT;
-        const int k = k0 + (i - jj * KT);
-        const int s = (j0 + jj) / BT;
-        const int b = b0 + (j0 + jj) - s * BT;
-        float v = 0.0f;
-        if (s > 0 && b < batch && k < hidden) {
-          const int t_prev = reverse ? n_steps - s : s - 1;
-          v = to_f32(ys[((size_t)t_prev * batch + b) * y_row + (size_t)d * hidden + k]);
-        }
-        h_stage[i] = v;
-      }
-      __syncthreads();
-      if (tid < cols) {
-        for (int jj = 0; jj < rows; ++jj) {
-          const int s = (j0 + jj) / BT;
-          const int b = b0 + (j0 + jj) - s * BT;
-          if (b >= batch) continue;
-          const int t = reverse ? n_steps - 1 - s : s;
-          const float gv =
-              to_f32(dhg[((size_t)t * batch + b) * x_row + (size_t)d * gates + my_col]);
-          const float4* h4 = reinterpret_cast<const float4*>(h_stage + jj * KT);
-#pragma unroll
-          for (int q = 0; q < KT / 4; ++q) {
-            const float4 hv = h4[q];
-            acc[4 * q + 0] = fmaf(hv.x, gv, acc[4 * q + 0]);
-            acc[4 * q + 1] = fmaf(hv.y, gv, acc[4 * q + 1]);
-            acc[4 * q + 2] = fmaf(hv.z, gv, acc[4 * q + 2]);
-            acc[4 * q + 3] = fmaf(hv.w, gv, acc[4 * q + 3]);
-          }
-        }
-      }
-    }
-    if (tid < cols) {
-      float* out = dw_part + ((size_t)d * n_tiles + tile) * hidden * gates;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        if (k0 + kk < hidden) out[(size_t)(k0 + kk) * gates + my_col] = acc[kk];
-    }
-  }
-}
-
 constexpr int WIDE_THREADS = 512;
-constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
 
 size_t wide_smem_bytes(int hidden) {
   const size_t loop = sizeof(float) * ((size_t)BT * (4 * hidden + 8 * hidden) + 4 * hidden);
@@ -399,16 +173,12 @@ size_t wide_smem_bytes(int hidden) {
   return loop > epilogue ? loop : epilogue;
 }
 
-bool resident(int hidden, int elem_bytes) {
-  return hidden % 4 == 0 && 2 * hidden <= 1024 && smem_bytes(hidden, elem_bytes) <= MAX_SMEM;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(WIDE_THREADS)
 lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                      const T* __restrict__ bh, const float* __restrict__ mask,
                      const T* __restrict__ ys, const T* __restrict__ cs,
-                     const T* __restrict__ gy, T* __restrict__ dxp, T* dhg,
+                     const T* __restrict__ gy, T* __restrict__ dxp, float* dhg,
                      float* __restrict__ dw_part, float* __restrict__ db_part, int n_steps,
                      int batch, int hidden, int n_dir, int rev_bits) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -503,11 +273,15 @@ lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
       const T ci = from_f32<T>(gi), cf = from_f32<T>(gf), cg_ = from_f32<T>(gg_),
               co = from_f32<T>(go);
       T* dx = dxp + row * x_row + (size_t)d * gates + j;
-      T* dg = dhg + row * x_row + (size_t)d * gates + j;
-      dx[0] = dg[0] = ci;
-      dx[hidden] = dg[hidden] = cf;
-      dx[2 * hidden] = dg[2 * hidden] = cg_;
-      dx[3 * hidden] = dg[3 * hidden] = co;
+      float* dg = dhg + row * x_row + (size_t)d * gates + j;
+      dx[0] = ci;
+      dx[hidden] = cf;
+      dx[2 * hidden] = cg_;
+      dx[3 * hidden] = co;
+      dg[0] = to_f32(ci);
+      dg[hidden] = to_f32(cf);
+      dg[2 * hidden] = to_f32(cg_);
+      dg[3 * hidden] = to_f32(co);
       g[0] = gi;
       g[hidden] = gf;
       g[2 * hidden] = gg_;
@@ -552,7 +326,10 @@ lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
     __syncthreads();
   }
 
-  // Epilogue: the cluster kernel's, once per chunk of blockDim.x columns.
+  // Epilogue: this block's partial dW_h[k][c] = sum over its (step, row)
+  // pairs of h_prev[k] * dgates_c[c], KT rows of dW_h at a time, thread c
+  // owning column c, once per chunk of blockDim.x columns; h_prev is staged
+  // in shared memory, dgates_c read back from the scratch this block wrote.
   for (int c = tid; c < gates; c += blockDim.x)
     db_part[((size_t)d * n_tiles + tile) * gates + c] = db_s[c];
   float* h_stage = reinterpret_cast<float*>(smem);  // (RC, KT)
@@ -585,7 +362,7 @@ lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
             const int b = b0 + (j0 + jj) - st * BT;
             if (b >= batch) continue;
             const int t = reverse ? n_steps - 1 - st : st;
-            const float gv = to_f32(dhg[((size_t)t * batch + b) * x_row + (size_t)d * gates + c]);
+            const float gv = dhg[((size_t)t * batch + b) * x_row + (size_t)d * gates + c];
             const float4* h4 = reinterpret_cast<const float4*>(h_stage + jj * KT);
 #pragma unroll
             for (int q = 0; q < KT / 4; ++q) {
@@ -608,98 +385,85 @@ lstm_bwd_wide_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   }
 }
 
-// out[d][i] = sum over tiles, in tile order, of part[d][tile][i].
-__global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out,
-                             int n_tiles, int width, int n_dir) {
-  const size_t total = (size_t)n_dir * width;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t d = i / width;
-    const float* p = part + d * n_tiles * width + (i - d * width);
-    float acc = 0.0f;
-    for (int tl = 0; tl < n_tiles; ++tl) acc += p[(size_t)tl * width];
-    out[i] = acc;
+template <typename T>
+void (*cluster_kernel(int rows))(const T*, const T*, const T*, const float*, const T*, const T*,
+                                 const T*, T*, float*, float*, float*, int, int, int, int, int) {
+  switch (rows) {
+    case 2: return lstm_bwd_cluster_kernel<T, 2>;
+    case 4: return lstm_bwd_cluster_kernel<T, 4>;
+    default: return lstm_bwd_cluster_kernel<T, 8>;
   }
-}
-
-int launch_sum(const float* part, float* out, int n_tiles, int width, int n_dir,
-               cudaStream_t stream) {
-  const int threads = 256;
-  long blocks = ((long)n_dir * width + threads - 1) / threads;
-  if (blocks > 4096) blocks = 4096;
-  sum_partials<<<(int)blocks, threads, 0, stream>>>(part, out, n_tiles, width, n_dir);
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* xp, const void* wh, const void* bh, const void* mask, const void* ys,
-           const void* cs, const void* gy, void* dxp, void* dhg, float* dw_part, float* db_part,
-           float* dw, float* db, int n_steps, int batch, int hidden, int n_dir, int rev_bits,
-           cudaStream_t stream) {
-  const bool res = resident(hidden, sizeof(T));
-  const size_t smem = res ? smem_bytes(hidden, sizeof(T)) : wide_smem_bytes(hidden);
-  const int n_tiles = (batch + BT - 1) / BT;
-  if (res) {
-    cudaError_t err = cudaFuncSetAttribute(lstm_bwd_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int threads = ((2 * hidden + 31) / 32) * 32;
-    dim3 grid(CLUSTER * n_tiles, n_dir);
-    lstm_bwd_kernel<T><<<grid, threads, smem, stream>>>(
-        static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
-        static_cast<const float*>(mask), static_cast<const T*>(ys), static_cast<const T*>(cs),
-        static_cast<const T*>(gy), static_cast<T*>(dxp), static_cast<T*>(dhg), dw_part,
-        db_part, n_steps, batch, hidden, n_dir, rev_bits);
-  } else {
+           const void* cs, const void* gy, void* dxp, float* scratch, float* dw_part,
+           float* db_part, float* dw, float* db, int n_steps, int batch, int hidden, int n_dir,
+           int rev_bits, int cluster, int rows, int smem, cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xp);
+  const T* w = static_cast<const T*>(wh);
+  const T* b = static_cast<const T*>(bh);
+  const float* m = static_cast<const float*>(mask);
+  const T* y = static_cast<const T*>(ys);
+  const T* c = static_cast<const T*>(cs);
+  const T* g = static_cast<const T*>(gy);
+  T* dx = static_cast<T*>(dxp);
+  const int tiles = (batch + rows - 1) / rows;
+  int code;
+  if (cluster == 0) {
+    if (rows != BT || (size_t)smem < wide_smem_bytes(hidden) || (size_t)smem > dsmem::MAX_SMEM)
+      return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(lstm_bwd_wide_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid(n_tiles, n_dir);
-    lstm_bwd_wide_kernel<T><<<grid, WIDE_THREADS, smem, stream>>>(
-        static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh),
-        static_cast<const float*>(mask), static_cast<const T*>(ys), static_cast<const T*>(cs),
-        static_cast<const T*>(gy), static_cast<T*>(dxp), static_cast<T*>(dhg), dw_part,
-        db_part, n_steps, batch, hidden, n_dir, rev_bits);
+    lstm_bwd_wide_kernel<T><<<dim3(tiles, n_dir), WIDE_THREADS, smem, stream>>>(
+        x, w, b, m, y, c, g, dx, scratch, dw_part, db_part, n_steps, batch, hidden, n_dir,
+        rev_bits);
+    code = (int)cudaGetLastError();
+  } else {
+    if (!rnn_bwd::valid_geometry(hidden, cluster, rows, smem, 4, sizeof(T)))
+      return (int)cudaErrorInvalidValue;
+    code = dsmem::launch_cluster(cluster_kernel<T>(rows), cluster, tiles, n_dir,
+                                 rnn_bwd::THREADS, smem, stream, x, w,
+                                 b, m, y, c, g, dx, scratch, dw_part, db_part, n_steps, batch,
+                                 hidden, n_dir, rev_bits);
   }
-  int code = (int)cudaGetLastError();
   if (code != 0) return code;
-  const int gates = 4 * hidden;
-  code = launch_sum(dw_part, dw, n_tiles, hidden * gates, n_dir, stream);
-  if (code != 0) return code;
-  return launch_sum(db_part, db, n_tiles, gates, n_dir, stream);
+  return rnn_bwd::launch_sums(dw_part, db_part, dw, db, tiles, hidden, 4, n_dir, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when H in this storage type takes the cluster kernel, 0 when the wide one.
-int lstm_bwd_resident(int hidden, int elem_bytes) { return resident(hidden, elem_bytes); }
-
-// Batch rows per cluster: the wrapper sizes the partials (D, ceil(B / BT), ...).
-int lstm_bwd_batch_tile(void) { return BT; }
-
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024. dhg is scratch (T, B, D*4H) in the
-// storage type; dw_part (D, tiles, H, 4H) and db_part (D, tiles, 4H) are f32
-// scratch; dw (D, H, 4H) and db (D, 4H) are f32 outputs. Returns the first
-// nonzero cudaError_t of the launches, else 0.
+// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
+// geometry comes from hopper_gru.rnn_bwd_launch_geometry: cluster CTAs (0:
+// the wide instance), rows a cluster (or a wide block) walks, and the
+// dynamic shared memory in bytes; the f32 scratch holds that rule's
+// scratch_per_step values a time step. dw_part (D, tiles, H, 4H) and
+// db_part (D, tiles, 4H), tiles = ceil(B / rows), are f32 scratch; dw
+// (D, H, 4H) and db (D, 4H) are f32 outputs. Returns the first nonzero
+// cudaError_t of the launches (a geometry the kernel does not take, or a
+// refused cluster), else 0.
 int lstm_bwd(const void* xp, const void* wh, const void* bh, const void* mask, const void* ys,
-             const void* cs, const void* gy, void* dxp, void* dhg, void* dw_part, void* db_part,
-             void* dw, void* db, int n_steps, int batch, int hidden, int n_dir, int rev_bits,
-             int dtype, void* stream) {
+             const void* cs, const void* gy, void* dxp, void* scratch, void* dw_part,
+             void* db_part, void* dw, void* db, int n_steps, int batch, int hidden, int n_dir,
+             int rev_bits, int dtype, int cluster, int rows, int smem, void* stream) {
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  float* f_scratch = static_cast<float*>(scratch);
   float* f_dw_part = static_cast<float*>(dw_part);
   float* f_db_part = static_cast<float*>(db_part);
   float* f_dw = static_cast<float*>(dw);
   float* f_db = static_cast<float*>(db);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hidden < 1 || hidden > 1024) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(xp, wh, bh, mask, ys, cs, gy, dxp, dhg, f_dw_part, f_db_part, f_dw,
-                         f_db, n_steps, batch, hidden, n_dir, rev_bits, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, gy, dxp, dhg, f_dw_part, f_db_part,
-                                 f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, s);
-  return (int)cudaErrorInvalidValue;
+    return launch<float>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part, f_db_part,
+                         f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows, smem,
+                         s);
+  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part,
+                               f_db_part, f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits,
+                               cluster, rows, smem, s);
 }
 
 }  // extern "C"

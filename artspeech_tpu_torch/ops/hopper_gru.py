@@ -4,11 +4,13 @@ Counterpart of artspeech_tpu/ops/pallas_gru.py:gru_sequence (the fused Pallas
 time loop, ``_gru_fwd_kernel`` and ``_gru_bwd_kernel`` wired by a custom VJP).
 The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``;
 :class:`GRUSequenceFn` wires them as a ``torch.autograd.Function``. Each
-takes every H from 1 to ``MAX_HIDDEN``: a kernel with W_h resident in shared
-memory where it fits (the thesis' H = 128), a wide one that reads W_h through
-the L2 elsewhere. The forward's resident kernel is the cluster step of
-``csrc/gru_step.cuh``, launched with the geometry of
-:func:`gru_launch_geometry`.
+takes every H from 1 to ``MAX_HIDDEN``: a thread-block-cluster kernel with
+W_h slices resident in shared memory where they fit (the thesis' H = 128), a
+wide one that reads W_h through the L2 elsewhere. The forward's cluster
+kernel is the step of ``csrc/gru_step.cuh``, launched with the geometry of
+:func:`gru_launch_geometry`; the backward's is the step of
+``csrc/rnn_bwd_step.cuh`` (shared with the LSTM's backward), launched with
+the geometry of :func:`rnn_bwd_launch_geometry`.
 
 Also the counterpart of artspeech_tpu/ops/pallas_kernels.py:
 gru_sequence_pallas, the batch-major one-direction forward that JAX keeps as
@@ -47,7 +49,7 @@ MAX_BATCH_TILE = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 6), "gru_seq": (5, 7)}
+_POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 9), "gru_seq": (5, 7)}
 _libs = {}
 
 
@@ -59,11 +61,6 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        if name == "gru_bwd":
-            lib.gru_bwd_resident.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.gru_bwd_resident.restype = ctypes.c_int
-            lib.gru_bwd_batch_tile.argtypes = []
-            lib.gru_bwd_batch_tile.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -151,7 +148,126 @@ def gru_launch_geometry(batch, n_dir, hidden, elem_bytes, sm_count=H100_SMS):
                        -(-ctas(rows, c) // sm_count))
 
 
-def _geometry_args(geometry):
+# -- the launch geometry of the backward kernels (csrc/rnn_bwd_step.cuh) -------
+
+#: Threads a CTA of the backward's cluster step (rnn_bwd_step.cuh's THREADS).
+BWD_THREADS = 256
+#: (step, row) pairs the backward's prologue and epilogue stage at once.
+BWD_PRO_ROWS, BWD_EPI_ROWS = 64, 32
+#: f32 values the backward's prologue keeps a (step, row, unit), by gate
+#: count: the GRU's r, z, h_prev - n, 1 - n^2 and hg_n; the LSTM's i, f, g,
+#: o, c_prev and tanh(c').
+BWD_VALUES = {3: 5, 4: 6}
+#: Shared memory of an H100 SM, and what the card keeps back of it a CTA.
+SM_SMEM, CTA_RESERVED_SMEM = 233472, 1024
+
+
+class RNNBwdGeometry(NamedTuple):
+    """How the backward kernels launch at one shape (:func:`rnn_bwd_launch_geometry`).
+
+    The kernels are passed ``cluster``, ``rows`` and ``smem_bytes``; the
+    wrappers size the scratch and the per-tile partials from ``tiles`` and
+    ``scratch_per_step``; the other fields describe the launch.
+    """
+
+    resident: bool      #: W_h slices in shared memory (the cluster step), else the wide instance
+    cluster: int        #: CTAs a cluster (1: the wide instance's plain blocks)
+    rows: int           #: batch rows a cluster (or a wide block) walks
+    threads: int        #: threads a CTA
+    grid: Tuple[int, int]  #: CTAs along the batch, directions
+    ctas: int
+    smem_bytes: int     #: dynamic shared memory a CTA
+    ctas_per_sm: int    #: CTAs an SM holds at once (2 where two CTAs' shared memory fits)
+    waves: int          #: ceil(ctas / (sm_count * ctas_per_sm))
+    tiles: int          #: batch tiles a direction: the partial sums of dW_h and db_h
+    scratch_per_step: int  #: f32 scratch values a time step
+
+
+def bwd_cluster_smem_bytes(hidden, cluster, rows, gates, elem_bytes):
+    """Shared memory of one CTA of the backward's cluster step
+    (rnn_bwd_step.cuh:smem_bytes): its (HK, cols) W_h slice in the storage
+    type, 16-byte aligned (HK = H rounded up to 8; cols = G columns for each
+    of the U = H/C units rounded up to 4, rounded up to 8), then in f32 two
+    (rows, H) carry buffers, two (rows, cols) dgates buffers and the stage:
+    the prologue's (HK, 68) h_prev^T or the epilogue's (32, HK + 4 + cols),
+    the larger."""
+    units = hidden // cluster
+    cols = -(-4 * -(-units // 4) * gates // 8) * 8
+    hk = -(-hidden // 8) * 8
+    stage = max(hk * (BWD_PRO_ROWS + 4), BWD_EPI_ROWS * (hk + 4 + cols))
+    return -(-hk * cols * elem_bytes // 16) * 16 + 4 * (2 * rows * hidden + 2 * rows * cols + stage)
+
+
+def _ctas_per_sm(smem_bytes):
+    """CTAs of the backward's cluster step an SM holds at once: two (256
+    threads of at most 128 registers each) where two CTAs' shared memory
+    fits, else one."""
+    return 2 if 2 * (smem_bytes + CTA_RESERVED_SMEM) <= SM_SMEM else 1
+
+
+def rnn_bwd_launch_geometry(batch, n_dir, hidden, gates, elem_bytes, sm_count=H100_SMS):
+    """The launch of the recurrent backward kernels (gru_bwd.cu with
+    ``gates`` = 3, lstm_bwd.cu with 4) for a shape, from the shape and the
+    card alone; the kernels derive nothing else.
+
+    A cluster of C CTAs owns one direction and a tile of R batch rows; each
+    CTA of 256 threads owns U = H/C hidden units and their G gate columns,
+    with one thread a (row, unit) for the cell and one a k of H for the dh
+    product. The rule is :func:`gru_launch_geometry`'s: R in 2, 4, 8 and C
+    in 8, 4, 2, 1 with C dividing H, H <= 256, R * U <= 256 and a CTA's W_h
+    slice, buffers and stage within its shared memory; the first candidate, fewest rows first and then the
+    largest cluster, whose ceil(B/R) * D * C CTAs are all resident at once
+    (``sm_count`` SMs, two CTAs an SM where their shared memory fits); where
+    none is, the candidate with the fewest CTAs. Without a candidate the
+    wide instance runs: 4-row blocks of 512 threads reading W_h through the
+    L2.
+
+    ``tiles`` (ceil(B/R)) sizes the per-tile partials of dW_h and db_h,
+    ``scratch_per_step`` the f32 scratch: the cluster step's V values a
+    (step, row, unit) of every tile's rows, D * tiles * R * V * H a step;
+    the wide instance's rounded dgates, D * B * G * H a step.
+    """
+    candidates = [(rows, c) for rows in CLUSTER_ROWS for c in CLUSTER_SIZES
+                  if hidden % c == 0 and hidden <= BWD_THREADS
+                  and rows * (hidden // c) <= BWD_THREADS
+                  and bwd_cluster_smem_bytes(hidden, c, rows, gates, elem_bytes) <= MAX_SMEM]
+    if not candidates:
+        tiles = -(-batch // WIDE_ROWS)
+        smem = max(4 * (WIDE_ROWS * 3 * gates * hidden + gates * hidden), 256 * 32 * 4)
+        return RNNBwdGeometry(False, 1, WIDE_ROWS, MAX_THREADS, (tiles, n_dir), tiles * n_dir,
+                              smem, 1, -(-tiles * n_dir // sm_count), tiles,
+                              n_dir * batch * gates * hidden)
+
+    def ctas(rows, c):
+        return -(-batch // rows) * n_dir * c
+
+    def per_sm(rows, c):
+        return _ctas_per_sm(bwd_cluster_smem_bytes(hidden, c, rows, gates, elem_bytes))
+
+    rows, c = next(((r, c) for r, c in candidates if ctas(r, c) <= sm_count * per_sm(r, c)),
+                   min(candidates, key=lambda rc: ctas(*rc)))
+    tiles = -(-batch // rows)
+    return RNNBwdGeometry(True, c, rows, BWD_THREADS, (c * tiles, n_dir), ctas(rows, c),
+                          bwd_cluster_smem_bytes(hidden, c, rows, gates, elem_bytes),
+                          per_sm(rows, c), -(-ctas(rows, c) // (sm_count * per_sm(rows, c))),
+                          tiles, n_dir * tiles * rows * BWD_VALUES[gates] * hidden)
+
+
+def bwd_launch_buffers(x_proj, n_dir, hidden, gates):
+    """A backward launch on x_proj's card: its geometry, the f32 scratch and
+    the f32 per-tile partials of dW_h (D, tiles, H, G*H) and db_h
+    (D, tiles, G*H) that it needs."""
+    n_steps, batch, _ = x_proj.shape
+    dev = x_proj.device
+    geometry = rnn_bwd_launch_geometry(batch, n_dir, hidden, gates, x_proj.element_size(),
+                                       _sm_count(dev))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (geometry, torch.empty(n_steps * geometry.scratch_per_step, **f32),
+            torch.empty(n_dir, geometry.tiles, hidden, gates * hidden, **f32),
+            torch.empty(n_dir, geometry.tiles, gates * hidden, **f32))
+
+
+def geometry_args(geometry):
     """The geometry as the kernels' entry points take it (cluster 0: wide)."""
     return geometry.cluster if geometry.resident else 0, geometry.rows, geometry.smem_bytes
 
@@ -284,12 +400,13 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
 
 def resident(name, hidden, dtype):
     """Whether kernel ``name`` ("gru_fwd" or "gru_bwd") runs H in ``dtype``
-    with W_h resident in shared memory (else its wide instance). The
-    forward's answer is :func:`gru_launch_geometry`'s and needs no card."""
+    with W_h slices resident in shared memory (else its wide instance): the
+    answer of :func:`gru_launch_geometry` or :func:`rnn_bwd_launch_geometry`,
+    which needs no card."""
     elem = torch.empty(0, dtype=dtype).element_size()
     if name == "gru_fwd":
         return gru_launch_geometry(1, 1, hidden, elem).resident
-    return bool(_library(name).gru_bwd_resident(hidden, elem))
+    return rnn_bwd_launch_geometry(1, 1, hidden, 3, elem).resident
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
@@ -308,7 +425,7 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
         err = _library("gru_fwd").gru_fwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(),
             ys.data_ptr(), n_steps, batch, hidden, n_dir, rev_bits,
-            _DTYPES[x_proj.dtype], *_geometry_args(geometry), stream)
+            _DTYPES[x_proj.dtype], *geometry_args(geometry), stream)
     if err != 0:
         raise RuntimeError(f"gru_fwd kernel launch failed with CUDA error {err}")
     launches += 1
@@ -331,20 +448,16 @@ def _launch_bwd(x_proj, w_h, b_h, mask, ys, g, n_dir, rev_bits):
     db = torch.zeros(n_dir, gates, dtype=torch.float32, device=dev)
     if n_steps == 0 or batch == 0:
         return torch.zeros_like(x_proj), dw, db
-    lib = _library("gru_bwd")
-    tiles = -(-batch // lib.gru_bwd_batch_tile())
+    geometry, scratch, dw_part, db_part = bwd_launch_buffers(x_proj, n_dir, hidden, 3)
     mask_f = mask.to(torch.float32).contiguous()
     dxp = torch.empty_like(x_proj)
-    dhg = torch.empty_like(x_proj)
-    dw_part = torch.empty(n_dir, tiles, hidden, gates, dtype=torch.float32, device=dev)
-    db_part = torch.empty(n_dir, tiles, gates, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gru_bwd(
+        err = _library("gru_bwd").gru_bwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), ys.data_ptr(),
-            g.data_ptr(), dxp.data_ptr(), dhg.data_ptr(), dw_part.data_ptr(), db_part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), n_steps, batch, hidden, n_dir, rev_bits,
-            _DTYPES[x_proj.dtype], stream)
+            g.data_ptr(), dxp.data_ptr(), scratch.data_ptr(), dw_part.data_ptr(),
+            db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), n_steps, batch, hidden, n_dir,
+            rev_bits, _DTYPES[x_proj.dtype], *geometry_args(geometry), stream)
     if err != 0:
         raise RuntimeError(f"gru_bwd kernel launch failed with CUDA error {err}")
     bwd_launches += 1
@@ -500,7 +613,7 @@ def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
     with torch.cuda.device(x_proj.device):
         err = _library("gru_seq").gru_seq(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
-            batch, n_steps, hidden, batch_tile, *_geometry_args(geometry),
+            batch, n_steps, hidden, batch_tile, *geometry_args(geometry),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gru_seq kernel launch failed with CUDA error {err}")

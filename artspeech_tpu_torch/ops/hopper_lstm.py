@@ -4,9 +4,12 @@ Counterpart of artspeech_tpu/ops/pallas_gru.py:lstm_sequence (the fused
 Pallas time loop, ``_lstm_fwd_kernel`` and ``_lstm_bwd_kernel`` wired by a
 custom VJP). The kernels are ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``;
 :class:`LSTMSequenceFn` wires them as a ``torch.autograd.Function``. Each
-takes every H from 1 to ``MAX_HIDDEN``: a two-CTA cluster kernel with W_h
-resident in shared memory where it fits (the latent RNN's H = 128), a wide
-one that reads W_h through the L2 elsewhere.
+takes every H from 1 to ``MAX_HIDDEN``: a thread-block-cluster kernel with
+W_h resident in shared memory where it fits (the latent RNN's H = 128), a
+wide one that reads W_h through the L2 elsewhere. The forward's clusters
+are two CTAs; the backward's is the cluster step of
+``csrc/rnn_bwd_step.cuh`` (shared with the GRU's backward), launched with
+the geometry of ``hopper_gru.rnn_bwd_launch_geometry``.
 
 - A CPU tensor takes the plain versions, :func:`lstm_sequence_reference` and
   :func:`lstm_sequence_backward_reference`.
@@ -23,7 +26,7 @@ import ctypes
 
 import torch
 
-from artspeech_tpu_torch.ops import _build
+from artspeech_tpu_torch.ops import _build, hopper_gru
 
 #: Forward kernel launches so far (the plain version does not count).
 launches = 0
@@ -35,7 +38,7 @@ MAX_HIDDEN = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"lstm_fwd": (6, 6), "lstm_bwd": (13, 6)}
+_POINTERS_INTS = {"lstm_fwd": (6, 6), "lstm_bwd": (13, 9)}
 _libs = {}
 
 
@@ -47,12 +50,9 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        resident = getattr(lib, f"{name}_resident")
-        resident.argtypes = [ctypes.c_int, ctypes.c_int]
-        resident.restype = ctypes.c_int
-        if name == "lstm_bwd":
-            lib.lstm_bwd_batch_tile.argtypes = []
-            lib.lstm_bwd_batch_tile.restype = ctypes.c_int
+        if name == "lstm_fwd":
+            lib.lstm_fwd_resident.argtypes = [ctypes.c_int, ctypes.c_int]
+            lib.lstm_fwd_resident.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -206,9 +206,13 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
 
 def resident(name, hidden, dtype):
     """Whether kernel ``name`` ("lstm_fwd" or "lstm_bwd") runs H in ``dtype``
-    as the cluster kernel with W_h in shared memory (else its wide instance)."""
+    as the cluster kernel with W_h in shared memory (else its wide instance).
+    The backward's answer is ``hopper_gru.rnn_bwd_launch_geometry``'s and
+    needs no card; the forward's asks its library."""
     elem = torch.empty(0, dtype=dtype).element_size()
-    return bool(getattr(_library(name), f"{name}_resident")(hidden, elem))
+    if name == "lstm_bwd":
+        return hopper_gru.rnn_bwd_launch_geometry(1, 1, hidden, 4, elem).resident
+    return bool(_library(name).lstm_fwd_resident(hidden, elem))
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
@@ -249,20 +253,16 @@ def _launch_bwd(x_proj, w_h, b_h, mask, ys, cs, g, n_dir, rev_bits):
     db = torch.zeros(n_dir, gates, dtype=torch.float32, device=dev)
     if n_steps == 0 or batch == 0:
         return torch.zeros_like(x_proj), dw, db
-    lib = _library("lstm_bwd")
-    tiles = -(-batch // lib.lstm_bwd_batch_tile())
+    geometry, scratch, dw_part, db_part = hopper_gru.bwd_launch_buffers(x_proj, n_dir, hidden, 4)
     mask_f = mask.to(torch.float32).contiguous()
     dxp = torch.empty_like(x_proj)
-    dhg = torch.empty_like(x_proj)
-    dw_part = torch.empty(n_dir, tiles, hidden, gates, dtype=torch.float32, device=dev)
-    db_part = torch.empty(n_dir, tiles, gates, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.lstm_bwd(
+        err = _library("lstm_bwd").lstm_bwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), ys.data_ptr(),
-            cs.data_ptr(), g.data_ptr(), dxp.data_ptr(), dhg.data_ptr(), dw_part.data_ptr(),
+            cs.data_ptr(), g.data_ptr(), dxp.data_ptr(), scratch.data_ptr(), dw_part.data_ptr(),
             db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), n_steps, batch, hidden, n_dir,
-            rev_bits, _DTYPES[x_proj.dtype], stream)
+            rev_bits, _DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry), stream)
     if err != 0:
         raise RuntimeError(f"lstm_bwd kernel launch failed with CUDA error {err}")
     bwd_launches += 1

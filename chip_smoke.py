@@ -260,9 +260,20 @@ KERNEL_SHAPES = [(128, 16, 128), (128, 256, 128)]  # (T, B, H)
 #: length T and one of length 1.
 GRU_FWD_CASES = [(128, 1, 128), (37, 13, 128), (1, 12, 128), (9, 5, 136), (9, 7, 20), (9, 5, 6),
                  (17, 64, 128)]
+#: gru_bwd beyond KERNEL_SHAPES, (T, B, H), the same kinds of edge case for
+#: the backward's cluster step: B = 1, B not a multiple of the rows (13),
+#: T = 1, H whose units a CTA are not a multiple of 4 (136: C = 8, U = 17;
+#: 20: C = 4, U = 5; 6: C = 2, U = 3) and a batch that takes clusters of 4
+#: (both directions) and of 8 (one direction) (64); every case has a row of
+#: length T and one of length 1.
+GRU_BWD_CASES = [(128, 1, 128), (37, 13, 128), (1, 12, 128), (9, 5, 136), (9, 7, 20), (9, 5, 6),
+                 (17, 64, 128)]
 #: gru_fwd timed at T = 128, H = 128, both directions: the test step's batch
 #: (12), bench.py's (16) and the large train batch (256).
 GRU_FWD_TIMED_B = (12, 16, 256)
+#: gru_bwd timed at the same shapes: the test step's, bench.py's and the
+#: large train batch.
+GRU_BWD_TIMED_B = (12, 16, 256)
 F32_TOL = 1e-5
 # bf16: both sides round the carry to bf16 every step; one flip of the last
 # bit (2^-8 at |h| < 1) can propagate, so allow two steps of it.
@@ -342,8 +353,12 @@ MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 #: B in {1, 3, 12, 64}, H in {16, 64, 128} around them; each in f32 and
 #: bf16, both directions in one launch and each alone, ragged lengths with a
 #: full row and (B > 1) a row of length 1. Wider H: [widths].
+#: The backward's cluster step adds GRU_BWD_CASES' kinds: B = 1 at T = 128,
+#: B = 13, H = 136 / 20 / 6 (17 / 5 / 3 units a CTA) and B = 64 at H = 128
+#: (clusters of 4, one direction 8).
 LSTM_CASES = [(128, 12, 128), (128, 64, 128), (7, 3, 64), (1, 1, 16), (7, 64, 16),
-              (128, 3, 64), (1, 12, 128)]
+              (128, 3, 64), (1, 12, 128), (128, 1, 128), (37, 13, 128), (9, 5, 136),
+              (9, 7, 20), (9, 5, 6), (17, 64, 128)]
 LSTM_SHAPES = [(128, 12, 128), (128, 64, 128)]  # timed: (T, B, H)
 #: [gru_seq] cases (B, T, H, batch tile): B = 1, B not a multiple of the
 #: tile or of the cluster's rows, ragged rows, T = 1, H 16, 20, 128, 136 and
@@ -363,12 +378,18 @@ WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 1024)}
 #: would hold more than 64 units (130 = 2 * 65).
 GRU_FWD_INSTANCE = {6: ("cluster", "cluster"), 130: ("wide", "wide"), 256: ("cluster", "cluster"),
                     512: ("wide", "cluster"), 1024: ("wide", "wide")}
+#: The instance the backwards take at those H, in f32 and bf16 alike: the
+#: cluster step to H = 256, the wide one above.
+BWD_INSTANCE = {6: "cluster", 130: "cluster", 168: "cluster", 256: "cluster", 512: "wide",
+                1024: "wide"}
 #: (hd, L) of the training attention beyond its resident kernels.
 WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [(32, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
 WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
 #: gru_fwd's timed wide instance: at H = 256 it takes the cluster step.
 WIDE_TIMED_GRU_FWD_H = 512
+#: The backwards' timed wide instances: at H = 256 they take the cluster step.
+WIDE_TIMED_BWD_H = 512
 PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
 #: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
 #: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
@@ -410,7 +431,7 @@ def rel_err(got, ref):
 
 
 #: Libraries whose kernels' registers and spills [build] prints.
-PTXAS_REPORTED = ("gru_fwd", "gru_seq")
+PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd")
 
 
 def ptxas_kernels(report):
@@ -489,6 +510,23 @@ def geometry_fields(b, n_dir, h, dtype):
                 ctas=geo.ctas, threads=geo.threads, waves=geo.waves)
 
 
+def bwd_geometry_fields(b, n_dir, h, gates, dtype):
+    """The launch of gru_bwd (gates 3) or lstm_bwd (4) at a shape, as
+    geometry_fields gives the forward's."""
+    elem = torch.empty(0, dtype=dtype).element_size()
+    geo = hopper_gru.rnn_bwd_launch_geometry(
+        b, n_dir, h, gates, elem, torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(instance="cluster" if geo.resident else "wide", C=geo.cluster, rows=geo.rows,
+                ctas=geo.ctas, threads=geo.threads, waves=geo.waves)
+
+
+def repeats_bitwise(fn, got):
+    """Whether a second call of fn returns tensors equal bit for bit to got."""
+    again = fn()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def gru_fwd_vs_plain():
     """The forward kernel against its plain version at KERNEL_SHAPES and
     GRU_FWD_CASES, both directions in one launch and each alone, f32 within
@@ -522,20 +560,25 @@ def gru_fwd_vs_plain():
 
 def gru_bwd_vs_plain():
     """The backward kernel against its plain version (dx_proj, dW_h, db_h,
-    relative to max(|ref|, 1)), both directions in one launch and each alone,
-    and in f32 against torch.autograd through the plain forward. Returns the
-    largest f32 absolute error max |got - ref| over dx_proj, dW_h and db_h
-    against the plain version, and the largest f32 relative one."""
+    relative to max(|ref|, 1)) at KERNEL_SHAPES and GRU_BWD_CASES, both
+    directions in one launch and each alone, f32 within BWD_F32_TOL and
+    bf16 within BWD_BF16_TOL, and in f32 against torch.autograd through the
+    plain forward; a second launch gives the same bits. Returns the largest
+    f32 absolute error max |got - ref| over dx_proj, dW_h and db_h against
+    the plain version, and the largest f32 relative one."""
     worst_abs, worst_rel = 0.0, 0.0
-    for t, b, h in KERNEL_SHAPES:
+    for t, b, h in KERNEL_SHAPES + GRU_BWD_CASES:
         gates = 3 * h
         for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
-            xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=2 * t + b)
+            xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=2 * t + b + h,
+                                          short_row=(t, b, h) in GRU_BWD_CASES)
             gy = torch.randn(t, b, 2 * h, generator=torch.Generator().manual_seed(b),
                              device="cpu").to(dtype).cuda()
             ys = bigru_reference(xp, wh, bh, mask)
             got = hopper_gru.gru_backward(xp, wh, bh, mask, ys, gy, 0b10)
             ref = bigru_backward_reference(xp, wh, bh, mask, ys, gy)
+            bitwise = repeats_bitwise(lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, gy,
+                                                                      0b10), got)
             pairs = {f"bidirectional_{n}": (a, r) for n, a, r in zip(("dx", "dW", "db"), got, ref)}
             for d, reverse in ((0, False), (1, True)):
                 x_d = xp[..., d * gates:(d + 1) * gates].contiguous()
@@ -556,11 +599,15 @@ def gru_bwd_vs_plain():
                 for n, a, r in zip(("dx", "dW", "db"), got, auto):
                     errs[f"autograd_{n}"] = rel_err(a, r)
             torch.cuda.synchronize()
+            geo = bwd_geometry_fields(b, 2, h, 3, dtype)
             phase("kernel", kernel="gru_bwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
-                  tol=tol, **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()},
+                  tol=tol, C=geo["C"], rows=geo["rows"], instance=geo["instance"],
+                  one_direction_C=bwd_geometry_fields(b, 1, h, 3, dtype)["C"], bitwise=bitwise,
+                  **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()},
                   **{f"max_abs_err_{k}": f"{v:.3g}" for k, v in abs_errs.items()})
             check(all(np.isfinite(v) and v <= tol for v in errs.values()),
                   f"gru_bwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            check(bitwise, f"gru_bwd gave other bits on a second launch at {(t, b, h)} {dtype}")
             if dtype == torch.float32:
                 worst_abs = max(worst_abs, *abs_errs.values())
                 worst_rel = max(worst_rel, *errs.values())
@@ -800,12 +847,15 @@ def lstm_fwd_vs_plain():
 def lstm_bwd_vs_plain():
     """The backward kernel against its plain version (dx_proj, dW_h, db_h,
     relative to max(|ref|, 1)) at LSTM_CASES, from the plain forward's ys and
-    cell states. Returns the largest f32 absolute error at the latent RNN's
+    cell states, both directions in one launch and each alone, f32 within
+    BWD_F32_TOL and bf16 within BWD_BF16_TOL, and in f32 against
+    torch.autograd through the plain forward; a second launch gives the
+    same bits. Returns the largest f32 absolute error at the latent RNN's
     shape and the largest f32 relative one."""
     worst_abs, worst_rel = 0.0, 0.0
     for t, b, h in LSTM_CASES:
         for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
-            errs, abs_errs = {}, {}
+            errs, abs_errs, bitwise = {}, {}, True
             for name, n_dir, rev_bits in LSTM_LAYOUTS:
                 xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=2 * t + b + h + n_dir)
                 ys, cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, rev_bits,
@@ -814,14 +864,27 @@ def lstm_bwd_vs_plain():
                                  device="cpu").to(dtype).cuda()
                 got = hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, rev_bits)
                 ref = hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, rev_bits)
-                torch.cuda.synchronize()
+                bitwise &= repeats_bitwise(lambda: hopper_lstm.lstm_backward(
+                    xp, wh, bh, mask, ys, cs, gy, rev_bits), got)
                 for part, a, r in zip(("dx", "dW", "db"), got, ref):
                     errs[f"{name}_{part}"] = rel_err(a, r)
                     abs_errs[f"{name}_{part}"] = (a.float() - r.float()).abs().max().item()
+                if dtype == torch.float32:
+                    params = [v.clone().requires_grad_() for v in (xp, wh, bh)]
+                    with torch.enable_grad():
+                        out, _ = hopper_lstm.lstm_forward_reference(*params, mask, rev_bits)
+                        auto = torch.autograd.grad(out, params, gy)
+                    for part, a, r in zip(("dx", "dW", "db"), got, auto):
+                        errs[f"{name}_autograd_{part}"] = rel_err(a, r)
+                torch.cuda.synchronize()
+            geo = bwd_geometry_fields(b, 2, h, 4, dtype)
             phase("kernel", kernel="lstm_bwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
-                  tol=tol, **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()})
+                  tol=tol, C=geo["C"], rows=geo["rows"], instance=geo["instance"],
+                  one_direction_C=bwd_geometry_fields(b, 1, h, 4, dtype)["C"], bitwise=bitwise,
+                  **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()})
             check(all(np.isfinite(v) and v <= tol for v in errs.values()),
                   f"lstm_bwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            check(bitwise, f"lstm_bwd gave other bits on a second launch at {(t, b, h)} {dtype}")
             if dtype == torch.float32:
                 worst_rel = max(worst_rel, *errs.values())
                 if (t, b, h) == LSTM_SHAPES[0]:
@@ -981,11 +1044,12 @@ def widths():
                 err = width_errors(kernel, h, dtype)
                 torch.cuda.synchronize()
                 instance = "resident" if mod.resident(kernel, h, dtype) else "wide"
-                if kernel == "gru_fwd":
+                if kernel == "gru_fwd" or kernel.endswith("bwd"):
                     instance = "cluster" if instance == "resident" else "wide"
-                    expected = GRU_FWD_INSTANCE[h][dtype == torch.bfloat16]
-                    check(instance == expected, f"gru_fwd takes the {instance} instance at H={h} "
-                                                f"{dtype}, expected {expected}")
+                    expected = (GRU_FWD_INSTANCE[h][dtype == torch.bfloat16]
+                                if kernel == "gru_fwd" else BWD_INSTANCE[h])
+                    check(instance == expected, f"{kernel} takes the {instance} instance at "
+                                                f"H={h} {dtype}, expected {expected}")
                 phase("widths", kernel=kernel, H=h, dtype=str(dtype).split(".")[-1],
                       instance=instance, tol=tol, err=f"{err:.3g}")
                 check(np.isfinite(err) and err <= tol,
@@ -1052,42 +1116,56 @@ def widths():
     return time_wide_instances()
 
 
+def bwd_timing(kernel, h):
+    """One recurrent backward ("gru_bwd" or "lstm_bwd") at T = 128, B = 16,
+    H = h, both directions, f32: (ms, cuDNN's backward alone at that shape,
+    the instance the width takes)."""
+    t, b = BENCH_T, BENCH_B
+    if kernel == "gru_bwd":
+        mod, rnn, inputs = hopper_gru, torch.nn.GRU, gru_inputs(t, b, h, 2, torch.float32, seed=7)
+        ys = hopper_gru.gru_forward(*inputs, 0b10)
+        ms = cuda_ms(lambda: hopper_gru.gru_backward(*inputs, ys, ys, 0b10), 5)
+    else:
+        mod, rnn, inputs = hopper_lstm, torch.nn.LSTM, lstm_inputs(t, b, h, 2, torch.float32,
+                                                                   seed=7)
+        ys, cs = hopper_lstm.lstm_forward(*inputs, 0b10, with_cells=True)
+        ms = cuda_ms(lambda: hopper_lstm.lstm_backward(*inputs, ys, cs, ys, 0b10), 5)
+    instance = "cluster" if mod.resident(kernel, h, torch.float32) else "wide"
+    return ms, cudnn_bwd_ms(rnn, t, b, h)[0], instance
+
+
 def time_wide_instances():
     """Each wide instance at one shape, f32, beside one PyTorch call that
     computes the same function there (a yardstick the port never calls):
     gru_fwd at H = 512 (T = 128, B = 16, both directions; cuDNN's nn.GRU
-    forward); gru_bwd and the LSTM kernels at H = 256 (the same T, B and
-    directions; cuDNN's nn.GRU and nn.LSTM forward, and forward + backward
-    minus forward); the training attention at hd = 64 (G = 4,320, L = 128,
-    the dropout keep; scaled_dot_product_attention with is_causal, forward,
-    and forward + backward minus forward); the decode at hd = 128 (the
-    B = 12 cross-channel G, 128 rows; scaled_dot_product_attention over
-    (G, 1, 1, hd) x (G, 1, S, hd)). Beside gru_fwd's, its cluster step at
-    H = 256 (the width its wide instance ran at until the cluster step took
-    it) with cuDNN's forward there, under keys of their own."""
+    forward); gru_bwd and lstm_bwd at H = 512 (the same T, B and
+    directions; cuDNN's nn.GRU and nn.LSTM backward timed alone); lstm_fwd
+    at H = 256 (cuDNN's nn.LSTM forward); the training attention at hd = 64
+    (G = 4,320, L = 128, the dropout keep; scaled_dot_product_attention with
+    is_causal, forward, and forward + backward minus forward); the decode at
+    hd = 128 (the B = 12 cross-channel G, 128 rows;
+    scaled_dot_product_attention over (G, 1, 1, hd) x (G, 1, S, hd)). Beside
+    them, under keys of their own, the cluster steps at H = 256 (the width
+    the wide instances ran at until the cluster steps took it) with cuDNN
+    there: gru_fwd's, gru_bwd's and lstm_bwd's."""
     t, b, h = BENCH_T, BENCH_B, WIDE_TIMED_H
-    results, library = {}, {}
+    results, library, h256 = {}, {}, {}
     xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=7)
-    ys = hopper_gru.gru_forward(xp, wh, bh, mask, 0b10)
     check(hopper_gru.resident("gru_fwd", h, torch.float32),
           f"gru_fwd at H={h} f32 was expected to take its cluster step")
     cluster_ms = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
-    results["gru_bwd"] = cuda_ms(lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, ys, 0b10),
-                                 5)
     xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=7)
-    ys, cs = hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10, with_cells=True)
     results["lstm_fwd"] = cuda_ms(lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10), 5)
-    results["lstm_bwd"] = cuda_ms(
-        lambda: hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, ys, 0b10), 5)
-    for rnn, fwd_name, bwd_name in ((torch.nn.GRU, "gru_fwd_h256", "gru_bwd"),
-                                    (torch.nn.LSTM, "lstm_fwd", "lstm_bwd")):
+    for rnn, name in ((torch.nn.GRU, "gru_fwd_h256"), (torch.nn.LSTM, "lstm_fwd")):
         cudnn = rnn(h, h, bidirectional=True).cuda()
-        x = torch.randn(t, b, h, device="cuda", requires_grad=True)
-        gy = torch.randn(t, b, 2 * h, device="cuda")
+        x = torch.randn(t, b, h, device="cuda")
         with torch.inference_mode():
-            library[fwd_name] = cuda_ms(lambda: cudnn(x), 5)
-        train_fwd_ms = cuda_ms(lambda: cudnn(x), 5)
-        library[bwd_name] = cuda_ms(lambda: cudnn(x)[0].backward(gy), 5) - train_fwd_ms
+            library[name] = cuda_ms(lambda: cudnn(x), 5)
+    for name in ("gru_bwd", "lstm_bwd"):
+        results[name], library[name], instance = bwd_timing(name, WIDE_TIMED_BWD_H)
+        check(instance == "wide", f"{name} at H={WIDE_TIMED_BWD_H} f32 was expected to take "
+                                  f"its wide instance")
+        h256[name] = bwd_timing(name, h)
     h_fwd = WIDE_TIMED_GRU_FWD_H
     check(not hopper_gru.resident("gru_fwd", h_fwd, torch.float32),
           f"gru_fwd at H={h_fwd} f32 was expected to take its wide instance")
@@ -1097,7 +1175,7 @@ def time_wide_instances():
     x = torch.randn(t, b, h_fwd, device="cuda")
     with torch.inference_mode():
         library["gru_fwd"] = cuda_ms(lambda: cudnn(x), 5)
-    del xp, wh, bh, mask, ys, cs, cudnn, x
+    del xp, wh, bh, mask, cudnn, x
     g, hd = TRAIN_ATTN_G[12], WIDE_TIMED_ATTN_HD
     q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=7, hd=hd)
     out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
@@ -1122,21 +1200,29 @@ def time_wide_instances():
     sdpa_in = (q.T.reshape(g_flash, 1, 1, WIDE_TIMED_FLASH_HD).contiguous(),
                k.permute(2, 0, 1)[:, None].contiguous(), v.permute(2, 0, 1)[:, None].contiguous())
     library["flash_decode"] = cuda_ms(lambda: sdpa(*sdpa_in, scale=1.0), 20)
-    shapes = {"gru_fwd": f"T={t},B={b},H={h_fwd},directions=2", "gru_bwd": f"T={t},B={b},H={h}",
-              "lstm_fwd": f"T={t},B={b},H={h},directions=2", "lstm_bwd": f"T={t},B={b},H={h}",
+    shapes = {"gru_fwd": f"T={t},B={b},H={h_fwd},directions=2",
+              **{k: f"T={t},B={b},H={WIDE_TIMED_BWD_H},directions=2"
+                 for k in ("gru_bwd", "lstm_bwd")},
+              "lstm_fwd": f"T={t},B={b},H={h},directions=2",
               "train_attention_fwd": f"G={g},L={TRAIN_T},hd={hd}",
               "train_attention_bwd": f"G={g},L={TRAIN_T},hd={hd}",
               "flash_decode": f"G={g_flash},S={DECODE_T},hd={WIDE_TIMED_FLASH_HD}"}
-    cluster_shape = f"T={t},B={b},H={h},directions=2"
-    phase("timing", kernel="gru_fwd", instance="cluster", shape=cluster_shape, dtype="float32",
+    h256_shape = f"T={t},B={b},H={h},directions=2"
+    phase("timing", kernel="gru_fwd", instance="cluster", shape=h256_shape, dtype="float32",
           ms=f"{cluster_ms:.6g}", library_ms=f"{library['gru_fwd_h256']:.6g}")
+    for name, (ms, lib_ms, instance) in h256.items():
+        phase("timing", kernel=name, instance=instance, shape=h256_shape, dtype="float32",
+              ms=f"{ms:.6g}", library_ms=f"{lib_ms:.6g}")
     for name, ms in results.items():
         phase("timing", kernel=name, instance="wide", shape=shapes[name], dtype="float32",
               ms=f"{ms:.6g}", library_ms=f"{library[name]:.6g}")
     wide = {name: {"wide_ms": ms, "wide_shape": shapes[name], "wide_library_ms": library[name]}
             for name, ms in results.items()}
-    wide["gru_fwd"].update(h256_cluster_ms=cluster_ms, h256_cluster_shape=cluster_shape,
+    wide["gru_fwd"].update(h256_cluster_ms=cluster_ms, h256_cluster_shape=h256_shape,
                            h256_cluster_library_ms=library["gru_fwd_h256"])
+    for name, (ms, lib_ms, instance) in h256.items():
+        wide[name].update({f"h256_{instance}_ms": ms, f"h256_{instance}_shape": h256_shape,
+                           f"h256_{instance}_library_ms": lib_ms})
     return wide
 
 
@@ -2677,22 +2763,24 @@ def time_train_attention():
 
 def kernel_device_ms(fn, calls, name):
     """Mean device ms per call of the kernels whose name holds ``name`` (or
-    one of the names of a tuple), from a torch.profiler trace of ``calls``
-    calls of ``fn``; traced a second time if the first trace holds none (the
-    profiler sometimes drops a trace's device events), None if
-    neither does."""
+    one of the names of a tuple), from a torch.profiler trace of host and
+    device of ``calls`` calls of ``fn``; traced again, up to three times in
+    all, while the trace holds fewer than ``calls`` launches of some name
+    (deep into a long run, traces have come back short of launches), None
+    if none holds them all."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = (name,) if isinstance(name, str) else name
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if any(n in e.key for n in names))
-        if total > 0:
-            return total / 1e3 / calls
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if all(sum(e.count for e in kernels if n in e.key) >= calls for n in names):
+            return sum(e.self_device_time_total for e in kernels
+                       if any(n in e.key for n in names)) / 1e3 / calls
     return None
 
 
@@ -2811,28 +2899,75 @@ def time_gru_fwd():
     return results
 
 
+def cudnn_bwd_ms(rnn, t, b, h, iters=25):
+    """cuDNN's backward alone, the backward kernels' yardstick: ``rnn``
+    (nn.GRU or nn.LSTM, bidirectional, f32, full-length rows) run forward
+    once with its graph kept, then only torch.autograd.grad of its output by
+    the input and every parameter (which also gives the input projection's
+    gradients, left outside the port's kernels), timed with CUDA events:
+    the median of ``iters`` runs after two warm-up runs. Returns (ms, device
+    ms a call of every kernel in a profiler trace of it)."""
+    cudnn = rnn(h, h, bidirectional=True).cuda()
+    x = torch.randn(t, b, h, device="cuda", requires_grad=True)
+    gy = torch.randn(t, b, 2 * h, device="cuda")
+    out = cudnn(x)[0]
+    inputs = (x, *cudnn.parameters())
+
+    def grad():
+        return torch.autograd.grad(out, inputs, gy, retain_graph=True)
+
+    for _ in range(2):
+        grad()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        grad()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), kernel_device_ms(grad, 10, "")
+
+
+def split_device_ms(fn, main):
+    """Device ms a call of a backward's main kernel (names holding ``main``)
+    and of its partial-sum kernel, and their sum (None where a trace held
+    no device time)."""
+    main_ms = kernel_device_ms(fn, 10, main)
+    sum_ms = kernel_device_ms(fn, 10, "sum_partials")
+    both = None if main_ms is None or sum_ms is None else main_ms + sum_ms
+    return dict(device_ms=both, main_device_ms=main_ms, partial_sum_device_ms=sum_ms)
+
+
 def time_gru_bwd():
-    """The backward kernel, its plain version, and cuDNN nn.GRU's backward
-    (forward+backward minus forward; it also computes the input projection's
-    gradients) as the yardstick."""
+    """The backward kernel at T = 128, H = 128, both directions, f32, at
+    GRU_BWD_TIMED_B: back to back and by profiler device time (the main
+    kernel and the partial-sum kernel apart), beside its plain version, the
+    bound and cuDNN nn.GRU's backward timed alone (cudnn_bwd_ms), with its
+    launch geometry and microseconds a step. Returns {B: numbers}."""
     results = {}
-    for t, b, h in KERNEL_SHAPES:
+    t, h = BENCH_T, HIDDEN
+    for b in GRU_BWD_TIMED_B:
         xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=3)
         gy = torch.randn(t, b, 2 * h, device="cuda")
         ys = hopper_gru.bigru_sequence(xp, wh, bh, mask)
-        kernel_ms = cuda_ms(lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, gy, 0b10), 20)
+
+        def bwd():
+            return hopper_gru.gru_backward(xp, wh, bh, mask, ys, gy, 0b10)
+
+        kernel_ms = cuda_ms(bwd, 20)
         plain_ms = cuda_ms(lambda: bigru_backward_reference(xp, wh, bh, mask, ys, gy), 3)
-        cudnn = torch.nn.GRU(h, h, bidirectional=True).cuda()
-        x = torch.randn(t, b, h, device="cuda", requires_grad=True)
-        fwd_ms = cuda_ms(lambda: cudnn(x), 20)
-        both_ms = cuda_ms(lambda: cudnn(x)[0].backward(gy), 20)
+        library_ms, library_device_ms = cudnn_bwd_ms(torch.nn.GRU, t, b, h)
         bound_ms, bound_by = gru_bwd_bound_ms(t, b, h, 2, 4)
-        results[(t, b)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                               bound_by=bound_by, library_ms=both_ms - fwd_ms)
+        results[b] = dict(ms=kernel_ms, **split_device_ms(bwd, "gru_bwd"), plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                          library_device_ms=library_device_ms, us_per_step=kernel_ms * 1e3 / t,
+                          geometry=bwd_geometry_fields(b, 2, h, 3, torch.float32))
         phase("timing", kernel="gru_bwd", T=t, B=b, H=h, directions=2, dtype="float32",
-              cudnn_fwd_bwd_ms=f"{both_ms:.6g}", cudnn_fwd_ms=f"{fwd_ms:.6g}",
-              **fmt(results[(t, b)]))
-    return results[(BENCH_T, BENCH_B)]
+              **fmt({k: v for k, v in results[b].items() if k != "geometry"}),
+              **results[b]["geometry"])
+    return results
 
 
 def lstm_bound_ms(t, b, h, n_dir, elem_bytes):
@@ -2865,11 +3000,12 @@ def lstm_bwd_bound_ms(t, b, h, n_dir, elem_bytes):
 
 def time_lstm():
     """Both LSTM kernels at LSTM_SHAPES (T = 128, H = 128, both directions,
-    f32): back to back and by profiler device time (the backward's with its
-    two partial-sum kernels), their plain versions, the bounds, and cuDNN's
-    nn.LSTM on full-length rows as the yardstick (forward; forward +
-    backward minus forward, which also computes the input projection's
-    gradients). Returns {kernel: {B: numbers}}."""
+    f32): back to back and by profiler device time (the backward's main
+    kernel and its partial-sum kernel apart), their plain versions, the
+    bounds, and cuDNN's nn.LSTM on full-length rows as the yardstick: its
+    inference forward, and its backward timed alone (cudnn_bwd_ms); the
+    backward's launch geometry and microseconds a step. Returns
+    {kernel: {B: numbers}}."""
     results = {"lstm_fwd": {}, "lstm_bwd": {}}
     for t, b, h in LSTM_SHAPES:
         xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=1)
@@ -2883,26 +3019,30 @@ def time_lstm():
             return hopper_lstm.lstm_backward(xp, wh, bh, mask, ys, cs, gy, 0b10)
 
         cudnn = torch.nn.LSTM(h, h, bidirectional=True).cuda()
-        x = torch.randn(t, b, h, device="cuda", requires_grad=True)
+        x = torch.randn(t, b, h, device="cuda")
         with torch.inference_mode():
             cudnn_fwd_ms = cuda_ms(lambda: cudnn(x), 20)
-        cudnn_train_fwd_ms = cuda_ms(lambda: cudnn(x), 20)
-        cudnn_both_ms = cuda_ms(lambda: cudnn(x)[0].backward(gy), 20)
-        for name, fn, plain, bound, library_ms in (
-                ("lstm_fwd", fwd,
-                 lambda: hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, 0b10),
-                 lstm_bound_ms(t, b, h, 2, 4), cudnn_fwd_ms),
-                ("lstm_bwd", bwd,
-                 lambda: hopper_lstm.lstm_backward_reference(xp, wh, bh, mask, ys, cs, gy, 0b10),
-                 lstm_bwd_bound_ms(t, b, h, 2, 4), cudnn_both_ms - cudnn_train_fwd_ms)):
-            device_names = (f"{name}_kernel", "sum_partials") if name == "lstm_bwd" else name
-            results[name][b] = dict(ms=cuda_ms(fn, 20),
-                                    device_ms=kernel_device_ms(fn, 10, device_names),
-                                    plain_ms=cuda_ms(plain, 3), bound_ms=bound[0],
-                                    bound_by=bound[1], library_ms=library_ms)
+        cudnn_bwd, cudnn_bwd_device = cudnn_bwd_ms(torch.nn.LSTM, t, b, h)
+        results["lstm_fwd"][b] = dict(ms=cuda_ms(fwd, 20), device_ms=kernel_device_ms(fwd, 10,
+                                                                                     "lstm_fwd"),
+                                      plain_ms=cuda_ms(lambda: hopper_lstm.lstm_forward_reference(
+                                          xp, wh, bh, mask, 0b10), 3),
+                                      **dict(zip(("bound_ms", "bound_by"),
+                                                 lstm_bound_ms(t, b, h, 2, 4))),
+                                      library_ms=cudnn_fwd_ms)
+        bwd_ms = cuda_ms(bwd, 20)
+        results["lstm_bwd"][b] = dict(ms=bwd_ms, **split_device_ms(bwd, "lstm_bwd"),
+                                      plain_ms=cuda_ms(lambda: hopper_lstm.lstm_backward_reference(
+                                          xp, wh, bh, mask, ys, cs, gy, 0b10), 3),
+                                      **dict(zip(("bound_ms", "bound_by"),
+                                                 lstm_bwd_bound_ms(t, b, h, 2, 4))),
+                                      library_ms=cudnn_bwd, library_device_ms=cudnn_bwd_device,
+                                      us_per_step=bwd_ms * 1e3 / t,
+                                      geometry=bwd_geometry_fields(b, 2, h, 4, torch.float32))
+        for name in ("lstm_fwd", "lstm_bwd"):
             phase("timing", kernel=name, T=t, B=b, H=h, directions=2, dtype="float32",
-                  cudnn_fwd_ms=f"{cudnn_fwd_ms:.6g}", cudnn_fwd_bwd_ms=f"{cudnn_both_ms:.6g}",
-                  **fmt(results[name][b]))
+                  **fmt({k: v for k, v in results[name][b].items() if k != "geometry"}),
+                  **results[name][b].get("geometry", {}))
     return results
 
 
@@ -3066,7 +3206,8 @@ def main():
     flash = time_flash_decode()
     train_attention = time_train_attention()
     gru_fwd = time_gru_fwd()
-    numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": time_gru_bwd(),
+    gru_bwd = time_gru_bwd()
+    numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": gru_bwd[BENCH_B],
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
                "flash_decode": flash[(12, torch.float32)],
                **{k: train_attention[(k, TRAIN["batch"])]
@@ -3117,6 +3258,8 @@ def main():
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
     extra["gru_seq"] = {"by_shape": {f"B={b}": r for b, r in gru_seq.items()}}
     extra["gru_fwd"] = {"by_shape": {f"B={b}": r for (_, b), r in gru_fwd.items()}}
+    extra["gru_bwd"]["by_shape"] = {f"B={b}": r for b, r in gru_bwd.items()}
+    extra["gru_bwd"]["device_ms"] = gru_bwd[BENCH_B]["device_ms"]
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],

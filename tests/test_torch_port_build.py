@@ -5,7 +5,8 @@
 ``#include "…"`` and of the nvcc flags, so that a library built from an
 older header is never loaded. These tests run over a temporary ``CSRC_DIR``
 (nothing is compiled: no nvcc is needed) and over the real sources, where
-the two GRU forward kernels share ``gru_step.cuh``.
+the two GRU forward kernels share ``gru_step.cuh``, the GRU and LSTM
+backward kernels ``rnn_bwd_step.cuh``, and both steps ``dsmem.cuh``.
 """
 
 import os
@@ -63,8 +64,17 @@ def test_editing_the_source_or_the_flags_changes_the_library(tmp_path, monkeypat
 
 
 def test_the_gru_forward_kernels_share_their_step():
-    step = os.path.join(_build.CSRC_DIR, "gru_step.cuh")
+    """gru_fwd and gru_seq include the forward's cluster step, gru_bwd and
+    lstm_bwd the backward's, and all four the helpers header the two steps
+    share, so an edit of that header changes every one of their libraries."""
+    csrc = _build.CSRC_DIR
+    helpers = os.path.join(csrc, "dsmem.cuh")
+    step = os.path.join(csrc, "gru_step.cuh")
+    bwd_step = os.path.join(csrc, "rnn_bwd_step.cuh")
     for name in ("gru_fwd", "gru_seq"):
-        assert _build.sources(name) == [os.path.join(_build.CSRC_DIR, f"{name}.cu"), step]
+        assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), step, helpers]
+    for name in ("gru_bwd", "lstm_bwd"):
+        assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), bwd_step, helpers]
     assert step not in _build.sources("gru_bwd")
+    assert helpers not in _build.sources("lstm_fwd")
     assert _build._libraries.get("gru_fwd") is None  # nothing was built or loaded
