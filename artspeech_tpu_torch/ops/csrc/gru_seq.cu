@@ -31,8 +31,8 @@
 // kernel's batch tile (16 rows a grid step) is a TPU shape: on the card one
 // 16-row block left a step's 384 x 16 x 128 product on one SM. The launch
 // geometry comes from hopper_gru.gru_launch_geometry, the same rule and
-// the same geometry as gru_fwd with one direction; `tile` is checked and
-// does not change the launch or the result.
+// the same geometry as gru_fwd with one direction; the TPU's batch tile is
+// not passed (it changes neither the launch nor the result).
 //
 // The wide instance. Where no cluster holds W_h in shared memory (the
 // rule's `resident` is false), gru_seq_kernel runs one block of 512
@@ -159,16 +159,15 @@ void (*cluster_kernel(int rows))(const float*, const float*, const float*, const
 extern "C" {
 
 // x_proj (B, T, 3H), w_h (H, 3H), b_h (3H), mask (B, T), out (B, T, H), all
-// f32 and contiguous; 1 <= H <= 1024, 1 <= tile <= 32. The launch geometry
+// f32 and contiguous; 1 <= H <= 1024. The launch geometry
 // comes from hopper_gru.gru_launch_geometry (one direction, f32): cluster
 // CTAs (0: the wide instance), rows a cluster walks (2, 4 or 8), and the
 // dynamic shared memory in bytes. Returns the first nonzero cudaError_t
 // of the launch (a geometry the kernel does not take, or a refused
 // cluster), else 0.
 int gru_seq(const void* xp, const void* wh, const void* bh, const void* mask, void* out,
-            int batch, int n_steps, int hidden, int tile, int cluster, int rows, int smem,
-            void* stream) {
-  if (batch < 1 || n_steps < 1 || hidden < 1 || hidden > 1024 || tile < 1 || tile > 32)
+            int batch, int n_steps, int hidden, int cluster, int rows, int smem, void* stream) {
+  if (batch < 1 || n_steps < 1 || hidden < 1 || hidden > 1024)
     return (int)cudaErrorInvalidValue;
   const float* x = static_cast<const float*>(xp);
   const float* w = static_cast<const float*>(wh);

@@ -44,12 +44,10 @@ launches_seq = 0
 
 #: Widest hidden size the kernels take.
 MAX_HIDDEN = 1024
-#: Largest batch tile the batch-major kernel takes.
-MAX_BATCH_TILE = 32
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 9), "gru_seq": (5, 7)}
+_POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 9), "gru_seq": (5, 6)}
 _libs = {}
 
 
@@ -587,15 +585,15 @@ def gru_sequence_batch_major_reference(x_proj, w_h, b_h, mask):
     return out
 
 
-def batch_major_resident(hidden, batch_tile=16):
+def batch_major_resident(hidden):
     """Whether the batch-major kernel keeps W_h resident in shared memory at
     this width (else it reads W_h through the L2 every step): the answer of
     :func:`gru_launch_geometry`, the same as the forward kernel's with one
-    direction in f32. ``batch_tile`` does not change it."""
+    direction in f32. The batch tile does not change it."""
     return gru_launch_geometry(1, 1, hidden, 4).resident
 
 
-def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
+def _launch_seq(x_proj, w_h, b_h, mask):
     global launches_seq
     batch, n_steps, gates = x_proj.shape
     hidden = gates // 3
@@ -613,7 +611,7 @@ def _launch_seq(x_proj, w_h, b_h, mask, batch_tile):
     with torch.cuda.device(x_proj.device):
         err = _library("gru_seq").gru_seq(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), out.data_ptr(),
-            batch, n_steps, hidden, batch_tile, *geometry_args(geometry),
+            batch, n_steps, hidden, *geometry_args(geometry),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gru_seq kernel launch failed with CUDA error {err}")
@@ -626,14 +624,14 @@ def gru_sequence_batch_major(x_proj, w_h, b_h, mask, batch_tile: int = 16):
     counterpart of JAX ``gru_sequence_pallas``.
 
     Args:
-        x_proj: (B, T, 3H) float32 hoisted input projections (x @ w_i + b_i).
-        w_h: (H, 3H) float32; b_h: (3H,) float32; mask: (B, T), nonzero (True)
-            on valid steps.
-        batch_tile: the TPU kernel's batch tile (16 by default), 1 to
-            ``MAX_BATCH_TILE``, as JAX's API takes it. It does not change the
-            result. On the card the launch geometry comes from
-            :func:`gru_launch_geometry` (the TPU's tiles do not carry over),
-            not from this tile.
+        x_proj: (B, T, 3H) hoisted input projections (x @ w_i + b_i).
+        w_h: (H, 3H); b_h: (3H,); mask: (B, T), nonzero (True) on valid
+            steps. x_proj, w_h and b_h are cast to float32, as JAX casts them.
+        batch_tile: the TPU kernel's batch tile (16 by default), any tile
+            >= 1, as JAX's API takes it (JAX pads the batch to a multiple of
+            it). It does not change the result. On the card the launch
+            geometry comes from :func:`gru_launch_geometry` (the TPU's tiles
+            do not carry over), not from this tile.
     Returns:
         (B, T, H) float32 hidden states; at padded steps they repeat the last
         valid one. A CPU tensor takes
@@ -650,15 +648,13 @@ def gru_sequence_batch_major(x_proj, w_h, b_h, mask, batch_tile: int = 16):
         raise ValueError(f"gru_sequence_batch_major shapes: w_h (H, 3H), b_h (3H,), mask (B, T); "
                          f"got {tuple(w_h.shape)}, {tuple(b_h.shape)}, {tuple(mask.shape)} for "
                          f"x_proj {tuple(x_proj.shape)}")
-    if x_proj.dtype != torch.float32:
-        raise TypeError(f"gru_sequence_batch_major takes float32, got {x_proj.dtype}")
     if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"gru_sequence_batch_major takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
-    if not 1 <= batch_tile <= MAX_BATCH_TILE:
-        raise ValueError(f"gru_sequence_batch_major: batch_tile must be in [1, "
-                         f"{MAX_BATCH_TILE}], got {batch_tile}")
+    if batch_tile < 1:
+        raise ValueError(f"gru_sequence_batch_major: batch_tile must be >= 1, got {batch_tile}")
+    x_proj, w_h, b_h = x_proj.float(), w_h.float(), b_h.float()
     if x_proj.device.type == "cpu":
         return gru_sequence_batch_major_reference(x_proj, w_h, b_h, mask)
     if x_proj.device.type != "cuda":
         raise ValueError(f"gru_seq kernel needs CUDA tensors, got {x_proj.device}")
-    return _launch_seq(x_proj, w_h, b_h, mask, batch_tile)
+    return _launch_seq(x_proj, w_h, b_h, mask)

@@ -14,7 +14,8 @@ Phases, each printing its own lines:
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
                train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
                all started together; prints -Xptxas -v's registers and
-               spills of each gru_fwd and gru_seq kernel;
+               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_bwd
+               and flash_decode;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -29,8 +30,10 @@ Phases, each printing its own lines:
                on ties (duplicated points, identical contours, a permutation):
                indices equal, distances within 1e-6 relative; flash decode
                at hd = 16 over 128-row caches, G of the self and cross-channel
-               caches at B = 1, 12 and 64, n_rows 1, 33 and 128, f32 and bf16
-               caches, within 1e-5 relative + 2e-5 absolute; the training
+               caches at B = 1, 12 and 64 and G 4,321 and 4,330 (not a
+               multiple of 32 or 64), n_rows 1, 2, 33, 127 and 128, f32 and
+               bf16 caches, within 1e-5 relative + 2e-5 absolute, each with
+               its launch geometry, and a second launch bit for bit; the training
                attention forward and backward (train_attention.cu) at hd = 16,
                G = 360, 4,320 and 23,040 (B = 1, 12, 64 of the thesis
                transformer) with L 32 and 128, L 512 and 37 at G = 360, the
@@ -46,7 +49,8 @@ Phases, each printing its own lines:
                version in f32 within 1e-5 (GRU_SEQ_CASES: B = 1, B not a
                multiple of the tile or the cluster's rows, ragged rows of
                length T and 1, T = 1, the cluster step at H 16, 20, 128, 136
-               and 256, the wide instance at 512); H above 1,024 refused;
+               and 256, the wide instance at 512), and batch tile 33 with a
+               bf16 x_proj (cast to f32, as JAX does); H above 1,024 refused;
                then its path (a measured reference, as in JAX): one call each
                at B = 16 and 256, T = 128, H = 128, with exactly one launch
                each;
@@ -129,7 +133,8 @@ Phases, each printing its own lines:
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
                caches, with exactly 8 * T flash_decode launches a batch,
-               frames/s and the device's busy time and idle share; the cached
+               frames/s, the device's busy time and idle share and
+               flash_decode's device ms and share of it a batch; the cached
                f32 decode against the buffer re-decode at B = 12 for T in
                {32, 64, 96, 112, 128} (make_auto_generate's band); and the
                card against the CPU: one attend, forward and encode within
@@ -159,10 +164,16 @@ Phases, each printing its own lines:
                train frames/s at B=12 and B=256 and test frames/s at B=12
                with the device's idle share and top kernels from
                torch.profiler, and each CLI's wall time; flash decode at the
-               B = 12 and B = 64 cross-channel caches with n_rows = 128, back
-               to back (cycling cache copies that overflow the L2) and by
-               profiler device time, against its bound, its plain version and
-               scaled_dot_product_attention; the training attention forward
+               decode's own calls: the self and cross-channel caches at B = 12
+               and 64, f32 and bf16, n_rows 1, 16, 64 and 128, and the 256
+               calls of one layer's decode sweep over T = 128, cycling cache
+               copies that overflow the L2, each by graph_ms (one CUDA graph
+               of the calls: device time without host gaps) and back to back,
+               with the wrapper's host us a call, its launch geometry, the
+               bound summed over the calls and scaled_dot_product_attention
+               over the same calls measured the same two ways (the plain
+               version and the profiler's device time at n_rows = 128, cross-
+               channel); the training attention forward
                and backward at the B = 12 and B = 64 shapes (L = 128, the
                dropout keep) the same way, against scaled_dot_product_attention
                (is_causal, all-ones keep: forward, and forward + backward
@@ -336,6 +347,16 @@ BF16_FORWARD_TOL = 2.0**-6
 FLASH_RTOL, FLASH_ATOL = 1e-5, 2e-5
 HD = 16  # the transformer config's head dim: embed 64 / 4 heads
 DECODE_T = 128
+#: flash_decode's checks: n_rows at the ends and inside (2 and 127 split
+#: unevenly), and lane counts that are not a multiple of 32 or 64 (odd: one
+#: lane a thread; even: a ragged last block of lane pairs).
+FLASH_CHECKED_ROWS = (1, 2, 33, 127, 128)
+FLASH_RAGGED_G = (4321, 4330)
+#: flash_decode's timings: n_rows of single calls, and the L2-overflowing
+#: bytes of cache copies the calls cycle through (the decode streams 8
+#: caches between two reads of one).
+FLASH_TIMED_ROWS = (1, 16, 64, 128)
+FLASH_STREAM_BYTES = 200_000_000
 DECODE_BATCHES = (12, 64)  # the thesis batch and the test CLI's generate batch on the card
 BAND_T = (32, 64, 96, 112, 128)
 TRANSFORMER_TOL = 1e-4  # card against CPU: forward, encode, per-frame decode
@@ -369,6 +390,8 @@ GRU_SEQ_CASES = [(21, 37, 16, 16), (16, 128, 128, 16), (5, 11, 16, 4), (3, 1, 12
                  (37, 13, 256, 16), (9, 128, 128, 4), (1, 9, 128, 16), (13, 6, 20, 1),
                  (7, 5, 136, 8), (64, 17, 128, 16), (5, 9, 512, 4)]
 GRU_SEQ_TIMED_B = (16, 256)
+#: (B, T, H, tile) of the [gru_seq] case with a tile above 32 and a bf16 x_proj.
+GRU_SEQ_WIDENED = (37, 17, 128, 33)
 #: [widths]: hidden sizes the resident recurrent kernels refused (H % 4 != 0,
 #: 3H or 2H above 1,024 threads, W_h above a block's shared memory).
 WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 1024)}
@@ -431,13 +454,14 @@ def rel_err(got, ref):
 
 
 #: Libraries whose kernels' registers and spills [build] prints.
-PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd")
+PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd", "flash_decode")
 
 
 def ptxas_kernels(report):
     """(kernel, registers, spill stores, spill loads) of each entry function
     in an -Xptxas -v report; kernel is the function's name with its template
-    arguments (storage type, rows), as in gru_fwd_cluster_kernel<bf16,8>."""
+    arguments (storage type, then integers and bools), as in
+    gru_fwd_cluster_kernel<bf16,8> or flash_decode_kernel<f32,16,2,1>."""
     kernels, name, spills = [], None, (0, 0)
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -446,7 +470,7 @@ def ptxas_kernels(report):
             base = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", mangled)
             args = base.group(2) or "" if base else ""
             targs = (["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []) \
-                + re.findall(r"Li(\d+)E", args)
+                + re.findall(r"L[ib](\d+)E", args)
             name = (base.group(1) if base else mangled) + (f"<{','.join(targs)}>" if targs else "")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
@@ -707,28 +731,50 @@ def flash_excess(got, ref):
     return (diff - FLASH_ATOL - FLASH_RTOL * ref.abs()).max().item(), diff.max().item()
 
 
+def flash_geometry_fields(g, n_rows, dtype, hd=HD):
+    """The launch of flash_decode at a shape (flash_decode_launch_geometry
+    on this card): CTAs, CTAs a cluster, warps a CTA and lanes a thread."""
+    geo = hopper_attention.flash_decode_launch_geometry(
+        g, n_rows, hd, torch.finfo(dtype).bits // 8,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return dict(ctas=geo.ctas, cluster=geo.cluster, warps=geo.warps, lanes=geo.lanes)
+
+
+def flash_geometry_text(g, n_rows, dtype, hd=HD):
+    return "/".join(str(v) for v in flash_geometry_fields(g, n_rows, dtype, hd).values())
+
+
 def flash_decode_vs_plain():
     """The kernel against its plain version at every lane count of the
-    decode's caches at B = 1, 12 and 64, n_rows 1, 33 and 128, f32 and bf16.
-    Returns the largest absolute error."""
+    decode's caches at B = 1, 12 and 64 and at FLASH_RAGGED_G (lane counts
+    that are not a multiple of 32 or 64), n_rows in FLASH_CHECKED_ROWS, f32
+    and bf16, each with its launch geometry (CTAs/cluster/warps/lanes); and
+    a second launch that gives the same bits. Returns the largest absolute
+    error."""
     worst = 0.0
-    for b in (1, 12, 64):
-        for attend, g in flash_groups(b).items():
-            for dtype in (torch.float32, torch.bfloat16):
-                k, v, q = flash_inputs(g, dtype, seed=g)
-                errs = {}
-                for n_rows in (1, 33, DECODE_T):
-                    got = hopper_attention.flash_decode_attend(k, v, q, n_rows)
-                    ref = hopper_attention.flash_decode_attend_reference(k, v, q, n_rows)
-                    errs[n_rows] = flash_excess(got, ref)
-                torch.cuda.synchronize()
-                phase("kernel", kernel="flash_decode", B=b, attend=attend, G=g, hd=HD, S=DECODE_T,
-                      dtype=str(dtype).split(".")[-1], rtol=FLASH_RTOL, atol=FLASH_ATOL,
-                      **{f"max_abs_err_n{n}": f"{e[1]:.3g}" for n, e in errs.items()})
-                check(all(np.isfinite(e[1]) and e[0] <= 0 for e in errs.values()),
-                      f"flash_decode kernel disagrees with its plain version at B={b} {attend} "
-                      f"{dtype}: {errs}")
-                worst = max(worst, *(e[1] for e in errs.values()))
+    cases = [(b, attend, g) for b in (1, 12, 64) for attend, g in flash_groups(b).items()]
+    cases += [(None, "ragged", g) for g in FLASH_RAGGED_G]
+    for b, attend, g in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            k, v, q = flash_inputs(g, dtype, seed=g)
+            errs, same = {}, True
+            for n_rows in FLASH_CHECKED_ROWS:
+                got = hopper_attention.flash_decode_attend(k, v, q, n_rows)
+                ref = hopper_attention.flash_decode_attend_reference(k, v, q, n_rows)
+                errs[n_rows] = flash_excess(got, ref)
+                same = same and repeats_bitwise(
+                    lambda: (hopper_attention.flash_decode_attend(k, v, q, n_rows),), (got,))
+            torch.cuda.synchronize()
+            phase("kernel", kernel="flash_decode", B=b, attend=attend, G=g, hd=HD, S=DECODE_T,
+                  dtype=str(dtype).split(".")[-1], rtol=FLASH_RTOL, atol=FLASH_ATOL,
+                  bitwise_repeat=same,
+                  **{f"max_abs_err_n{n}": f"{e[1]:.3g}" for n, e in errs.items()},
+                  **{f"geometry_n{n}": flash_geometry_text(g, n, dtype) for n in errs})
+            check(all(np.isfinite(e[1]) and e[0] <= 0 for e in errs.values()),
+                  f"flash_decode kernel disagrees with its plain version at B={b} {attend} G={g} "
+                  f"{dtype}: {errs}")
+            check(same, f"flash_decode gave other bits on a second launch at G={g} {dtype}")
+            worst = max(worst, *(e[1] for e in errs.values()))
     return worst
 
 
@@ -913,7 +959,8 @@ def gru_seq_vs_plain():
     F32_TOL at GRU_SEQ_CASES: B = 1, B not a multiple of the tile or the
     cluster's rows, ragged rows (one of length T, one of length 1), T = 1,
     the cluster step at H 16, 20, 128, 136 and 256 and the wide instance at
-    512, tiles 1 to 16. Returns the largest absolute error."""
+    512, tiles 1 to 16; then tile 33 with a bf16 x_proj (GRU_SEQ_WIDENED).
+    Returns the largest absolute error."""
     worst = 0.0
     for b, t, h, tile in GRU_SEQ_CASES:
         xp, wh, bh, mask = gru_seq_inputs(b, t, h, seed=b + t + h)
@@ -927,6 +974,20 @@ def gru_seq_vs_plain():
         check(np.isfinite(err) and err <= F32_TOL,
               f"gru_seq kernel disagrees with its plain version at B={b} T={t} H={h}: {err}")
         worst = max(worst, err)
+    # What JAX takes and the wrapper once refused: a tile above 32 and a bf16
+    # x_proj (both sides cast it to f32).
+    b, t, h, tile = GRU_SEQ_WIDENED
+    xp, wh, bh, mask = gru_seq_inputs(b, t, h, seed=tile)
+    xp = xp.bfloat16()
+    got = hopper_gru.gru_sequence_batch_major(xp, wh, bh, mask, batch_tile=tile)
+    ref = hopper_gru.gru_sequence_batch_major_reference(xp, wh, bh, mask)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    phase("gru_seq", B=b, T=t, H=h, batch_tile=tile, x_proj="bfloat16", dtype="float32",
+          tol=F32_TOL, max_abs_err=f"{err:.3g}")
+    check(got.dtype == torch.float32 and np.isfinite(err) and err <= F32_TOL,
+          f"gru_seq kernel disagrees with its plain version at tile {tile}, bf16 x_proj: {err}")
+    worst = max(worst, err)
     check(all(hopper_gru.batch_major_resident(h) for h in (16, 20, HIDDEN, 136, 256))
           and not hopper_gru.batch_major_resident(512), "gru_seq's W_h placement changed")
     xp, wh, bh, mask = gru_seq_inputs(2, 3, hopper_gru.MAX_HIDDEN + 1, seed=0)
@@ -2199,8 +2260,9 @@ def decode_inputs(b, t, seed):
 def decode_path():
     """make_fast_generate at T = 128, B = 12 and 64, f32 and bf16 caches:
     launches exactly 2 * layers * T flash_decode a batch and nothing else,
-    finite contours, frames/s and the device breakdown. Returns the
-    flash_decode launches of the four counted runs."""
+    finite contours, frames/s and the device breakdown with flash_decode's
+    device ms and share of it a batch. Returns the flash_decode launches of
+    the four counted runs."""
     model = thesis_transformer(None)
     per_batch = 2 * model.num_layers * DECODE_T
     total = 0
@@ -2222,8 +2284,12 @@ def decode_path():
             phase("decode", B=b, T=DECODE_T, cache=cache, decode_ms=f"{ms:.6g}",
                   frames_per_s=f"{b * DECODE_T / ms * 1e3:.6g}",
                   flash_decode_launches=counts["flash_decode"], expected=per_batch)
-            device_breakdown(lambda: generate(tokens, lengths), ms, f"decode_B{b}_{cache}", steps=1,
-                             host_ops=False)
+            kernels = device_breakdown(lambda: generate(tokens, lengths), ms, f"decode_B{b}_{cache}",
+                                       steps=1, host_ops=False)
+            if kernels:
+                flash_ms = sum(k_ms for name, k_ms, _ in kernels if "flash_decode" in name)
+                phase("decode", B=b, cache=cache, flash_decode_device_ms_per_batch=f"{flash_ms:.6g}",
+                      flash_decode_share_of_busy=f"{flash_ms / sum(k[1] for k in kernels):.4f}")
     generate_band(model)
     return total
 
@@ -2784,46 +2850,146 @@ def kernel_device_ms(fn, calls, name):
     return None
 
 
+def graph_ms(fn, calls, replays=5):
+    """Device ms a call of ``fn``: ``calls`` calls captured in one CUDA graph
+    after a warm-up call, the graph replayed ``replays`` times between CUDA
+    events. No host gaps between launches and no profiler; a refused capture
+    raises."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_us(fn, calls):
+    """Host-clock microseconds a call spends enqueueing ``fn`` (the wrapper's
+    checks, allocation and launch), the device's work not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def flash_cache_sets(b, dtype):
+    """Seeded copies of the self and cross-channel caches at batch b, as many
+    as make FLASH_STREAM_BYTES together (at least 2), each with its query;
+    and the same data laid out for scaled_dot_product_attention, (G, 1, 1,
+    hd) x (G, 1, S, hd), permuted here, before any timed region."""
+    groups = flash_groups(b)
+    elem = torch.finfo(dtype).bits // 8
+    copies = max(2, -(-FLASH_STREAM_BYTES // sum(2 * DECODE_T * HD * g * elem
+                                                  for g in groups.values())))
+    sets, sdpa_sets = {}, {}
+    for kind, g in groups.items():
+        sets[kind] = [flash_inputs(g, dtype, seed=g + i) for i in range(copies)]
+        sdpa_sets[kind] = [(q.T.reshape(g, 1, 1, HD).to(dtype).contiguous(),
+                            k.permute(2, 0, 1)[:, None].contiguous(),
+                            v.permute(2, 0, 1)[:, None].contiguous()) for k, v, q in sets[kind]]
+    return copies, sets, sdpa_sets
+
+
+def flash_timings(calls_of, repeat, launches=1):
+    """One reading: the kernel and SDPA over the same calls, each by
+    graph_ms and back to back (cuda_ms), ``repeat`` calls of the function
+    that ``calls_of("kernel")`` or ``calls_of("library")`` gives (each makes
+    ``launches`` launches), and the wrapper's host us a launch."""
+    kernel, library = calls_of("kernel"), calls_of("library")
+    return dict(graph_ms=graph_ms(kernel, repeat), ms=cuda_ms(kernel, repeat),
+                library_graph_ms=graph_ms(library, repeat), library_ms=cuda_ms(library, repeat),
+                host_us=host_us(kernel, repeat) / launches)
+
+
 def time_flash_decode():
-    """The kernel at the B = 12 and B = 64 cross-channel caches, n_rows =
-    128, f32 and bf16 caches: back to back over copies of the caches that
-    together overflow the 50 MB L2 (the decode streams 8 caches between two
-    reads of one), by profiler device time, its plain version,
-    scaled_dot_product_attention on the same data laid out (G, 1, 1, hd) x
-    (G, 1, n, hd) (permuted before the timed region), and the bound."""
+    """flash_decode at the decode's own calls: the self (G = B*C*H) and
+    cross-channel (B*C*(C-1)*H) caches at B = 12 and 64, f32 and bf16
+    caches, n_rows in FLASH_TIMED_ROWS, each call on another of the cache
+    copies of flash_cache_sets (they overflow the 50 MB L2, as the decode's
+    8 caches a layer do); and a decode sweep, the 256 calls one layer makes
+    over T = 128 (self, then cross-channel, at n_rows = t + 1), in ms a
+    sweep. Each reading by graph_ms (device time, no host gaps) and back to
+    back, beside scaled_dot_product_attention over the same calls measured
+    the same way, the bound summed over the calls, the wrapper's host us a
+    call and the launch geometry; the plain version and the profiler's device
+    ms at the cross-channel n_rows = 128 call. Returns {(B, dtype, attend,
+    n_rows): numbers} and {(B, dtype, "sweep"): numbers}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
     for b in DECODE_BATCHES:
-        g = flash_groups(b)["inter"]
+        groups = flash_groups(b)
         for dtype in (torch.float32, torch.bfloat16):
             elem = torch.finfo(dtype).bits // 8
-            copies = max(2, -(-200_000_000 // (2 * DECODE_T * HD * g * elem)))
-            sets = [flash_inputs(g, dtype, seed=i) for i in range(copies)]
-            sdpa_sets = [(q.T.reshape(g, 1, 1, HD).to(dtype).contiguous(),
-                          k.permute(2, 0, 1)[:, None].contiguous(),
-                          v.permute(2, 0, 1)[:, None].contiguous()) for k, v, q in sets]
-            cycle, sdpa_cycle = itertools.cycle(sets), itertools.cycle(sdpa_sets)
-
-            def kernel():
-                return hopper_attention.flash_decode_attend(*next(cycle), DECODE_T)
-
-            def plain():
-                return hopper_attention.flash_decode_attend_reference(*next(cycle), DECODE_T)
-
-            def library():
-                return torch.nn.functional.scaled_dot_product_attention(*next(sdpa_cycle), scale=1.0)
-
-            k, v, q = sets[0]
-            lib_diff = (library().float().reshape(g, HD).T
+            dname = str(dtype).split(".")[-1]
+            copies, sets, sdpa_sets = flash_cache_sets(b, dtype)
+            k, v, q = sets["inter"][0]
+            qs, ks, vs = sdpa_sets["inter"][0]
+            lib_diff = (sdpa(qs, ks, vs, scale=1.0).float().reshape(-1, HD).T
                         - hopper_attention.flash_decode_attend(k, v, q, DECODE_T)).abs().max().item()
-            cycle, sdpa_cycle = itertools.cycle(sets), itertools.cycle(sdpa_sets)
-            bound_ms, bound_by = flash_bound_ms(DECODE_T, g, elem)
-            results[(b, dtype)] = dict(
-                ms=cuda_ms(kernel, 100), device_ms=kernel_device_ms(kernel, 50, "flash_decode_kernel"),
-                plain_ms=cuda_ms(plain, 10), bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=cuda_ms(library, 50))
-            phase("timing", kernel="flash_decode", B=b, attend="inter", G=g, hd=HD, n_rows=DECODE_T,
-                  dtype=str(dtype).split(".")[-1], cache_copies=copies,
-                  library_max_abs_diff=f"{lib_diff:.3g}", **fmt(results[(b, dtype)]))
+            for kind, g in groups.items():
+                for n_rows in FLASH_TIMED_ROWS:
+                    def calls_of(which, kind=kind, n_rows=n_rows):
+                        if which == "kernel":
+                            cycle = itertools.cycle(sets[kind])
+                            return lambda: hopper_attention.flash_decode_attend(*next(cycle), n_rows)
+                        cycle = itertools.cycle(sdpa_sets[kind])
+
+                        def library():
+                            qq, kk, vv = next(cycle)
+                            return sdpa(qq, kk[:, :, :n_rows], vv[:, :, :n_rows], scale=1.0)
+                        return library
+
+                    full = kind == "inter" and n_rows == DECODE_T
+                    r = flash_timings(calls_of, copies * -(-24 // copies))
+                    r["bound_ms"], r["bound_by"] = flash_bound_ms(n_rows, g, elem)
+                    r["share_of_bound"] = r["bound_ms"] / r["graph_ms"]
+                    if full:
+                        cycle = itertools.cycle(sets[kind])
+                        r["plain_ms"] = cuda_ms(lambda: hopper_attention.flash_decode_attend_reference(
+                            *next(cycle), n_rows), 3)
+                        r["device_ms"] = kernel_device_ms(calls_of("kernel"), 50, "flash_decode")
+                    results[(b, dtype, kind, n_rows)] = r
+                    phase("timing", kernel="flash_decode", B=b, attend=kind, G=g, hd=HD,
+                          n_rows=n_rows, dtype=dname, cache_copies=copies,
+                          **flash_geometry_fields(g, n_rows, dtype), **fmt(r),
+                          **({"library_max_abs_diff": f"{lib_diff:.3g}"} if full else {}))
+
+            sweep_calls = [(kind, t + 1) for t in range(DECODE_T) for kind in ("self", "inter")]
+
+            def sweep_of(which):
+                cycles = {kind: itertools.cycle(sets[kind] if which == "kernel" else sdpa_sets[kind])
+                          for kind in groups}
+
+                def sweep():
+                    for kind, n_rows in sweep_calls:
+                        if which == "kernel":
+                            hopper_attention.flash_decode_attend(*next(cycles[kind]), n_rows)
+                        else:
+                            qq, kk, vv = next(cycles[kind])
+                            sdpa(qq, kk[:, :, :n_rows], vv[:, :, :n_rows], scale=1.0)
+                return sweep
+
+            r = flash_timings(sweep_of, 3, len(sweep_calls))
+            r["bound_ms"] = sum(flash_bound_ms(n, groups[kind], elem)[0] for kind, n in sweep_calls)
+            r["share_of_bound"] = r["bound_ms"] / r["graph_ms"]
+            results[(b, dtype, "sweep")] = r
+            phase("timing", kernel="flash_decode", B=b, attend="sweep", calls=len(sweep_calls),
+                  G=",".join(str(g) for g in groups.values()), hd=HD, n_rows=f"1..{DECODE_T}",
+                  dtype=dname, cache_copies=copies, unit="ms_a_sweep", **fmt(r))
             del sets, sdpa_sets
     return results
 
@@ -2833,7 +2999,8 @@ def device_breakdown(run_once, step_ms, tag, steps=3, host_ops=True):
     ms per step from a torch.profiler trace, the device's idle share against
     the untraced step time, and the top kernels. ``host_ops=False`` traces the
     device only (the decode's ~90k host ops a batch make a CPU trace slow to
-    collect; the kernel figures are the same)."""
+    collect; the kernel figures are the same). Returns the (kernel, ms a
+    step, calls a step) of the trace, None without device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2860,6 +3027,7 @@ def device_breakdown(run_once, step_ms, tag, steps=3, host_ops=True):
     for name, ms, n in ranked[:6] + own:
         phase("profile", step=tag, kernel=name[:60].replace(" ", "_"), ms_per_step=f"{ms:.6g}",
               calls_per_step=f"{n:.0f}", share_of_busy=f"{ms / busy_ms:.3f}")
+    return kernels
 
 
 def host_ms(fn, iters):
@@ -3157,6 +3325,11 @@ def kernel_entry(name, launches, by_path, max_err, numbers, shape, **extra):
 
 
 def main():
+    start = time.perf_counter()
+
+    def elapsed(after):
+        phase("elapsed", after=after, seconds=f"{time.perf_counter() - start:.1f}")
+
     check(torch.cuda.is_available(), "chip_smoke.py needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -3165,6 +3338,7 @@ def main():
           torch=torch.__version__, cuda=torch.version.cuda)
 
     build_all()
+    elapsed("build")
     errs = {"gru_fwd": gru_fwd_vs_plain(), "p2cp": p2cp_vs_plain(),
             "min_dist": min_dist_vs_plain(), "flash_decode": flash_decode_vs_plain()}
     errs["gru_bwd"], bwd_rel_err = gru_bwd_vs_plain()
@@ -3173,6 +3347,7 @@ def main():
     errs["lstm_bwd"], lstm_bwd_rel_err = lstm_bwd_vs_plain()
     errs["gru_seq"] = gru_seq_vs_plain()
     gru_seq_launches = gru_seq_path()
+    elapsed("kernel_checks")
     t0 = time.perf_counter()
     wide = widths()
     phase("widths", seconds=f"{time.perf_counter() - t0:.3f}")
@@ -3183,6 +3358,7 @@ def main():
         train_launches = train_path(tmp)
     loss_falls()
     train_against_cpu()
+    elapsed("main_and_train")
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
         test_step_against_cpu(*test_step_inputs)
@@ -3192,8 +3368,10 @@ def main():
         t0 = time.perf_counter()
         mc_launches, mc_seconds = mean_contour_path(tmp, *test_step_inputs[1:3])
         phase("mean_contour", seconds=f"{time.perf_counter() - t0:.3f}")
+    elapsed("cli_pc_mean_contour")
     decode_launches = decode_path()
     decode_against_cpu()
+    elapsed("decode")
     train_transformer_launches = train_transformer_path()
     transformer_loss_falls()
     transformer_train_against_cpu()
@@ -3202,14 +3380,16 @@ def main():
     latent_rnn_loss_falls()
     latent_rnn_train_against_cpu()
     phase("latent_rnn", seconds=f"{time.perf_counter() - t0:.3f}")
+    elapsed("train_transformer_and_latent_rnn")
 
     flash = time_flash_decode()
+    elapsed("time_flash_decode")
     train_attention = time_train_attention()
     gru_fwd = time_gru_fwd()
     gru_bwd = time_gru_bwd()
     numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": gru_bwd[BENCH_B],
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
-               "flash_decode": flash[(12, torch.float32)],
+               "flash_decode": flash[(12, torch.float32, "inter", DECODE_T)],
                **{k: train_attention[(k, TRAIN["batch"])]
                   for k in ("train_attention_fwd", "train_attention_bwd")}}
     lstm = time_lstm()
@@ -3249,9 +3429,14 @@ def main():
              **{k: {"device_ms": lstm[k][LSTM_SHAPES[0][1]]["device_ms"],
                     "by_shape": {f"B={b}": r for b, r in lstm[k].items()}}
                 for k in ("lstm_fwd", "lstm_bwd")},
-             "flash_decode": {"device_ms": flash[(12, torch.float32)]["device_ms"],
-                              "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
-                                           for (b, d), r in flash.items()}},
+             "flash_decode": {
+                 **{k: flash[(12, torch.float32, "inter", DECODE_T)][k]
+                    for k in ("graph_ms", "library_graph_ms", "device_ms", "host_us")},
+                 "sweep": {f"B={b},{str(d).split('.')[-1]}": r
+                           for (b, d, *what), r in flash.items() if what == ["sweep"]},
+                 "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
+                              for (b, d, *what), r in flash.items()
+                              if what == ["inter", DECODE_T]}},
              **{k: {"device_ms": train_attention[(k, TRAIN["batch"])]["device_ms"],
                     "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
@@ -3262,6 +3447,7 @@ def main():
     extra["gru_bwd"]["device_ms"] = gru_bwd[BENCH_B]["device_ms"]
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
+    elapsed("timing")
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}
     print(json.dumps(line), flush=True)

@@ -6,7 +6,8 @@
 older header is never loaded. These tests run over a temporary ``CSRC_DIR``
 (nothing is compiled: no nvcc is needed) and over the real sources, where
 the two GRU forward kernels share ``gru_step.cuh``, the GRU and LSTM
-backward kernels ``rnn_bwd_step.cuh``, and both steps ``dsmem.cuh``.
+backward kernels ``rnn_bwd_step.cuh``, and both steps and the decode kernel
+``dsmem.cuh``.
 """
 
 import os
@@ -65,8 +66,9 @@ def test_editing_the_source_or_the_flags_changes_the_library(tmp_path, monkeypat
 
 def test_the_gru_forward_kernels_share_their_step():
     """gru_fwd and gru_seq include the forward's cluster step, gru_bwd and
-    lstm_bwd the backward's, and all four the helpers header the two steps
-    share, so an edit of that header changes every one of their libraries."""
+    lstm_bwd the backward's, and all four and flash_decode the helpers
+    header the two steps share, so an edit of that header changes every one
+    of their libraries."""
     csrc = _build.CSRC_DIR
     helpers = os.path.join(csrc, "dsmem.cuh")
     step = os.path.join(csrc, "gru_step.cuh")
@@ -75,6 +77,7 @@ def test_the_gru_forward_kernels_share_their_step():
         assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), step, helpers]
     for name in ("gru_bwd", "lstm_bwd"):
         assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), bwd_step, helpers]
+    assert _build.sources("flash_decode") == [os.path.join(csrc, "flash_decode.cu"), helpers]
     assert step not in _build.sources("gru_bwd")
     assert helpers not in _build.sources("lstm_fwd")
     assert _build._libraries.get("gru_fwd") is None  # nothing was built or loaded

@@ -133,10 +133,10 @@ def test_both_layouts_launch_the_same_geometry(monkeypatch):
         hopper_gru._launch(xp, torch.zeros(1, hidden, 3 * hidden), torch.zeros(1, 3 * hidden),
                            mask, 1, 0)
         hopper_gru._launch_seq(xp.transpose(0, 1).contiguous(), torch.zeros(hidden, 3 * hidden),
-                               torch.zeros(3 * hidden), mask.T, 16)
+                               torch.zeros(3 * hidden), mask.T)
         geo = hopper_gru.gru_launch_geometry(batch, 1, hidden, 4, SMS)
         expected = (geo.cluster if geo.resident else 0, geo.rows, geo.smem_bytes)
         # gru_fwd: ..., n_dir, rev_bits, dtype, cluster, rows, smem, stream.
         assert lib.calls["gru_fwd"][-4:-1] == expected
-        # gru_seq: ..., batch_tile, cluster, rows, smem, stream.
-        assert lib.calls["gru_seq"][-4:-1] == expected
+        # gru_seq: 5 pointers, batch, n_steps, hidden, cluster, rows, smem, stream.
+        assert lib.calls["gru_seq"][5:] == (batch, t, hidden, *expected, 0)
