@@ -29,39 +29,60 @@
 // (score and PV) against 4 hd bytes of q/k/v/out per row, so at L = 128 and
 // hd = 16 about 2.3 GFLOP against 147 MB at the thesis batch (G = 4,320):
 // bytes and operations take about the same time at the card's peaks (0.044
-// and 0.034 ms). The backward does 10 hd operations per pair (the score, dP,
-// dV, dQ, dK products), so it leans to operations. Neither uses the tensor
-// cores: hd = 16 and f32.
+// and 0.034 ms). The backward needs 10 hd operations per pair (the score,
+// dP, dV, dQ and dK products: 5 hd FMAs) and one exp, so it leans to
+// operations: 0.085 ms at G = 4,320 against 0.076 ms for its 254 MB. Neither
+// uses the tensor cores: hd = 16 and f32 limits of 1e-5 that TF32 breaks.
 //
-// Design: a block of 128 threads takes one group (L > 64) or 128 / span
-// groups (span = L rounded up to 32: two groups at L <= 64, four at L <= 32),
-// and loads the groups' K and V (forward), or Q, K, V and dO (backward), into
-// shared memory, each row padded with zeros to HD = 16 or 32 floats so the
-// inner loops read it as float4. A thread owns rows (its own q or k row and the running sums
-// in registers) and loops over the other side's rows in shared memory; all
-// active threads of a warp read the same shared row at the same time (a
-// broadcast, no bank conflicts):
-// - forward: one thread a query row, keys 0..q in order, online softmax
-//   rescaled only when the running max rises;
-// - backward: first dQ, one thread a query row over keys 0..q; then dK and
-//   dV, one thread a key row over queries L-1 down to k.
-// The TPU kernels' G_BLOCK and 128-multiple L have no counterpart: any L up
-// to 512 and any G (blocks past G idle) are taken. wgmma and TMA are later
-// work.
+// The forward: a block of 128 threads takes one group (L > 64) or
+// 128 / span groups (span = L rounded up to 32: two groups at L <= 64, four
+// at L <= 32), loads the groups' K and V into shared memory, each row padded
+// with zeros to HD = 16 or 32 floats so the inner loops read it as float4,
+// and gives a thread a query row: keys 0..q in order, online softmax
+// rescaled only when the running max rises; all active threads of a warp
+// read the same shared row at the same time (a broadcast, no bank
+// conflicts). It takes any L up to 512 and hd up to 32, and any G.
 //
-// The wide instances. The kernels above hold a row of hd floats per thread
-// in registers and all L rows of a group in shared memory, so they take
-// hd <= 32 and L <= 512, and the backward's block fits only while
-// 4 (4 L HD + 2 L) bytes a group stay within 232,448 (not at L = 512 with
-// hd > 16). Every other shape, hd up to 128, takes the wide kernels,
-// which give a row to a warp instead of a thread: lane l holds elements
-// l, l + 32, ... of the warp's row (NPL = ceil(hd / 32) of them, rounded up
-// to 1, 2 or 4), each dot product is a butterfly of shuffles (every lane
-// ends with the same sum, so all lanes take the same softmax steps), and the
-// other side's rows are read from global memory by the warp in coalesced
-// 128-byte spans (they stay in L1 and L2: a group's K and V at L = 512,
-// hd = 128 are 512 KiB). No shared memory; L stays within MAX_L, the
-// longest default bucket.
+// The backward (the strip kernel below) forms each pair's score, P, dP and
+// dS once, for dQ, dK and dV alike, fed from shared memory, and reads the
+// keep mask along keys, never down a column (that costs 32 sectors a warp
+// load). A CTA owns whole groups and walks each
+// group's causal triangle once, in query strips of 16 or 32 rows, in order.
+// Per strip, warps take 8-row x 32-key blocks of pairs (skipping those above
+// the diagonal), a lane 2 rows x 4 keys, so each float4 of q or dO read from
+// shared memory feeds 4 pairs and each of k or v 2; each pair's s,
+// P = exp(s - lse), dP = dO.v * keep and dS = P (dP - D) are computed once,
+// the keep mask read along keys (8 lanes a 32-byte sector), and P keep and
+// dS go to the strip's shared buffers. After a barrier, dV += (P keep)^T dO
+// and dK += dS^T Q in registers of the threads that own (4 keys, 4 dims) of
+// them, and dQ = dS K for the strip's rows, written out; meanwhile cp.async
+// brings the next strip's rows in. Sums run in a fixed order, without
+// atomics or scratch, so a launch gives the same bits every time.
+//
+// What holds it on this card: latency, not instruction rate. At the transformer's
+// shape it takes ~0.42 ms at G = 4,320 (chip_smoke.py, PERF.md), several
+// times what its instructions need: 128 registers and ~45 KB a CTA hold an
+// SM to 4 CTAs of 4 warps, and the dK/dV owners of the low keys work every
+// strip while the owners of keys past the strip wait at its barriers. In
+// uncommitted probes, 4 x 4 pair tiles and strips of 32 rows ran no faster;
+// taking away the register cap (2 CTAs an SM), a second P keep / dS buffer
+// (one barrier a strip), copies two strips ahead and CTAs of 256 threads
+// ran slower. The launch geometry comes from the wrapper
+// (hopper_train_attention.py: train_attention_bwd_launch_geometry); shared
+// memory takes every L up to 512 at hd up to 32, and the register
+// accumulators grow to 4 units a thread at L = 512, hd = 32. The TPU
+// kernels' G_BLOCK and 128-multiple L have no counterpart. wgmma and TMA
+// are later work.
+//
+// The wide instances. Above hd = 32 the rows no longer fit a thread's
+// registers; hd up to 128 takes the wide kernels, which give a row to a warp
+// instead of a thread: lane l holds elements l, l + 32, ... of the warp's
+// row (NPL = ceil(hd / 32) of them, rounded up to 2 or 4), each dot product
+// is a butterfly of shuffles (every lane ends with the same sum, so all
+// lanes take the same softmax steps), and the other side's rows are read
+// from global memory by the warp in coalesced 128-byte spans (they stay in
+// L1 and L2: a group's K and V at L = 512, hd = 128 are 512 KiB). No shared
+// memory; L stays within MAX_L, the longest default bucket.
 // - forward: a warp a query row, keys 0..q in order, the same online
 //   softmax as above; four warps a block;
 // - backward, two launches: dQ a warp a query row (it also writes
@@ -71,6 +92,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -88,9 +110,6 @@ __host__ __device__ inline int groups_per_block(int l) {
 // zero-filled), so the inner loops read them as float4 with no bounds.
 size_t fwd_smem_bytes(int l, int hd_max) {
   return sizeof(float) * 2 * (size_t)groups_per_block(l) * l * hd_max;
-}
-size_t bwd_smem_bytes(int l, int hd_max) {
-  return sizeof(float) * (size_t)groups_per_block(l) * (4 * (size_t)l * hd_max + 2 * (size_t)l);
 }
 
 // Which group of the block a thread serves, its first row and its row
@@ -208,90 +227,344 @@ train_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// ---- resident backward: the causal triangle in query strips ----------------
+
+namespace strip {
+
+constexpr int MAX_THREADS = 256;  // threads a CTA at most (groups * threads a group)
+constexpr int RQ = 2;             // query rows of a lane's pairs: tq_l + 4 i, i < RQ
+constexpr int ROWS = 4 * RQ;      // query rows of a warp's pair block
+constexpr int KEYS = 32;          // keys of a warp's pair block
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// Floats a shared-memory row of q, k, v or dO: HD + 4, so that the float4s
+// of 8 consecutive rows at one offset fall in 8 distinct bank quads.
+__host__ __device__ inline int row_floats(int hd_max) { return hd_max + 4; }
+// Floats a row of the strip's P keep and dS: the keys rounded up to a pair
+// block, + 8, so that a warp's 4 rows x 8 keys of stores hit 32 banks.
+__host__ __device__ inline int strip_floats(int l) { return round_up(l, KEYS) + 8; }
+
+// Floats of one group's shared memory: K and V rows (L rounded up to a
+// pair block), the strip's Q and dO rows (two buffers each: the next
+// strip's are copied in while this one is reduced) and out rows (one, read
+// only for D), its P keep and dS, and lse and D of every row.
+__host__ __device__ inline size_t group_floats(int l, int hd_max, int tq) {
+  const size_t lr = round_up(l, KEYS), s = row_floats(hd_max);
+  return 2 * lr * s + 5 * (size_t)tq * s + 2 * (size_t)tq * strip_floats(l) + 2 * lr;
+}
+
+__device__ inline unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// Asynchronous copies into shared memory; a false pred writes zeros.
+__device__ inline void copy16(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ inline void copy4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+__device__ inline void copies_done() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__device__ inline float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// Rows [r0, r0 + n) of an (L, hd) matrix into shared rows of HD + 4 floats,
+// zero past L and past hd: 16-byte copies when vec (hd % 4 == 0 and every
+// pointer 16-byte aligned), else 4-byte ones.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__device__ inline void copy_rows(float* dst, const float* __restrict__ src, int r0, int n, int l,
+                                 int hd, bool live, bool vec, int t, int nts) {
+  constexpr int S = HD + 4;
+  if (vec) {
+    for (int i = t; i < n * (HD / 4); i += nts) {
+      const int row = i / (HD / 4), c = 4 * (i % (HD / 4)), r = r0 + row;
+      const bool in = live && r < l && c < hd;
+      copy16(dst + row * S + c, in ? src + (size_t)r * hd + c : src, in);
+    }
+  } else {
+    for (int i = t; i < n * HD; i += nts) {
+      const int row = i / HD, d = i % HD, r = r0 + row;
+      const bool in = live && r < l && d < hd;
+      copy4(dst + row * S + d, in ? src + (size_t)r * hd + d : src, in);
+    }
+  }
+}
+
+// D_q = dO_q . out_q of rows [r0, r0 + tq), from the strip's dO and out
+// rows, each piece by the thread that copied it (its own copies are
+// complete once it has waited for them): a 4-dim chunk from its last dim
+// down when vec, else one dim, then a xor butterfly over the row's pieces.
+template <int HD>
+__device__ inline void rows_d(float* d_s, const float* dos, const float* outs, int r0, int tq,
+                              bool vec, int t, int nts) {
+  constexpr int S = HD + 4;
+  const int pieces = vec ? HD / 4 : HD;  // lanes a row: 4, 8, 16 or 32
+  for (int i = t; i < tq * pieces; i += nts) {
+    const int row = i / pieces, j = i % pieces;
+    float part;
+    if (vec) {
+      const float4 x = ld4(dos + row * S + 4 * j), y = ld4(outs + row * S + 4 * j);
+      part = fmaf(x.x, y.x, fmaf(x.y, y.y, fmaf(x.z, y.z, x.w * y.w)));
+    } else {
+      part = dos[row * S + j] * outs[row * S + j];
+    }
+    for (int o = pieces / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    if (j == 0) d_s[r0 + row] = part;
+  }
+}
+
+// Rows [r0, r0 + tq) of q, k, v, dO and out, and their lse, copied in: k
+// and v to their rows, q and dO to the given buffers, out to its one.
+template <int HD>
+__device__ inline void copy_strip(float* ks, float* vs, float* qb, float* db, float* outs,
+                                  float* lse_s, const float* kg, const float* vg, const float* qg,
+                                  const float* dog, const float* outg, const float* lseg, int r0,
+                                  int tq, int l, int hd, bool live, bool vec, int t, int nts) {
+  constexpr int S = HD + 4;
+  copy_rows<HD>(ks + r0 * S, kg, r0, tq, l, hd, live, vec, t, nts);
+  copy_rows<HD>(vs + r0 * S, vg, r0, tq, l, hd, live, vec, t, nts);
+  copy_rows<HD>(qb, qg, r0, tq, l, hd, live, vec, t, nts);
+  copy_rows<HD>(db, dog, r0, tq, l, hd, live, vec, t, nts);
+  copy_rows<HD>(outs, outg, r0, tq, l, hd, live, vec, t, nts);
+  for (int i = t; i < tq; i += nts) {
+    const bool in = live && r0 + i < l;
+    copy4(lse_s + r0 + i, in ? lseg + r0 + i : lseg, in);
+  }
+}
+
+// dst[0..3] (< hd) = a[0..3], as one float4 when vec.
+__device__ inline void store4(float* dst, const float* a, int room, bool vec) {
+  if (vec && room >= 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c < room) dst[c] = a[c];
+  }
+}
+
+}  // namespace strip
+
+// A CTA of `groups` slots, `nts` threads each, one group a slot. Each slot
+// walks its group's causal triangle once, query strip by query strip
+// (rows [i0, i0 + tq)), with two barriers a strip:
+//   1. pairs: warp w takes the strip's 8-row x 32-key blocks w, w + W, ...
+//      (blocks wholly above the diagonal skipped); lane (tq_l, tk_l) of a
+//      block takes rows tq_l + 4i and keys tk_l + 8j (i < 2, j < 4), so 8
+//      independent pairs; per pair s = q.k and dp = dO.v (2 hd FMAs), one
+//      expf, the keep mask read from global memory along keys (8 lanes a
+//      32-byte sector, loaded before the products), and P keep = P * keep,
+//      dS = P (dp * keep - D_q) stored to the strip's buffers (0 for k > q
+//      and past L).
+//   2. reduce: dV += (P keep)^T dO_strip and dK += dS^T Q_strip by the thread
+//      that owns (4 keys, 4 dims) units (NKU of them, accumulators in
+//      registers across strips), over the strip's rows in order; dQ = dS K
+//      for the strip's rows by the threads that own (row, 4 dims), counted
+//      from the slot's last thread down, over keys 0..q in order, and
+//      stored. Meanwhile the next strip's rows of q, k, v, dO, out and lse
+//      are copied in (cp.async) to the other buffers, and each thread sums
+//      D over the pieces it copied.
+// Every product is computed once, every sum in a fixed order: no atomics,
+// the same bits on every launch.
+template <int HD, int NKU>
+__global__ void __launch_bounds__(strip::MAX_THREADS, NKU == 1 ? 2 : 1)
 train_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, const float* __restrict__ keep,
                            const float* __restrict__ out, const float* __restrict__ lse,
                            const float* __restrict__ dout, float* __restrict__ dq,
                            float* __restrict__ dk, float* __restrict__ dv, int g_total, int l,
-                           int hd, int groups_per_pair) {
+                           int hd, int groups_per_pair, int tq, int nts, int vec_flag) {
+  using namespace strip;
+  constexpr int S = HD + 4, C4 = HD / 4;
   extern __shared__ __align__(16) float smem[];
-  const int gpb = groups_per_block(l);
-  const int g0 = blockIdx.x * gpb;
-  const int ng = min(gpb, g_total - g0);
-  const size_t rows_hd = (size_t)l * HD;
-  float* qs = smem;
-  float* ks = qs + gpb * rows_hd;
-  float* vs = ks + gpb * rows_hd;
-  float* dos = vs + gpb * rows_hd;
-  float* lse_s = dos + gpb * rows_hd;
-  float* dsum = lse_s + gpb * l;
-  const size_t base = (size_t)g0 * l * hd;
-  stage<HD>(qs, q + base, ng * l, hd);
-  stage<HD>(ks, k + base, ng * l, hd);
-  stage<HD>(vs, v + base, ng * l, hd);
-  stage<HD>(dos, dout + base, ng * l, hd);
-  // D_q = dO_q . out_q (equal to rowsum(dP * P) through the keep fold).
-  const size_t row0 = (size_t)g0 * l;
-  for (int i = threadIdx.x; i < ng * l; i += THREADS) {
-    const float* a = dout + (row0 + i) * hd;
-    const float* b = out + (row0 + i) * hd;
-    float s = 0.0f;
-    for (int d = 0; d < hd; ++d) s = fmaf(a[d], b[d], s);
-    lse_s[i] = lse[row0 + i];
-    dsum[i] = s;
-  }
+  const bool vec = vec_flag != 0;
+  const int slot = threadIdx.x / nts, t = threadIdx.x % nts;
+  const size_t g = (size_t)blockIdx.x * (blockDim.x / nts) + slot;
+  const bool live = g < (size_t)g_total;  // a slot past G only keeps the barriers
+  const int lr = round_up(l, KEYS), lp = strip_floats(l);
+  float* ks = smem + slot * group_floats(l, HD, tq);
+  float* vs = ks + lr * S;
+  float* qs = vs + lr * S;        // [2][tq][S]
+  float* dos = qs + 2 * tq * S;   // [2][tq][S]
+  float* outs = dos + 2 * tq * S; // [tq][S]
+  float* ps = outs + tq * S;      // [tq][lp]: P keep
+  float* dss = ps + tq * lp;      // [tq][lp]: dS
+  float* lse_s = dss + tq * lp;   // [lr]
+  float* d_s = lse_s + lr;        // [lr]: D_q = dO_q . out_q
+  const size_t off = live ? g * l * hd : 0;
+  const float* qg = q + off;
+  const float* kg = k + off;
+  const float* vg = v + off;
+  const float* dog = dout + off;
+  const float* outg = out + off;
+  const float* lseg = lse + (live ? g * l : 0);
+  const float* keep_g = keep + (live ? (g / groups_per_pair) * l * l : 0);
+
+  // Prologue: strip 0's rows and its D. K and V rows past the last strip
+  // are never copied: only masked pairs read them.
+  copy_strip<HD>(ks, vs, qs, dos, outs, lse_s, kg, vg, qg, dog, outg, lseg, 0, tq, l, hd, live,
+                 vec, t, nts);
+  copies_done();
+  rows_d<HD>(d_s, dos, outs, 0, tq, vec, t, nts);
   __syncthreads();
-  const Rows rows = thread_rows(l);
-  if (rows.group >= ng) return;
-  const int lg = rows.group;
-  const size_t g = (size_t)(g0 + lg);
-  const float* qg = qs + lg * rows_hd;
-  const float* kg = ks + lg * rows_hd;
-  const float* vg = vs + lg * rows_hd;
-  const float* dog = dos + lg * rows_hd;
-  const float* lse_g = lse_s + lg * l;
-  const float* dsum_g = dsum + lg * l;
-  const float* keep_g = keep + (g / groups_per_pair) * l * l;
 
-  // dQ: one thread a query row, keys 0..r.
-  for (int r = rows.first; r < l; r += rows.stride) {
-    float qr[HD], dor[HD], acc[HD];
-    load_row<HD>(qr, q + (g * l + r) * hd, hd);
-    load_row<HD>(dor, dout + (g * l + r) * hd, hd);
+  // dK / dV units: 4 keys (4 key4 .. 4 key4 + 3) x 4 dims (d0 .. d0 + 3).
+  const int d0 = 4 * (t % C4);
+  int key4[NKU];
+  float dka[NKU][4][4], dva[NKU][4][4];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
-    const float lse_r = lse_g[r], d_r = dsum_g[r];
-    const float* keep_r = keep_g + (size_t)r * l;
-    for (int j = 0; j <= r; ++j) {
-      const float* kj = kg + j * HD;
-      const float p = expf(dot<HD>(qr, kj) - lse_r);
-      const float dp = dot<HD>(dor, vg + j * HD) * keep_r[j];
-      axpy<HD>(acc, p * (dp - d_r), kj);
+  for (int n = 0; n < NKU; ++n) {
+    key4[n] = t / C4 + n * (nts / C4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dka[n][j][c] = dva[n][j][c] = 0.0f;
+  }
+  const int warp = t / 32, nwarps = nts / 32, lane = t % 32;
+  const int tq_l = lane >> 3, tk_l = lane & 7;
+  const int n_strips = (l + tq - 1) / tq;
+
+  for (int si = 0; si < n_strips; ++si) {
+    const int i0 = si * tq, kc = min(i0 + tq, l);
+    const float* qb = qs + (si & 1) * tq * S;
+    const float* db = dos + (si & 1) * tq * S;
+
+    // 1. pairs.
+    const int nrb = tq / ROWS, nblocks = nrb * ((kc + KEYS - 1) / KEYS);
+    for (int blk = warp; live && blk < nblocks; blk += nwarps) {
+      const int rb = i0 + (blk % nrb) * ROWS, kb = (blk / nrb) * KEYS;
+      if (kb > rb + ROWS - 1 || rb >= l) continue;
+      // The block's keep mask (rows and keys clamped into the group), loaded
+      // first so that its latency hides under the products.
+      float sc[RQ][4], dp[RQ][4], kp[RQ][4];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const float* keep_r = keep_g + (size_t)min(rb + tq_l + 4 * i, l - 1) * l;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          kp[i][j] = __ldg(keep_r + min(kb + tk_l + 8 * j, l - 1));
+          sc[i][j] = dp[i][j] = 0.0f;
+        }
+      }
+      const float* qrow = qb + (rb - i0 + tq_l) * S;
+      const float* drow = db + (rb - i0 + tq_l) * S;
+      const float* krow = ks + (kb + tk_l) * S;
+      const float* vrow = vs + (kb + tk_l) * S;
+#pragma unroll
+      for (int d = 0; d < HD; d += 4) {
+        float4 b[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ld4(krow + 8 * j * S + d);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const float4 a = ld4(qrow + 4 * i * S + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sc[i][j] = fmaf(a.x, b[j].x, sc[i][j]);
+            sc[i][j] = fmaf(a.y, b[j].y, sc[i][j]);
+            sc[i][j] = fmaf(a.z, b[j].z, sc[i][j]);
+            sc[i][j] = fmaf(a.w, b[j].w, sc[i][j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ld4(vrow + 8 * j * S + d);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const float4 a = ld4(drow + 4 * i * S + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            dp[i][j] = fmaf(a.x, b[j].x, dp[i][j]);
+            dp[i][j] = fmaf(a.y, b[j].y, dp[i][j]);
+            dp[i][j] = fmaf(a.z, b[j].z, dp[i][j]);
+            dp[i][j] = fmaf(a.w, b[j].w, dp[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) {
+        const int r = rb + tq_l + 4 * i;
+        const float lse_r = lse_s[r], d_r = d_s[r];
+        float* prow = ps + (r - i0) * lp;
+        float* srow = dss + (r - i0) * lp;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = kb + tk_l + 8 * j;
+          const bool causal = key <= r && r < l;  // else s and dp may be of rows not copied in
+          const float p = expf(sc[i][j] - lse_r);
+          prow[key] = causal ? p * kp[i][j] : 0.0f;
+          srow[key] = causal ? p * (dp[i][j] * kp[i][j] - d_r) : 0.0f;
+        }
+      }
     }
-    store_row<HD>(dq + (g * l + r) * hd, acc, hd);
+    __syncthreads();
+
+    // The next strip's rows, copied in while this one is reduced.
+    const bool next = si + 1 < n_strips;
+    const int nb = (si + 1) & 1;
+    if (next)
+      copy_strip<HD>(ks, vs, qs + nb * tq * S, dos + nb * tq * S, outs, lse_s, kg, vg, qg, dog,
+                     outg, lseg, i0 + tq, tq, l, hd, live, vec, t, nts);
+
+    if (live) {
+      // 2a. dK and dV: rows q >= the unit's first key (the rest are masked).
+#pragma unroll 2
+      for (int r = max(i0, 4 * key4[0]); r < kc; ++r) {
+        const float4 o = ld4(db + (r - i0) * S + d0), x = ld4(qb + (r - i0) * S + d0);
+        const float ov[4] = {o.x, o.y, o.z, o.w}, xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int n = 0; n < NKU; ++n) {
+          if (r < 4 * key4[n]) continue;
+          const float4 p = ld4(ps + (r - i0) * lp + 4 * key4[n]);
+          const float4 e = ld4(dss + (r - i0) * lp + 4 * key4[n]);
+          const float pv[4] = {p.x, p.y, p.z, p.w}, ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              dva[n][j][c] = fmaf(pv[j], ov[c], dva[n][j][c]);
+              dka[n][j][c] = fmaf(ev[j], xv[c], dka[n][j][c]);
+            }
+        }
+      }
+      // 2b. dQ of the strip's rows, keys 0 .. q rounded up to 4 (dS = 0 past q).
+      for (int u = nts - 1 - t; u < tq * C4; u += nts) {
+        const int rl = u / C4, c0 = 4 * (u % C4), r = i0 + rl;
+        if (r >= l) continue;
+        float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const float* srow = dss + rl * lp;
+#pragma unroll 2
+        for (int key = 0; key <= r; key += 4) {
+          const float4 e = ld4(srow + key);
+          const float ev[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 b = ld4(ks + (key + j) * S + c0);
+            a[0] = fmaf(ev[j], b.x, a[0]);
+            a[1] = fmaf(ev[j], b.y, a[1]);
+            a[2] = fmaf(ev[j], b.z, a[2]);
+            a[3] = fmaf(ev[j], b.w, a[3]);
+          }
+        }
+        if (c0 < hd) store4(dq + off + (size_t)r * hd + c0, a, hd - c0, vec);
+      }
+    }
+    copies_done();
+    if (next) rows_d<HD>(d_s, dos + nb * tq * S, outs, i0 + tq, tq, vec, t, nts);
+    __syncthreads();
   }
 
-  // dK and dV: one thread a key row c, queries L-1 down to c (so the active
-  // threads of a warp read the same query row at each step).
-  for (int c = rows.first; c < l; c += rows.stride) {
-    float kc[HD], vc[HD], dka[HD], dva[HD];
-    load_row<HD>(kc, k + (g * l + c) * hd, hd);
-    load_row<HD>(vc, v + (g * l + c) * hd, hd);
+  if (!live || d0 >= hd) return;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.0f;
-    for (int i = l - 1; i >= c; --i) {
-      const float* qi = qg + i * HD;
-      const float* doi = dog + i * HD;
-      const float kp = keep_g[(size_t)i * l + c];
-      const float p = expf(dot<HD>(kc, qi) - lse_g[i]);
-      axpy<HD>(dva, p * kp, doi);
-      axpy<HD>(dka, p * (dot<HD>(vc, doi) * kp - dsum_g[i]), qi);
+  for (int n = 0; n < NKU; ++n)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = 4 * key4[n] + j;
+      if (key < l) {
+        store4(dk + off + (size_t)key * hd + d0, dka[n][j], hd - d0, vec);
+        store4(dv + off + (size_t)key * hd + d0, dva[n][j], hd - d0, vec);
+      }
     }
-    store_row<HD>(dk + (g * l + c) * hd, dka, hd);
-    store_row<HD>(dv + (g * l + c) * hd, dva, hd);
-  }
 }
 
 // ---- wide instances: a warp a row ------------------------------------------
@@ -469,10 +742,22 @@ bool valid_shape(int g, int l, int hd, int n_pairs) {
          g % n_pairs == 0;
 }
 
-// The kernels that hold rows in registers and shared memory take the shape.
-bool resident_fwd(int l, int hd) { return hd <= 32 && l <= MAX_L; }
-bool resident_bwd(int l, int hd) {
-  return hd <= 32 && l <= MAX_L && bwd_smem_bytes(l, hd <= 16 ? 16 : 32) <= MAX_SMEM;
+// The kernels that hold rows in registers and shared memory take the shape
+// (the forward and the backward alike: at hd <= 32 a group of up to MAX_L
+// rows fits a block's shared memory in strips of 16 rows).
+bool resident(int l, int hd) { return hd <= 32 && l <= MAX_L; }
+
+// The strip backward's launch (hopper_train_attention.py:
+// train_attention_bwd_launch_geometry): groups a CTA, strip rows, threads a
+// group, dK/dV units a thread, shared bytes. Refused unless the kernel can
+// run it: whole warps, at most MAX_THREADS a CTA, every (4 keys, 4 dims)
+// unit of dK/dV owned, and the shared bytes those of the shape.
+bool valid_bwd_geometry(int l, int hd, int groups, int tq, int nts, int nku, size_t smem) {
+  const int hd_max = hd <= 16 ? 16 : 32;
+  return (tq == 16 || tq == 32) && nts >= 32 && nts % 32 == 0 && groups >= 1 &&
+         groups * nts <= strip::MAX_THREADS && (nku == 1 || nku == 2 || nku == 4) &&
+         (size_t)nku * (nts / (hd_max / 4)) * 4 >= (size_t)l &&
+         smem == sizeof(float) * groups * strip::group_floats(l, hd_max, tq) && smem <= MAX_SMEM;
 }
 
 int wide_blocks(int g, int l) {
@@ -526,19 +811,21 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* keep, vo
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int NKU>
 int launch_bwd(const void* q, const void* k, const void* v, const void* keep, const void* out,
                const void* lse, const void* dout, void* dq, void* dk, void* dv, int g, int l,
-               int hd, int n_pairs, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(l, HD);
-  const int err = prepare(train_attention_bwd_kernel<HD>, smem);
+               int hd, int n_pairs, int groups, int tq, int nts, size_t smem,
+               cudaStream_t stream) {
+  const int err = prepare(train_attention_bwd_kernel<HD, NKU>, smem);
   if (err) return err;
-  const int gpb = groups_per_block(l);
-  train_attention_bwd_kernel<HD><<<(g + gpb - 1) / gpb, THREADS, smem, stream>>>(
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+                         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
+  const int vec = hd % 4 == 0 && bits % 16 == 0;
+  train_attention_bwd_kernel<HD, NKU><<<(g + groups - 1) / groups, groups * nts, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(keep), static_cast<const float*>(out),
       static_cast<const float*>(lse), static_cast<const float*>(dout), static_cast<float*>(dq),
-      static_cast<float*>(dk), static_cast<float*>(dv), g, l, hd, g / n_pairs);
+      static_cast<float*>(dk), static_cast<float*>(dv), g, l, hd, g / n_pairs, tq, nts, vec);
   return (int)cudaGetLastError();
 }
 
@@ -553,7 +840,7 @@ int train_attention_fwd(const void* q, const void* k, const void* v, const void*
                         void* lse, int g, int l, int hd, int n_pairs, void* stream) {
   if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident_fwd(l, hd))
+  if (resident(l, hd))
     return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
                     : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
   // Within MAX_L every hd <= 32 is resident, so the wide forward sees hd > 32.
@@ -561,32 +848,39 @@ int train_attention_fwd(const void* q, const void* k, const void* v, const void*
                   : launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
 }
 
-// As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32, the
-// gradients dq, dk, dv (G, L, hd) f32, and dsum, (G, L) f32 scratch that
-// the wide kernels fill with D_q = dO_q . out_q.
+// As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32 and the
+// gradients dq, dk, dv (G, L, hd) f32. Where resident the strip kernel runs
+// with the launch geometry (groups a CTA, strip rows tq, threads a group
+// nts, dK/dV units a thread nku, shared bytes smem) and dsum is not read;
+// else the wide kernels, with dsum (G, L) f32 scratch for D_q = dO_q . out_q,
+// and the geometry is not read.
 int train_attention_bwd(const void* q, const void* k, const void* v, const void* keep,
                         const void* out, const void* lse, const void* dout, void* dq, void* dk,
-                        void* dv, void* dsum, int g, int l, int hd, int n_pairs, void* stream) {
+                        void* dv, void* dsum, int g, int l, int hd, int n_pairs, int groups,
+                        int tq, int nts, int nku, size_t smem, void* stream) {
   if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident_bwd(l, hd))
-    return hd <= 16
-               ? launch_bwd<16>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s)
-               : launch_bwd<32>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, s);
-  if (hd <= 32)
-    return launch_bwd_wide<1>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
-                              s);
+  if (resident(l, hd)) {
+    if (!valid_bwd_geometry(l, hd, groups, tq, nts, nku, smem)) return (int)cudaErrorInvalidValue;
+#define BWD(HD, NKU)                                                                          \
+  launch_bwd<HD, NKU>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, groups, tq, \
+                      nts, smem, s)
+    if (hd <= 16) {
+      if (nku == 1) return BWD(16, 1);
+      if (nku == 2) return BWD(16, 2);
+    } else {
+      if (nku == 1) return BWD(32, 1);
+      if (nku == 2) return BWD(32, 2);
+      if (nku == 4) return BWD(32, 4);
+    }
+#undef BWD
+    return (int)cudaErrorInvalidValue;
+  }
   if (hd <= 64)
     return launch_bwd_wide<2>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
                               s);
   return launch_bwd_wide<4>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
                             s);
-}
-
-// 1 when the forward (backward = 0) or backward (backward = 1) at (L, hd)
-// takes the kernels that hold rows in registers, 0 when the wide ones.
-int train_attention_resident(int l, int hd, int backward) {
-  return backward ? resident_bwd(l, hd) : resident_fwd(l, hd);
 }
 
 }  // extern "C"

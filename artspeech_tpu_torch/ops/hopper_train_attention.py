@@ -16,17 +16,20 @@ wires them as a ``torch.autograd.Function``.
 On every device the call raises for what the kernels do not take: tensors
 other than float32, tensors that are not contiguous, a head dim above
 ``MAX_HEAD_DIM``, ``L`` above ``MAX_L`` and a ``G`` that ``n_pairs`` does
-not divide. The kernels take any G: up to hd = 32 (and, in the backward,
-while a group's rows fit a block's shared memory) those that hold a row in a
-thread's registers, the thesis transformer's hd = 16 among them; elsewhere
-the wide ones, a row a warp. The TPU wrapper's tile rules (``supported``,
-``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
+not divide. The kernels take any G: up to hd = ``RESIDENT_MAX_HD`` the
+resident ones (the forward a query row a thread, the backward a walk of each
+group's causal triangle in query strips, launched as
+:func:`train_attention_bwd_launch_geometry` says), the thesis transformer's
+hd = 16 among them; above it the wide ones, a row a warp. The TPU wrapper's
+tile rules (``supported``, ``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
 ``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported.
 
 ``launches_fwd`` and ``launches_bwd`` count kernel launches.
 """
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,8 +45,76 @@ launches_bwd = 0
 MAX_L = 512
 #: Largest head dim the kernels take (csrc/train_attention.cu).
 MAX_HEAD_DIM = 128
+#: Largest head dim of the resident kernels (rows padded to 16 or 32 floats).
+RESIDENT_MAX_HD = 32
+#: Threads a CTA of the backward's strip kernel at most (train_attention.cu:
+#: strip::MAX_THREADS).
+BWD_MAX_THREADS = 256
+#: Bytes of shared memory one Hopper block may use.
+MAX_SMEM = 232448
 
 _lib = None
+
+
+class BwdGeometry(NamedTuple):
+    """How the backward's strip kernel launches at one shape
+    (:func:`train_attention_bwd_launch_geometry`); the kernel is passed
+    ``groups``, ``tq``, ``threads``, ``nku`` and ``smem_bytes``."""
+
+    groups: int      #: groups a CTA, each walked by its own ``threads``
+    tq: int          #: query rows a strip (16 or 32)
+    threads: int     #: threads a group, whole warps
+    nku: int         #: (4 keys, 4 dims) units of dK and of dV a thread (1, 2 or 4)
+    ctas: int        #: ceil(G / groups)
+    smem_bytes: int  #: dynamic shared memory a CTA
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def bwd_group_floats(l, hd, tq):
+    """Floats of shared memory one group of the strip kernel takes
+    (train_attention.cu: strip::group_floats): K and V rows (L rounded up to
+    32, rows of hd_max + 4 floats), two buffers each of the strip's Q and dO
+    rows and one of its out rows, the strip's P keep and dS (rows of L
+    rounded up to 32, + 8), and lse and D."""
+    hd_max = 16 if hd <= 16 else 32
+    lr, row = _round_up(l, 32), hd_max + 4
+    return 2 * lr * row + 5 * tq * row + 2 * tq * (lr + 8) + 2 * lr
+
+
+def train_attention_bwd_launch_geometry(g, l, hd):
+    """The launch of csrc/train_attention.cu's strip backward for G groups of
+    length ``l`` and head dim ``hd`` (<= ``RESIDENT_MAX_HD``), from the shape
+    alone.
+
+    - A group's dK and dV are ceil(L / 4) x hd_max / 4 units of (4 keys, 4
+      dims) (hd_max: hd rounded up to 16 or 32), held in registers across
+      the walk: ``threads`` is that count rounded up to a warp, within [32,
+      256], and ``nku`` the units a thread then takes (a power of two).
+    - ``groups``: 128 // threads groups a CTA at L <= 64 (the small groups'
+      CTAs would hold a warp or two), else 1.
+    - ``tq``: strips of 16 query rows.
+
+    At the transformer's shape (G = 4,320 and 23,040, L = 128, hd = 16: 128
+    threads, nku 1) this was the fastest of the geometries probed on the
+    H100; 256 threads a group, 64 threads with two units each and strips of
+    32 rows ran slower.
+    """
+    hd_max = 16 if hd <= 16 else 32
+    units = -(-l // 4) * (hd_max // 4)
+    threads = min(BWD_MAX_THREADS, max(32, _round_up(units, 32)))
+    nku = 1 << (-(-units // threads) - 1).bit_length()
+    groups = max(1, 128 // threads) if l <= 64 else 1
+    tq = 16
+    return BwdGeometry(groups, tq, threads, nku, -(-g // groups),
+                       4 * groups * bwd_group_floats(l, hd, tq))
+
+
+@functools.lru_cache(maxsize=1024)
+def _bwd_geometry(g, l, hd):
+    return train_attention_bwd_launch_geometry(g, l, hd)
 
 
 def _library():
@@ -52,18 +123,18 @@ def _library():
         lib = _build.load("train_attention")
         lib.train_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.train_attention_fwd.restype = ctypes.c_int
-        lib.train_attention_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.train_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                                            + [ctypes.c_size_t, ctypes.c_void_p])
         lib.train_attention_bwd.restype = ctypes.c_int
-        lib.train_attention_resident.argtypes = [ctypes.c_int] * 3
-        lib.train_attention_resident.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def resident(l: int, hd: int, backward: bool) -> bool:
-    """Whether the forward (or backward) at (L, hd) runs the kernels that
-    hold a row in a thread's registers (else the wide ones, a row a warp)."""
-    return bool(_library().train_attention_resident(l, hd, int(backward)))
+def resident(l: int, hd: int) -> bool:
+    """Whether the forward and backward at (L, hd) run the resident kernels
+    (else the wide ones, a row a warp): hd <= ``RESIDENT_MAX_HD`` and
+    L <= ``MAX_L``."""
+    return hd <= RESIDENT_MAX_HD and l <= MAX_L
 
 
 def _causal_scores(q, k):
@@ -175,7 +246,6 @@ def fused_causal_attend_bwd(q, k, v, keep, out, lse, do, n_pairs: int):
     """One launch of the backward kernel (CUDA tensors only), given the
     forward kernel's ``out`` and ``lse`` and the gradient ``do`` by out:
     returns (dq, dk, dv), each (G, L, hd) float32."""
-    global launches_bwd
     _check(q, k, v, keep, n_pairs)
     g, l, hd = q.shape
     dev = q.device
@@ -186,12 +256,22 @@ def fused_causal_attend_bwd(q, k, v, keep, out, lse, do, n_pairs: int):
                 or not t.is_contiguous()):
             raise ValueError(f"train_attention backward kernel: {name} must be a contiguous "
                              f"float32 {tuple(shape)} tensor on {dev}")
+    return _launch_bwd(q, k, v, keep, out, lse, do, n_pairs)
+
+
+def _launch_bwd(q, k, v, keep, out, lse, do, n_pairs):
+    global launches_bwd
+    g, l, hd = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dsum = torch.empty_like(lse)  # the wide kernels' D_q = dO_q . out_q
+    if resident(l, hd):
+        geo = _bwd_geometry(g, l, hd)
+        dsum, launch = None, (geo.groups, geo.tq, geo.threads, geo.nku, geo.smem_bytes)
+    else:  # the wide kernels' D_q = dO_q . out_q
+        dsum, launch = torch.empty_like(lse), (0,) * 5
     err = _library().train_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), g, l, hd,
-        n_pairs, _stream(dev))
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        0 if dsum is None else dsum.data_ptr(), g, l, hd, n_pairs, *launch, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"train_attention backward kernel launch failed with CUDA error {err}")
     launches_bwd += 1

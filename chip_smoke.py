@@ -14,8 +14,8 @@ Phases, each printing its own lines:
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
                train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
                all started together; prints -Xptxas -v's registers and
-               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_bwd
-               and flash_decode;
+               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_bwd,
+               flash_decode and train_attention;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -37,11 +37,14 @@ Phases, each printing its own lines:
                attention forward and backward (train_attention.cu) at hd = 16,
                G = 360, 4,320 and 23,040 (B = 1, 12, 64 of the thesis
                transformer) with L 32 and 128, L 512 and 37 at G = 360, the
-               all-ones and a seeded dropout keep mask: the forward within
-               2e-5, dQ/dK/dV within 1e-4 * max(|ref|, 1), and L = 513
-               refused; the LSTM forward and backward (lstm_fwd.cu,
-               lstm_bwd.cu) at H 16, 64 and 128, B 1, 3, 12 and 64, T 1, 7 and
-               128 (LSTM_CASES), both directions in one launch and each alone,
+               all-ones and a seeded dropout keep mask, and L 1, 16, 33, 65,
+               129 and 255 at G = 360 with the dropout keep (the edges of the
+               backward's query strips): the forward within 2e-5, dQ/dK/dV
+               within 1e-4 * max(|ref|, 1), the backward the same bits on a
+               second launch, and L = 513 refused; the LSTM forward and
+               backward (lstm_fwd.cu, lstm_bwd.cu) at H 16, 64 and 128, B 1,
+               3, 12 and 64, T 1, 7 and 128 (LSTM_CASES), both directions in
+               one launch and each alone,
                ragged lengths with a full row and a row of length 1, f32 and
                bf16, held as the GRU kernels are (the forward's cell states
                relative to max(|c|, 1));
@@ -58,8 +61,9 @@ Phases, each printing its own lines:
                resident kernels refuse, at the same limits: the GRU forward
                and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
                the LSTM at H 168, 256 and 1,024, the training attention at
-               hd 48, 64 and 128 with L 37, 128 and 512 and at hd 32 with
-               L 512, the decode at hd 80, 128 and 256 (f32 and bf16
+               hd 48, 64 and 128 with L 37, 128 and 512 and at hd 8, 17 and
+               32 with L 128 and 512 (the backward the same bits on a second
+               launch), the decode at hd 80, 128 and 256 (f32 and bf16
                caches); the instance each width takes (the thesis widths keep
                the resident kernels; gru_fwd's cluster step or wide instance
                as GRU_FWD_INSTANCE says), the outer bounds refused (H 1,025,
@@ -175,7 +179,9 @@ Phases, each printing its own lines:
                version and the profiler's device time at n_rows = 128, cross-
                channel); the training attention forward
                and backward at the B = 12 and B = 64 shapes (L = 128, the
-               dropout keep) the same way, against scaled_dot_product_attention
+               dropout keep) the same way (graph_ms, back to back, the
+               profiler's device time and the share of the bound), against
+               scaled_dot_product_attention
                (is_causal, all-ones keep: forward, and forward + backward
                minus forward); both LSTM kernels at T = 128, H = 128, B = 12
                and 64 the same way, against cuDNN's nn.LSTM (forward, and
@@ -366,6 +372,9 @@ TRANSFORMER_TOL = 1e-4  # card against CPU: forward, encode, per-frame decode
 TRAIN_ATTN_FWD_TOL, TRAIN_ATTN_BWD_TOL = 2e-5, 1e-4
 TRAIN_ATTN_G = {1: 360, 12: 4320, 64: 23040}  # B * C * (C-1) * H of the thesis transformer
 TRAIN_ATTN_PAIRS = 90
+#: Lengths at the edges of the training-attention backward's query strips
+#: (one row, a strip, a strip and one, ...), held with the dropout keep at B = 1.
+TRAIN_ATTN_EDGE_L = (1, 16, 33, 65, 129, 255, 512)
 TRAIN_T = 128
 TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
 MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
@@ -405,8 +414,11 @@ GRU_FWD_INSTANCE = {6: ("cluster", "cluster"), 130: ("wide", "wide"), 256: ("clu
 #: cluster step to H = 256, the wide one above.
 BWD_INSTANCE = {6: "cluster", 130: "cluster", 168: "cluster", 256: "cluster", 512: "wide",
                 1024: "wide"}
-#: (hd, L) of the training attention beyond its resident kernels.
-WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [(32, 512)]
+#: (hd, L) of the training attention beyond its resident kernels, then head
+#: dims other than the transformer's 16 at L 128 and 512 (each printed with
+#: the instance it takes).
+WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [
+    (hd, l) for hd in (8, 17, 32) for l in (128, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
 WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
 #: gru_fwd's timed wide instance: at H = 256 it takes the cluster step.
@@ -454,7 +466,7 @@ def rel_err(got, ref):
 
 
 #: Libraries whose kernels' registers and spills [build] prints.
-PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd", "flash_decode")
+PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd", "flash_decode", "train_attention")
 
 
 def ptxas_kernels(report):
@@ -792,19 +804,24 @@ def train_attention_inputs(g, l, n_pairs, seed, hd=HD):
 
 
 def train_attention_cases():
-    """(G, L): every batch's G at L 32 and 128, then L 512 and a length that
-    is no bucket (37) at B = 1."""
-    return [(g, l) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
-        (TRAIN_ATTN_G[1], 512), (TRAIN_ATTN_G[1], 37)]
+    """(G, L, n_pairs values): every batch's G at L 32 and 128, then L 512 and
+    a length that is no bucket (37) at B = 1, with the all-ones keep
+    (n_pairs 1) and the dropout keep; then the strip edges at B = 1 with the
+    dropout keep."""
+    both = (1, TRAIN_ATTN_PAIRS)
+    cases = [(g, l, both) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
+        (TRAIN_ATTN_G[1], 512, both), (TRAIN_ATTN_G[1], 37, both)]
+    return cases + [(TRAIN_ATTN_G[1], l, (TRAIN_ATTN_PAIRS,)) for l in TRAIN_ATTN_EDGE_L
+                    if (TRAIN_ATTN_G[1], l, both) not in cases]
 
 
 def train_attention_vs_plain():
     """The forward and backward kernels against their plain versions at
-    every case, with the all-ones and the dropout keep; L = 513 refused.
+    every case, the backward's second launch bit for bit; L = 513 refused.
     Returns the largest absolute errors of the forward and of dQ/dK/dV."""
     worst_fwd = worst_bwd = 0.0
-    for g, l in train_attention_cases():
-        for n_pairs in (1, TRAIN_ATTN_PAIRS):
+    for g, l, pairs in train_attention_cases():
+        for n_pairs in pairs:
             q, k, v, keep, do = train_attention_inputs(g, l, n_pairs, seed=g + l + n_pairs)
             out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, n_pairs)
             grads = hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
@@ -816,17 +833,25 @@ def train_attention_vs_plain():
             fwd_err = (out - ref).abs().max().item()
             rel = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, ref_grads)}
             bwd_abs = max((a - r).abs().max().item() for a, r in zip(grads, ref_grads))
+            same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_bwd(
+                q, k, v, keep, out, lse, do, n_pairs), grads)
+            geo = hopper_train_attention.train_attention_bwd_launch_geometry(g, l, HD)
             phase("kernel", kernel="train_attention", G=g, L=l, hd=HD, n_pairs=n_pairs,
+                  bwd_geometry=f"groups={geo.groups},tq={geo.tq},threads={geo.threads},"
+                               f"nku={geo.nku},ctas={geo.ctas},smem={geo.smem_bytes}",
                   keep="ones" if n_pairs == 1 else "dropout_0.1", fwd_tol=TRAIN_ATTN_FWD_TOL,
                   bwd_tol=TRAIN_ATTN_BWD_TOL, max_abs_err_fwd=f"{fwd_err:.3g}",
                   max_abs_err_bwd=f"{bwd_abs:.3g}",
-                  **{f"rel_err_{n}": f"{e:.3g}" for n, e in rel.items()})
+                  **{f"rel_err_{n}": f"{e:.3g}" for n, e in rel.items()},
+                  bwd_same_bits=same)
             check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL,
                   f"train_attention forward disagrees with its plain version at G={g} L={l} "
                   f"n_pairs={n_pairs}: {fwd_err}")
             check(all(np.isfinite(e) and e <= TRAIN_ATTN_BWD_TOL for e in rel.values()),
                   f"train_attention backward disagrees with its plain version at G={g} L={l} "
                   f"n_pairs={n_pairs}: {rel}")
+            check(same, f"train_attention backward gave other bits on a second launch at G={g} "
+                        f"L={l} n_pairs={n_pairs}")
             worst_fwd, worst_bwd = max(worst_fwd, fwd_err), max(worst_bwd, bwd_abs)
             del q, k, v, keep, do, out, lse, grads, ref, ref_grads
     q, k, v, keep, _ = train_attention_inputs(8, hopper_train_attention.MAX_L + 1, 1, seed=0)
@@ -1140,15 +1165,18 @@ def widths():
             torch.cuda.synchronize()
             fwd_err = (out - ref).abs().max().item()
             bwd_err = max(rel_err(a, r) for a, r in zip(grads, ref_grads))
+            same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_bwd(
+                q, k, v, keep, out, lse, do, n_pairs), grads)
             phase("widths", kernel="train_attention", hd=hd, L=l, G=8, n_pairs=n_pairs,
-                  fwd_instance="resident" if hopper_train_attention.resident(l, hd, False)
-                  else "wide",
-                  bwd_instance="resident" if hopper_train_attention.resident(l, hd, True)
-                  else "wide", fwd_tol=TRAIN_ATTN_FWD_TOL, bwd_tol=TRAIN_ATTN_BWD_TOL,
-                  max_abs_err_fwd=f"{fwd_err:.3g}", rel_err_bwd=f"{bwd_err:.3g}")
+                  instance="resident" if hopper_train_attention.resident(l, hd) else "wide",
+                  fwd_tol=TRAIN_ATTN_FWD_TOL, bwd_tol=TRAIN_ATTN_BWD_TOL,
+                  max_abs_err_fwd=f"{fwd_err:.3g}", rel_err_bwd=f"{bwd_err:.3g}",
+                  bwd_same_bits=same)
             check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL
                   and np.isfinite(bwd_err) and bwd_err <= TRAIN_ATTN_BWD_TOL,
                   f"train_attention disagrees at hd={hd} L={l}: {fwd_err}, {bwd_err}")
+            check(same, f"train_attention backward gave other bits on a second launch at "
+                        f"hd={hd} L={l}")
     for hd, l in ((hopper_train_attention.MAX_HEAD_DIM + 1, 8), (16, hopper_train_attention.MAX_L + 1)):
         q, k, v, keep, _ = train_attention_inputs(2, l, 1, seed=0, hd=hd)
         reason = refused(lambda: hopper_train_attention.fused_causal_attend(q, k, v, keep, 1))
@@ -2779,8 +2807,10 @@ def train_attention_bound_ms(g, l, n_pairs, backward):
 def time_train_attention():
     """Both kernels at the B = 12 and B = 64 shapes (G = 4,320 and 23,040,
     L = 128, hd 16, the dropout keep with 90 pairs; each call moves 100 MB or
-    more, past the 50 MB L2): back to back and by profiler device time,
-    their plain versions, the bound, and scaled_dot_product_attention on
+    more, past the 50 MB L2): by graph_ms (device time without host gaps),
+    back to back and by profiler device time, the share of the bound
+    (bound / graph_ms), their plain versions, the bound, and
+    scaled_dot_product_attention on
     (G, 1, L, hd) with is_causal and an all-ones keep (forward, and forward +
     backward minus forward) as the yardstick."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2816,7 +2846,9 @@ def time_train_attention():
                 ("train_attention_bwd", bwd, lambda: hopper_train_attention.fused_causal_attend_bwd_reference(
                     q, k, v, keep, do, TRAIN_ATTN_PAIRS), True)):
             bound_ms, bound_by = train_attention_bound_ms(g, TRAIN_T, TRAIN_ATTN_PAIRS, backward)
+            graph = graph_ms(fn, 10)
             results[(name, b)] = dict(
+                graph_ms=graph, share_of_bound=bound_ms / graph,
                 ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, f"{name}_kernel"),
                 plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lib_both, 10) - lib_fwd_ms if backward else lib_fwd_ms)
