@@ -34,14 +34,37 @@
 // operations: 0.085 ms at G = 4,320 against 0.076 ms for its 254 MB. Neither
 // uses the tensor cores: hd = 16 and f32 limits of 1e-5 that TF32 breaks.
 //
-// The forward: a block of 128 threads takes one group (L > 64) or
-// 128 / span groups (span = L rounded up to 32: two groups at L <= 64, four
-// at L <= 32), loads the groups' K and V into shared memory, each row padded
-// with zeros to HD = 16 or 32 floats so the inner loops read it as float4,
-// and gives a thread a query row: keys 0..q in order, online softmax
-// rescaled only when the running max rises; all active threads of a warp
-// read the same shared row at the same time (a broadcast, no bank
-// conflicts). It takes any L up to 512 and hd up to 32, and any G.
+// The forward (train_attention_fwd_kernel) walks each group's causal
+// triangle in query strips, like the backward. Its first port gave a thread
+// a query row: keys 0..q one after another (dot, compare, rescale, exp, axpy
+// on one row: a serial chain), the warps of a CTA walking 32, 64, 96 and 128
+// keys at L = 128 (62.5 % of the warp slots busy), and each warp load of
+// keep[r][j] touching 32 rows 4 L bytes apart (32 sectors for 128 useful
+// bytes). Now a CTA takes 1-4 groups of one pair in step; warps take 8-row
+// blocks of a strip, a lane 2 rows x 4 keys of each 32-key chunk (8
+// independent pairs, 8 FMAs a float4 of k or v read from shared memory),
+// and with strips of 8, 16 or 32 rows every warp of a strip walks the same
+// chunks, so no warp waits at the strip's barrier for another's keys. The
+// keep rows of a strip are copied once into shared memory for all of the
+// CTA's groups and read along keys. Each lane keeps an online softmax of
+// its own keys, a chunk at a time; the 8 key lanes of a row merge once, by
+// shuffles in a fixed order, and write out and lse as contiguous rows. K, V,
+// q and keep come in by cp.async, the next strip's while this one is walked.
+//
+// What holds the forward on this card: latency at 16 warps an SM (4 CTAs of
+// 4 warps under the 128-register cap), not bytes or one pipe. A 32-key chunk
+// costs a warp 264 FFMA (256 for the products, 8 for the exponents) among a
+// few hundred instructions, and 136 shared-memory wavefronts (32 LDS.128 and
+// 8 LDS.32: each float4 of k or v serves 8 FMAs). In uncommitted probes on
+// the H100, CTAs of 256 threads with strips of 32 rows, passes of 2 or 4
+// chunks (the latter spilling at the cap), q kept in registers, no register
+// cap (1-2 CTAs an SM) and an 80-register cap (3 CTAs, spilling) all ran
+// slower, as did keep read through L1 instead of staged, strips of 8 rows
+// and a second walk_chunk path for diagonal chunks whose upper 16 keys lie
+// above the block; taking away the K and V loads gained under a fifth, the
+// merge ~1 %. Rescaling only when a lane's max passes its running max by
+// more than 4 (so p <= e^4) gained a few per cent. The tensor cores (3xTF32
+// mma) are the open way past it.
 //
 // The backward (the strip kernel below) forms each pair's score, P, dP and
 // dS once, for dQ, dK and dV alike, fed from shared memory, and reads the
@@ -96,136 +119,8 @@
 
 namespace {
 
-constexpr int THREADS = 128;
 constexpr int MAX_L = 512;
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block may use
-
-__host__ __device__ inline int row_span(int l) { return (l + 31) / 32 * 32; }
-__host__ __device__ inline int groups_per_block(int l) {
-  const int span = row_span(l);
-  return span >= THREADS ? 1 : THREADS / span;
-}
-
-// Shared-memory rows are HD floats (hd rounded up to the template's width,
-// zero-filled), so the inner loops read them as float4 with no bounds.
-size_t fwd_smem_bytes(int l, int hd_max) {
-  return sizeof(float) * 2 * (size_t)groups_per_block(l) * l * hd_max;
-}
-
-// Which group of the block a thread serves, its first row and its row
-// stride: a warp never spans two groups (spans are multiples of 32).
-struct Rows {
-  int group, first, stride;
-};
-__device__ inline Rows thread_rows(int l) {
-  if (groups_per_block(l) == 1) return {0, (int)threadIdx.x, THREADS};
-  const int span = row_span(l);
-  return {(int)threadIdx.x / span, (int)threadIdx.x % span, span};
-}
-
-// n rows of hd floats from src into HD-float rows of dst, zero-padded.
-template <int HD>
-__device__ inline void stage(float* dst, const float* __restrict__ src, int n, int hd) {
-  for (int i = threadIdx.x; i < n * HD; i += THREADS) {
-    const int row = i / HD, d = i % HD;
-    dst[i] = d < hd ? src[(size_t)row * hd + d] : 0.0f;
-  }
-}
-
-// a . b over HD floats, b a 16-byte aligned shared-memory row; four
-// partial sums, so the chain of dependent multiply-adds is HD / 4 long.
-template <int HD>
-__device__ inline float dot(const float* a, const float* b) {
-  float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    s0 = fmaf(a[d], x.x, s0);
-    s1 = fmaf(a[d + 1], x.y, s1);
-    s2 = fmaf(a[d + 2], x.z, s2);
-    s3 = fmaf(a[d + 3], x.w, s3);
-  }
-  return (s0 + s1) + (s2 + s3);
-}
-
-// acc += w * b over HD floats, b a 16-byte aligned shared-memory row.
-template <int HD>
-__device__ inline void axpy(float* acc, float w, const float* b) {
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(b + d);
-    acc[d] = fmaf(w, x.x, acc[d]);
-    acc[d + 1] = fmaf(w, x.y, acc[d + 1]);
-    acc[d + 2] = fmaf(w, x.z, acc[d + 2]);
-    acc[d + 3] = fmaf(w, x.w, acc[d + 3]);
-  }
-}
-
-template <int HD>
-__device__ inline void load_row(float* dst, const float* src, int hd) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dst[d] = d < hd ? src[d] : 0.0f;
-}
-
-template <int HD>
-__device__ inline void store_row(float* dst, const float* src, int hd) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d)
-    if (d < hd) dst[d] = src[d];
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-train_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ keep,
-                           float* __restrict__ out, float* __restrict__ lse, int g_total, int l,
-                           int hd, int groups_per_pair) {
-  extern __shared__ __align__(16) float smem[];
-  const int gpb = groups_per_block(l);
-  const int g0 = blockIdx.x * gpb;
-  const int ng = min(gpb, g_total - g0);
-  const size_t rows_hd = (size_t)l * HD;  // one group's rows in shared memory
-  float* ks = smem;
-  float* vs = smem + gpb * rows_hd;
-  stage<HD>(ks, k + (size_t)g0 * l * hd, ng * l, hd);
-  stage<HD>(vs, v + (size_t)g0 * l * hd, ng * l, hd);
-  __syncthreads();
-  const Rows rows = thread_rows(l);
-  if (rows.group >= ng) return;
-  const size_t g = (size_t)(g0 + rows.group);
-  const float* kg = ks + rows.group * rows_hd;
-  const float* vg = vs + rows.group * rows_hd;
-  const float* keep_g = keep + (g / groups_per_pair) * l * l;
-
-  for (int r = rows.first; r < l; r += rows.stride) {
-    float qr[HD], acc[HD];
-    load_row<HD>(qr, q + (g * l + r) * hd, hd);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
-    const float* keep_r = keep_g + (size_t)r * l;
-    // Online softmax, rescaled only when the running max rises (it rises
-    // rarely after the first keys); key 0 sets it.
-    float m = dot<HD>(qr, kg), z = 0.0f;
-    for (int j = 0; j <= r; ++j) {
-      const float s = dot<HD>(qr, kg + j * HD);
-      if (s > m) {
-        const float alpha = expf(m - s);
-        z *= alpha;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-        m = s;
-      }
-      const float p = expf(s - m);
-      z += p;
-      axpy<HD>(acc, p * keep_r[j], vg + j * HD);
-    }
-    const float inv_z = 1.0f / z;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= inv_z;
-    store_row<HD>(out + (g * l + r) * hd, acc, hd);
-    lse[g * l + r] = m + logf(z);
-  }
-}
 
 // ---- resident backward: the causal triangle in query strips ----------------
 
@@ -567,6 +462,334 @@ train_attention_bwd_kernel(const float* __restrict__ q, const float* __restrict_
     }
 }
 
+// ---- resident forward: the causal triangle in query strips -----------------
+
+namespace fwd {
+
+constexpr int MAX_THREADS = 128;  // threads a CTA at most (4 * groups * tq)
+constexpr int ROWS = 8;           // query rows of a warp's block: tq_l + 4 i, i < 2
+constexpr int KEYS = 32;          // keys of a chunk: tk_l + 8 j, j < 4
+constexpr float LOG2E = 1.4426950408889634f;
+// How far a lane's max may rise past its running max m before its sum and
+// accumulators are rescaled (natural log units): p stays within e^4.
+constexpr float RESCALE = 4.0f;
+
+__host__ __device__ inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// Floats a row of the strip's keep: the keys rounded up to a chunk, + 8, so
+// that a warp's loads of 4 rows x 8 consecutive keys hit 32 banks.
+__host__ __device__ inline int keep_floats(int l) { return round_up(l, KEYS) + 8; }
+
+// Floats of a CTA's shared memory: for each of its groups, K and V rows (L
+// rounded up to a chunk) and two buffers of the strip's q rows, HD floats a
+// row; two buffers of the strip's keep rows, shared by the groups (all of
+// one pair).
+__host__ __device__ inline size_t smem_floats(int l, int hd_max, int groups, int tq) {
+  const size_t lr = round_up(l, KEYS);
+  return (size_t)groups * 2 * (lr + tq) * hd_max + 2 * (size_t)tq * keep_floats(l);
+}
+
+// The float4 column where column c4 of shared row r is kept: rows are HD
+// floats with no padding, and the columns of 8 consecutive rows are permuted
+// so that one column of those rows falls in 8 distinct bank quads.
+template <int HD>
+__device__ inline int swz(int r, int c4) {
+  return HD == 16 ? c4 ^ ((r >> 1) & 3) : c4 ^ (r & 7);
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error ~2^-22,
+// results below 2^-126 flushed to 0; 2^-inf = 0).
+__device__ inline float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [r0, r0 + n) of an (L, hd) matrix into shared rows d0, d0 + 1, ... of
+// HD floats (swizzled), zero past L and past hd: 16-byte copies when vec.
+template <int HD>
+__device__ inline void copy_rows(float* dst, int d0, const float* __restrict__ src, int r0, int n,
+                                 int l, int hd, bool vec, int t, int nts) {
+  constexpr int C4 = HD / 4;
+  if (vec) {
+    for (int i = t; i < n * C4; i += nts) {
+      const int row = i / C4, c4 = i % C4, r = r0 + row;
+      const bool in = r < l && 4 * c4 < hd;
+      strip::copy16(dst + (d0 + row) * HD + 4 * swz<HD>(d0 + row, c4),
+                    in ? src + (size_t)r * hd + 4 * c4 : src, in);
+    }
+  } else {
+    for (int i = t; i < n * HD; i += nts) {
+      const int row = i / HD, d = i % HD, r = r0 + row;
+      const bool in = r < l && d < hd;
+      strip::copy4(dst + (d0 + row) * HD + 4 * swz<HD>(d0 + row, d / 4) + d % 4,
+                   in ? src + (size_t)r * hd + d : src, in);
+    }
+  }
+}
+
+// Rows [r0, r0 + n) x keys [0, kend) (kend a multiple of 32) of a pair's
+// (L, L) keep mask into rows of lp floats, zero past L: thread t copies
+// columns t % 8 * 4 + 32 c (16 bytes each) of rows t / 8, t / 8 + nts / 8,
+// ... when vec (L % 4 == 0), else columns t % 32 + 32 c of rows t / 32, ...
+__device__ inline void copy_keep(float* dst, const float* __restrict__ keep_p, int r0, int n,
+                                 int kend, int l, int lp, bool vec, int t, int nts) {
+  const int w = vec ? 4 : 1, sh = vec ? 3 : 5;  // 1 << sh threads a row
+  for (int row = t >> sh; row < n; row += nts >> sh) {
+    const int r = r0 + row;
+    for (int c = w * (t & ((1 << sh) - 1)); c < kend; c += KEYS) {
+      const bool in = r < l && c < l;
+      const float* src = in ? keep_p + (size_t)r * l + c : keep_p;
+      if (vec)
+        strip::copy16(dst + row * lp + c, src, in);
+      else
+        strip::copy4(dst + row * lp + c, src, in);
+    }
+  }
+}
+
+// Strip s's rows into buffer s & 1: q rows [i0, i0 + tq) of each live group
+// and the pair's keep rows [i0, i0 + tq) over the keys of their chunks; and,
+// where the strip opens a chunk, that chunk's 32 K and V rows (zero past L).
+template <int HD>
+__device__ inline void copy_strip(float* ks, float* vs, float* qs, float* keep_s,
+                                  const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ keep_p,
+                                  size_t g0, int live_groups, int groups, int s, int tq, int l,
+                                  int hd, int lr, int lp, bool vec, bool kvec, int t, int nts) {
+  const int i0 = s * tq, b = s & 1;
+  for (int sl = 0; sl < live_groups; ++sl) {
+    const size_t off = (g0 + sl) * l * hd;
+    if (i0 % KEYS == 0) {
+      copy_rows<HD>(ks + (size_t)sl * lr * HD, i0, k + off, i0, KEYS, l, hd, vec, t, nts);
+      copy_rows<HD>(vs + (size_t)sl * lr * HD, i0, v + off, i0, KEYS, l, hd, vec, t, nts);
+    }
+    copy_rows<HD>(qs + (size_t)(b * groups + sl) * tq * HD, 0, q + off, i0, tq, l, hd, vec, t, nts);
+  }
+  copy_keep(keep_s + (size_t)b * tq * lp, keep_p, i0, tq, round_up(i0 + 1, KEYS), l, lp, kvec, t,
+            nts);
+}
+
+// Sums a[d] and a[d + H] of lanes l and l ^ o (d < H) into a[0 .. H): the
+// lane with bit o set keeps the upper half, the other the lower.
+template <int H>
+__device__ inline void fold(float* a, int o, bool hi) {
+#pragma unroll
+  for (int d = 0; d < H; ++d) {
+    const float send = hi ? a[d] : a[d + H], mine = hi ? a[d + H] : a[d];
+    a[d] = mine + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+}  // namespace fwd
+
+namespace fwd {
+
+// One 32-key chunk of a lane's walk: keys kb + tk_l + 8 j (j < 4) of its
+// rows i0 + rl[i] (i < 2). The scores, -inf above the diagonal; each row's
+// max over them; the sum and accumulators rescaled only when that max
+// passes the running max m by more than RESCALE (so every p <= e^RESCALE);
+// then p = 2^((s - m) log2 e), z += p, acc += p keep v. (A path that walks
+// only the lower 16 keys where the block's rows stop short of them ran
+// slower on the H100: two copies of this body.)
+template <int HD>
+__device__ __forceinline__ void walk_chunk(const float* kg, const float* vg, const float* qb,
+                                           const float* keep_b, const int* koff,
+                                           const int (*qoff)[HD / 4], const int* rl, int i0,
+                                           int kb, int tk_l, int lp, float (*acc)[HD], float* m,
+                                           float* z) {
+  constexpr int C4 = HD / 4, J = 4;  // J: the lane's keys in a chunk
+  float sc[2][J];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) sc[i][j] = 0.0f;
+  const float* krow = kg + (kb + tk_l) * HD;
+#pragma unroll
+  for (int c4 = 0; c4 < C4; ++c4) {
+    float4 kx[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) kx[j] = strip::ld4(krow + 8 * j * HD + koff[c4]);
+    const float4 qx[2] = {strip::ld4(qb + rl[0] * HD + qoff[0][c4]),
+                          strip::ld4(qb + rl[1] * HD + qoff[1][c4])};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        float& e = sc[i][j];
+        e = fmaf(qx[i].x, kx[j].x, e);
+        e = fmaf(qx[i].y, kx[j].y, e);
+        e = fmaf(qx[i].z, kx[j].z, e);
+        e = fmaf(qx[i].w, kx[j].w, e);
+      }
+  }
+  float w[2][J];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      if (kb + tk_l + 8 * j > i0 + rl[i]) sc[i][j] = -INFINITY;
+    float cm = sc[i][0];
+#pragma unroll
+    for (int j = 1; j < J; ++j) cm = fmaxf(cm, sc[i][j]);
+    if (cm > m[i] + RESCALE) {  // true at the first keys (m is -inf)
+      const float alpha = ex2((m[i] - cm) * LOG2E);
+      z[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[i][d] *= alpha;
+      m[i] = cm;
+    }
+    const float ml = (m[i] == -INFINITY ? 0.0f : m[i]) * LOG2E;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      w[i][j] = ex2(fmaf(sc[i][j], LOG2E, -ml));
+      z[i] += w[i][j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) w[i][j] *= keep_b[rl[i] * lp + kb + tk_l + 8 * j];
+  const float* vrow = vg + (kb + tk_l) * HD;
+#pragma unroll
+  for (int c4 = 0; c4 < C4; ++c4) {
+    float4 vx[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) vx[j] = strip::ld4(vrow + 8 * j * HD + koff[c4]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        acc[i][4 * c4] = fmaf(w[i][j], vx[j].x, acc[i][4 * c4]);
+        acc[i][4 * c4 + 1] = fmaf(w[i][j], vx[j].y, acc[i][4 * c4 + 1]);
+        acc[i][4 * c4 + 2] = fmaf(w[i][j], vx[j].z, acc[i][4 * c4 + 2]);
+        acc[i][4 * c4 + 3] = fmaf(w[i][j], vx[j].w, acc[i][4 * c4 + 3]);
+      }
+  }
+}
+
+}  // namespace fwd
+
+// A CTA of `groups` groups of one pair (group g takes keep[g / groups_per_pair];
+// a pair's groups fill ceil(groups_per_pair / groups) CTAs, the last with
+// fewer live groups) walks the groups' causal triangles in query strips of tq
+// rows (8, 16 or 32), in step, one barrier a strip. Warp w takes rows
+// [i0 + 8 (w % (tq / 8)), + 8) of group w / (tq / 8) in every strip, so every
+// warp of a strip walks the same number of 32-key chunks (tq divides 32).
+// Lane (tq_l, tk_l) takes rows tq_l + 4 i (i < 2) and keys tk_l + 8 j (j < 4)
+// of each chunk (walk_chunk): 8 independent pairs, each float4 of k or v read
+// from shared memory feeding 8 FMAs, the keep mask read along keys (8 lanes a
+// 32-byte sector), a lane's own online softmax over its keys. At the end of
+// the row block the 8 key lanes of a row merge (m, z, acc) by xor shuffles in
+// a fixed order (acc reduce-scattered, so lane tk_l ends with dims
+// [tk_l HD / 8, + HD / 8)), and write out = acc / z and lse = m + log z as
+// contiguous rows.
+// Meanwhile cp.async brings the next strip's q and keep rows (and K and V
+// rows where it opens a chunk) into the other buffers. Every sum runs in a
+// fixed order, without atomics: the same bits every launch.
+template <int HD>
+__global__ void __launch_bounds__(fwd::MAX_THREADS, HD <= 16 ? 4 : 1)
+train_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ keep,
+                           float* __restrict__ out, float* __restrict__ lse, int l, int hd,
+                           int groups_per_pair, int groups, int tq, int vec_flag, int kvec_flag) {
+  using namespace fwd;
+  constexpr int C4 = HD / 4, DPL = HD / 8;  // DPL: dims of a row a lane writes
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = vec_flag != 0, kvec = kvec_flag != 0;
+  const int t = threadIdx.x, nts = blockDim.x;
+  const int ctas_per_pair = (groups_per_pair + groups - 1) / groups;
+  const int pair = blockIdx.x / ctas_per_pair, first = (blockIdx.x % ctas_per_pair) * groups;
+  const int live_groups = min(groups, groups_per_pair - first);
+  const size_t g0 = (size_t)pair * groups_per_pair + first;
+  const int lr = round_up(l, KEYS), lp = keep_floats(l);
+  float* ks = smem;                              // [groups][lr][HD]
+  float* vs = ks + (size_t)groups * lr * HD;     // [groups][lr][HD]
+  float* qs = vs + (size_t)groups * lr * HD;     // [2][groups][tq][HD]
+  float* keep_s = qs + (size_t)2 * groups * tq * HD;  // [2][tq][lp]
+  const float* keep_p = keep + (size_t)pair * l * l;
+
+  const int warp = t / 32, lane = t % 32, tq_l = lane >> 3, tk_l = lane & 7;
+  const int rbs = tq / ROWS, slot = warp / rbs, rbi = warp % rbs;
+  const bool live = slot < live_groups;
+  const size_t g = g0 + slot;
+  const float* kg = ks + (size_t)slot * lr * HD;
+  const float* vg = vs + (size_t)slot * lr * HD;
+  // Swizzled float4 columns of the lane's key rows (kb + tk_l + 8 j: the
+  // same for every chunk and j) and of its query rows (tq_l + 4 i).
+  int koff[C4], qoff[2][C4];
+#pragma unroll
+  for (int c4 = 0; c4 < C4; ++c4) {
+    koff[c4] = 4 * swz<HD>(tk_l, c4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qoff[i][c4] = 4 * swz<HD>(tq_l + 4 * i, c4);
+  }
+  const int n_strips = (l + tq - 1) / tq;
+
+  copy_strip<HD>(ks, vs, qs, keep_s, q, k, v, keep_p, g0, live_groups, groups, 0, tq, l, hd, lr,
+                 lp, vec, kvec, t, nts);
+  for (int s = 0; s < n_strips; ++s) {
+    strip::copies_done();
+    __syncthreads();  // strip s in; every warp done with strip s - 1's buffers
+    if (s + 1 < n_strips)
+      copy_strip<HD>(ks, vs, qs, keep_s, q, k, v, keep_p, g0, live_groups, groups, s + 1, tq, l,
+                     hd, lr, lp, vec, kvec, t, nts);
+    const int i0 = s * tq, rb = i0 + ROWS * rbi;
+    if (!live || rb >= l) continue;
+    const int b = s & 1;
+    const float* qb = qs + (size_t)(b * groups + slot) * tq * HD;
+    const float* keep_b = keep_s + (size_t)b * tq * lp;
+    int rl[2];  // the lane's rows within the strip
+    float acc[2][HD], m[2], z[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rl[i] = rb - i0 + tq_l + 4 * i;
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[i][d] = 0.0f;
+      m[i] = -INFINITY;
+      z[i] = 0.0f;
+    }
+    const int kend = KEYS * ((rb + ROWS - 1) / KEYS + 1);  // the block's keys, whole chunks
+
+    for (int kb = 0; kb < kend; kb += KEYS) {
+      walk_chunk<HD>(kg, vg, qb, keep_b, koff, qoff, rl, i0, kb, tk_l, lp, acc, m, z);
+    }
+
+    // Merge the 8 key lanes of each row and write its out and lse.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mm = m[i];
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, o));
+      const float scale = ex2((m[i] - mm) * LOG2E);  // 0 for a lane without keys
+      float zz = z[i] * scale;
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1) zz += __shfl_xor_sync(0xffffffffu, zz, o);
+#pragma unroll
+      for (int d = 0; d < HD; ++d) acc[i][d] *= scale;
+      fold<HD / 2>(acc[i], 4, tk_l & 4);
+      fold<HD / 4>(acc[i], 2, tk_l & 2);
+      fold<HD / 8>(acc[i], 1, tk_l & 1);
+      const int r = i0 + rl[i];
+      if (r >= l) continue;
+      const float inv_z = 1.0f / zz;
+      const int d0 = DPL * tk_l;
+      float* orow = out + (g * l + r) * hd + d0;
+      if (vec && d0 + DPL <= hd) {
+        if (DPL == 2)
+          *reinterpret_cast<float2*>(orow) = make_float2(acc[i][0] * inv_z, acc[i][1] * inv_z);
+        else
+          *reinterpret_cast<float4*>(orow) = make_float4(acc[i][0] * inv_z, acc[i][1] * inv_z,
+                                                         acc[i][2] * inv_z, acc[i][3] * inv_z);
+      } else {
+#pragma unroll
+        for (int e = 0; e < DPL; ++e)
+          if (d0 + e < hd) orow[e] = acc[i][e] * inv_z;
+      }
+      if (tk_l == 0) lse[g * l + r] = mm + logf(zz);
+    }
+  }
+}
+
 // ---- wide instances: a warp a row ------------------------------------------
 
 constexpr int WIDE_WARPS = 4;  // rows a block
@@ -760,6 +983,18 @@ bool valid_bwd_geometry(int l, int hd, int groups, int tq, int nts, int nku, siz
          smem == sizeof(float) * groups * strip::group_floats(l, hd_max, tq) && smem <= MAX_SMEM;
 }
 
+// The strip forward's launch (hopper_train_attention.py:
+// train_attention_fwd_launch_geometry): groups a CTA, strip rows, threads,
+// shared bytes. Refused unless the kernel can run it: strips of 8, 16 or 32
+// rows, a warp for each 8 rows of a strip and group, at most MAX_THREADS a
+// CTA, and the shared bytes those of the shape.
+bool valid_fwd_geometry(int l, int hd, int groups, int tq, int threads, size_t smem) {
+  const int hd_max = hd <= 16 ? 16 : 32;
+  return (tq == 8 || tq == 16 || tq == 32) && groups >= 1 && threads == 4 * groups * tq &&
+         threads <= fwd::MAX_THREADS &&
+         smem == sizeof(float) * fwd::smem_floats(l, hd_max, groups, tq) && smem <= MAX_SMEM;
+}
+
 int wide_blocks(int g, int l) {
   return (int)(((size_t)g * l + WIDE_WARPS - 1) / WIDE_WARPS);
 }
@@ -799,15 +1034,18 @@ int launch_bwd_wide(const void* q, const void* k, const void* v, const void* kee
 
 template <int HD>
 int launch_fwd(const void* q, const void* k, const void* v, const void* keep, void* out,
-               void* lse, int g, int l, int hd, int n_pairs, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(l, HD);
+               void* lse, int g, int l, int hd, int n_pairs, int groups, int tq, int threads,
+               size_t smem, cudaStream_t stream) {
   const int err = prepare(train_attention_fwd_kernel<HD>, smem);
   if (err) return err;
-  const int gpb = groups_per_block(l);
-  train_attention_fwd_kernel<HD><<<(g + gpb - 1) / gpb, THREADS, smem, stream>>>(
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
+  const int vec = hd % 4 == 0 && bits % 16 == 0;
+  const int kvec = l % 4 == 0 && (uintptr_t)keep % 16 == 0;
+  const int per_pair = g / n_pairs, ctas = n_pairs * ((per_pair + groups - 1) / groups);
+  train_attention_fwd_kernel<HD><<<ctas, threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(keep), static_cast<float*>(out), static_cast<float*>(lse), g, l,
-      hd, g / n_pairs);
+      static_cast<const float*>(keep), static_cast<float*>(out), static_cast<float*>(lse), l, hd,
+      per_pair, groups, tq, vec, kvec);
   return (int)cudaGetLastError();
 }
 
@@ -834,15 +1072,23 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* keep, co
 extern "C" {
 
 // q, k, v: (G, L, hd) f32; keep: (n_pairs, L, L) f32; out: (G, L, hd) f32;
-// lse: (G, L) f32. 1 <= L <= 512, 1 <= hd <= 128, n_pairs divides G. Returns the
-// first nonzero cudaError_t of the launch, else 0.
+// lse: (G, L) f32. 1 <= L <= 512, 1 <= hd <= 128, n_pairs divides G. Where
+// resident (hd <= 32) the strip kernel runs with the launch geometry (groups
+// a CTA, strip rows tq, threads a CTA, shared bytes smem), refused unless
+// valid_fwd_geometry accepts it; else the wide kernel, and the geometry is
+// not read. Returns the first nonzero cudaError_t of the launch, else 0.
 int train_attention_fwd(const void* q, const void* k, const void* v, const void* keep, void* out,
-                        void* lse, int g, int l, int hd, int n_pairs, void* stream) {
+                        void* lse, int g, int l, int hd, int n_pairs, int groups, int tq,
+                        int threads, size_t smem, void* stream) {
   if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident(l, hd))
-    return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
-                    : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  if (resident(l, hd)) {
+    if (!valid_fwd_geometry(l, hd, groups, tq, threads, smem)) return (int)cudaErrorInvalidValue;
+    return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq,
+                                     threads, smem, s)
+                    : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq,
+                                     threads, smem, s);
+  }
   // Within MAX_L every hd <= 32 is resident, so the wide forward sees hd > 32.
   return hd <= 64 ? launch_fwd_wide<2>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
                   : launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);

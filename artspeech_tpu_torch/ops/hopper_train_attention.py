@@ -17,12 +17,14 @@ On every device the call raises for what the kernels do not take: tensors
 other than float32, tensors that are not contiguous, a head dim above
 ``MAX_HEAD_DIM``, ``L`` above ``MAX_L`` and a ``G`` that ``n_pairs`` does
 not divide. The kernels take any G: up to hd = ``RESIDENT_MAX_HD`` the
-resident ones (the forward a query row a thread, the backward a walk of each
-group's causal triangle in query strips, launched as
-:func:`train_attention_bwd_launch_geometry` says), the thesis transformer's
-hd = 16 among them; above it the wide ones, a row a warp. The TPU wrapper's
-tile rules (``supported``, ``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
-``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported.
+resident ones, the thesis transformer's hd = 16 among them, each a walk of
+each group's causal triangle in query strips with the keep mask read along
+keys (the forward a CTA of groups of one pair in step, launched as
+:func:`train_attention_fwd_launch_geometry` says; the backward as
+:func:`train_attention_bwd_launch_geometry` says); above it the wide ones, a
+row a warp. The TPU wrapper's tile rules (``supported``, ``G_BLOCK``,
+``L % 128``, ``_spmd_safe``) and its ``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL``
+switch are not ported.
 
 ``launches_fwd`` and ``launches_bwd`` count kernel launches.
 """
@@ -50,6 +52,9 @@ RESIDENT_MAX_HD = 32
 #: Threads a CTA of the backward's strip kernel at most (train_attention.cu:
 #: strip::MAX_THREADS).
 BWD_MAX_THREADS = 256
+#: Threads a CTA of the forward's strip kernel at most (train_attention.cu:
+#: fwd::MAX_THREADS), which its launch rule fills.
+FWD_MAX_THREADS = 128
 #: Bytes of shared memory one Hopper block may use.
 MAX_SMEM = 232448
 
@@ -69,6 +74,18 @@ class BwdGeometry(NamedTuple):
     smem_bytes: int  #: dynamic shared memory a CTA
 
 
+class FwdGeometry(NamedTuple):
+    """How the forward's strip kernel launches at one shape
+    (:func:`train_attention_fwd_launch_geometry`); the kernel is passed
+    ``groups``, ``tq``, ``threads`` and ``smem_bytes``."""
+
+    groups: int      #: groups a CTA, all of one pair, walked in step
+    tq: int          #: query rows a strip (8, 16 or 32)
+    threads: int     #: threads a CTA: a warp for each 8 rows of a strip and group
+    ctas: int        #: n_pairs * ceil((G / n_pairs) / groups)
+    smem_bytes: int  #: dynamic shared memory a CTA
+
+
 def _round_up(x, m):
     return -(-x // m) * m
 
@@ -82,6 +99,50 @@ def bwd_group_floats(l, hd, tq):
     hd_max = 16 if hd <= 16 else 32
     lr, row = _round_up(l, 32), hd_max + 4
     return 2 * lr * row + 5 * tq * row + 2 * tq * (lr + 8) + 2 * lr
+
+
+def fwd_cta_floats(l, hd, groups, tq):
+    """Floats of shared memory one CTA of the forward's strip kernel takes
+    (train_attention.cu: fwd::smem_floats): for each group K and V rows (L
+    rounded up to 32) and two buffers of the strip's q rows, hd_max floats a
+    row; two buffers of the strip's keep rows (L rounded up to 32, + 8)."""
+    hd_max = 16 if hd <= 16 else 32
+    lr = _round_up(l, 32)
+    return groups * 2 * (lr + tq) * hd_max + 2 * tq * (lr + 8)
+
+
+def train_attention_fwd_launch_geometry(g, l, hd, n_pairs=1):
+    """The launch of csrc/train_attention.cu's strip forward for G groups of
+    length ``l`` and head dim ``hd`` (<= ``RESIDENT_MAX_HD``), from the shape
+    alone; ``n_pairs`` only sets ``ctas``.
+
+    - ``tq``: strips of 16 query rows (8 at L <= 8); every warp of a strip
+      walks the same keys.
+    - ``groups``: 128 / (4 tq) groups a CTA (two, or four at L <= 8),
+      sharing each keep row they read; halved, then ``tq`` halved, until
+      the shared memory fits a block.
+    - A CTA takes groups of one pair only: each pair's G / n_pairs groups
+      fill ceil(G / n_pairs / groups) CTAs, the last with fewer live groups.
+
+    At the transformer's shape (L = 128, hd = 16): 2 groups a CTA, strips
+    of 16 rows, 128 threads, 53 KB of shared memory, 4 CTAs an SM. On the
+    H100 this ran ahead of CTAs of 256 threads (2 groups and strips of 32
+    rows), of one group with strips of 32 rows, and of strips of 8 rows.
+    """
+    tq = 8 if l <= 8 else 16
+    groups = FWD_MAX_THREADS // (4 * tq)
+    while 4 * fwd_cta_floats(l, hd, groups, tq) > MAX_SMEM:
+        if groups > 1:
+            groups //= 2
+        else:
+            tq //= 2
+    return FwdGeometry(groups, tq, 4 * groups * tq, n_pairs * -(-(g // n_pairs) // groups),
+                       4 * fwd_cta_floats(l, hd, groups, tq))
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_geometry(g, l, hd):
+    return train_attention_fwd_launch_geometry(g, l, hd)
 
 
 def train_attention_bwd_launch_geometry(g, l, hd):
@@ -121,7 +182,8 @@ def _library():
     global _lib
     if _lib is None:
         lib = _build.load("train_attention")
-        lib.train_attention_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.train_attention_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                            + [ctypes.c_size_t, ctypes.c_void_p])
         lib.train_attention_fwd.restype = ctypes.c_int
         lib.train_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
                                             + [ctypes.c_size_t, ctypes.c_void_p])
@@ -226,16 +288,25 @@ def fused_causal_attend_fwd(q, k, v, keep, n_pairs: int):
     """One launch of the forward kernel (CUDA tensors only): returns the
     output (G, L, hd) and the rows' log-sum-exp lse (G, L), both float32,
     which the backward kernel takes."""
-    global launches_fwd
     _check(q, k, v, keep, n_pairs)
     if q.device.type != "cuda":
         raise ValueError(f"train_attention forward kernel needs CUDA tensors, got {q.device}")
+    return _launch_fwd(q, k, v, keep, n_pairs)
+
+
+def _launch_fwd(q, k, v, keep, n_pairs):
+    global launches_fwd
     g, l, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((g, l), dtype=torch.float32, device=q.device)
+    if resident(l, hd):
+        geo = _fwd_geometry(g, l, hd)
+        launch = (geo.groups, geo.tq, geo.threads, geo.smem_bytes)
+    else:  # the wide kernel takes no geometry
+        launch = (0,) * 4
     err = _library().train_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        g, l, hd, n_pairs, _stream(q.device))
+        g, l, hd, n_pairs, *launch, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"train_attention forward kernel launch failed with CUDA error {err}")
     launches_fwd += 1

@@ -40,8 +40,10 @@ Phases, each printing its own lines:
                all-ones and a seeded dropout keep mask, and L 1, 16, 33, 65,
                129 and 255 at G = 360 with the dropout keep (the edges of the
                backward's query strips): the forward within 2e-5, dQ/dK/dV
-               within 1e-4 * max(|ref|, 1), the backward the same bits on a
-               second launch, and L = 513 refused; the LSTM forward and
+               within 1e-4 * max(|ref|, 1) from the forward kernel's out and
+               lse, the forward (out and lse) and the backward the same bits
+               on a second launch, each with both launch geometries, and
+               L = 513 refused; the LSTM forward and
                backward (lstm_fwd.cu, lstm_bwd.cu) at H 16, 64 and 128, B 1,
                3, 12 and 64, T 1, 7 and 128 (LSTM_CASES), both directions in
                one launch and each alone,
@@ -62,9 +64,10 @@ Phases, each printing its own lines:
                and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
                the LSTM at H 168, 256 and 1,024, the training attention at
                hd 48, 64 and 128 with L 37, 128 and 512 and at hd 8, 17 and
-               32 with L 128 and 512 (the backward the same bits on a second
-               launch), the decode at hd 80, 128 and 256 (f32 and bf16
-               caches); the instance each width takes (the thesis widths keep
+               32 with L 128 and 512 (both geometries; the forward's out and
+               lse and the backward the same bits on a second launch), the
+               decode at hd 80, 128 and 256 (f32 and bf16 caches); the
+               instance each width takes (the thesis widths keep
                the resident kernels; gru_fwd's cluster step or wide instance
                as GRU_FWD_INSTANCE says), the outer bounds refused (H 1,025,
                hd 129, L 513, decode hd 257), and one timing of each wide
@@ -803,6 +806,19 @@ def train_attention_inputs(g, l, n_pairs, seed, hd=HD):
     return q * hd**-0.5, k, v, keep, do
 
 
+def train_attention_geometry_text(g, l, hd, n_pairs):
+    """Both kernels' launch geometries at one shape, for a [kernel] or
+    [widths] line ("wide" where the wide kernels run)."""
+    if not hopper_train_attention.resident(l, hd):
+        return dict(fwd_geometry="wide", bwd_geometry="wide")
+    f = hopper_train_attention.train_attention_fwd_launch_geometry(g, l, hd, n_pairs)
+    b = hopper_train_attention.train_attention_bwd_launch_geometry(g, l, hd)
+    return dict(fwd_geometry=f"groups={f.groups},tq={f.tq},threads={f.threads},ctas={f.ctas},"
+                             f"smem={f.smem_bytes}",
+                bwd_geometry=f"groups={b.groups},tq={b.tq},threads={b.threads},nku={b.nku},"
+                             f"ctas={b.ctas},smem={b.smem_bytes}")
+
+
 def train_attention_cases():
     """(G, L, n_pairs values): every batch's G at L 32 and 128, then L 512 and
     a length that is no bucket (37) at B = 1, with the all-ones keep
@@ -817,7 +833,9 @@ def train_attention_cases():
 
 def train_attention_vs_plain():
     """The forward and backward kernels against their plain versions at
-    every case, the backward's second launch bit for bit; L = 513 refused.
+    every case (the backward fed the forward kernel's out and lse), the
+    second launch of each bit for bit (out and lse; dQ, dK, dV); L = 513
+    refused.
     Returns the largest absolute errors of the forward and of dQ/dK/dV."""
     worst_fwd = worst_bwd = 0.0
     for g, l, pairs in train_attention_cases():
@@ -835,15 +853,15 @@ def train_attention_vs_plain():
             bwd_abs = max((a - r).abs().max().item() for a, r in zip(grads, ref_grads))
             same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_bwd(
                 q, k, v, keep, out, lse, do, n_pairs), grads)
-            geo = hopper_train_attention.train_attention_bwd_launch_geometry(g, l, HD)
+            fwd_same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_fwd(
+                q, k, v, keep, n_pairs), (out, lse))
             phase("kernel", kernel="train_attention", G=g, L=l, hd=HD, n_pairs=n_pairs,
-                  bwd_geometry=f"groups={geo.groups},tq={geo.tq},threads={geo.threads},"
-                               f"nku={geo.nku},ctas={geo.ctas},smem={geo.smem_bytes}",
+                  **train_attention_geometry_text(g, l, HD, n_pairs),
                   keep="ones" if n_pairs == 1 else "dropout_0.1", fwd_tol=TRAIN_ATTN_FWD_TOL,
                   bwd_tol=TRAIN_ATTN_BWD_TOL, max_abs_err_fwd=f"{fwd_err:.3g}",
                   max_abs_err_bwd=f"{bwd_abs:.3g}",
                   **{f"rel_err_{n}": f"{e:.3g}" for n, e in rel.items()},
-                  bwd_same_bits=same)
+                  fwd_same_bits=fwd_same, bwd_same_bits=same)
             check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL,
                   f"train_attention forward disagrees with its plain version at G={g} L={l} "
                   f"n_pairs={n_pairs}: {fwd_err}")
@@ -852,6 +870,8 @@ def train_attention_vs_plain():
                   f"n_pairs={n_pairs}: {rel}")
             check(same, f"train_attention backward gave other bits on a second launch at G={g} "
                         f"L={l} n_pairs={n_pairs}")
+            check(fwd_same, f"train_attention forward gave other bits on a second launch at "
+                            f"G={g} L={l} n_pairs={n_pairs}")
             worst_fwd, worst_bwd = max(worst_fwd, fwd_err), max(worst_bwd, bwd_abs)
             del q, k, v, keep, do, out, lse, grads, ref, ref_grads
     q, k, v, keep, _ = train_attention_inputs(8, hopper_train_attention.MAX_L + 1, 1, seed=0)
@@ -1167,16 +1187,21 @@ def widths():
             bwd_err = max(rel_err(a, r) for a, r in zip(grads, ref_grads))
             same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_bwd(
                 q, k, v, keep, out, lse, do, n_pairs), grads)
+            fwd_same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_fwd(
+                q, k, v, keep, n_pairs), (out, lse))
             phase("widths", kernel="train_attention", hd=hd, L=l, G=8, n_pairs=n_pairs,
                   instance="resident" if hopper_train_attention.resident(l, hd) else "wide",
+                  **train_attention_geometry_text(8, l, hd, n_pairs),
                   fwd_tol=TRAIN_ATTN_FWD_TOL, bwd_tol=TRAIN_ATTN_BWD_TOL,
                   max_abs_err_fwd=f"{fwd_err:.3g}", rel_err_bwd=f"{bwd_err:.3g}",
-                  bwd_same_bits=same)
+                  fwd_same_bits=fwd_same, bwd_same_bits=same)
             check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL
                   and np.isfinite(bwd_err) and bwd_err <= TRAIN_ATTN_BWD_TOL,
                   f"train_attention disagrees at hd={hd} L={l}: {fwd_err}, {bwd_err}")
             check(same, f"train_attention backward gave other bits on a second launch at "
                         f"hd={hd} L={l}")
+            check(fwd_same, f"train_attention forward gave other bits on a second launch at "
+                            f"hd={hd} L={l}")
     for hd, l in ((hopper_train_attention.MAX_HEAD_DIM + 1, 8), (16, hopper_train_attention.MAX_L + 1)):
         q, k, v, keep, _ = train_attention_inputs(2, l, 1, seed=0, hd=hd)
         reason = refused(lambda: hopper_train_attention.fused_causal_attend(q, k, v, keep, 1))
@@ -2852,8 +2877,10 @@ def time_train_attention():
                 ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, f"{name}_kernel"),
                 plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lib_both, 10) - lib_fwd_ms if backward else lib_fwd_ms)
+            geometry = train_attention_geometry_text(g, TRAIN_T, HD, TRAIN_ATTN_PAIRS)
             phase("timing", kernel=name, B=b, G=g, L=TRAIN_T, hd=HD, n_pairs=TRAIN_ATTN_PAIRS,
                   dtype="float32", library_max_abs_diff_fwd_ones=f"{lib_diff:.3g}",
+                  geometry=geometry["bwd_geometry" if backward else "fwd_geometry"],
                   **fmt(results[(name, b)]))
         del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
     return results
