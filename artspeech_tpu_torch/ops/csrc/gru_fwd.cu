@@ -28,14 +28,15 @@
 //
 // Design: the TPU kernel's sequential grid over time chunks has no Hopper
 // counterpart, so the time loop runs inside the kernel. The step is the
-// cluster step of gru_step.cuh (shared with gru_seq.cu): a thread-block
-// cluster of C CTAs a (direction, tile of rows), each CTA holding the W_h
-// columns of H/C hidden units in shared memory, the carry crossing the
-// cluster through distributed shared memory once a step, and x_proj and the
-// mask loaded a step ahead. The wrapper (hopper_gru.gru_launch_geometry)
-// chooses C and the rows a cluster walks; this file
-// lays the time-major, D-direction addressing over that step and launches it
-// with cudaLaunchKernelEx.
+// cluster step of rnn_fwd_step.cuh with its GRU cell (shared with gru_seq.cu,
+// and with lstm_fwd.cu's LSTM cell): a thread-block cluster of C CTAs a
+// (direction, tile of rows), each CTA holding the W_h columns of H/C hidden
+// units in shared memory, the carry crossing the cluster through
+// distributed shared memory once a step, and x_proj and the mask loaded a
+// step ahead. The wrapper (hopper_gru.gru_launch_geometry with 3 gates)
+// chooses C and the rows a cluster walks; this file lays the time-major,
+// D-direction addressing over that step and launches it with
+// cudaLaunchKernelEx.
 //
 // The wide instance. Where no cluster holds W_h in shared memory (the rule's
 // `resident` is false: f32 above H = 384 or so, or H with no even split),
@@ -49,47 +50,27 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "gru_step.cuh"
+#include "rnn_fwd_step.cuh"
 
 namespace {
 
-using gru_step::from_f32;
-using gru_step::sigmoid_f32;
-using gru_step::to_f32;
+using rnn_fwd::from_f32;
+using rnn_fwd::sigmoid_f32;
+using rnn_fwd::to_f32;
 
 constexpr int BT = 4;  // batch rows a block of the wide instance
 
-// Time-major addressing of direction d (gru_step::cluster_steps' layout).
-template <typename T>
-struct TimeMajor {
-  const T* xp;
-  const T* w;
-  const T* b;
-  const float* mask_;
-  T* ys;
-  int batch, hidden, n_dir, d;
-  bool reverse;
-  __device__ int time(int s, int n_steps) const { return reverse ? n_steps - 1 - s : s; }
-  __device__ const T* x(int t, int bi) const {
-    return xp + ((size_t)t * batch + bi) * n_dir * 3 * hidden + (size_t)d * 3 * hidden;
-  }
-  __device__ T* y(int t, int bi) const {
-    return ys + ((size_t)t * batch + bi) * n_dir * hidden + (size_t)d * hidden;
-  }
-  __device__ float mask(int t, int bi) const { return mask_[(size_t)t * batch + bi]; }
-  __device__ static float combine(float m, float cand, float h) { return m != 0.0f ? cand : h; }
-};
-
 template <typename T, int R>
-__global__ void __launch_bounds__(gru_step::MAX_THREADS)
+__global__ void __launch_bounds__(rnn_fwd::MAX_THREADS)
 gru_fwd_cluster_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
                        const T* __restrict__ bh, const float* __restrict__ mask,
                        T* __restrict__ ys, int n_steps, int batch, int hidden, int n_dir,
                        int rev_bits) {
   const int d = blockIdx.y;
-  const TimeMajor<T> io{xp, wh + (size_t)d * hidden * 3 * hidden, bh + (size_t)d * 3 * hidden,
-                        mask, ys, batch, hidden, n_dir, d, ((rev_bits >> d) & 1) != 0};
-  gru_step::cluster_steps<T, R>(io, n_steps, batch, hidden);
+  const rnn_fwd::GruCell<T, rnn_fwd::TimeMajor<T, 3>> cell{
+      {xp, wh + (size_t)d * hidden * 3 * hidden, bh + (size_t)d * 3 * hidden, mask, ys, batch,
+       hidden, n_dir, d, ((rev_bits >> d) & 1) != 0}};
+  rnn_fwd::cluster_steps<T, R>(cell, n_steps, batch, hidden);
 }
 
 constexpr int WIDE_THREADS = 512;
@@ -161,7 +142,7 @@ template <typename T>
 int launch_wide(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
                 int n_steps, int batch, int hidden, int n_dir, int rev_bits, int smem,
                 cudaStream_t stream) {
-  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > gru_step::MAX_SMEM)
+  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > rnn_fwd::MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(gru_fwd_wide_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -188,11 +169,11 @@ template <typename T>
 int launch_cluster(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
                    int n_steps, int batch, int hidden, int n_dir, int rev_bits, int cluster,
                    int rows, int smem, cudaStream_t stream) {
-  if (!gru_step::valid_geometry(hidden, cluster, rows, smem, sizeof(T)))
+  if (!rnn_fwd::valid_geometry(hidden, cluster, rows, smem, 3, sizeof(T)))
     return (int)cudaErrorInvalidValue;
-  return gru_step::launch_cluster(
+  return rnn_fwd::launch_cluster(
       cluster_kernel<T>(rows), cluster, (batch + rows - 1) / rows, n_dir,
-      gru_step::cluster_threads(hidden, cluster), smem, stream, static_cast<const T*>(xp),
+      rnn_fwd::cluster_threads(hidden, cluster), smem, stream, static_cast<const T*>(xp),
       static_cast<const T*>(wh), static_cast<const T*>(bh), static_cast<const float*>(mask),
       static_cast<T*>(ys), n_steps, batch, hidden, n_dir, rev_bits);
 }
@@ -213,9 +194,9 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
-// geometry comes from hopper_gru.gru_launch_geometry: cluster CTAs (0: the
-// wide instance), rows a cluster walks (2, 4 or 8), and the dynamic shared
-// memory in bytes. Returns the first nonzero cudaError_t of the
+// geometry comes from hopper_gru.gru_launch_geometry with 3 gates: cluster
+// CTAs (0: the wide instance), rows a cluster walks (2, 4 or 8), and the
+// dynamic shared memory in bytes. Returns the first nonzero cudaError_t of the
 // launch (a geometry the kernel does not take, or a refused cluster), else 0.
 int gru_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
             int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype, int cluster,

@@ -26,13 +26,14 @@
 // bound is the f32 operation rate (~0.003 ms), but the time is the latency
 // of T sequential steps.
 //
-// Design: the cluster step of gru_step.cuh, the one gru_fwd.cu runs, with
-// batch-major addressing and the blend above as its mask formula. The TPU
+// Design: the cluster step of rnn_fwd_step.cuh with its GRU cell, the one
+// gru_fwd.cu runs, with batch-major addressing and the blend above as its
+// mask formula. The TPU
 // kernel's batch tile (16 rows a grid step) is a TPU shape: on the card one
 // 16-row block left a step's 384 x 16 x 128 product on one SM. The launch
-// geometry comes from hopper_gru.gru_launch_geometry, the same rule and
-// the same geometry as gru_fwd with one direction; the TPU's batch tile is
-// not passed (it changes neither the launch nor the result).
+// geometry comes from hopper_gru.gru_launch_geometry, the same rule and the
+// same geometry as gru_fwd with one direction (3 gates); the TPU's batch
+// tile is not passed (it changes neither the launch nor the result).
 //
 // The wide instance. Where no cluster holds W_h in shared memory (the
 // rule's `resident` is false), gru_seq_kernel runs one block of 512
@@ -42,16 +43,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gru_step.cuh"
+#include "rnn_fwd_step.cuh"
 
 namespace {
 
-using gru_step::sigmoid_f32;
+using rnn_fwd::sigmoid_f32;
 
 constexpr int BT = 4;  // batch rows a block of the wide instance
 constexpr int WIDE_THREADS = 512;
 
-// Batch-major addressing (gru_step::cluster_steps' layout).
+// Batch-major addressing for rnn_fwd::GruCell; the mask blends.
 struct BatchMajor {
   const float* xp;
   const float* w;
@@ -71,12 +72,12 @@ struct BatchMajor {
 };
 
 template <int R>
-__global__ void __launch_bounds__(gru_step::MAX_THREADS)
+__global__ void __launch_bounds__(rnn_fwd::MAX_THREADS)
 gru_seq_cluster_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
                        const float* __restrict__ bh, const float* __restrict__ mask,
                        float* __restrict__ out, int batch, int n_steps, int hidden) {
-  const BatchMajor io{xp, wh, bh, mask, out, n_steps, hidden};
-  gru_step::cluster_steps<float, R>(io, n_steps, batch, hidden);
+  const rnn_fwd::GruCell<float, BatchMajor> cell{{xp, wh, bh, mask, out, n_steps, hidden}};
+  rnn_fwd::cluster_steps<float, R>(cell, n_steps, batch, hidden);
 }
 
 __global__ void __launch_bounds__(WIDE_THREADS)
@@ -135,7 +136,7 @@ gru_seq_kernel(const float* __restrict__ xp, const float* __restrict__ wh,
 
 int launch_wide(const float* xp, const float* wh, const float* bh, const float* mask, float* out,
                 int batch, int n_steps, int hidden, int smem, cudaStream_t stream) {
-  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > gru_step::MAX_SMEM)
+  if ((size_t)smem < (size_t)BT * 4 * hidden * sizeof(float) || (size_t)smem > rnn_fwd::MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(gru_seq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -159,8 +160,8 @@ void (*cluster_kernel(int rows))(const float*, const float*, const float*, const
 extern "C" {
 
 // x_proj (B, T, 3H), w_h (H, 3H), b_h (3H), mask (B, T), out (B, T, H), all
-// f32 and contiguous; 1 <= H <= 1024. The launch geometry
-// comes from hopper_gru.gru_launch_geometry (one direction, f32): cluster
+// f32 and contiguous; 1 <= H <= 1024. The launch geometry comes from
+// hopper_gru.gru_launch_geometry (one direction, 3 gates, f32): cluster
 // CTAs (0: the wide instance), rows a cluster walks (2, 4 or 8), and the
 // dynamic shared memory in bytes. Returns the first nonzero cudaError_t
 // of the launch (a geometry the kernel does not take, or a refused
@@ -176,11 +177,11 @@ int gru_seq(const void* xp, const void* wh, const void* bh, const void* mask, vo
   float* y = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cluster == 0) return launch_wide(x, w, b, m, y, batch, n_steps, hidden, smem, s);
-  if (!gru_step::valid_geometry(hidden, cluster, rows, smem, sizeof(float)))
+  if (!rnn_fwd::valid_geometry(hidden, cluster, rows, smem, 3, sizeof(float)))
     return (int)cudaErrorInvalidValue;
-  return gru_step::launch_cluster(cluster_kernel(rows), cluster, (batch + rows - 1) / rows, 1,
-                                  gru_step::cluster_threads(hidden, cluster), smem, s, x, w, b, m,
-                                  y, batch, n_steps, hidden);
+  return rnn_fwd::launch_cluster(cluster_kernel(rows), cluster, (batch + rows - 1) / rows, 1,
+                                 rnn_fwd::cluster_threads(hidden, cluster), smem, s, x, w, b, m,
+                                 y, batch, n_steps, hidden);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ The kernels are ``csrc/gru_fwd.cu`` and ``csrc/gru_bwd.cu``;
 takes every H from 1 to ``MAX_HIDDEN``: a thread-block-cluster kernel with
 W_h slices resident in shared memory where they fit (the thesis' H = 128), a
 wide one that reads W_h through the L2 elsewhere. The forward's cluster
-kernel is the step of ``csrc/gru_step.cuh``, launched with the geometry of
-:func:`gru_launch_geometry`; the backward's is the step of
+kernel is the step of ``csrc/rnn_fwd_step.cuh`` (shared with the LSTM's
+forward), launched with the geometry of :func:`gru_launch_geometry`; the
+backward's is the step of
 ``csrc/rnn_bwd_step.cuh`` (shared with the LSTM's backward), launched with
 the geometry of :func:`rnn_bwd_launch_geometry`.
 
@@ -63,9 +64,9 @@ def _library(name):
     return lib
 
 
-# -- the launch geometry of the forward kernels (csrc/gru_step.cuh) -----------
+# -- the launch geometry of the forward kernels (csrc/rnn_fwd_step.cuh) -------
 
-#: Threads that split k for one hidden unit (gru_step.cuh's LANES).
+#: Threads that split k for one hidden unit (rnn_fwd_step.cuh's LANES).
 LANES = 8
 #: Threads a CTA of the cluster step at most.
 MAX_THREADS = 512
@@ -75,14 +76,14 @@ MAX_SMEM = 232448
 CLUSTER_ROWS = (2, 4, 8)
 #: Cluster sizes, largest first (8 is the portable limit).
 CLUSTER_SIZES = (8, 4, 2, 1)
-#: Batch rows a block of a wide instance walks (gru_fwd.cu's and gru_seq.cu's BT).
+#: Batch rows a block of a wide instance walks (the forwards' and backwards' BT).
 WIDE_ROWS = 4
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
 
 
 class GRUGeometry(NamedTuple):
-    """How the forward kernels launch at one shape (:func:`gru_launch_geometry`).
+    """How the recurrent forward kernels launch at one shape (:func:`gru_launch_geometry`).
 
     The kernels are passed ``cluster``, ``rows`` and ``smem_bytes`` and lay
     out the same threads and grid from them; the other fields describe that
@@ -99,25 +100,27 @@ class GRUGeometry(NamedTuple):
     waves: int          #: ceil(ctas / sm_count)
 
 
-def cluster_smem_bytes(hidden, cluster, rows, elem_bytes):
-    """Shared memory of one CTA of the cluster step (gru_step.cuh:smem_bytes):
-    its (HP, 3H/C) W_h slice in the storage type, 16-byte aligned, and two
-    (rows, HP) f32 h buffers, HP = H rounded up to 32."""
+def cluster_smem_bytes(hidden, cluster, rows, gates, elem_bytes):
+    """Shared memory of one CTA of the forward's cluster step
+    (rnn_fwd_step.cuh:smem_bytes): its (HP, G*H/C) W_h slice in the storage
+    type, 16-byte aligned, and two (rows, HP) f32 h buffers, HP = H rounded
+    up to 32."""
     quad = 4 * LANES
     hp = -(-hidden // quad) * quad
-    return -(-hp * 3 * (hidden // cluster) * elem_bytes // 16) * 16 + 2 * rows * hp * 4
+    return -(-hp * gates * (hidden // cluster) * elem_bytes // 16) * 16 + 2 * rows * hp * 4
 
 
-def gru_launch_geometry(batch, n_dir, hidden, elem_bytes, sm_count=H100_SMS):
-    """The launch of the GRU forward kernels (gru_fwd.cu with D = n_dir,
-    gru_seq.cu with D = 1) for a shape, from the shape and the card alone.
+def gru_launch_geometry(batch, n_dir, hidden, gates, elem_bytes, sm_count=H100_SMS):
+    """The launch of the recurrent forward kernels (gru_fwd.cu with
+    ``gates`` = 3 and D = n_dir, gru_seq.cu with 3 and D = 1, lstm_fwd.cu
+    with 4 and D = n_dir) for a shape, from the shape and the card alone.
 
     A cluster of C CTAs owns one direction and a tile of R batch rows; each
-    CTA owns U = H/C hidden units with 8 threads a unit, each thread summing
-    its share of k for all R rows. The candidates are R in 2, 4, 8 and C in
-    8, 4, 2, 1 with C dividing H, R <= 4C (never fewer CTAs than one 4-row
-    block a tile), 8U <= 512 threads, and a CTA's W_h slice and h buffers
-    within its shared memory. The rule takes the first candidate, fewest rows
+    CTA owns U = H/C hidden units and their G gate columns, with 8 threads a
+    unit, each thread summing its share of k for all R rows. The candidates
+    are R in 2, 4, 8 and C in 8, 4, 2, 1 with C dividing H, R <= 4C (never
+    fewer CTAs than one 4-row block a tile), 8U <= 512 threads, and a CTA's
+    W_h slice and h buffers within its shared memory. The rule takes the first candidate, fewest rows
     first and then the largest cluster, that puts ceil(B/R) * D * C <=
     ``sm_count`` CTAs on the step (one an SM, every cluster resident at
     once); where none does, the candidate with the fewest CTAs. Fewer rows a
@@ -125,16 +128,19 @@ def gru_launch_geometry(batch, n_dir, hidden, elem_bytes, sm_count=H100_SMS):
     more SMs, and a smaller one packs the card when the batch is large.
     Without a candidate (W_h beyond a CTA's shared memory, or U > 64) the
     wide instance runs: 4-row blocks of 512 threads reading W_h through the
-    L2.
+    L2, with the carries (the GRU's h; the LSTM's h and c) and the G gates of
+    each row in shared memory.
     """
     candidates = [(rows, c) for rows in CLUSTER_ROWS for c in CLUSTER_SIZES
                   if hidden % c == 0 and rows <= 4 * c
                   and LANES * (hidden // c) <= MAX_THREADS
-                  and cluster_smem_bytes(hidden, c, rows, elem_bytes) <= MAX_SMEM]
+                  and cluster_smem_bytes(hidden, c, rows, gates, elem_bytes) <= MAX_SMEM]
     if not candidates:
         tiles = -(-batch // WIDE_ROWS)
+        carries = 1 if gates == 3 else 2
         return GRUGeometry(False, 1, WIDE_ROWS, MAX_THREADS, (tiles, n_dir), tiles * n_dir,
-                           WIDE_ROWS * 4 * hidden * 4, -(-tiles * n_dir // sm_count))
+                           WIDE_ROWS * (carries + gates) * hidden * 4,
+                           -(-tiles * n_dir // sm_count))
 
     def ctas(rows, c):
         return -(-batch // rows) * n_dir * c
@@ -142,7 +148,7 @@ def gru_launch_geometry(batch, n_dir, hidden, elem_bytes, sm_count=H100_SMS):
     rows, c = next(((r, c) for r, c in candidates if ctas(r, c) <= sm_count),
                    min(candidates, key=lambda rc: ctas(*rc)))
     return GRUGeometry(True, c, rows, LANES * (hidden // c), (c * -(-batch // rows), n_dir),
-                       ctas(rows, c), cluster_smem_bytes(hidden, c, rows, elem_bytes),
+                       ctas(rows, c), cluster_smem_bytes(hidden, c, rows, gates, elem_bytes),
                        -(-ctas(rows, c) // sm_count))
 
 
@@ -403,7 +409,7 @@ def resident(name, hidden, dtype):
     which needs no card."""
     elem = torch.empty(0, dtype=dtype).element_size()
     if name == "gru_fwd":
-        return gru_launch_geometry(1, 1, hidden, elem).resident
+        return gru_launch_geometry(1, 1, hidden, 3, elem).resident
     return rnn_bwd_launch_geometry(1, 1, hidden, 3, elem).resident
 
 
@@ -416,7 +422,7 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
     ys = torch.empty(n_steps, batch, n_dir * hidden, dtype=x_proj.dtype, device=x_proj.device)
     if n_steps == 0 or batch == 0:
         return ys
-    geometry = gru_launch_geometry(batch, n_dir, hidden, x_proj.element_size(),
+    geometry = gru_launch_geometry(batch, n_dir, hidden, 3, x_proj.element_size(),
                                    _sm_count(x_proj.device))
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -590,7 +596,7 @@ def batch_major_resident(hidden):
     this width (else it reads W_h through the L2 every step): the answer of
     :func:`gru_launch_geometry`, the same as the forward kernel's with one
     direction in f32. The batch tile does not change it."""
-    return gru_launch_geometry(1, 1, hidden, 4).resident
+    return gru_launch_geometry(1, 1, hidden, 3, 4).resident
 
 
 def _launch_seq(x_proj, w_h, b_h, mask):
@@ -607,7 +613,7 @@ def _launch_seq(x_proj, w_h, b_h, mask):
     if batch == 0 or n_steps == 0:
         return out
     mask_f = mask.to(torch.float32).contiguous()
-    geometry = gru_launch_geometry(batch, 1, hidden, 4, _sm_count(x_proj.device))
+    geometry = gru_launch_geometry(batch, 1, hidden, 3, 4, _sm_count(x_proj.device))
     with torch.cuda.device(x_proj.device):
         err = _library("gru_seq").gru_seq(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), out.data_ptr(),

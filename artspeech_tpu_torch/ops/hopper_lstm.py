@@ -5,11 +5,13 @@ Pallas time loop, ``_lstm_fwd_kernel`` and ``_lstm_bwd_kernel`` wired by a
 custom VJP). The kernels are ``csrc/lstm_fwd.cu`` and ``csrc/lstm_bwd.cu``;
 :class:`LSTMSequenceFn` wires them as a ``torch.autograd.Function``. Each
 takes every H from 1 to ``MAX_HIDDEN``: a thread-block-cluster kernel with
-W_h resident in shared memory where it fits (the latent RNN's H = 128), a
-wide one that reads W_h through the L2 elsewhere. The forward's clusters
-are two CTAs; the backward's is the cluster step of
-``csrc/rnn_bwd_step.cuh`` (shared with the GRU's backward), launched with
-the geometry of ``hopper_gru.rnn_bwd_launch_geometry``.
+W_h slices resident in shared memory where they fit (the latent RNN's
+H = 128, and up to H = 256), a wide one that reads W_h through the L2
+elsewhere. The forward's is the cluster step of ``csrc/rnn_fwd_step.cuh``
+(shared with the GRU's forwards) with a four-gate cell, launched with the
+geometry of ``hopper_gru.gru_launch_geometry``; the backward's is the
+cluster step of ``csrc/rnn_bwd_step.cuh`` (shared with the GRU's backward),
+launched with the geometry of ``hopper_gru.rnn_bwd_launch_geometry``.
 
 - A CPU tensor takes the plain versions, :func:`lstm_sequence_reference` and
   :func:`lstm_sequence_backward_reference`.
@@ -38,7 +40,7 @@ MAX_HIDDEN = 1024
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
-_POINTERS_INTS = {"lstm_fwd": (6, 6), "lstm_bwd": (13, 9)}
+_POINTERS_INTS = {"lstm_fwd": (6, 9), "lstm_bwd": (13, 9)}
 _libs = {}
 
 
@@ -50,9 +52,6 @@ def _library(name):
         entry = getattr(lib, name)
         entry.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [ctypes.c_void_p]
         entry.restype = ctypes.c_int
-        if name == "lstm_fwd":
-            lib.lstm_fwd_resident.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.lstm_fwd_resident.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 
@@ -206,13 +205,13 @@ def _check(x_proj, w_h, b_h, mask, n_dir, name):
 
 def resident(name, hidden, dtype):
     """Whether kernel ``name`` ("lstm_fwd" or "lstm_bwd") runs H in ``dtype``
-    as the cluster kernel with W_h in shared memory (else its wide instance).
-    The backward's answer is ``hopper_gru.rnn_bwd_launch_geometry``'s and
-    needs no card; the forward's asks its library."""
+    as the cluster kernel with W_h slices in shared memory (else its wide
+    instance): the answer of ``hopper_gru.gru_launch_geometry`` or
+    ``hopper_gru.rnn_bwd_launch_geometry`` with 4 gates, which needs no card."""
     elem = torch.empty(0, dtype=dtype).element_size()
-    if name == "lstm_bwd":
-        return hopper_gru.rnn_bwd_launch_geometry(1, 1, hidden, 4, elem).resident
-    return bool(_library(name).lstm_fwd_resident(hidden, elem))
+    if name == "lstm_fwd":
+        return hopper_gru.gru_launch_geometry(1, 1, hidden, 4, elem).resident
+    return hopper_gru.rnn_bwd_launch_geometry(1, 1, hidden, 4, elem).resident
 
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
@@ -225,12 +224,14 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
     cs = torch.empty_like(ys) if with_cells else None
     if n_steps == 0 or batch == 0:
         return ys, cs
+    geometry = hopper_gru.gru_launch_geometry(batch, n_dir, hidden, 4, x_proj.element_size(),
+                                              hopper_gru._sm_count(x_proj.device))
     with torch.cuda.device(x_proj.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library("lstm_fwd").lstm_fwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(),
             ys.data_ptr(), None if cs is None else cs.data_ptr(), n_steps, batch, hidden, n_dir,
-            rev_bits, _DTYPES[x_proj.dtype], stream)
+            rev_bits, _DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry), stream)
     if err != 0:
         raise RuntimeError(f"lstm_fwd kernel launch failed with CUDA error {err}")
     launches += 1

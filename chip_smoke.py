@@ -14,8 +14,8 @@ Phases, each printing its own lines:
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
                train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
                all started together; prints -Xptxas -v's registers and
-               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_bwd,
-               flash_decode and train_attention;
+               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_fwd,
+               lstm_bwd, flash_decode and train_attention;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -45,11 +45,12 @@ Phases, each printing its own lines:
                on a second launch, each with both launch geometries, and
                L = 513 refused; the LSTM forward and
                backward (lstm_fwd.cu, lstm_bwd.cu) at H 16, 64 and 128, B 1,
-               3, 12 and 64, T 1, 7 and 128 (LSTM_CASES), both directions in
-               one launch and each alone,
+               3, 12, 16 and 64, T 1, 7 and 128 (LSTM_CASES), both directions
+               in one launch and each alone,
                ragged lengths with a full row and a row of length 1, f32 and
                bf16, held as the GRU kernels are (the forward's cell states
-               relative to max(|c|, 1));
+               relative to max(|c|, 1)), each with both launch geometries
+               and a second launch bit for bit;
      gru_seq — the batch-major GRU (gru_seq.cu, row 7) against its plain
                version in f32 within 1e-5 (GRU_SEQ_CASES: B = 1, B not a
                multiple of the tile or the cluster's rows, ragged rows of
@@ -62,18 +63,19 @@ Phases, each printing its own lines:
      widths  — every widened kernel against its plain version at widths the
                resident kernels refuse, at the same limits: the GRU forward
                and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
-               the LSTM at H 168, 256 and 1,024, the training attention at
+               the LSTM at H 168, 256, 512 and 1,024, the training attention at
                hd 48, 64 and 128 with L 37, 128 and 512 and at hd 8, 17 and
                32 with L 128 and 512 (both geometries; the forward's out and
                lse and the backward the same bits on a second launch), the
                decode at hd 80, 128 and 256 (f32 and bf16 caches); the
                instance each width takes (the thesis widths keep
-               the resident kernels; gru_fwd's cluster step or wide instance
-               as GRU_FWD_INSTANCE says), the outer bounds refused (H 1,025,
-               hd 129, L 513, decode hd 257), and one timing of each wide
-               instance beside the same PyTorch call (cuDNN's GRU and LSTM,
-               scaled_dot_product_attention) at its shape, and gru_fwd's
-               cluster step at H 256 beside cuDNN's GRU there;
+               the resident kernels; the forwards' cluster step or wide
+               instance as GRU_FWD_INSTANCE and LSTM_FWD_INSTANCE say), the
+               outer bounds refused (H 1,025, hd 129, L 513, decode hd 257),
+               and one timing of each wide instance beside the same PyTorch
+               call (cuDNN's GRU and LSTM, scaled_dot_product_attention) at
+               its shape, and the recurrences' cluster steps at H 256 beside
+               cuDNN there;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
                synthesize_corpus over 32 seeded sentences into a temporary
                directory, then the bench.py shape (B=16, T=128, 11
@@ -382,7 +384,8 @@ TRAIN_T = 128
 TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
 MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 #: The LSTM kernels against their plain versions, (T, B, H): the latent
-#: RNN's B = 12 and B = 64 at T = 128 and H = 128, and T in {1, 7, 128},
+#: RNN's B = 12 and B = 64 at T = 128 and H = 128 and its synthesis batch
+#: (16), and T in {1, 7, 128},
 #: B in {1, 3, 12, 64}, H in {16, 64, 128} around them; each in f32 and
 #: bf16, both directions in one launch and each alone, ragged lengths with a
 #: full row and (B > 1) a row of length 1. Wider H: [widths].
@@ -391,8 +394,9 @@ MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
 #: (clusters of 4, one direction 8).
 LSTM_CASES = [(128, 12, 128), (128, 64, 128), (7, 3, 64), (1, 1, 16), (7, 64, 16),
               (128, 3, 64), (1, 12, 128), (128, 1, 128), (37, 13, 128), (9, 5, 136),
-              (9, 7, 20), (9, 5, 6), (17, 64, 128)]
-LSTM_SHAPES = [(128, 12, 128), (128, 64, 128)]  # timed: (T, B, H)
+              (9, 7, 20), (9, 5, 6), (17, 64, 128), (128, 16, 128)]
+#: Timed, (T, B, H): the latent RNN's train batches and its synthesis batch.
+LSTM_SHAPES = [(128, 12, 128), (128, 64, 128), (128, 16, 128)]
 #: [gru_seq] cases (B, T, H, batch tile): B = 1, B not a multiple of the
 #: tile or of the cluster's rows, ragged rows, T = 1, H 16, 20, 128, 136 and
 #: 256 (the cluster step; 20 and 136 give 5 and 17 units a CTA) and 512 (the
@@ -406,13 +410,18 @@ GRU_SEQ_TIMED_B = (16, 256)
 GRU_SEQ_WIDENED = (37, 17, 128, 33)
 #: [widths]: hidden sizes the resident recurrent kernels refused (H % 4 != 0,
 #: 3H or 2H above 1,024 threads, W_h above a block's shared memory).
-WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 1024)}
+WIDE_RNN_H = {"gru_": (6, 130, 256, 512, 1024), "lstm": (168, 256, 512, 1024)}
 #: The instance gru_fwd takes at each of those H, (f32, bf16): the cluster
 #: step wherever a CTA's W_h slice fits (C = 2 at 6, 8 at 256 and at 512 in
 #: bf16), the wide one where it does not (1,024; 512 in f32) or where a CTA
 #: would hold more than 64 units (130 = 2 * 65).
 GRU_FWD_INSTANCE = {6: ("cluster", "cluster"), 130: ("wide", "wide"), 256: ("cluster", "cluster"),
                     512: ("wide", "cluster"), 1024: ("wide", "wide")}
+#: The instance lstm_fwd takes at its [widths] H, (f32, bf16): the cluster
+#: step to H = 256 (C = 8: a 128 KiB W_h slice in f32 at 256), the wide one
+#: at 512 and 1,024, where a CTA's slice exceeds its shared memory.
+LSTM_FWD_INSTANCE = {168: ("cluster", "cluster"), 256: ("cluster", "cluster"),
+                     512: ("wide", "wide"), 1024: ("wide", "wide")}
 #: The instance the backwards take at those H, in f32 and bf16 alike: the
 #: cluster step to H = 256, the wide one above.
 BWD_INSTANCE = {6: "cluster", 130: "cluster", 168: "cluster", 256: "cluster", 512: "wide",
@@ -424,8 +433,8 @@ WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [
     (hd, l) for hd in (8, 17, 32) for l in (128, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
 WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
-#: gru_fwd's timed wide instance: at H = 256 it takes the cluster step.
-WIDE_TIMED_GRU_FWD_H = 512
+#: The forwards' timed wide instances: at H = 256 they take the cluster step.
+WIDE_TIMED_GRU_FWD_H = WIDE_TIMED_LSTM_FWD_H = 512
 #: The backwards' timed wide instances: at H = 256 they take the cluster step.
 WIDE_TIMED_BWD_H = 512
 PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
@@ -469,7 +478,8 @@ def rel_err(got, ref):
 
 
 #: Libraries whose kernels' registers and spills [build] prints.
-PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_bwd", "flash_decode", "train_attention")
+PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_fwd", "lstm_bwd", "flash_decode",
+                  "train_attention")
 
 
 def ptxas_kernels(report):
@@ -538,12 +548,12 @@ def bigru_backward_reference(xp, wh, bh, mask, ys, g):
     return hopper_gru.gru_backward_reference(xp, wh, bh, mask, ys, g, 0b10)
 
 
-def geometry_fields(b, n_dir, h, dtype):
-    """The launch of gru_fwd or gru_seq at a shape: instance, cluster size C,
-    rows a cluster, CTAs, threads a CTA, and the waves they take at one CTA
-    an SM."""
+def geometry_fields(b, n_dir, h, gates, dtype):
+    """The launch of gru_fwd or gru_seq (gates 3) or lstm_fwd (4) at a shape:
+    instance, cluster size C, rows a cluster, CTAs, threads a CTA, and the
+    waves they take at one CTA an SM."""
     elem = torch.empty(0, dtype=dtype).element_size()
-    geo = hopper_gru.gru_launch_geometry(b, n_dir, h, elem,
+    geo = hopper_gru.gru_launch_geometry(b, n_dir, h, gates, elem,
                                          torch.cuda.get_device_properties(0).multi_processor_count)
     return dict(instance="cluster" if geo.resident else "wide", C=geo.cluster, rows=geo.rows,
                 ctas=geo.ctas, threads=geo.threads, waves=geo.waves)
@@ -586,7 +596,7 @@ def gru_fwd_vs_plain():
                 ref = hopper_gru.gru_sequence_reference(x_d, wh[d], bh[d], mask, reverse)
                 errs["reverse" if reverse else "forward"] = (one.float() - ref.float()).abs().max().item()
             torch.cuda.synchronize()
-            geo = geometry_fields(b, 2, h, dtype)
+            geo = geometry_fields(b, 2, h, 3, dtype)
             phase("kernel", kernel="gru_fwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
                   tol=tol, C=geo["C"], rows=geo["rows"], instance=geo["instance"],
                   **{f"max_abs_err_{k}": v for k, v in errs.items()})
@@ -908,28 +918,34 @@ def lstm_fwd_vs_plain():
     """The forward kernel against its plain version at LSTM_CASES, both
     directions in one launch and each alone: ys within F32_TOL (bf16:
     BF16_TOL, h in (-1, 1)); the cell states, unbounded, within the same
-    figure relative to max(|c|, 1); and the inference launch (no cell
-    states) writes the same ys. Returns the largest f32 ys error at the
-    latent RNN's shape."""
+    figure relative to max(|c|, 1); the inference launch (no cell states)
+    writes the same ys, and a second launch the same bits. Returns the
+    largest f32 ys error at the latent RNN's shape."""
     worst = 0.0
     for t, b, h in LSTM_CASES:
         for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-            errs = {}
+            errs, bitwise = {}, True
             for name, n_dir, rev_bits in LSTM_LAYOUTS:
                 xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=t + b + h + n_dir)
                 ys, cs = hopper_lstm.lstm_forward(xp, wh, bh, mask, rev_bits, with_cells=True)
                 inference, _ = hopper_lstm.lstm_forward(xp, wh, bh, mask, rev_bits)
                 ref_ys, ref_cs = hopper_lstm.lstm_forward_reference(xp, wh, bh, mask, rev_bits,
                                                                      with_cells=True)
+                bitwise &= repeats_bitwise(lambda: hopper_lstm.lstm_forward(
+                    xp, wh, bh, mask, rev_bits, with_cells=True), (ys, cs))
                 torch.cuda.synchronize()
                 errs[f"ys_{name}"] = (ys.float() - ref_ys.float()).abs().max().item()
                 errs[f"cs_{name}"] = rel_err(cs, ref_cs)
                 check(torch.equal(ys, inference), f"lstm_fwd without cell states differs at "
                                                   f"{(t, b, h)} {dtype} {name}")
+            geo = geometry_fields(b, 2, h, 4, dtype)
             phase("kernel", kernel="lstm_fwd", T=t, B=b, H=h, dtype=str(dtype).split(".")[-1],
-                  tol=tol, **{f"err_{k}": f"{v:.3g}" for k, v in errs.items()})
+                  tol=tol, C=geo["C"], rows=geo["rows"], instance=geo["instance"],
+                  one_direction_C=geometry_fields(b, 1, h, 4, dtype)["C"], bitwise=bitwise,
+                  **{f"err_{k}": f"{v:.3g}" for k, v in errs.items()})
             check(all(np.isfinite(v) and v <= tol for v in errs.values()),
                   f"lstm_fwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            check(bitwise, f"lstm_fwd gave other bits on a second launch at {(t, b, h)} {dtype}")
             if dtype == torch.float32 and (t, b, h) == LSTM_SHAPES[0]:
                 worst = max(v for k, v in errs.items() if k.startswith("ys_"))
     return worst
@@ -1013,7 +1029,7 @@ def gru_seq_vs_plain():
         ref = hopper_gru.gru_sequence_batch_major_reference(xp, wh, bh, mask)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        geo = geometry_fields(b, 1, h, torch.float32)
+        geo = geometry_fields(b, 1, h, 3, torch.float32)
         phase("gru_seq", B=b, T=t, H=h, batch_tile=tile, instance=geo["instance"], C=geo["C"],
               rows=geo["rows"], dtype="float32", tol=F32_TOL, max_abs_err=f"{err:.3g}")
         check(np.isfinite(err) and err <= F32_TOL,
@@ -1089,7 +1105,7 @@ def time_gru_seq():
         results[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           library_ms=library_ms, gru_fwd_one_direction_ms=gru_fwd_ms,
                           us_per_step=ms * 1e3 / t,
-                          geometry=geometry_fields(b, 1, h, torch.float32))
+                          geometry=geometry_fields(b, 1, h, 3, torch.float32))
         phase("timing", kernel="gru_seq", T=t, B=b, H=h, directions=1, batch_tile=16,
               dtype="float32", **fmt({k: v for k, v in results[b].items() if k != "geometry"}),
               **results[b]["geometry"])
@@ -1149,13 +1165,11 @@ def widths():
                     BF16_TOL if fwd else BWD_BF16_TOL)
                 err = width_errors(kernel, h, dtype)
                 torch.cuda.synchronize()
-                instance = "resident" if mod.resident(kernel, h, dtype) else "wide"
-                if kernel == "gru_fwd" or kernel.endswith("bwd"):
-                    instance = "cluster" if instance == "resident" else "wide"
-                    expected = (GRU_FWD_INSTANCE[h][dtype == torch.bfloat16]
-                                if kernel == "gru_fwd" else BWD_INSTANCE[h])
-                    check(instance == expected, f"{kernel} takes the {instance} instance at "
-                                                f"H={h} {dtype}, expected {expected}")
+                instance = "cluster" if mod.resident(kernel, h, dtype) else "wide"
+                expected = ({"gru_fwd": GRU_FWD_INSTANCE, "lstm_fwd": LSTM_FWD_INSTANCE}[kernel][h]
+                            [dtype == torch.bfloat16] if fwd else BWD_INSTANCE[h])
+                check(instance == expected, f"{kernel} takes the {instance} instance at "
+                                            f"H={h} {dtype}, expected {expected}")
                 phase("widths", kernel=kernel, H=h, dtype=str(dtype).split(".")[-1],
                       instance=instance, tol=tol, err=f"{err:.3g}")
                 check(np.isfinite(err) and err <= tol,
@@ -1248,33 +1262,49 @@ def bwd_timing(kernel, h):
     return ms, cudnn_bwd_ms(rnn, t, b, h)[0], instance
 
 
+def lstm_fwd_timing(h):
+    """lstm_fwd at T = 128, B = 16, H = h, both directions, f32: (ms, cuDNN's
+    nn.LSTM forward at that shape, the instance the width takes, checked
+    against LSTM_FWD_INSTANCE)."""
+    t, b = BENCH_T, BENCH_B
+    xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=7)
+    ms = cuda_ms(lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10), 5)
+    cudnn = torch.nn.LSTM(h, h, bidirectional=True).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+    with torch.inference_mode():
+        library_ms = cuda_ms(lambda: cudnn(x), 5)
+    instance = "cluster" if hopper_lstm.resident("lstm_fwd", h, torch.float32) else "wide"
+    check(instance == LSTM_FWD_INSTANCE[h][0], f"lstm_fwd at H={h} f32 takes the {instance} "
+                                               f"instance, expected {LSTM_FWD_INSTANCE[h][0]}")
+    return ms, library_ms, instance
+
+
 def time_wide_instances():
     """Each wide instance at one shape, f32, beside one PyTorch call that
     computes the same function there (a yardstick the port never calls):
-    gru_fwd at H = 512 (T = 128, B = 16, both directions; cuDNN's nn.GRU
-    forward); gru_bwd and lstm_bwd at H = 512 (the same T, B and
-    directions; cuDNN's nn.GRU and nn.LSTM backward timed alone); lstm_fwd
-    at H = 256 (cuDNN's nn.LSTM forward); the training attention at hd = 64
+    gru_fwd and lstm_fwd at H = 512 (T = 128, B = 16, both directions;
+    cuDNN's nn.GRU and nn.LSTM forward); gru_bwd and lstm_bwd at H = 512 (the
+    same T, B and directions; cuDNN's nn.GRU and nn.LSTM backward timed
+    alone); the training attention at hd = 64
     (G = 4,320, L = 128, the dropout keep; scaled_dot_product_attention with
     is_causal, forward, and forward + backward minus forward); the decode at
     hd = 128 (the B = 12 cross-channel G, 128 rows;
     scaled_dot_product_attention over (G, 1, 1, hd) x (G, 1, S, hd)). Beside
     them, under keys of their own, the cluster steps at H = 256 (the width
     the wide instances ran at until the cluster steps took it) with cuDNN
-    there: gru_fwd's, gru_bwd's and lstm_bwd's."""
+    there: gru_fwd's, gru_bwd's, lstm_bwd's and lstm_fwd's."""
     t, b, h = BENCH_T, BENCH_B, WIDE_TIMED_H
     results, library, h256 = {}, {}, {}
     xp, wh, bh, mask = gru_inputs(t, b, h, 2, torch.float32, seed=7)
     check(hopper_gru.resident("gru_fwd", h, torch.float32),
           f"gru_fwd at H={h} f32 was expected to take its cluster step")
     cluster_ms = cuda_ms(lambda: hopper_gru.gru_forward(xp, wh, bh, mask, 0b10), 5)
-    xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=7)
-    results["lstm_fwd"] = cuda_ms(lambda: hopper_lstm.lstm_forward(xp, wh, bh, mask, 0b10), 5)
-    for rnn, name in ((torch.nn.GRU, "gru_fwd_h256"), (torch.nn.LSTM, "lstm_fwd")):
-        cudnn = rnn(h, h, bidirectional=True).cuda()
-        x = torch.randn(t, b, h, device="cuda")
-        with torch.inference_mode():
-            library[name] = cuda_ms(lambda: cudnn(x), 5)
+    cudnn = torch.nn.GRU(h, h, bidirectional=True).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+    with torch.inference_mode():
+        library["gru_fwd_h256"] = cuda_ms(lambda: cudnn(x), 5)
+    h256["lstm_fwd"] = lstm_fwd_timing(h)
+    results["lstm_fwd"], library["lstm_fwd"], _ = lstm_fwd_timing(WIDE_TIMED_LSTM_FWD_H)
     for name in ("gru_bwd", "lstm_bwd"):
         results[name], library[name], instance = bwd_timing(name, WIDE_TIMED_BWD_H)
         check(instance == "wide", f"{name} at H={WIDE_TIMED_BWD_H} f32 was expected to take "
@@ -1317,7 +1347,7 @@ def time_wide_instances():
     shapes = {"gru_fwd": f"T={t},B={b},H={h_fwd},directions=2",
               **{k: f"T={t},B={b},H={WIDE_TIMED_BWD_H},directions=2"
                  for k in ("gru_bwd", "lstm_bwd")},
-              "lstm_fwd": f"T={t},B={b},H={h},directions=2",
+              "lstm_fwd": f"T={t},B={b},H={WIDE_TIMED_LSTM_FWD_H},directions=2",
               "train_attention_fwd": f"G={g},L={TRAIN_T},hd={hd}",
               "train_attention_bwd": f"G={g},L={TRAIN_T},hd={hd}",
               "flash_decode": f"G={g_flash},S={DECODE_T},hd={WIDE_TIMED_FLASH_HD}"}
@@ -3119,7 +3149,7 @@ def time_gru_fwd():
         results[(t, b)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, library_ms=library_ms,
                                us_per_step=kernel_ms * 1e3 / t,
-                               geometry=geometry_fields(b, 2, h, torch.float32))
+                               geometry=geometry_fields(b, 2, h, 3, torch.float32))
         phase("timing", kernel="gru_fwd", T=t, B=b, H=h, directions=2, dtype="float32",
               **fmt({k: v for k, v in results[(t, b)].items() if k != "geometry"}),
               **results[(t, b)]["geometry"])
@@ -3228,11 +3258,12 @@ def lstm_bwd_bound_ms(t, b, h, n_dir, elem_bytes):
 def time_lstm():
     """Both LSTM kernels at LSTM_SHAPES (T = 128, H = 128, both directions,
     f32): back to back and by profiler device time (the backward's main
-    kernel and its partial-sum kernel apart), their plain versions, the
-    bounds, and cuDNN's nn.LSTM on full-length rows as the yardstick: its
-    inference forward, and its backward timed alone (cudnn_bwd_ms); the
-    backward's launch geometry and microseconds a step. Returns
-    {kernel: {B: numbers}}."""
+    kernel and its partial-sum kernel apart), the forward also by graph_ms,
+    their plain versions, the bounds, and cuDNN's nn.LSTM on full-length
+    rows as the yardstick: its inference forward, and its backward timed
+    alone (cudnn_bwd_ms); both kernels' launch geometry and microseconds a
+    step (the forward's from graph_ms, the backward's back to back).
+    Returns {kernel: {B: numbers}}."""
     results = {"lstm_fwd": {}, "lstm_bwd": {}}
     for t, b, h in LSTM_SHAPES:
         xp, wh, bh, mask = lstm_inputs(t, b, h, 2, torch.float32, seed=1)
@@ -3250,13 +3281,15 @@ def time_lstm():
         with torch.inference_mode():
             cudnn_fwd_ms = cuda_ms(lambda: cudnn(x), 20)
         cudnn_bwd, cudnn_bwd_device = cudnn_bwd_ms(torch.nn.LSTM, t, b, h)
-        results["lstm_fwd"][b] = dict(ms=cuda_ms(fwd, 20), device_ms=kernel_device_ms(fwd, 10,
-                                                                                     "lstm_fwd"),
+        fwd_graph_ms = graph_ms(fwd, 20)
+        results["lstm_fwd"][b] = dict(ms=cuda_ms(fwd, 20), graph_ms=fwd_graph_ms,
+                                      device_ms=kernel_device_ms(fwd, 10, "lstm_fwd"),
                                       plain_ms=cuda_ms(lambda: hopper_lstm.lstm_forward_reference(
                                           xp, wh, bh, mask, 0b10), 3),
                                       **dict(zip(("bound_ms", "bound_by"),
                                                  lstm_bound_ms(t, b, h, 2, 4))),
-                                      library_ms=cudnn_fwd_ms)
+                                      library_ms=cudnn_fwd_ms, us_per_step=fwd_graph_ms * 1e3 / t,
+                                      geometry=geometry_fields(b, 2, h, 4, torch.float32))
         bwd_ms = cuda_ms(bwd, 20)
         results["lstm_bwd"][b] = dict(ms=bwd_ms, **split_device_ms(bwd, "lstm_bwd"),
                                       plain_ms=cuda_ms(lambda: hopper_lstm.lstm_backward_reference(
@@ -3500,6 +3533,7 @@ def main():
                     "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
+    extra["lstm_fwd"]["graph_ms"] = lstm["lstm_fwd"][LSTM_SHAPES[0][1]]["graph_ms"]
     extra["gru_seq"] = {"by_shape": {f"B={b}": r for b, r in gru_seq.items()}}
     extra["gru_fwd"] = {"by_shape": {f"B={b}": r for (_, b), r in gru_fwd.items()}}
     extra["gru_bwd"]["by_shape"] = {f"B={b}": r for b, r in gru_bwd.items()}

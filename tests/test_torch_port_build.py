@@ -5,9 +5,9 @@
 ``#include "…"`` and of the nvcc flags, so that a library built from an
 older header is never loaded. These tests run over a temporary ``CSRC_DIR``
 (nothing is compiled: no nvcc is needed) and over the real sources, where
-the two GRU forward kernels share ``gru_step.cuh``, the GRU and LSTM
-backward kernels ``rnn_bwd_step.cuh``, and both steps and the decode kernel
-``dsmem.cuh``.
+the GRU and LSTM forward kernels share ``rnn_fwd_step.cuh``, the GRU and
+LSTM backward kernels ``rnn_bwd_step.cuh``, and both steps and the decode
+kernel ``dsmem.cuh``.
 """
 
 import os
@@ -65,19 +65,19 @@ def test_editing_the_source_or_the_flags_changes_the_library(tmp_path, monkeypat
 
 
 def test_the_gru_forward_kernels_share_their_step():
-    """gru_fwd and gru_seq include the forward's cluster step, gru_bwd and
-    lstm_bwd the backward's, and all four and flash_decode the helpers
-    header the two steps share, so an edit of that header changes every one
-    of their libraries."""
+    """gru_fwd, gru_seq and lstm_fwd include the forward's cluster step,
+    gru_bwd and lstm_bwd the backward's, and all five and flash_decode the
+    helpers header the two steps share, so an edit of that header changes
+    every one of their libraries."""
     csrc = _build.CSRC_DIR
     helpers = os.path.join(csrc, "dsmem.cuh")
-    step = os.path.join(csrc, "gru_step.cuh")
+    step = os.path.join(csrc, "rnn_fwd_step.cuh")
     bwd_step = os.path.join(csrc, "rnn_bwd_step.cuh")
-    for name in ("gru_fwd", "gru_seq"):
+    for name in ("gru_fwd", "gru_seq", "lstm_fwd"):
         assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), step, helpers]
     for name in ("gru_bwd", "lstm_bwd"):
         assert _build.sources(name) == [os.path.join(csrc, f"{name}.cu"), bwd_step, helpers]
     assert _build.sources("flash_decode") == [os.path.join(csrc, "flash_decode.cu"), helpers]
     assert step not in _build.sources("gru_bwd")
-    assert helpers not in _build.sources("lstm_fwd")
+    assert bwd_step not in _build.sources("lstm_fwd")
     assert _build._libraries.get("gru_fwd") is None  # nothing was built or loaded

@@ -1,17 +1,20 @@
-"""The launch rule of the port's GRU forward kernels, on the CPU.
+"""The launch rule of the port's recurrent forward kernels, on the CPU.
 
-``hopper_gru.gru_launch_geometry`` chooses, from the shape and the card's SM
-count alone, how ``csrc/gru_fwd.cu`` and ``csrc/gru_seq.cu`` launch: the
-cluster step of ``csrc/gru_step.cuh`` (a cluster of C CTAs a direction and
-tile of rows, W_h slices in shared memory) or the wide instance (4-row
+``hopper_gru.gru_launch_geometry`` chooses, from the shape, the gate count
+and the card's SM count alone, how ``csrc/gru_fwd.cu`` and
+``csrc/gru_seq.cu`` (3 gates) and ``csrc/lstm_fwd.cu`` (4) launch: the
+cluster step of ``csrc/rnn_fwd_step.cuh`` (a cluster of C CTAs a direction
+and tile of rows, W_h slices in shared memory) or the wide instance (4-row
 blocks reading W_h through the L2). These tests hold the rule to what the
-kernels need, over B in {1, 3, 12, 16, 64, 256}, D in {1, 2}, H in {6, 16,
-128, 130, 256, 1024}, f32 and bf16, at the H100's 132 SMs: every batch row
-in exactly one tile, shared memory and threads within a block's limits, the
-cluster size a portable one that splits H evenly; the thesis shapes with
-every cluster resident at once and at least as many CTAs on a step as one
-4-row block a tile; and both wrappers passing their kernels the same
-geometry for the same (B, D = 1, H). No card is needed or asked for.
+kernels need, over G in {3, 4}, B in {1, 3, 12, 16, 64, 256}, D in {1, 2},
+H in {6, 16, 128, 130, 256, 1024}, f32 and bf16, at the H100's 132 SMs:
+every batch row in exactly one tile, shared memory and threads within a
+block's limits, the cluster size a portable one that splits H evenly; the
+thesis shapes with every cluster resident at once and at least as many
+CTAs on a step as one 4-row block a tile; and both GRU wrappers passing
+their kernels the same geometry for the same (B, D = 1, H). The LSTM's
+wrapper and widths: tests/test_torch_port_lstm_fwd_geometry.py. No card is
+needed or asked for.
 """
 
 import contextlib
@@ -27,13 +30,14 @@ HIDDEN = (6, 16, 128, 130, 256, 1024)
 DTYPES = {"float32": 4, "bfloat16": 2}
 
 
+@pytest.mark.parametrize("gates", (3, 4))
 @pytest.mark.parametrize("hidden", HIDDEN)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_geometry_fits_the_kernels(hidden, dtype):
+def test_geometry_fits_the_kernels(hidden, dtype, gates):
     elem = DTYPES[dtype]
     for batch in BATCHES:
         for n_dir in (1, 2):
-            geo = hopper_gru.gru_launch_geometry(batch, n_dir, hidden, elem, SMS)
+            geo = hopper_gru.gru_launch_geometry(batch, n_dir, hidden, gates, elem, SMS)
             c, rows = geo.cluster, geo.rows
             tiles = geo.grid[0] // c
             # Every batch row in exactly one tile of one cluster.
@@ -48,11 +52,13 @@ def test_geometry_fits_the_kernels(hidden, dtype):
                 assert geo.threads == hopper_gru.LANES * (hidden // c)
                 # The W_h slice, padded to whole quads of k, and two h buffers.
                 hp = -(-hidden // 32) * 32
-                w_bytes = -(-hp * 3 * (hidden // c) * elem // 16) * 16
+                w_bytes = -(-hp * gates * (hidden // c) * elem // 16) * 16
                 assert geo.smem_bytes == w_bytes + 2 * rows * hp * 4
             else:
                 assert (c, rows, geo.threads) == (1, hopper_gru.WIDE_ROWS, hopper_gru.MAX_THREADS)
-                assert geo.smem_bytes == hopper_gru.WIDE_ROWS * 4 * hidden * 4
+                # The carries (the GRU's h; the LSTM's h and c) and the G gates of a row.
+                carries = {3: 1, 4: 2}[gates]
+                assert geo.smem_bytes == hopper_gru.WIDE_ROWS * (carries + gates) * hidden * 4
 
 
 @pytest.mark.parametrize("hidden, dtype, resident", [
@@ -65,40 +71,44 @@ def test_instance_of_each_width(hidden, dtype, resident):
     instance does not depend on the batch."""
     torch_dtype = getattr(torch, dtype)
     assert hopper_gru.resident("gru_fwd", hidden, torch_dtype) is resident
-    assert {hopper_gru.gru_launch_geometry(b, d, hidden, DTYPES[dtype]).resident
+    assert {hopper_gru.gru_launch_geometry(b, d, hidden, 3, DTYPES[dtype]).resident
             for b in BATCHES for d in (1, 2)} == {resident}
     if dtype == "float32":
         assert hopper_gru.batch_major_resident(hidden) is resident
 
 
+@pytest.mark.parametrize("gates", (3, 4))
 @pytest.mark.parametrize("batch", (12, 16, 256))
-def test_thesis_shapes_keep_every_cluster_resident(batch):
+def test_thesis_shapes_keep_every_cluster_resident(batch, gates):
     for n_dir in (1, 2):
         for elem in DTYPES.values():
-            geo = hopper_gru.gru_launch_geometry(batch, n_dir, 128, elem, SMS)
+            geo = hopper_gru.gru_launch_geometry(batch, n_dir, 128, gates, elem, SMS)
             assert geo.resident and geo.waves == 1 and geo.ctas <= SMS
             # Never fewer CTAs on a step than one 4-row block a tile.
             assert geo.ctas >= -(-batch // 4) * n_dir
 
 
-def test_thesis_geometry_as_measured():
+@pytest.mark.parametrize("gates", (3, 4))
+def test_thesis_geometry_as_measured(gates):
     """The geometry the rule gives the thesis shapes (f32, H = 128): clusters
-    of 8 two rows deep at B = 12 and 16, clusters of 2 at B = 256."""
+    of 8 two rows deep at B = 12 and 16, clusters of 2 at B = 256; the same
+    for 3 gates and 4 (a CTA of a 2-CTA cluster holds 96 or 128 KiB)."""
     expect = {(12, 2): (8, 2, 96), (16, 2): (8, 2, 128), (16, 1): (8, 2, 64),
               (256, 2): (2, 8, 128), (256, 1): (2, 4, 128)}
     for (batch, n_dir), (c, rows, ctas) in expect.items():
-        geo = hopper_gru.gru_launch_geometry(batch, n_dir, 128, 4, SMS)
+        geo = hopper_gru.gru_launch_geometry(batch, n_dir, 128, gates, 4, SMS)
         assert (geo.cluster, geo.rows, geo.ctas) == (c, rows, ctas)
 
 
-def test_rule_follows_the_card():
+@pytest.mark.parametrize("gates", (3, 4))
+def test_rule_follows_the_card(gates):
     """The rule reads the SM count it is given: on half the SMs it takes
     deeper tiles or smaller clusters, and where no candidate fits the card at
     once (B = 256 on 66 SMs) the one with the fewest CTAs."""
     half = SMS // 2
-    geo = hopper_gru.gru_launch_geometry(16, 2, 128, 4, half)
+    geo = hopper_gru.gru_launch_geometry(16, 2, 128, gates, 4, half)
     assert geo.ctas <= half and (geo.cluster, geo.rows) == (4, 2)
-    geo = hopper_gru.gru_launch_geometry(256, 2, 128, 4, half)
+    geo = hopper_gru.gru_launch_geometry(256, 2, 128, gates, 4, half)
     assert (geo.cluster, geo.rows, geo.ctas, geo.waves) == (2, 8, 128, 2)
 
 
@@ -134,7 +144,7 @@ def test_both_layouts_launch_the_same_geometry(monkeypatch):
                            mask, 1, 0)
         hopper_gru._launch_seq(xp.transpose(0, 1).contiguous(), torch.zeros(hidden, 3 * hidden),
                                torch.zeros(3 * hidden), mask.T)
-        geo = hopper_gru.gru_launch_geometry(batch, 1, hidden, 4, SMS)
+        geo = hopper_gru.gru_launch_geometry(batch, 1, hidden, 3, 4, SMS)
         expected = (geo.cluster if geo.resident else 0, geo.rows, geo.smem_bytes)
         # gru_fwd: ..., n_dir, rev_bits, dtype, cluster, rows, smem, stream.
         assert lib.calls["gru_fwd"][-4:-1] == expected
