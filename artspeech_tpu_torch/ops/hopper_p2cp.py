@@ -11,30 +11,73 @@ artspeech_tpu/ops/distances.py:mean_p2cp_channel_major. The kernel is
 
 The kernel is forward only: the train and eval steps use P2CP as a metric,
 outside autograd, and the wrapper raises for a CUDA input that requires grad.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches. It launches with the geometry of
+:func:`p2cp_launch_geometry`, from the shape alone.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from artspeech_tpu_torch.ops import _build
+from artspeech_tpu_torch.ops.point_pairs import (
+    MAX_SMEM,
+    ROWS_A_WARP,
+    blocks_of,
+    pick_tile,
+    warps_for,
+)
 
 #: Kernel launches so far (the plain version does not count).
 launches = 0
 
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+#: The (KU, KV, N, M) tiles csrc/p2cp.cu compiles (its P2CP_TILES): the
+#: contours' 50 x 50 in one 52 x 52 block with the shape compiled in, and
+#: 32 x 32 blocks for any other shape.
+TILES = ((13, 13, 50, 50), (8, 8, 0, 0))
 _lib = None
+
+
+class P2CPGeometry(NamedTuple):
+    """How the kernel launches at one shape (:func:`p2cp_launch_geometry`).
+
+    The kernel is passed ``points_u``, ``points_v``, ``exact``, ``warps``
+    and ``smem_bytes``; the other fields describe that launch.
+    """
+
+    points_u: int    #: KU, u points a lane a tile
+    points_v: int    #: KV, v points a lane a chunk
+    exact: bool      #: the tile compiled with this (N, M)
+    u_tiles: int     #: ceil(N / (LANES_U * KU))
+    v_chunks: int    #: ceil(M / (LANES_V * KV))
+    warps: int       #: warps a CTA, ROWS_A_WARP rows each
+    threads: int     #: 32 * warps
+    blocks: int      #: ceil(R / (warps * ROWS_A_WARP))
+    smem_bytes: int  #: the warps' staged rows (and column minima) in f32
+
+
+def p2cp_launch_geometry(rows, n, m):
+    """The launch of csrc/p2cp.cu for ``rows`` rows of N u points and M v
+    points, from the shape alone: the tile of TILES compiled with (N, M)
+    where there is one, else the one for any shape; and as many warps a CTA
+    (up to 4) as their staged rows fit in a block's shared memory, 0 where
+    one warp does not fit (the wrapper refuses the shape)."""
+    tile = pick_tile(TILES, n, m)
+    u_tiles, v_chunks = blocks_of(n, m, tile)
+    row_bytes = 4 * (2 * (n + m) + (m if u_tiles > 1 else 0))
+    warps = warps_for(row_bytes)
+    return P2CPGeometry(*tile[:2], tile[2:] != (0, 0), u_tiles, v_chunks, warps, 32 * warps,
+                        -(-rows // (warps * ROWS_A_WARP)) if warps else 0,
+                        warps * ROWS_A_WARP * row_bytes)
 
 
 def _library():
     global _lib
     if _lib is None:
         lib = _build.load("p2cp")
-        lib.p2cp.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.p2cp.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         lib.p2cp.restype = ctypes.c_int
-        lib.p2cp_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.p2cp_smem_bytes.restype = ctypes.c_size_t
         _lib = lib
     return _lib
 
@@ -61,8 +104,7 @@ def mean_p2cp_channel_major_reference(u, v):
     return (u2cp.mean(dim=-1) + v2cp.mean(dim=-1)) / 2.0
 
 
-def _launch(u, v):
-    global launches
+def _check(u, v):
     if u.device.type != "cuda" or v.device.type != "cuda" or u.device != v.device:
         raise ValueError(
             f"p2cp kernel needs CUDA tensors on one device, got {u.device}, {v.device}")
@@ -73,24 +115,32 @@ def _launch(u, v):
             or u.shape[:-2] != v.shape[:-2]:
         raise ValueError(f"p2cp kernel shapes: u (..., 2, N), v (..., 2, M) with the same "
                          f"leading dims, got {tuple(u.shape)}, {tuple(v.shape)}")
+    if u.shape[-1] == 0 or v.shape[-1] == 0:
+        raise ValueError(f"p2cp kernel needs points in both sets, got N={u.shape[-1]}, "
+                         f"M={v.shape[-1]}")
+
+
+def _launch(u, v):
+    global launches
+    _check(u, v)
     lead = u.shape[:-2]
     n, m = u.shape[-1], v.shape[-1]
-    if n == 0 or m == 0:
-        raise ValueError(f"p2cp kernel needs points in both sets, got N={n}, M={m}")
-    smem = _library().p2cp_smem_bytes(n, m)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"p2cp kernel: N={n}, M={m} need {smem} B of shared memory, "
-                         f"more than the {_MAX_SMEM} B a block may use")
+    rows = lead.numel()
+    geo = p2cp_launch_geometry(rows, n, m)
+    if geo.warps == 0:
+        raise ValueError(f"p2cp kernel: N={n}, M={m} need more than the {MAX_SMEM} B of "
+                         f"shared memory a block may use for {ROWS_A_WARP} rows")
     # f32 only, as the TPU wrapper casts; contiguous (R, 2, N) rows.
     u = u.to(torch.float32).contiguous()
     v = v.to(torch.float32).contiguous()
-    rows = u.numel() // (2 * n)
     out = torch.empty(lead, dtype=torch.float32, device=u.device)
     if rows == 0:
         return out
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().p2cp(u.data_ptr(), v.data_ptr(), out.data_ptr(), rows, n, m, stream)
+        err = _library().p2cp(u.data_ptr(), v.data_ptr(), out.data_ptr(), rows, n, m,
+                              geo.points_u, geo.points_v, int(geo.exact), geo.warps,
+                              geo.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"p2cp kernel launch failed with CUDA error {err}")
     launches += 1

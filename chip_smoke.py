@@ -14,8 +14,7 @@ Phases, each printing its own lines:
                ops/csrc/{gru_fwd,gru_bwd,p2cp,min_dist,flash_decode,
                train_attention,lstm_fwd,lstm_bwd,gru_seq}.cu, one nvcc each,
                all started together; prints -Xptxas -v's registers and
-               spills of each kernel of gru_fwd, gru_seq, gru_bwd, lstm_fwd,
-               lstm_bwd, flash_decode and train_attention;
+               spills of each kernel of each library;
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
@@ -25,10 +24,22 @@ Phases, each printing its own lines:
                cluster's rows, T = 1, H = 136, 20 and 6 whose units a CTA are
                not a multiple of 4, B = 64), with a row of length 1, each
                with its launch geometry (cluster size, rows); P2CP at
-               R = 12*128*10 and R = 1001 rows; min-distance at the four
-               tract-variable shapes with R = 12*128 and R = 1001 rows, and
-               on ties (duplicated points, identical contours, a permutation):
-               indices equal, distances within 1e-6 relative; flash decode
+               P2CP_CASES (R = 12*128*10 and 1001 at 50 x 50, 37 x 61,
+               400 x 300, 7 x 5) and on rows with a NaN coordinate: NaN in
+               exactly the plain version's rows, elsewhere within 1e-5, a
+               second launch the same bits, each with its tile; min-distance
+               through the single entry at the four tract-variable shapes
+               with R = 12*128 and R = 1001 rows, at 50 x 51 and 64 x 64 (the
+               tile for any shape), on ties (duplicated points, identical
+               contours, a permutation) and on TBCD's strided views:
+               indices equal, distances within 1e-6
+               relative; then one launch for a stack's four tract variables
+               (tract_variables_from_stack on seeded (R, 11, 2, 50) stacks,
+               R = 12*128 and 1001, with built-in ties, a NaN point, and in
+               bf16) against the plain TV route: values within 1e-6
+               relative with NaN at the same places, both places of
+               constriction the same bits, one launch a stack, a second
+               launch the same bits; flash decode
                at hd = 16 over 128-row caches, G of the self and cross-channel
                caches at B = 1, 12 and 64 and G 4,321 and 4,330 (not a
                multiple of 32 or 64), n_rows 1, 2, 33, 127 and 128, f32 and
@@ -169,7 +180,11 @@ Phases, each printing its own lines:
                to float64 as the transformer's;
  11. timing  — CUDA-event times of each kernel, its plain version and a
                PyTorch library call that computes the same function (a
-               yardstick the port never calls), the bound, synthesis frames/s,
+               yardstick the port never calls), the bound (P2CP and
+               min-distance also by graph_ms, with their share of the bound
+               and launch geometry; min-distance at each TV shape through
+               the single entry and for one stack's four TVs in one
+               launch), synthesis frames/s,
                train frames/s at B=12 and B=256 and test frames/s at B=12
                with the device's idle share and top kernels from
                torch.profiler, and each CLI's wall time; flash decode at the
@@ -232,7 +247,14 @@ from artspeech_tpu_torch.cli import (
 )
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
 from artspeech_tpu_torch.core.config import DATASET_CONFIG, mm_per_unit
-from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS, TUBE_ARTICULATORS
+from artspeech_tpu_torch.core.constants import (
+    LOWER_LIP,
+    RECOGNITION_ARTICULATORS,
+    TONGUE,
+    TUBE_ARTICULATORS,
+    UPPER_INCISOR,
+    UPPER_LIP,
+)
 from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, pick_bucket
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
@@ -240,6 +262,7 @@ from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
 from artspeech_tpu_torch.data.pc_datasets import AutoencoderDataset, PrincipalComponentsDataset
 from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
 from artspeech_tpu_torch.eval.articulation import make_test_step
+from artspeech_tpu_torch.geometry import tract_variables
 from artspeech_tpu_torch.geometry.area_function import tube_area_function
 from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.losses.autoencoder import make_autoencoder_loss
@@ -308,6 +331,10 @@ BWD_F32_TOL = 1e-4
 BWD_BF16_TOL = 2.0**-6
 P2CP_TOL = 1e-5
 P2CP_ROWS = 12 * 128 * 10  # the thesis valid batch: B * T * Nart contour pairs
+#: [kernel] P2CP cases, (R, N, M): the metric's rows, an odd row count, N != M
+#: off the lane grid, a wide shape that takes several u tiles and v chunks,
+#: and one that takes the small tile.
+P2CP_CASES = [(P2CP_ROWS, 50, 50), (1001, 50, 50), (1001, 37, 61), (257, 400, 300), (1001, 7, 5)]
 TRAIN = dict(batch=12, lr=1e-4, wd=1e-5, dropout=0.1, n_train=48, n_valid=12, epochs=2)
 TO_MM = mm_per_unit(DATASET_CONFIG["artspeech2"])
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s without tensor cores.
@@ -337,6 +364,8 @@ LIBRARIES = tuple(dict.fromkeys(LIBRARY.values()))
 MIN_DIST_TOL = 1e-6
 TEST_ROWS = 12 * 128  # the thesis test batch at bucket 128: B * T frames per TV
 TV_SHAPES = {"LA": (50, 50), "TTCD": (15, 25), "TBCD": (20, 40), "VEL": (15, 50)}  # (N, M)
+#: The test step's stack: the 10 articulators and the upper incisor, sorted.
+TV_STACK_ARTS = sorted(set(RECOGNITION_ARTICULATORS) | {UPPER_INCISOR})
 REPO = os.path.dirname(os.path.abspath(__file__))
 THESIS_CONFIGS = os.path.join(REPO, "configs", "model_free")
 #: The [cli] corpus: one subject, S01-S05 split as train_model_free.yaml
@@ -479,7 +508,21 @@ def rel_err(got, ref):
 
 #: Libraries whose kernels' registers and spills [build] prints.
 PTXAS_REPORTED = ("gru_fwd", "gru_seq", "gru_bwd", "lstm_fwd", "lstm_bwd", "flash_decode",
-                  "train_attention")
+                  "train_attention", "p2cp", "min_dist")
+
+
+def kernel_base(mangled):
+    """(name, the rest) of the first length-prefixed identifier in a mangled
+    name that ends in _kernel, as 22gru_fwd_cluster_kernel or 11p2cp_kernel;
+    (mangled, "") if none does."""
+    for i in range(len(mangled)):
+        for j in range(i + 1, min(i + 4, len(mangled))):
+            if not mangled[i:j].isdigit():
+                break
+            ident = mangled[j:j + int(mangled[i:j])]
+            if ident.endswith("_kernel") and re.fullmatch(r"[a-z_][a-z0-9_]*", ident):
+                return ident, mangled[j + len(ident):]
+    return mangled, ""
 
 
 def ptxas_kernels(report):
@@ -491,12 +534,12 @@ def ptxas_kernels(report):
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            mangled = entry.group(1)
-            base = re.search(r"\d+([a-z_]+_kernel)(I\w*?E)?E", mangled)
-            args = base.group(2) or "" if base else ""
+            base, rest = kernel_base(entry.group(1))
+            templated = re.match(r"(I\w*?E)E", rest)
+            args = templated.group(1) if templated else ""
             targs = (["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []) \
                 + re.findall(r"L[ib](\d+)E", args)
-            name = (base.group(1) if base else mangled) + (f"<{','.join(targs)}>" if targs else "")
+            name = base + (f"<{','.join(targs)}>" if targs else "")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
             spills = (int(spill.group(1)), int(spill.group(2)))
@@ -663,24 +706,53 @@ def gru_bwd_vs_plain():
     return worst_abs, worst_rel
 
 
-def p2cp_inputs(rows, seed):
+def p2cp_inputs(rows, seed, n=50, m=50):
+    """Seeded u (R, 2, N) in [0, 1) and v (R, 2, M) near u's points."""
     g = torch.Generator().manual_seed(seed)
-    u = torch.rand(rows, 2, 50, generator=g)
-    v = (u + 0.05 * torch.randn(rows, 2, 50, generator=g)).clamp(0.0, 1.0)
+    u = torch.rand(rows, 2, n, generator=g)
+    v = (u[..., torch.arange(m) % n] + 0.05 * torch.randn(rows, 2, m, generator=g)).clamp(0.0, 1.0)
     return u.cuda(), v.cuda()
 
 
+def p2cp_geometry_fields(rows, n, m):
+    """The launch rule's tile, blocks and warps at a shape, for the prints."""
+    geo = hopper_p2cp.p2cp_launch_geometry(rows, n, m)
+    return dict(tile=f"{geo.points_u}x{geo.points_v}", exact=geo.exact, u_tiles=geo.u_tiles,
+                v_chunks=geo.v_chunks, warps=geo.warps, ctas=geo.blocks, smem=geo.smem_bytes)
+
+
+def p2cp_cases():
+    """(name, u, v): P2CP_CASES, and rows with a NaN coordinate (one of u's,
+    one of v's, a whole u point, all of one v row's x)."""
+    cases = [(f"R{rows}_{n}x{m}", *p2cp_inputs(rows, seed=rows + n + m, n=n, m=m))
+             for rows, n, m in P2CP_CASES]
+    u, v = p2cp_inputs(1001, seed=13)
+    u[3, 0, 7] = v[10, 1, 49] = float("nan")
+    u[20, :, 0] = v[500, 0, :] = float("nan")
+    return cases + [("nan_rows", u, v)]
+
+
 def p2cp_vs_plain():
+    """The kernel against its plain version: NaN in exactly the rows where
+    the plain version has it, elsewhere within P2CP_TOL, and a second launch
+    the same bits. Returns the largest absolute error."""
     worst = 0.0
-    for rows in (P2CP_ROWS, 1001):
-        u, v = p2cp_inputs(rows, seed=rows)
+    for name, u, v in p2cp_cases():
         got = hopper_p2cp.mean_p2cp_channel_major(u, v)
-        err = (got - hopper_p2cp.mean_p2cp_channel_major_reference(u, v)).abs().max().item()
+        again = hopper_p2cp.mean_p2cp_channel_major(u, v)
+        ref = hopper_p2cp.mean_p2cp_channel_major_reference(u, v)
         torch.cuda.synchronize()
-        phase("kernel", kernel="p2cp", rows=rows, N=50, M=50, dtype="float32", tol=P2CP_TOL,
-              max_abs_err=err)
-        check(np.isfinite(err) and err <= P2CP_TOL,
-              f"p2cp kernel disagrees with its plain version at R={rows}: {err}")
+        nan = ref.isnan()
+        nan_equal = torch.equal(got.isnan(), nan)
+        err = (got - ref)[~nan].abs().max().item() if (~nan).any() else 0.0
+        same_bits = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        rows, n, m = u.shape[0], u.shape[-1], v.shape[-1]
+        phase("kernel", kernel="p2cp", case=name, rows=rows, N=n, M=m, dtype="float32",
+              tol=P2CP_TOL, max_abs_err=err, nan_rows=int(nan.sum()), nan_equal=nan_equal,
+              same_bits=same_bits, **p2cp_geometry_fields(rows, n, m))
+        check(nan_equal and np.isfinite(err) and err <= P2CP_TOL and same_bits,
+              f"p2cp kernel disagrees with its plain version on {name}: NaN rows equal "
+              f"{nan_equal}, error {err}, a second launch the same bits {same_bits}")
         worst = max(worst, err)
     return worst
 
@@ -692,11 +764,14 @@ def min_dist_inputs(rows, n, m, seed):
 
 def min_dist_cases():
     """(name, u, v): each TV shape at the test batch's and an odd row count,
-    three kinds of ties at the test batch's, and TBCD's inputs as the tract
-    variables pass them: a strided window of a contour stack and a
-    concatenated palate."""
+    two shapes that take the tile for any shape (50 x 51 and 64 x 64, in 2 x
+    2 blocks of 32 x 32 points), three kinds of ties at the test batch's, and TBCD's
+    inputs as the tract variables passed them before they took one launch: a
+    strided window of a contour stack and a concatenated palate."""
     cases = [(f"{tv}_R{rows}", *min_dist_inputs(rows, n, m, seed=rows + n + m))
              for tv, (n, m) in TV_SHAPES.items() for rows in (TEST_ROWS, 1001)]
+    cases += [(f"R1001_{n}x{m}", *min_dist_inputs(1001, n, m, seed=n + m))
+              for n, m in ((50, 51), (64, 64))]
     u, v = min_dist_inputs(TEST_ROWS, 20, 30, seed=11)
     v[..., 7] = u[..., 12]
     v[..., 21] = u[..., 12]  # the same zero distance twice: (12, 7) must win
@@ -712,24 +787,112 @@ def min_dist_cases():
     ]
 
 
+def min_dist_geometry_fields(rows, shapes):
+    """The launch rule's tiles (in the order the CTAs run them), warps and
+    CTAs for a table, for the prints."""
+    geo = hopper_min_dist.min_dist_launch_geometry(rows, shapes)
+    tiles = ",".join("{}:{}x{}".format(p.slot, *hopper_min_dist.TILES[p.tile][:2])
+                     for p in geo.problems)
+    return dict(tiles=tiles, warps=geo.warps, ctas=geo.blocks, smem=geo.smem_bytes)
+
+
+def distance_errors(got, ref):
+    """(max absolute, max relative error) of distances where the plain
+    version has a number, and whether both have NaN at the same places."""
+    nan = ref.isnan()
+    diff = (got - ref)[~nan].abs()
+    if diff.numel() == 0:
+        return 0.0, 0.0, torch.equal(got.isnan(), nan)
+    rel = diff / ref[~nan].abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return diff.max().item(), rel.max().item(), torch.equal(got.isnan(), nan)
+
+
+def tv_stack(rows, seed, dtype=torch.float32):
+    """A seeded (R, 11, 2, 50) contour stack in the test step's articulator
+    order (TV_STACK_ARTS)."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(rows, len(TV_STACK_ARTS), 2, 50, generator=g).to(dtype).cuda()
+
+
+def tv_stack_cases():
+    """(name, stack): seeded stacks at the test batch's rows and an odd
+    count; built-in ties (a lower-lip point equal to two upper-lip points,
+    and in rows 0-99 identical contours, every distance 0); a NaN point in
+    the tongue tip (rows 0-9) and the upper lip (rows 20-29); a bf16 stack."""
+    at = {name: i for i, name in enumerate(TV_STACK_ARTS)}
+    ties = tv_stack(TEST_ROWS, seed=21)
+    ties[:, at[UPPER_LIP], :, 12] = ties[:, at[LOWER_LIP], :, 7]
+    ties[:, at[UPPER_LIP], :, 40] = ties[:, at[LOWER_LIP], :, 7]
+    ties[:100] = 0.5
+    nan = tv_stack(1001, seed=22)
+    nan[:10, at[TONGUE], 0, 35] = float("nan")
+    nan[20:30, at[UPPER_LIP], 1, 0] = float("nan")
+    return [(f"tv_stack_R{rows}", tv_stack(rows, seed=rows)) for rows in (TEST_ROWS, 1001)] + [
+        ("tv_stack_ties", ties), ("tv_stack_nan", nan),
+        ("tv_stack_bf16", tv_stack(TEST_ROWS, seed=23, dtype=torch.bfloat16))]
+
+
+def plain_tvs(stack):
+    """The plain TV route on the card, (4, R, 5): the windows cut, the palate
+    concatenated, min_distance_channel_major_reference and gathers, on the
+    stack as f32 (the kernel widens a bf16 stack exactly)."""
+    names, problems = tract_variables.tv_table({a: stack.shape[-1] for a in TV_STACK_ARTS})
+    sources = [stack[..., TV_STACK_ARTS.index(n), :, :].float() for n in names]
+    return hopper_min_dist.min_distance_windows_reference(sources, problems)
+
+
+def kernel_tvs(stack):
+    """tract_variables_from_stack on the card, packed as plain_tvs packs it."""
+    tvs = tract_variables.tract_variables_from_stack(stack, TV_STACK_ARTS)
+    return torch.stack([torch.cat([tvs[t]["value"][..., None], tvs[t]["poc_1"], tvs[t]["poc_2"]],
+                                  dim=-1) for t in tract_variables.TV_WINDOWS])
+
+
 def min_dist_vs_plain():
-    """The kernel against its plain version: indices equal, distances within
-    MIN_DIST_TOL relative. Returns the largest absolute distance error."""
+    """The kernel against its plain version: through the single entry
+    (min_dist_cases), indices equal and distances within MIN_DIST_TOL
+    relative; then one launch for a stack's four TVs (tv_stack_cases)
+    against the plain TV route, values within MIN_DIST_TOL relative with
+    NaN at the same places, both places of constriction the same bits, and
+    a second launch the same bits. Returns the largest absolute distance
+    error."""
     worst = 0.0
     for name, u, v in min_dist_cases():
         got = hopper_min_dist.min_distance_channel_major(u, v)
         ref = hopper_min_dist.min_distance_channel_major_reference(u, v)
         torch.cuda.synchronize()
-        diff = (got[0] - ref[0]).abs()
-        abs_err = diff.max().item()
-        rel = (diff / ref[0].abs().clamp_min(torch.finfo(torch.float32).tiny)).max().item()
+        abs_err, rel, nan_equal = distance_errors(got[0], ref[0])
         same = bool(torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2]))
         phase("kernel", kernel="min_dist", case=name, rows=u.shape[0], N=u.shape[-1],
               M=v.shape[-1], dtype="float32", tol=MIN_DIST_TOL, max_abs_err=abs_err,
-              max_rel_err=rel, indices_equal=same)
-        check(same and np.isfinite(rel) and rel <= MIN_DIST_TOL,
+              max_rel_err=rel, indices_equal=same,
+              **min_dist_geometry_fields(u.shape[0], [(u.shape[-1], v.shape[-1])]))
+        check(same and nan_equal and np.isfinite(rel) and rel <= MIN_DIST_TOL,
               f"min_dist kernel disagrees with its plain version on {name}: "
               f"indices equal {same}, relative error {rel}")
+        worst = max(worst, abs_err)
+    for name, stack in tv_stack_cases():
+        before = hopper_min_dist.launches
+        got = kernel_tvs(stack)
+        launches = hopper_min_dist.launches - before
+        again = kernel_tvs(stack)
+        ref = plain_tvs(stack)
+        torch.cuda.synchronize()
+        abs_err, rel, nan_equal = distance_errors(got[..., 0], ref[..., 0])
+        points_equal = torch.equal(got[..., 1:].float().view(torch.int32),
+                                   ref[..., 1:].view(torch.int32))
+        same_bits = torch.equal(got.float().view(torch.int32), again.float().view(torch.int32))
+        rows = stack.shape[0]
+        phase("kernel", kernel="min_dist", case=name, rows=rows, tvs="+".join(tract_variables.TV_WINDOWS),
+              dtype=str(stack.dtype).split(".")[-1], tol=MIN_DIST_TOL, max_abs_err=abs_err,
+              max_rel_err=rel, nan_values=int(ref[..., 0].isnan().sum()), nan_equal=nan_equal,
+              points_equal=points_equal, same_bits=same_bits, launches=launches,
+              **min_dist_geometry_fields(rows, list(TV_SHAPES.values())))
+        check(launches == 1 and nan_equal and points_equal and same_bits and np.isfinite(rel)
+              and rel <= MIN_DIST_TOL,
+              f"min_dist kernel disagrees with the plain TV route on {name}: launches "
+              f"{launches}, NaN equal {nan_equal}, points equal {points_equal}, same bits "
+              f"{same_bits}, relative error {rel}")
         worst = max(worst, abs_err)
     return worst
 
@@ -1900,18 +2063,19 @@ def cli_path(tmp):
     none = dict.fromkeys(KERNELS, 0)
     # Two BiGRU layers: one forward (and in training one backward) launch
     # each; one P2CP launch per eval step and per test batch (the
-    # per-sentence metrics); 4 TVs x (prediction, target) per test batch.
+    # per-sentence metrics); one min_dist launch for the 4 TVs of the
+    # predictions and one for the targets' per test batch.
     expected = {
         "cli_train": {**none, "gru_fwd": 2 * (epochs * (tr + va) + te), "gru_bwd": 2 * epochs * tr,
-                      "p2cp": epochs * va + te, "min_dist": 8 * te},
-        "cli_test": {**none, "gru_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te},
+                      "p2cp": epochs * va + te, "min_dist": 2 * te},
+        "cli_test": {**none, "gru_fwd": 2 * te, "p2cp": te, "min_dist": 2 * te},
         **{p: {**none, "gru_fwd": 2 * -(-len(s) // 8)} for p, s in sentences.items()},
         "cli_train_transformer": {
             **none, "train_attention_fwd": tf_layers * epochs * tf_tr,
             "train_attention_bwd": tf_layers * epochs * tf_tr,
-            "p2cp": epochs * tf_va + len(tf_train_buckets), "min_dist": 8 * len(tf_train_buckets),
+            "p2cp": epochs * tf_va + len(tf_train_buckets), "min_dist": 2 * len(tf_train_buckets),
             "flash_decode": sum(2 * tf_layers * t for t in tf_train_buckets)},
-        "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 8 * len(tf_buckets),
+        "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 2 * len(tf_buckets),
                             "flash_decode": sum(2 * tf_layers * t for t in tf_buckets)},
     }
     # The bf16 configs are the f32 ones with compute_dtype: bfloat16, so the
@@ -2099,8 +2263,9 @@ def mean_contour_path(tmp, corpus, vocab_path):
     and save_to changed) over the [cli] corpus: the train CLI (the table,
     then its test with tract variables), the test CLI on that table and the
     generate CLI with method: mean_contour. The table lookup is plain torch;
-    the test step launches one P2CP a batch and 8 min_dist (4 TVs x
-    prediction, target), which are counted, and the synthesis none. Checks
+    the test step launches one P2CP a batch and 2 min_dist (the 4 TVs of
+    the predictions in one, the targets' in the other), which are counted,
+    and the synthesis none. Checks
     the table, the artifact trees, finiteness, and the test CLI's results
     against the train CLI's final test. Returns the launches and wall
     seconds of each run."""
@@ -2125,8 +2290,8 @@ def mean_contour_path(tmp, corpus, vocab_path):
         clip_tails=cfg["clip_tails"]).data}
     te = n_batches(test_lengths.values(), cfg["batch_size"])
     none = dict.fromkeys(KERNELS, 0)
-    expected = {"mc_train": {**none, "p2cp": te, "min_dist": 8 * te},
-                "mc_test": {**none, "p2cp": te, "min_dist": 8 * te}, "mc_generate": none}
+    expected = {"mc_train": {**none, "p2cp": te, "min_dist": 2 * te},
+                "mc_test": {**none, "p2cp": te, "min_dist": 2 * te}, "mc_generate": none}
     modules = {"mc_train": train_phoneme_wise_mean_contour,
                "mc_test": test_phoneme_wise_mean_contour, "mc_generate": generate_vocal_tract_shape}
     results, launches, seconds = {}, {}, {}
@@ -2216,9 +2381,9 @@ def pc_path(tmp, corpus, vocab_path):
     # P2CP launch a frame batch and tests with two (the eval step's metric
     # and the per-articulator errors); a latent-RNN forward is one launch of
     # its kernel a BiGRU/BiLSTM layer (2), a train step adds 2 backward
-    # launches, a valid batch one P2CP launch, a test batch one P2CP and 8
-    # min_dist launches (4 TVs of predictions and targets); the synthesis,
-    # one forward a batch of 8 sentences.
+    # launches, a valid batch one P2CP launch, a test batch one P2CP and 2
+    # min_dist launches (the 4 TVs of predictions, then of targets); the
+    # synthesis, one forward a batch of 8 sentences.
     vocabulary = load_vocabulary(vocab_path)
     arts = sorted(normalize_indices_dict(cfgs["pc_train_ae"]["indices_dict"]))
 
@@ -2247,10 +2412,10 @@ def pc_path(tmp, corpus, vocab_path):
         tr, va, te = (n_batches(lengths(p, key).values(), batch)
                       for key in ("train_seq_dict", "valid_seq_dict", "test_seq_dict"))
         expected[p] = {**none, fwd: 2 * (epochs * (tr + va) + te), bwd: 2 * epochs * tr,
-                       "p2cp": epochs * va + te, "min_dist": 8 * te}
+                       "p2cp": epochs * va + te, "min_dist": 2 * te}
     test_lengths = lengths("pc_test_lstm", "test_seq_dict")
     te = n_batches(test_lengths.values(), cfgs["pc_test_lstm"]["batch_size"])
-    expected["pc_test_lstm"] = {**none, "lstm_fwd": 2 * te, "p2cp": te, "min_dist": 8 * te}
+    expected["pc_test_lstm"] = {**none, "lstm_fwd": 2 * te, "p2cp": te, "min_dist": 2 * te}
     gen = cfgs["pc_generate"]
     sentences = DATABASE_COLLECTORS["gottingen"](corpus).collect_data(
         sequences_from_dict(corpus, gen["seq_dict"]))
@@ -2817,10 +2982,11 @@ def gru_bwd_bound_ms(t, b, h, n_dir, elem_bytes):
 
 
 def p2cp_bound_ms(rows, n, m):
-    """u and v read and the means written once; per pair and direction two
-    subtractions, a multiply, an FMA (2) and a min: six operations."""
+    """u and v read and the means written once; per pair one squared
+    distance (two subtractions, a multiply and an FMA, counted as 2) and
+    its two minima, one for each direction: seven operations."""
     bytes_moved = 4 * rows * 2 * (n + m) + 4 * rows
-    ops = 2 * rows * n * m * 6
+    ops = rows * n * m * 7
     by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -3307,8 +3473,12 @@ def time_lstm():
 
 
 def time_p2cp():
+    """The kernel at the metric's R = 12*128*10 rows by graph_ms (device time
+    without host gaps) and back to back, its plain version, torch.cdist +
+    amin + mean (the yardstick) and the bound."""
     u, v = p2cp_inputs(P2CP_ROWS, seed=9)
     kernel_ms = cuda_ms(lambda: hopper_p2cp.mean_p2cp_channel_major(u, v), 50)
+    kernel_graph_ms = graph_ms(lambda: hopper_p2cp.mean_p2cp_channel_major(u, v), 50)
     plain_ms = cuda_ms(lambda: hopper_p2cp.mean_p2cp_channel_major_reference(u, v), 10)
     up, vp = u.transpose(-1, -2), v.transpose(-1, -2)
 
@@ -3319,45 +3489,92 @@ def time_p2cp():
     lib_err = (library() - hopper_p2cp.mean_p2cp_channel_major(u, v)).abs().max().item()
     library_ms = cuda_ms(library, 10)
     bound_ms, bound_by = p2cp_bound_ms(P2CP_ROWS, 50, 50)
-    result = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                  library_ms=library_ms)
+    result = dict(ms=kernel_ms, graph_ms=kernel_graph_ms, share_of_bound=bound_ms / kernel_graph_ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     phase("timing", kernel="p2cp", rows=P2CP_ROWS, N=50, M=50, dtype="float32",
-          library_max_abs_diff=f"{lib_err:.3g}", **fmt(result))
+          library_max_abs_diff=f"{lib_err:.3g}", **fmt(result),
+          **p2cp_geometry_fields(P2CP_ROWS, 50, 50))
     return result
 
 
+def cdist_min_distance(u, v):
+    """The min-distance yardstick on channel-major (R, 2, N) / (R, 2, M):
+    torch.cdist, a flat argmin and a gather. It takes the sqrt before the
+    argmin, so near-ties may pick another pair."""
+    m = v.shape[-1]
+    d = torch.cdist(u.transpose(-1, -2), v.transpose(-1, -2),
+                    compute_mode="donot_use_mm_for_euclid_dist").flatten(-2)
+    arg = d.argmin(dim=-1)
+    return d.gather(-1, arg[:, None])[:, 0], arg // m, arg % m
+
+
+def library_tvs(stack):
+    """A stack's four TVs, (4, R, 5) as plain_tvs packs them, by the plain
+    route with cdist_min_distance in place of the broadcast formula."""
+    names, problems = tract_variables.tv_table({a: stack.shape[-1] for a in TV_STACK_ARTS})
+    sources = [stack[..., TV_STACK_ARTS.index(n), :, :] for n in names]
+
+    def cut(w):
+        return sources[w.source][..., w.start:w.start + w.count]
+
+    out = []
+    for u_window, v_windows in problems:
+        u, v = cut(u_window), torch.cat([cut(w) for w in v_windows], dim=-1)
+        value, i, j = cdist_min_distance(u, v)
+        out.append(torch.cat([value[:, None], u.gather(-1, i[:, None, None].expand(-1, 2, 1))[..., 0],
+                              v.gather(-1, j[:, None, None].expand(-1, 2, 1))[..., 0]], dim=-1))
+    return torch.stack(out)
+
+
 def time_min_dist():
-    """Each TV shape at the thesis test batch's R = 12*128 rows: the kernel,
-    its plain version, torch.cdist + a flat argmin + a gather (the yardstick;
-    it takes the sqrt before the argmin, so near-ties may pick another pair)
-    and the bound. Returns the four shapes' sums: one test step's launches
-    for one side (predictions or targets)."""
+    """Each TV shape at the thesis test batch's R = 12*128 rows through the
+    single entry: the kernel by graph_ms and back to back, its plain version,
+    cdist_min_distance (the yardstick) and the bound. Then one stack's four
+    TVs as the test step computes them (tract_variables_from_stack on a (R,
+    11, 2, 50) stack): graph_ms, back to back and min_dist launches a call,
+    beside the plain TV route (plain_tvs) and the yardstick's (library_tvs)
+    on the same stack. Returns the stack's numbers (one side of a test step:
+    predictions or targets) with the shapes' under "by_tv"."""
     results = {}
     for tv, (n, m) in TV_SHAPES.items():
         u, v = min_dist_inputs(TEST_ROWS, n, m, seed=n * m)
         kernel_ms = cuda_ms(lambda: hopper_min_dist.min_distance_channel_major(u, v), 100)
+        kernel_graph_ms = graph_ms(lambda: hopper_min_dist.min_distance_channel_major(u, v), 100)
         plain_ms = cuda_ms(lambda: hopper_min_dist.min_distance_channel_major_reference(u, v), 20)
-        up, vp = u.transpose(-1, -2), v.transpose(-1, -2)
 
         def library():
-            d = torch.cdist(up, vp, compute_mode="donot_use_mm_for_euclid_dist").flatten(-2)
-            arg = d.argmin(dim=-1)
-            return d.gather(-1, arg[:, None])[:, 0], arg // m, arg % m
+            return cdist_min_distance(u, v)
 
         lib, got = library(), hopper_min_dist.min_distance_channel_major(u, v)
         same_pair = ((lib[1] == got[1]) & (lib[2] == got[2])).float().mean().item()
         lib_diff = (lib[0] - got[0]).abs().max().item()
         library_ms = cuda_ms(library, 20)
         bound_ms, bound_by = min_dist_bound_ms(TEST_ROWS, [(n, m)])
-        results[tv] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms)
+        results[tv] = dict(ms=kernel_ms, graph_ms=kernel_graph_ms,
+                           share_of_bound=bound_ms / kernel_graph_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
         phase("timing", kernel="min_dist", tv=tv, rows=TEST_ROWS, N=n, M=m, dtype="float32",
               library_max_abs_diff=f"{lib_diff:.3g}", library_same_pair_share=f"{same_pair:.4f}",
-              **fmt(results[tv]))
-    total = {k: sum(r[k] for r in results.values()) for k in ("ms", "plain_ms", "library_ms")}
+              **fmt(results[tv]), **min_dist_geometry_fields(TEST_ROWS, [(n, m)]))
+    stack = tv_stack(TEST_ROWS, seed=24)
+
+    def four_tvs():
+        return tract_variables.tract_variables_from_stack(stack, TV_STACK_ARTS)
+
+    before = hopper_min_dist.launches
+    four_tvs()
+    launches = hopper_min_dist.launches - before
+    lib_diff = (library_tvs(stack)[..., 0] - kernel_tvs(stack)[..., 0]).abs().max().item()
+    total = dict(ms=cuda_ms(four_tvs, 100), graph_ms=graph_ms(four_tvs, 100),
+                 plain_ms=cuda_ms(lambda: plain_tvs(stack), 20),
+                 library_ms=cuda_ms(lambda: library_tvs(stack), 20))
     total["bound_ms"], total["bound_by"] = min_dist_bound_ms(TEST_ROWS, list(TV_SHAPES.values()))
-    phase("timing", kernel="min_dist", tv="LA+TTCD+TBCD+VEL", rows=TEST_ROWS, **fmt(total))
-    return total
+    total["share_of_bound"] = total["bound_ms"] / total["graph_ms"]
+    phase("timing", kernel="min_dist", tv="LA+TTCD+TBCD+VEL", stack=f"({TEST_ROWS},11,2,50)",
+          dtype="float32", launches_per_call=launches, library_max_abs_diff=f"{lib_diff:.3g}",
+          **fmt(total),
+          **min_dist_geometry_fields(TEST_ROWS, list(TV_SHAPES.values())))
+    return {**total, "launches_per_call": launches, "by_tv": results}
 
 
 def time_test_step():
@@ -3507,8 +3724,9 @@ def main():
     check(not unlaunched, f"kernels launched on no path: {unlaunched}")
     gru_shape = f"T={BENCH_T},B={BENCH_B},H={HIDDEN},directions=2,float32"
     shapes = {"gru_fwd": gru_shape, "gru_bwd": gru_shape, "p2cp": f"R={P2CP_ROWS},N=50,M=50,float32",
-              "min_dist": f"R={TEST_ROWS} each of (N,M)=" + ",".join(
-                  f"({n},{m})" for n, m in TV_SHAPES.values()) + " summed,float32",
+              "min_dist": f"one stack's four TVs, tract_variables_from_stack of ({TEST_ROWS},11,2,50),"
+                          " (N,M)=" + ",".join(f"({n},{m})" for n, m in TV_SHAPES.values())
+                          + ",float32",
               "flash_decode": f"inter B=12: S={DECODE_T},hd={HD},G={flash_groups(12)['inter']},"
                               f"n_rows={DECODE_T},float32",
               **{k: f"B=12: G={TRAIN_ATTN_G[12]},L={TRAIN_T},hd={HD},"
@@ -3518,6 +3736,9 @@ def main():
                  for k in ("lstm_fwd", "lstm_bwd")},
               "gru_seq": f"B={BENCH_B},T={BENCH_T},H={HIDDEN},directions=1,batch_tile=16,float32"}
     extra = {"gru_bwd": {"rel_err": bwd_rel_err},
+             "p2cp": {k: numbers["p2cp"][k] for k in ("graph_ms", "share_of_bound")},
+             "min_dist": {k: numbers["min_dist"][k]
+                          for k in ("graph_ms", "share_of_bound", "launches_per_call", "by_tv")},
              **{k: {"device_ms": lstm[k][LSTM_SHAPES[0][1]]["device_ms"],
                     "by_shape": {f"B={b}": r for b, r in lstm[k].items()}}
                 for k in ("lstm_fwd", "lstm_bwd")},
