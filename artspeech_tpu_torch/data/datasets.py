@@ -34,11 +34,8 @@ def critical_mask(TVs: Sequence[str], phonemes: Sequence[str]) -> np.ndarray:
 
 
 class ArtSpeechDataset:
-    """Sentence -> dict with tokens, contour targets, references, masks.
-
-    Its ``voicing`` is all zeros: the voiced-token option serves the
-    recognizer's datasets, which are not ported.
-    """
+    """Sentence -> dict with tokens, contour targets, references, masks and
+    the voicing (1.0 for each token in ``voiced_tokens``)."""
 
     def __init__(
         self,
@@ -49,6 +46,7 @@ class ArtSpeechDataset:
         articulators: Sequence[str],
         clip_tails: bool = False,
         TVs: Optional[Sequence[str]] = None,
+        voiced_tokens: Optional[Sequence[str]] = None,
     ):
         self.vocabulary = vocabulary
         self.datadir = datadir
@@ -56,6 +54,7 @@ class ArtSpeechDataset:
         self.clip_tails = clip_tails
         self.TVs = sorted(TVs) if TVs else []
         self.dataset_config = DATASET_CONFIG[database_name]
+        self.voiced_tokens = set(voiced_tokens or [])
 
         collector = DATABASE_COLLECTORS[database_name](datadir)
         data = collector.collect_data(sequences)
@@ -102,6 +101,7 @@ class ArtSpeechDataset:
             "references": reference_arrays,
             "critical_masks": critical_mask(self.TVs, tokens),
             "frame_ids": list(frame_ids),
-            "voicing": np.zeros(len(token_ids), np.float32),
+            "voicing": np.array([float(token in self.voiced_tokens) for token in tokens],
+                                np.float32),
             "length": len(token_ids),
         }

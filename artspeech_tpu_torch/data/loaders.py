@@ -1,17 +1,18 @@
-"""Contour loading and recentering (host-side, cached; copy of the part of
-artspeech_tpu/data/loaders.py that ``ArtSpeechDataset`` calls: no
-``prefetch_contours``, which needs the native C++ loader, no
-``VocalTractShapeLoader``, which serves the recognizer and principal-component
-datasets, and no normalization hook, whose callers are not ported).
+"""Contour loading and recentering (host-side, cached; copy of
+artspeech_tpu/data/loaders.py without ``prefetch_contours``, which needs the
+native C++ loader: the contours load one by one, as the JAX package loads
+them when that library is absent, and without the normalization hook, whose
+callers are not ported).
 
 Equivalents of ``vt_shape_gen.helpers.load_articulator_array`` plus reference
-phoneme_to_articulation/__init__.py:52-118 (``InputLoaderMixin``). All arrays
-are numpy; the data pipeline stays on the host and feeds fixed-shape batches
-to the device.
+phoneme_to_articulation/__init__.py:52-118 (``InputLoaderMixin``) and
+vocal_tract_loader.py:16-134 (``VocalTractShapeLoader``). All arrays are
+numpy; the data pipeline stays on the host and feeds fixed-shape batches to
+the device.
 """
 
 import os
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -50,6 +51,15 @@ def cached_load_articulator_array(filepath: str, norm_value: float) -> np.ndarra
     return arr
 
 
+def load_articulator_array(
+    filepath: str, norm_value: float, n_samples: Optional[int] = None
+) -> np.ndarray:
+    arr = cached_load_articulator_array(filepath, norm_value)
+    if n_samples is not None and arr.shape[0] != n_samples:
+        arr = resample_linear_np(arr, n_samples)
+    return arr
+
+
 def contour_path(datadir, subject, sequence, frame_id, articulator) -> str:
     return os.path.join(
         datadir, subject, sequence, "inference_contours", f"{frame_id}_{articulator}.npy"
@@ -64,6 +74,7 @@ def prepare_articulator_array(
     articulator: str,
     dataset_config: DatasetConfig,
     clip_tails: bool = True,
+    n_samples: int = N_SAMPLES,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Load one articulator contour, optionally tail-clip, recentre on the
     upper incisor's last point + (0.3, 0.3).
@@ -76,8 +87,8 @@ def prepare_articulator_array(
         contour_path(datadir, subject, sequence, frame_id, articulator),
         norm_value=dataset_config.RES,
     )
-    if arr.shape[0] != N_SAMPLES:
-        arr = resample_linear_np(arr, N_SAMPLES)
+    if arr.shape[0] != n_samples:
+        arr = resample_linear_np(arr, n_samples)
 
     if clip_tails:
         refs = {
@@ -93,8 +104,8 @@ def prepare_articulator_array(
         contour_path(datadir, subject, sequence, frame_id, UPPER_INCISOR),
         norm_value=dataset_config.RES,
     )
-    if incisor.shape[0] != N_SAMPLES:
-        incisor = resample_linear_np(incisor, N_SAMPLES)
+    if incisor.shape[0] != n_samples:
+        incisor = resample_linear_np(incisor, n_samples)
     origin = incisor.T[:, -1:]  # (2, 1): last point of the upper incisor
 
     reference_array = incisor.T - origin
@@ -103,3 +114,64 @@ def prepare_articulator_array(
     articulator_array = arr.T - origin + np.array(CENTER_OFFSET)[:, None]
     return articulator_array.astype(np.float32), reference_array.astype(np.float32)
 
+
+
+class VocalTractShapeLoader:
+    """Sentence-level loader stacking frames into (T, Nart, 2, D) plus
+    (T, 2, D) references (reference vocal_tract_loader.py:16-134)."""
+
+    def __init__(
+        self,
+        datadir: str,
+        articulators: Sequence[str],
+        num_samples: int,
+        dataset_config: DatasetConfig,
+        clip_tails: bool = True,
+    ):
+        self.datadir = datadir
+        self.articulators = list(articulators)
+        self.num_samples = num_samples
+        self.dataset_config = dataset_config
+        self.clip_tails = clip_tails
+
+    def load_vocal_tract_shapes(
+        self, subject: str, sequence: str, frame_ids: Sequence[str], skip_missing=False
+    ):
+        targets: List[np.ndarray] = []
+        references: List[np.ndarray] = []
+        for frame_id in frame_ids:
+            try:
+                frame_arrays = []
+                ref_array = None
+                for articulator in self.articulators:
+                    arr, ref_array = prepare_articulator_array(
+                        self.datadir,
+                        subject,
+                        sequence,
+                        frame_id,
+                        articulator,
+                        self.dataset_config,
+                        clip_tails=self.clip_tails,
+                        n_samples=self.num_samples,
+                    )
+                    frame_arrays.append(arr)
+            except FileNotFoundError:
+                if skip_missing:
+                    continue
+                raise
+            targets.append(np.stack(frame_arrays, axis=0))  # (Nart, 2, D)
+            references.append(ref_array)  # (2, D)
+
+        if targets:
+            sentence_targets = np.stack(targets, axis=0).astype(np.float32)
+            sentence_references = np.stack(references, axis=0).astype(np.float32)
+        else:
+            sentence_targets = np.zeros(
+                (0, len(self.articulators), 2, self.num_samples), np.float32
+            )
+            sentence_references = np.zeros((0, 2, self.num_samples), np.float32)
+        return sentence_targets, sentence_references, len(targets)
+
+
+def clear_contour_cache():
+    _CONTOUR_CACHE.clear()

@@ -200,8 +200,7 @@ class PrincipalComponentsDataset:
     PrincipalComponentsPhonemeToArticulationDataset2 (dataset.py:110-221).
 
     Items share the ArtSpeechDataset schema so BucketedLoader collation
-    applies unchanged. Its ``voicing`` is all zeros, as ArtSpeechDataset's:
-    the voiced-token option serves the recognizer term, which is not ported.
+    applies unchanged; ``voicing`` is 1.0 for each token in ``voiced_tokens``.
     """
 
     def __init__(
@@ -214,6 +213,7 @@ class PrincipalComponentsDataset:
         TV_to_phoneme_map: Optional[Dict[str, Sequence[str]]] = None,
         clip_tails: bool = True,
         norm_stats: Optional[Dict] = None,
+        voiced_tokens: Optional[Sequence[str]] = None,
     ):
         self.datadir = datadir
         self.dataset_config = DATASET_CONFIG[database_name]
@@ -222,6 +222,7 @@ class PrincipalComponentsDataset:
         self.TV_to_phoneme_map = TV_to_phoneme_map or {}
         self.clip_tails = clip_tails
         self.norm_stats = norm_stats
+        self.voiced_tokens = set(voiced_tokens or [])
 
         collector = DATABASE_COLLECTORS[database_name](datadir)
         self.data = [
@@ -279,6 +280,6 @@ class PrincipalComponentsDataset:
             "references": np.stack(references).astype(np.float32),
             "critical_masks": critical,
             "frame_ids": list(item["frame_ids"]),
-            "voicing": np.zeros(len(token_ids), np.float32),
+            "voicing": np.array([float(t in self.voiced_tokens) for t in tokens], np.float32),
             "length": len(token_ids),
         }

@@ -174,3 +174,31 @@ def autoencoder_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]
         else:
             out.update(_articulator_net(tree, key))
     return out
+
+
+def deepspeech2_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DeepSpeech2`` params -> the port's ``DeepSpeech2``. Conv kernels
+    keep flax's (K, K, I, O) and the Dense_0 rows their d * C + c order."""
+    out = {}
+    if "Adapter_0" in params:
+        adapter = params["Adapter_0"]
+        for i in range(2):
+            out.update(_params(adapter[f"LayerNorm_{i}"], f"adapter.norm{i}",
+                               {"scale": "scale", "bias": "bias"}))
+            out.update(_linear(adapter[f"Dense_{i}"], f"adapter.dense{i}"))
+    out.update(_params(params["Conv_0"], "conv", {"kernel": "kernel", "bias": "bias"}))
+    for i in range(_count(params, "ResidualCNN_")):
+        tree, prefix = params[f"ResidualCNN_{i}"], f"residual.{i}"
+        for j in range(2):
+            out.update(_params(tree[f"LayerNorm_{j}"], f"{prefix}.norm{j}",
+                               {"scale": "scale", "bias": "bias"}))
+            out.update(_params(tree[f"Conv_{j}"], f"{prefix}.conv{j}",
+                               {"kernel": "kernel", "bias": "bias"}))
+    out.update(_linear(params["Dense_0"], "dense"))
+    for i in range(_count(params, "RecurrentBlock_")):
+        tree, prefix = params[f"RecurrentBlock_{i}"], f"recurrent.{i}"
+        out.update(_params(tree["LayerNorm_0"], f"{prefix}.norm", {"scale": "scale", "bias": "bias"}))
+        out.update(_gru_layers(tree["GRUStack_0"], f"{prefix}.gru"))
+    out.update(_linear(params["Dense_1"], "features"))
+    out.update(_linear(params["Dense_2"], "classifier"))
+    return out

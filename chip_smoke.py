@@ -1,8 +1,8 @@
 """Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
 workflow through its CLIs, the transformer's KV-cached decode and its
 training, the autoencoder-based method (phonemes -> principal
-components), the mean-contour baseline and the bf16 configs on one NVIDIA
-GPU, and check them.
+components), the mean-contour baseline, the phoneme recognizer and the bf16
+configs on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -23,7 +23,10 @@ Phases, each printing its own lines:
                forward also at GRU_FWD_CASES (B = 1, B not a multiple of the
                cluster's rows, T = 1, H = 136, 20 and 6 whose units a CTA are
                not a multiple of 4, B = 64), with a row of length 1, each
-               with its launch geometry (cluster size, rows); P2CP at
+               with its launch geometry (cluster size, rows); both also
+               one direction at the recognizer's shapes (RECOGNIZER_GRU_CASES:
+               T 512 and 256, B = 4, H = 64) with rows of length T, 1 and 0
+               (a length-0 row's outputs and gradients exactly zero); P2CP at
                P2CP_CASES (R = 12*128*10 and 1001 at 50 x 50, 37 x 61,
                400 x 300, 7 x 5) and on rows with a NaN coordinate: NaN in
                exactly the plain version's rows, elsewhere within 1e-5, a
@@ -149,6 +152,21 @@ Phases, each printing its own lines:
                the table, the P2CP and min_dist launches of each test step,
                artifacts, finiteness, the test CLI against the train CLI's
                final test;
+     recognizer — the DeepSpeech2 phoneme recognizer over the same corpus
+               (plus seeded air_column arrays): the six
+               configs/phoneme_recognition/train_*.yaml through the port's
+               train CLI (corpus paths, the database, voicing_filepath and
+               num_epochs changed: 2 for train_acoustic, train_vocal_tract and
+               train_vocal_tract_bf16, 1 for the others), then the four
+               test_*.yaml that read no sentence wavs through the test CLI on
+               those checkpoints: the GRU kernels' launches of each run
+               against counts from the corpus's batches, the files each
+               writes, finiteness, each test CLI against its train CLI's
+               final test; one eval batch at full width on the card against
+               the CPU (logits and log-probs within 1e-4, the same greedy
+               ids); one train step at dropout 0 and margins 0 on the card
+               against the CPU, held to float64 as the transformer's; 10
+               steps on one batch with dropout (the loss must fall);
   8. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
@@ -156,7 +174,7 @@ Phases, each printing its own lines:
                frames/s, the device's busy time and idle share and
                flash_decode's device ms and share of it a batch; the cached
                f32 decode against the buffer re-decode at B = 12 for T in
-               {32, 64, 96, 112, 128} (make_auto_generate's band); and the
+               {32, 64, 128} (make_auto_generate's band); and the
                card against the CPU: one attend, forward and encode within
                1e-4, a T = 16 decode with f32 caches within 1e-4 per frame;
   9. train_transformer — the same transformer in training (dropout 0.1,
@@ -166,7 +184,7 @@ Phases, each printing its own lines:
                frames/s, the device breakdown and peak memory; the same step
                with the pair attention materialised in plain torch (timed,
                not used); an accum_steps sweep at B = 64 (microbatches 64,
-               16, 8, 4, 2); 20 steps on one batch (the loss must fall); and
+               16, 8); 20 steps on one batch (the loss must fall); and
                one step at dropout 0 on the card against the CPU (as the
                ArtSpeech one);
  10. latent_rnn — the latent RNN of train_autoencoder_based.yaml at full
@@ -210,7 +228,17 @@ Phases, each printing its own lines:
                gru_fwd with one direction on the same work, each with its
                launch geometry (C, rows a cluster, CTAs, waves at one CTA
                an SM) and microseconds a step, its plain
-               version and cuDNN's nn.GRU.
+               version and cuDNN's nn.GRU; the GRU forward and backward at the
+               recognizer's T = 512, B = 4, H = 64, one direction (graph_ms,
+               back to back, the bound, cuDNN's one-direction nn.GRU
+               forward and backward alone); and the recognizer's train step
+               at full width (melspec: B = 4, 5.1 s of 16 kHz audio, 319
+               frames in the 512 bucket; vocal_tract: B = 4, (2, 500, 256)
+               features) with step ms, frames/s and the device breakdown,
+               and the CTC loss's forward and backward alone the same way;
+               its convolutions at the melspec step's shape (the port's
+               unfold and product against the K * K shifted products and
+               cuDNN's F.conv2d, each against float64, with its memory).
 Then one JSON line of kernel numbers and, last, the device line. Any failure
 raises and exits non-zero; without CUDA nothing is printed as a result.
 """
@@ -235,10 +263,12 @@ from artspeech_tpu_torch.cli import (
     generate_vocal_tract_shape,
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
+    test_phoneme_recognition,
     test_phoneme_to_principal_components,
     test_phoneme_wise_mean_contour,
     test_principal_components_autoencoder,
     train_articulatory_pca,
+    train_phoneme_recognition,
     train_phoneme_to_articulation,
     train_phoneme_to_articulation_transformer,
     train_phoneme_to_principal_components,
@@ -255,11 +285,13 @@ from artspeech_tpu_torch.core.constants import (
     UPPER_INCISOR,
     UPPER_LIP,
 )
+from artspeech_tpu_torch.core.device import resolve_device
 from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, pick_bucket
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
 from artspeech_tpu_torch.data.pc_datasets import AutoencoderDataset, PrincipalComponentsDataset
+from artspeech_tpu_torch.data.recognition import PhonemeRecognitionDataset, RecognitionLoader
 from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
 from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry import tract_variables
@@ -268,6 +300,7 @@ from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.losses.autoencoder import make_autoencoder_loss
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
 from artspeech_tpu_torch.models.autoencoder import MultiArticulatorAutoencoder, normalize_indices_dict
+from artspeech_tpu_torch.models.deepspeech2 import Conv, DeepSpeech2
 from artspeech_tpu_torch.models.latent_rnn import (
     PrincipalComponentsArtSpeech,
     make_latent_rnn_synthesis_forward,
@@ -286,7 +319,13 @@ from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_c
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
 from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss
+from artspeech_tpu_torch.losses.recognition import ctc_loss
 from artspeech_tpu_torch.train.pc_step import make_latent_rnn_train_step
+from artspeech_tpu_torch.train.recognition_step import (
+    cyclic_triangular_schedule,
+    make_recognition_eval_step,
+    make_recognition_train_step,
+)
 from artspeech_tpu_torch.train.step import (
     make_artspeech_eval_step,
     make_artspeech_train_step,
@@ -313,6 +352,11 @@ GRU_FWD_CASES = [(128, 1, 128), (37, 13, 128), (1, 12, 128), (9, 5, 136), (9, 7,
 #: length T and one of length 1.
 GRU_BWD_CASES = [(128, 1, 128), (37, 13, 128), (1, 12, 128), (9, 5, 136), (9, 7, 20), (9, 5, 6),
                  (17, 64, 128)]
+#: Both GRU kernels at the recognizer's shapes, (T, B, H), one direction:
+#: DeepSpeech2's recurrent blocks at the configs' batch of 4 and H = 64, at
+#: the 512 and 256 buckets; each case has rows of length T, 1 and 0 and one
+#: drawn between (the collate's padding rows have length 0).
+RECOGNIZER_GRU_CASES = [(512, 4, 64), (256, 4, 64)]
 #: gru_fwd timed at T = 128, H = 128, both directions: the test step's batch
 #: (12), bench.py's (16) and the large train batch (256).
 GRU_FWD_TIMED_B = (12, 16, 256)
@@ -398,7 +442,7 @@ FLASH_RAGGED_G = (4321, 4330)
 FLASH_TIMED_ROWS = (1, 16, 64, 128)
 FLASH_STREAM_BYTES = 200_000_000
 DECODE_BATCHES = (12, 64)  # the thesis batch and the test CLI's generate batch on the card
-BAND_T = (32, 64, 96, 112, 128)
+BAND_T = (32, 64, 128)
 TRANSFORMER_TOL = 1e-4  # card against CPU: forward, encode, per-frame decode
 #: Training attention against its plain version: the forward differs by the
 #: order of f32 sums and the online softmax's rescaling (absolute); the
@@ -411,7 +455,7 @@ TRAIN_ATTN_PAIRS = 90
 TRAIN_ATTN_EDGE_L = (1, 16, 33, 65, 129, 255, 512)
 TRAIN_T = 128
 TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
-MICROBATCHES = (64, 16, 8, 4, 2)  # the accum_steps sweep at B = 64
+MICROBATCHES = (64, 16, 8)  # the accum_steps sweep at B = 64
 #: The LSTM kernels against their plain versions, (T, B, H): the latent
 #: RNN's B = 12 and B = 64 at T = 128 and H = 128 and its synthesis batch
 #: (16), and T in {1, 7, 128},
@@ -467,6 +511,31 @@ WIDE_TIMED_GRU_FWD_H = WIDE_TIMED_LSTM_FWD_H = 512
 #: The backwards' timed wide instances: at H = 256 they take the cluster step.
 WIDE_TIMED_BWD_H = 512
 PC_CONFIGS = os.path.join(REPO, "configs", "autoencoder_based")
+REC_CONFIGS = os.path.join(REPO, "configs", "phoneme_recognition")
+REC_VOICING = os.path.join(REC_CONFIGS, "voicing.json")
+#: The recognizer's train configs and the epochs each runs on the [cli] corpus.
+REC_TRAIN_EPOCHS = {"train_acoustic": 2, "train_vocal_tract": 2, "train_vocal_tract_bf16": 2,
+                    "train_air_column": 1, "train_air_column_voicing": 1,
+                    "train_vocal_tract_voicing": 1}
+#: The non-synthetic test configs that read no sentence wavs (test_acoustic's
+#: melspec needs them, and the test CLI, as JAX's, reads none), each with the
+#: train run whose best checkpoint it reads.
+REC_TESTS = {"test_air_column": "train_air_column",
+             "test_air_column_voicing": "train_air_column_voicing",
+             "test_vocal_tract": "train_vocal_tract",
+             "test_vocal_tract_voicing": "train_vocal_tract_voicing"}
+REC_PATHS = tuple(f"rec_{name}" for name in (*REC_TRAIN_EPOCHS, *REC_TESTS))
+REC_BUCKETS = (64, 128, 256, 512)
+#: The profiled recognizer steps: B = 4 (the configs'), 5.1 s of 16 kHz audio
+#: (319 melspec frames, bucket 512), and vocal-tract features (2, 500, 256).
+REC_PROFILE_B = 4
+REC_AUDIO_S = 5.1
+REC_VT_T = 256
+#: Card against CPU, the recognizer's eval batch: logits and log-probs.
+REC_TOL = 1e-4
+#: The conv stem bias's float32 gradient against float64, in units of 2^-24
+#: times the summed magnitudes of its terms (recognizer_train_against_cpu).
+REC_BIAS_ROUNDING = 8.0
 #: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
 #: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
 #: over a seeded frozen autoencoder (in 100, hidden 50), trained at its batch
@@ -583,6 +652,19 @@ def gru_inputs(t, b, h, n_dir, dtype, seed, short_row=False):
     return [v.to(dtype).cuda() for v in (xp, wh, bh)] + [mask.cuda()]
 
 
+def recognizer_gru_inputs(t, b, h, dtype, seed):
+    """One direction's x_proj (T, B, 3H), w_h (H, 3H), b_h (3H,) and a mask
+    (T, B) with rows of length T, 1, 0 and the rest drawn in [1, T]."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn(t, b, 3 * h, generator=g) * 0.5
+    wh = torch.randn(h, 3 * h, generator=g) * 0.1
+    bh = torch.randn(3 * h, generator=g) * 0.1
+    lengths = torch.randint(1, t + 1, (b,), generator=g)
+    lengths[:3] = torch.tensor([t, 1, 0])
+    mask = torch.arange(t)[:, None] < lengths[None, :]
+    return [v.to(dtype).cuda() for v in (xp, wh, bh)] + [mask.cuda()]
+
+
 def bigru_reference(xp, wh, bh, mask):
     return hopper_gru.gru_forward_reference(xp, wh, bh, mask, 0b10)
 
@@ -647,6 +729,25 @@ def gru_fwd_vs_plain():
                   f"gru kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
             if dtype == torch.float32 and (t, b) == (BENCH_T, BENCH_B):
                 worst = max(worst, *errs.values())
+    for t, b, h in RECOGNIZER_GRU_CASES:
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+            xp, wh, bh, mask = recognizer_gru_inputs(t, b, h, dtype, seed=t + h)
+            errs, zero_row = {}, 0.0
+            for reverse in (False, True):
+                one = hopper_gru.gru_sequence(xp, wh, bh, mask, reverse)
+                ref = hopper_gru.gru_sequence_reference(xp, wh, bh, mask, reverse)
+                errs["reverse" if reverse else "forward"] = (one.float() - ref.float()).abs().max().item()
+                zero_row = max(zero_row, one[:, 2].float().abs().max().item())
+            torch.cuda.synchronize()
+            geo = geometry_fields(b, 1, h, 3, dtype)
+            phase("kernel", kernel="gru_fwd", T=t, B=b, H=h, directions=1, lengths="T,1,0,...",
+                  dtype=str(dtype).split(".")[-1], tol=tol, C=geo["C"], rows=geo["rows"],
+                  ctas=geo["ctas"], threads=geo["threads"], instance=geo["instance"],
+                  length0_row_max_abs=zero_row,
+                  **{f"max_abs_err_{k}": v for k, v in errs.items()})
+            check(all(np.isfinite(v) and v <= tol for v in errs.values()) and zero_row == 0.0,
+                  f"gru kernel disagrees with its plain version at {(t, b, h)} one direction "
+                  f"{dtype}: {errs}, length-0 row {zero_row}")
     return worst
 
 
@@ -699,6 +800,50 @@ def gru_bwd_vs_plain():
                   **{f"max_abs_err_{k}": f"{v:.3g}" for k, v in abs_errs.items()})
             check(all(np.isfinite(v) and v <= tol for v in errs.values()),
                   f"gru_bwd kernel disagrees with its plain version at {(t, b, h)} {dtype}: {errs}")
+            check(bitwise, f"gru_bwd gave other bits on a second launch at {(t, b, h)} {dtype}")
+            if dtype == torch.float32:
+                worst_abs = max(worst_abs, *abs_errs.values())
+                worst_rel = max(worst_rel, *errs.values())
+    for t, b, h in RECOGNIZER_GRU_CASES:
+        for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+            xp, wh, bh, mask = recognizer_gru_inputs(t, b, h, dtype, seed=2 * t + h)
+            gy = torch.randn(t, b, h, generator=torch.Generator().manual_seed(t),
+                             device="cpu").to(dtype).cuda()
+            errs, abs_errs, bitwise, zero_row = {}, {}, True, 0.0
+            for reverse in (False, True):
+                ys = hopper_gru.gru_sequence_reference(xp, wh, bh, mask, reverse)
+
+                def bwd():
+                    return hopper_gru.gru_backward(xp, wh[None], bh[None], mask, ys, gy,
+                                                   int(reverse))
+
+                got = bwd()
+                bitwise = bitwise and repeats_bitwise(bwd, got)
+                ref = hopper_gru.gru_sequence_backward_reference(xp, wh, bh, mask, ys, gy,
+                                                                 reverse)
+                name = "reverse" if reverse else "forward"
+                for n, a, r in zip(("dx", "dW", "db"), (got[0], got[1][0], got[2][0]), ref):
+                    errs[f"{name}_{n}"] = rel_err(a, r)
+                    abs_errs[f"{name}_{n}"] = (a.float() - r.float()).abs().max().item()
+                zero_row = max(zero_row, got[0][:, 2].float().abs().max().item())
+                if dtype == torch.float32:
+                    params = [v.clone().requires_grad_() for v in (xp, wh, bh)]
+                    with torch.enable_grad():
+                        auto = torch.autograd.grad(
+                            hopper_gru.gru_sequence_reference(*params, mask, reverse), params, gy)
+                    for n, a, r in zip(("dx", "dW", "db"), (got[0], got[1][0], got[2][0]), auto):
+                        errs[f"autograd_{name}_{n}"] = rel_err(a, r)
+            torch.cuda.synchronize()
+            geo = bwd_geometry_fields(b, 1, h, 3, dtype)
+            phase("kernel", kernel="gru_bwd", T=t, B=b, H=h, directions=1, lengths="T,1,0,...",
+                  dtype=str(dtype).split(".")[-1], tol=tol, C=geo["C"], rows=geo["rows"],
+                  ctas=geo["ctas"], threads=geo["threads"], instance=geo["instance"],
+                  bitwise=bitwise, length0_row_dx_max_abs=zero_row,
+                  **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()},
+                  **{f"max_abs_err_{k}": f"{v:.3g}" for k, v in abs_errs.items()})
+            check(all(np.isfinite(v) and v <= tol for v in errs.values()) and zero_row == 0.0,
+                  f"gru_bwd kernel disagrees with its plain version at {(t, b, h)} one "
+                  f"direction {dtype}: {errs}, length-0 row {zero_row}")
             check(bitwise, f"gru_bwd gave other bits on a second launch at {(t, b, h)} {dtype}")
             if dtype == torch.float32:
                 worst_abs = max(worst_abs, *abs_errs.values())
@@ -2528,7 +2673,7 @@ def decode_path():
             check(tuple(out.shape) == (b, DECODE_T, 10, 2, 50) and bool(torch.isfinite(out).all()),
                   f"decode B={b} {cache}: shape {tuple(out.shape)} or non-finite contours")
             total += counts["flash_decode"]
-            ms = host_ms(lambda: generate(tokens, lengths), 2)
+            ms = host_ms(lambda: generate(tokens, lengths), 1)
             phase("decode", B=b, T=DECODE_T, cache=cache, decode_ms=f"{ms:.6g}",
                   frames_per_s=f"{b * DECODE_T / ms * 1e3:.6g}",
                   flash_decode_launches=counts["flash_decode"], expected=per_batch)
@@ -2756,14 +2901,16 @@ def transformer_train_against_cpu():
                      zero={n for n in exact if n.endswith("key_bias")})
 
 
-def step_against_f64(tag, label, out, exact, zero=frozenset()):
+def step_against_f64(tag, label, out, exact, zero=frozenset(), own=frozenset()):
     """Hold one train step on the card to the same step on the CPU and to
     float64 gradients (the rules of transformer_train_against_cpu).
 
     ``out[device]`` is (metrics, float64 copies of the gradients, the
     updated parameters) of the step on ``cuda`` and on ``cpu``; ``exact``
     the float64 gradients; ``zero`` the parameters whose exact gradient is
-    zero (held to 1e-6 of the largest gradient instead)."""
+    zero (held to 1e-6 of the largest gradient instead); ``own`` those the
+    caller holds by a rule of its own (left out here)."""
+    exact = {n: g for n, g in exact.items() if n not in own}
 
     def global_err(grads):
         num = sum(((grads[n] - exact[n]) ** 2).sum().item() for n in exact if n not in zero)
@@ -2777,6 +2924,8 @@ def step_against_f64(tag, label, out, exact, zero=frozenset()):
     err_card, err_cpu = global_err(card[1]), global_err(cpu[1])
     param_err, flips, flip_share = 0.0, 0, 0.0
     for n, p in cpu[2].items():
+        if n in own:
+            continue
         g_card, g_cpu = card[1][n], cpu[1][n]
         same = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_cpu.abs() >= 100 * 1e-8)
         if same.any():
@@ -2952,6 +3101,263 @@ def latent_rnn_train_against_cpu():
             batch["critical_masks"]).backward()
     step_against_f64("latent_rnn", "rnn=LSTM,B=2,T=32", out,
                      {n: p.grad for n, p in model.named_parameters()})
+
+
+# -- the phoneme recognizer (DeepSpeech2) ------------------------------------------
+
+def write_air_columns(corpus):
+    """Seeded air_column/{frame}.npy arrays (2 walls, 2, 100) beside every
+    sequence's contours, as the recognizer's air-column feature reads them."""
+    rng = np.random.default_rng(16)
+    subject_dir = os.path.join(corpus, CLI_CORPUS["subject"])
+    for sequence in CLI_CORPUS["sequences"]:
+        seq_dir = os.path.join(subject_dir, sequence)
+        frames = sorted({name.split("_")[0]
+                         for name in os.listdir(os.path.join(seq_dir, "inference_contours"))})
+        os.makedirs(os.path.join(seq_dir, "air_column"), exist_ok=True)
+        for frame in frames:
+            np.save(os.path.join(seq_dir, "air_column", f"{frame}.npy"),
+                    rng.uniform(0.2, 0.8, (2, 2, 100)).astype(np.float32))
+
+
+def rec_batches(corpus, seq_dict, feature, batch_size):
+    """Batches RecognitionLoader makes of a split: sentences grouped by
+    bucket (melspec lengths from the sentences' audio durations)."""
+    per_bucket = {}
+    for item in DATABASE_COLLECTORS["gottingen"](corpus).collect_data(
+            sequences_from_dict(corpus, seq_dict)):
+        if feature == "melspec":
+            length = int(round(item["audio_duration"] * 16000)) // 256 + 1
+        else:
+            length = len(item["frame_ids"])
+        bucket = pick_bucket(length, REC_BUCKETS)
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+    return sum(-(-n // batch_size) for n in per_bucket.values())
+
+
+def rec_config(name, tmp, corpus, vocab_path, **changes):
+    """configs/phoneme_recognition/<name>.yaml written into tmp with the
+    corpus paths, the database, the voicing file (where the config names
+    one) and ``changes`` replaced."""
+    original = config_file.load(os.path.join(REC_CONFIGS, f"{name}.yaml"))
+    keys = {"datadir": corpus, "database_name": "gottingen", "vocab_filepath": vocab_path,
+            **({"voicing_filepath": REC_VOICING} if "voicing_filepath" in original else {}),
+            **changes}
+    path = os.path.join(tmp, f"rec_{name}.yaml")
+    return path, thesis_config(name, path, keys, folder=REC_CONFIGS)
+
+
+def check_rec_outputs(out_dir, result, train):
+    """The artifacts of a recognition test (and of a train run, its
+    checkpoints), with finite numbers equal to what the CLI returned."""
+    outputs = os.path.join(out_dir, "test_outputs")
+    names = set(os.listdir(outputs))
+    check({"substitution_matrix.npy", "grouped_confusion_matrix.npy", "test_results.json",
+           "predictions.json", "features.npz"} <= names, f"{outputs}: {sorted(names)}")
+    with open(os.path.join(outputs, "test_results.json")) as f:
+        check(json.load(f) == result, f"{outputs}/test_results.json")
+    check(set(result) == {"loss", "edit_distance", "word_info_lost"}
+          and all(np.isfinite(v) for v in result.values()), f"{out_dir}: {result}")
+    for name in ("substitution_matrix.npy", "grouped_confusion_matrix.npy"):
+        check(np.isfinite(np.load(os.path.join(outputs, name))).all(), f"{outputs}/{name}")
+    check(np.isfinite(np.load(os.path.join(outputs, "features.npz"))["features"]).all(),
+          f"{outputs}/features.npz")
+    if train:
+        for sub in ("best/state.pt", "best/aux.json", "last/state.pt", "last/aux.json"):
+            check(os.path.isfile(os.path.join(out_dir, "checkpoints", sub)), f"{out_dir}: {sub}")
+
+
+def recognizer_path(tmp, corpus, vocab_path):
+    """The recognizer's six train configs through the train CLI and the four
+    test configs through the test CLI on their checkpoints, over the [cli]
+    corpus with seeded air columns. Each run's GRU launches against counts
+    from the corpus's batches (a forward launch per recurrent layer and
+    batch of every train, valid and test pass; a backward one per layer and
+    train batch; nothing else), its files and each test CLI against its
+    train CLI's final test. Returns the launches and wall seconds of each
+    run, and the train_vocal_tract config for the card-vs-CPU checks."""
+    write_air_columns(corpus)
+    none = dict.fromkeys(KERNELS, 0)
+    results, launches, seconds, expected, cfgs, outs = {}, {}, {}, {}, {}, {}
+    runs = [(name, train_phoneme_recognition, {"num_epochs": epochs})
+            for name, epochs in REC_TRAIN_EPOCHS.items()]
+    runs += [(name, test_phoneme_recognition,
+              {"state_dict_filepath": os.path.join(tmp, f"rec_{train}", "checkpoints", "best",
+                                                   "state")})
+             for name, train in REC_TESTS.items()]
+    for name, module, changes in runs:
+        p = f"rec_{name}"
+        path, cfg = rec_config(name, tmp, corpus, vocab_path, **changes)
+        cfgs[p], outs[p] = cfg, os.path.join(tmp, p)
+        layers = cfg["model_params"]["num_rnn_layers"]
+        bs, feature = cfg["batch_size"], cfg["feature"]
+        test_batches = rec_batches(corpus, cfg["test_seq_dict"], feature, bs)
+        if module is train_phoneme_recognition:
+            train_batches = rec_batches(corpus, cfg["train_seq_dict"], feature, bs)
+            valid_batches = rec_batches(corpus, cfg["valid_seq_dict"], feature, bs)
+            epochs = cfg["num_epochs"]
+            expected[p] = {**none,
+                           "gru_fwd": layers * (epochs * (train_batches + valid_batches)
+                                                + test_batches),
+                           "gru_bwd": layers * epochs * train_batches}
+        else:
+            expected[p] = {**none, "gru_fwd": layers * test_batches}
+        reset_launch_counts()
+        results[p], seconds[p] = run_cli(module, path, outs[p])
+        launches[p] = launch_counts()
+        phase("recognizer", cli=p, feature=feature, seconds=f"{seconds[p]:.3f}",
+              **{f"{k}_launches": v for k, v in launches[p].items() if v or expected[p][k]},
+              **{f"{k}_expected": v for k, v in expected[p].items() if v},
+              loss=f"{results[p]['loss']:.6g}",
+              edit_distance=f"{results[p]['edit_distance']:.6g}")
+        check(launches[p] == expected[p], f"{p}: kernel launches {launches[p]}, "
+                                          f"expected {expected[p]}")
+        check_rec_outputs(outs[p], results[p], module is train_phoneme_recognition)
+        if module is train_phoneme_recognition:
+            with open(os.path.join(outs[p], "run", "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            check([r["step"] for r in records] == list(range(cfg["num_epochs"])),
+                  f"{p}: metrics.jsonl epochs")
+    for name, train_name in REC_TESTS.items():
+        test, train = results[f"rec_{name}"], results[f"rec_{train_name}"]
+        diff = abs(test["loss"] - train["loss"]) / max(abs(train["loss"]), 1e-30)
+        phase("recognizer", test_cli=name, vs_train_cli_final_test_loss_rel_diff=f"{diff:.3g}",
+              same_edit_distance=test["edit_distance"] == train["edit_distance"])
+        check(diff <= 1e-5 and test["edit_distance"] == train["edit_distance"]
+              and test["word_info_lost"] == train["word_info_lost"],
+              f"{name} differs from {train_name}'s final test: {test} vs {train}")
+    return launches, seconds, cfgs["rec_train_vocal_tract"]
+
+
+def rec_model(cfg, device, seed=0, **overrides):
+    """The config's DeepSpeech2 at full width with seeded weights."""
+    params = {**model_kwargs_from_cfg(cfg, "model_params"), **overrides}
+    return DeepSpeech2(num_classes=len(load_vocabulary(cfg["vocab_filepath"])), **params,
+                       generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def recognizer_eval_against_cpu(corpus, cfg):
+    """One test batch of train_vocal_tract's widths (4 residual layers of 32
+    channels, the Adapter 500 -> 80, 2 GRU layers of 64) through the eval
+    step on the card and on the CPU, the same seeded weights: logits and
+    log-probs within REC_TOL of max(|ref|, 1), the loss within REC_TOL
+    relative, the same greedy ids."""
+    dataset = PhonemeRecognitionDataset(
+        corpus, "gottingen", sequences_from_dict(corpus, cfg["test_seq_dict"]),
+        load_vocabulary(cfg["vocab_filepath"]), ["vocal_tract"])
+    batch, _ = next(iter(RecognitionLoader(dataset, "vocal_tract", cfg["batch_size"],
+                                           shuffle=False)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = rec_model(cfg, device, seed=3)
+        step = make_recognition_eval_step("ctc", "ctc_target", feature="vocal_tract",
+                                          device=device)
+        with torch.no_grad():
+            logits = model(torch.as_tensor(batch["features"], device=device),
+                           lengths=torch.as_tensor(batch["input_lengths"], device=device))
+        result = step(state.TrainState(model=model, optimizer=None), batch)
+        out[device] = (logits.cpu(), {k: v.cpu() for k, v in result.items()})
+    (logits, card), (ref_logits, cpu) = out["cuda"], out["cpu"]
+    errs = {"logits": rel_err(logits, ref_logits),
+            "log_probs": rel_err(card["log_probs"], cpu["log_probs"]),
+            "loss": abs(card["loss"].item() - cpu["loss"].item()) / abs(cpu["loss"].item())}
+    same_ids = torch.equal(card["decoded"], cpu["decoded"]) and torch.equal(
+        card["decoded_lengths"], cpu["decoded_lengths"])
+    phase("recognizer", against_cpu="eval_step,train_vocal_tract,B={},T={}".format(
+        *batch["input_lengths"].shape, batch["features"].shape[-1]),
+          **{f"{k}_rel_err": f"{v:.3g}" for k, v in errs.items()}, tol=REC_TOL,
+          same_greedy_ids=same_ids)
+    check(all(v <= REC_TOL for v in errs.values()) and same_ids,
+          f"the recognizer's eval step on the card differs from the CPU: {errs}, ids {same_ids}")
+
+
+def rec_batch(b, t, d, n_classes, seed, device, ragged=True, n_labels=None):
+    """A seeded vocal-tract-shaped batch (B, 2, d, T) as the collate pads
+    it (-1.0 past each row's length), voicing, and CTC targets of
+    ``n_labels`` (default T // 4) ids in [2, n_classes) a row."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(t // 2, t + 1, b) if ragged else np.full(b, t)
+    lengths[0] = t
+    pad = np.arange(t)[None, :] >= lengths[:, None]
+    features = np.where(pad[:, None, None, :], np.float32(-1.0),
+                        rng.uniform(0.0, 1.0, (b, 2, d, t)).astype(np.float32))
+    n = n_labels or t // 4
+    targets = rng.integers(2, n_classes, (b, n)).astype(np.int32)
+    batch = {"features": features, "input_lengths": lengths.astype(np.int32),
+             "voicing": np.where(pad, np.float32(-1.0), np.float32(0.0)),
+             "ctc_target": targets, "ctc_target_lengths": np.full(b, n, np.int32)}
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def recognizer_train_against_cpu(cfg):
+    """One recognizer train step (train_vocal_tract's widths, dropout 0,
+    margins 0, AdamW at lr 1e-4, B = 2, T = 32 ragged, CTC) on the card and
+    on the CPU, the same seeded weights, held to float64 gradients on the
+    CPU by the transformer's rules (step_against_f64). Each residual block's
+    first conv bias has an exactly-zero gradient (its LayerNorm over D
+    removes any shift along D). The conv stem's bias is held by its own
+    rule: on padded frames the Adapter's LayerNorm sees a constant row and
+    gives the stem zeros, the stem gives the first residual LayerNorm rows
+    constant along D, whose Jacobian is 1/sqrt(eps) = 1000 times larger,
+    and the bias's gradient is the sum over (B, T, D) of those terms, which
+    cancel to its small exact value. Its float32 error on any device is
+    then rounding of terms whose magnitudes sum to S (the float64 sum of
+    |dL/d(stem output)| over the channel's positions): each side must be
+    within REC_BIAS_ROUNDING * 2^-24 * S of float64, channel by channel
+    (both read about 0.3 of it at this seed, PERF.md §6)."""
+    batch = rec_batch(2, 32, cfg["model_params"]["num_features"],
+                      len(load_vocabulary(cfg["vocab_filepath"])), seed=11, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = state.create_train_state(rec_model(cfg, device, seed=4, dropout=0.0),
+                                      TRAIN["lr"], cfg["weight_decay"])
+        metrics = make_recognition_train_step("ctc", "ctc_target", feature="vocal_tract",
+                                              device=device)(st, batch)
+        out[device] = ({k: v.item() for k, v in metrics.items()},
+                       {n: p.grad.cpu().double() for n, p in st.model.named_parameters()},
+                       {n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    model = rec_model(cfg, "cpu", seed=4, dropout=0.0).double().train()
+    stem = {}
+
+    def keep_stem_output(module, inputs, output):
+        output.retain_grad()
+        stem["out"] = output
+
+    hook = model.conv.register_forward_hook(keep_stem_output)
+    logits = model(batch["features"].double(), lengths=batch["input_lengths"])
+    hook.remove()
+    ctc_loss(torch.log_softmax(logits, -1), batch["ctc_target"], batch["input_lengths"],
+             batch["ctc_target_lengths"]).backward()
+    exact = {n: p.grad for n, p in model.named_parameters()}
+    scale = 2.0**-24 * stem["out"].grad.abs().sum(dim=(0, 2, 3))
+    bias_err = {d: ((out[d][1]["conv.bias"] - exact["conv.bias"]).abs() / scale).max().item()
+                for d in out}
+    phase("recognizer", conv_stem_bias_err_over_rounding_card=f"{bias_err['cuda']:.3g}",
+          conv_stem_bias_err_over_rounding_cpu=f"{bias_err['cpu']:.3g}",
+          bound=REC_BIAS_ROUNDING, rounding_scale_max=f"{scale.max().item():.3g}",
+          conv_stem_bias_exact_max=f"{exact['conv.bias'].abs().max().item():.3g}")
+    check(max(bias_err.values()) <= REC_BIAS_ROUNDING,
+          f"the conv stem's bias gradient exceeds float32 rounding: {bias_err}")
+    step_against_f64("recognizer", "train_vocal_tract,dropout=0,margins=0,B=2,T=32", out, exact,
+                     zero={n for n in exact if re.fullmatch(r"residual\.\d+\.conv0\.bias", n)},
+                     own={"conv.bias"})
+
+
+def recognizer_loss_falls(cfg):
+    """10 steps on one batch (B = 4, T = 128) with the config's dropout and
+    logit margins, AdamW at lr 1e-3: the loss must fall."""
+    st = state.create_train_state(rec_model(cfg, "cuda", seed=5), 1e-3, cfg["weight_decay"])
+    batch = rec_batch(4, 128, cfg["model_params"]["num_features"],
+                      len(load_vocabulary(cfg["vocab_filepath"])), seed=12, device="cuda",
+                      ragged=False, n_labels=20)
+    step = make_recognition_train_step("ctc", "ctc_target", feature="vocal_tract",
+                                       logits_large_margins=cfg["logits_large_margins"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = [step(st, batch, gen)["loss"].item() for _ in range(10)]
+    phase("recognizer", fixed_batch_lr=1e-3, dropout=cfg["model_params"]["dropout"],
+          loss_first=f"{losses[0]:.6g}", loss_last=f"{losses[-1]:.6g}",
+          ratio=f"{losses[-1] / losses[0]:.4f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
 
 
 # -- timing --------------------------------------------------------------------
@@ -3322,17 +3728,17 @@ def time_gru_fwd():
     return results
 
 
-def cudnn_bwd_ms(rnn, t, b, h, iters=25):
+def cudnn_bwd_ms(rnn, t, b, h, iters=25, bidirectional=True):
     """cuDNN's backward alone, the backward kernels' yardstick: ``rnn``
-    (nn.GRU or nn.LSTM, bidirectional, f32, full-length rows) run forward
+    (nn.GRU or nn.LSTM, bidirectional unless asked, f32, full-length rows) run forward
     once with its graph kept, then only torch.autograd.grad of its output by
     the input and every parameter (which also gives the input projection's
     gradients, left outside the port's kernels), timed with CUDA events:
     the median of ``iters`` runs after two warm-up runs. Returns (ms, device
     ms a call of every kernel in a profiler trace of it)."""
-    cudnn = rnn(h, h, bidirectional=True).cuda()
+    cudnn = rnn(h, h, bidirectional=bidirectional).cuda()
     x = torch.randn(t, b, h, device="cuda", requires_grad=True)
-    gy = torch.randn(t, b, 2 * h, device="cuda")
+    gy = torch.randn(t, b, (1 + bidirectional) * h, device="cuda")
     out = cudnn(x)[0]
     inputs = (x, *cudnn.parameters())
 
@@ -3392,6 +3798,176 @@ def time_gru_bwd():
               **results[b]["geometry"])
     return results
 
+
+def time_recognizer_gru():
+    """Both GRU kernels at the recognizer's T = 512, B = 4, H = 64, one
+    direction, f32, every row full: by graph_ms and back to back, the
+    backward also by profiler device time (main and partial-sum kernels
+    apart), beside the plain versions, the bounds and cuDNN's one-direction
+    nn.GRU (its inference forward back to back and by profiler device time;
+    its backward alone, cudnn_bwd_ms), with the launch geometry and
+    microseconds a step. Returns {kernel: numbers}."""
+    t, b, h = RECOGNIZER_GRU_CASES[0]
+    xp, wh, bh, _ = recognizer_gru_inputs(t, b, h, torch.float32, seed=5)
+    mask = torch.ones(t, b, dtype=torch.bool, device="cuda")
+    ys = hopper_gru.gru_sequence(xp, wh, bh, mask)
+    gy = torch.randn(t, b, h, device="cuda")
+
+    def fwd():
+        return hopper_gru.gru_sequence(xp, wh, bh, mask)
+
+    def bwd():
+        return hopper_gru.gru_backward(xp, wh[None], bh[None], mask, ys, gy, 0)
+
+    cudnn = torch.nn.GRU(h, h).cuda()
+    x = torch.randn(t, b, h, device="cuda")
+
+    def cudnn_fwd():
+        with torch.inference_mode():
+            return cudnn(x)
+
+    cudnn_bwd, cudnn_bwd_device = cudnn_bwd_ms(torch.nn.GRU, t, b, h, bidirectional=False)
+    results = {}
+    fwd_graph = graph_ms(fwd, 20)
+    results["gru_fwd"] = dict(
+        ms=cuda_ms(fwd, 20), graph_ms=fwd_graph,
+        plain_ms=cuda_ms(lambda: hopper_gru.gru_sequence_reference(xp, wh, bh, mask), 3),
+        **dict(zip(("bound_ms", "bound_by"), gru_bound_ms(t, b, h, 1, 4))),
+        library_ms=cuda_ms(cudnn_fwd, 20), library_device_ms=kernel_device_ms(cudnn_fwd, 10, ""),
+        us_per_step=fwd_graph * 1e3 / t, geometry=geometry_fields(b, 1, h, 3, torch.float32))
+    bwd_graph = graph_ms(bwd, 20)
+    results["gru_bwd"] = dict(
+        ms=cuda_ms(bwd, 20), graph_ms=bwd_graph, **split_device_ms(bwd, "gru_bwd"),
+        plain_ms=cuda_ms(lambda: hopper_gru.gru_sequence_backward_reference(
+            xp, wh, bh, mask, ys, gy), 3),
+        **dict(zip(("bound_ms", "bound_by"), gru_bwd_bound_ms(t, b, h, 1, 4))),
+        library_ms=cudnn_bwd, library_device_ms=cudnn_bwd_device,
+        us_per_step=bwd_graph * 1e3 / t, geometry=bwd_geometry_fields(b, 1, h, 3, torch.float32))
+    for name, numbers in results.items():
+        phase("timing", kernel=name, T=t, B=b, H=h, directions=1, dtype="float32",
+              shape="recognizer", **fmt({k: v for k, v in numbers.items() if k != "geometry"}),
+              **numbers["geometry"])
+    return results
+
+
+def time_recognizer_steps():
+    """The recognizer's train step at full width, as the train CLI runs it
+    (AdamW under the cyclic schedule, the configs' dropout 0.1 and logit
+    margins 5e-4, 31 classes): train_acoustic's melspec model on B = 4 rows
+    of 5.1 s of 16 kHz audio (319 frames in the 512 bucket, 60 labels) and
+    train_vocal_tract's on B = 4 vocal-tract features (2, 500, 256), 40
+    labels. Step ms (3 steps), frames/s and the device breakdown of one step
+    (CUDA only: the CTC loop's ~40k host ops make a CPU trace slow); then the
+    CTC loss alone (its forward and backward on the step's log-prob shape)
+    the same way."""
+    for name, feature in (("train_acoustic", "melspec"), ("train_vocal_tract", "vocal_tract")):
+        cfg = config_file.load(os.path.join(REC_CONFIGS, f"{name}.yaml"))
+        model = DeepSpeech2(num_classes=31, **model_kwargs_from_cfg(cfg, "model_params"),
+                            generator=torch.Generator().manual_seed(6))
+        st = state.create_train_state(model, cfg["learning_rate"], cfg["weight_decay"])
+        g = torch.Generator().manual_seed(7)
+        b = REC_PROFILE_B
+        if feature == "melspec":
+            samples = int(REC_AUDIO_S * 16000)
+            frames = samples // 256 + 1
+            t = pick_bucket(frames, REC_BUCKETS)
+            audio = torch.zeros(b, (t - 1) * 256)
+            audio[:, :samples] = 0.1 * torch.randn(b, samples, generator=g)
+            batch = {"audio": audio, "input_lengths": torch.full((b,), frames, dtype=torch.int32)}
+            n_labels = 60
+        else:
+            t = frames = REC_VT_T
+            batch = {"features": torch.rand(b, 2, cfg["model_params"]["num_features"], t,
+                                            generator=g),
+                     "input_lengths": torch.full((b,), t, dtype=torch.int32)}
+            n_labels = 40
+        batch["voicing"] = torch.zeros(b, t)
+        batch["ctc_target"] = torch.randint(2, 31, (b, n_labels), generator=g, dtype=torch.int32)
+        batch["ctc_target_lengths"] = torch.full((b,), n_labels, dtype=torch.int32)
+        batch = {k: v.cuda() for k, v in batch.items()}
+        lr = cfg["learning_rate"]
+        step = make_recognition_train_step(
+            "ctc", "ctc_target", feature=feature,
+            logits_large_margins=cfg["logits_large_margins"],
+            schedule=cyclic_triangular_schedule(lr / 25, lr))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        tag = f"recognizer_{feature}_B{b}_T{t}"
+        step_ms, peak_gib = timed_step(step, st, batch, gen, tag, iters=3, breakdown=False)
+        phase("timing", recognizer_step=name, step_ms=f"{step_ms:.6g}",
+              frames_per_s=f"{b * frames / step_ms * 1e3:.6g}", peak_gib=f"{peak_gib:.3g}",
+              shape=f"B={b},T={t},valid_frames={frames},labels={n_labels}")
+        device_breakdown(lambda: step(st, batch, gen), step_ms, tag, steps=1, host_ops=False)
+        log_probs = torch.randn(b, t, 31, device="cuda").log_softmax(-1).requires_grad_()
+
+        def ctc_once():
+            loss = ctc_loss(log_probs, batch["ctc_target"], batch["input_lengths"],
+                            batch["ctc_target_lengths"])
+            loss.backward()
+
+        ctc_ms = host_ms(ctc_once, 2)
+        phase("timing", recognizer_ctc=name, ctc_fwd_bwd_ms=f"{ctc_ms:.6g}",
+              share_of_step=f"{ctc_ms / step_ms:.3f}", shape=f"B={b},T={t},K=31,N={n_labels}")
+        device_breakdown(ctc_once, ctc_ms, f"{tag}_ctc_alone", steps=1, host_ops=False)
+
+
+def shifted_conv(x, kernel, bias):
+    """The K x K SAME convolution of (B, I, T, D) as the JAX package computes
+    it: K * K shifted float32 products summed, with no patch tensor."""
+    k = kernel.shape[0]
+    t, d = x.shape[2:]
+    xp = torch.nn.functional.pad(x, (k // 2,) * 4)
+    out = bias[:, None, None]
+    for i in range(k):
+        for j in range(k):
+            out = out + torch.einsum("bitd,io->botd", xp[:, :, i:i + t, j:j + d], kernel[i, j])
+    return out
+
+
+def time_recognizer_conv():
+    """The recognizer's convolutions at the melspec step's shape (B = 4,
+    T = 512, D = 80, 32 channels; the stem from 2 channels and a residual
+    conv), forward and backward in float32 with TF32 off, as the port's
+    entry points set it: the port's Conv (one product over the unfolded
+    patches) against the K * K shifted products and against cuDNN's
+    F.conv2d, with the memory each keeps past its inputs at its peak and
+    each one's distance from the float64 sums (output and the three
+    gradients); the port's within 1e-4 of the largest value."""
+    resolve_device()
+    b, t, d, c = REC_PROFILE_B, 512, 80, 32
+    g = torch.Generator().manual_seed(8)
+    for name, i in (("stem", 2), ("residual", c)):
+        conv = Conv(i, c, generator=g).cuda()
+        with torch.no_grad():
+            conv.bias.normal_(generator=torch.Generator(device="cuda").manual_seed(9))
+        x = torch.randn(b, i, t, d, generator=g).cuda().requires_grad_()
+        gy = torch.randn(b, c, t, d, generator=g).cuda()
+        params = (x, conv.kernel, conv.bias)
+        exact_params = tuple(p.detach().double().requires_grad_() for p in params)
+        y = shifted_conv(*exact_params)
+        exact = (y.detach(), *torch.autograd.grad(y, exact_params, gy.double()))
+        del y
+        variants = {
+            "unfold": lambda: conv(x),
+            "shifted": lambda: shifted_conv(x, conv.kernel, conv.bias),
+            "conv2d": lambda: torch.nn.functional.conv2d(
+                x, conv.kernel.permute(3, 2, 0, 1), conv.bias, padding=1)}
+        fields = {}
+        for v, fn in variants.items():
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y = fn()
+            got = (y.detach(), *torch.autograd.grad(y, params, gy))
+            fields[f"{v}_extra_mib"] = f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f}"
+            del y
+            err = max(rel_err(a, r) for a, r in zip(got, exact))
+            fields[f"{v}_vs_f64"] = f"{err:.3g}"
+            if v == "unfold":
+                check(err <= REC_TOL, f"recognizer conv {name}: {err:.3g} from float64")
+            fields[f"{v}_fwd_ms"] = f"{cuda_ms(fn, 10):.6g}"
+            fields[f"{v}_fwd_bwd_ms"] = f"{cuda_ms(lambda: torch.autograd.grad(fn(), params, gy), 10):.6g}"
+        phase("timing", recognizer_conv=name, shape=f"B={b},I={i},O={c},T={t},D={d},K=3,float32",
+              **fields)
 
 def lstm_bound_ms(t, b, h, n_dir, elem_bytes):
     """Least time for the forward's work: x_proj, W_h, b_h and the mask read
@@ -3677,7 +4253,13 @@ def main():
         t0 = time.perf_counter()
         mc_launches, mc_seconds = mean_contour_path(tmp, *test_step_inputs[1:3])
         phase("mean_contour", seconds=f"{time.perf_counter() - t0:.3f}")
-    elapsed("cli_pc_mean_contour")
+        t0 = time.perf_counter()
+        rec_launches, rec_seconds, rec_cfg = recognizer_path(tmp, *test_step_inputs[1:3])
+        recognizer_eval_against_cpu(test_step_inputs[1], rec_cfg)
+        recognizer_train_against_cpu(rec_cfg)
+        recognizer_loss_falls(rec_cfg)
+        phase("recognizer", seconds=f"{time.perf_counter() - t0:.3f}")
+    elapsed("cli_pc_mean_contour_recognizer")
     decode_launches = decode_path()
     decode_against_cpu()
     elapsed("decode")
@@ -3705,11 +4287,17 @@ def main():
     numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
     gru_seq = time_gru_seq()
     numbers["gru_seq"] = gru_seq[BENCH_B]
+    recognizer_gru = time_recognizer_gru()
+    t0 = time.perf_counter()
+    time_recognizer_steps()
+    phase("timing", recognizer_steps_seconds=f"{time.perf_counter() - t0:.3f}")
+    time_recognizer_conv()
     time_synthesis()
     time_training()
     time_test_step()
     phase("timing", **{f"{p}_wall_s": f"{s:.3f}"
-                       for p, s in {**cli_seconds, **pc_seconds, **mc_seconds}.items()})
+                       for p, s in {**cli_seconds, **pc_seconds, **mc_seconds,
+                                    **rec_seconds}.items()})
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
@@ -3719,6 +4307,7 @@ def main():
                    **{p: pc_launches[p][k] for p in PC_PATHS},
                    **{p: mc_launches[p][k] for p in MC_PATHS},
                    "latent_rnn": latent_launches[k],
+                   **{p: rec_launches[p][k] for p in REC_PATHS},
                    "gru_seq": gru_seq_launches if k == "gru_seq" else 0} for k in KERNELS}
     unlaunched = [k for k in KERNELS if sum(by_path[k].values()) == 0]
     check(not unlaunched, f"kernels launched on no path: {unlaunched}")
@@ -3759,6 +4348,9 @@ def main():
     extra["gru_fwd"] = {"by_shape": {f"B={b}": r for (_, b), r in gru_fwd.items()}}
     extra["gru_bwd"]["by_shape"] = {f"B={b}": r for b, r in gru_bwd.items()}
     extra["gru_bwd"]["device_ms"] = gru_bwd[BENCH_B]["device_ms"]
+    for k in ("gru_fwd", "gru_bwd"):
+        extra[k]["recognizer"] = {"shape": "T={},B={},H={},directions=1,float32".format(
+            *RECOGNIZER_GRU_CASES[0]), **recognizer_gru[k]}
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
     elapsed("timing")
