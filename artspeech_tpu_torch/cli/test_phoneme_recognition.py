@@ -1,14 +1,15 @@
-"""Evaluate a trained recognizer on a real corpus (counterpart of
-artspeech_tpu/cli/test_phoneme_recognition.py, on one device).
+"""Evaluate a trained recognizer, on a recorded corpus or a SYNTHESIZED one
+(counterpart of artspeech_tpu/cli/test_phoneme_recognition.py, on one device).
 
-Equivalent of reference test_phoneme_recognition.py:46-169 on a recorded
-corpus: PER/WIL, substitution and confusion artifacts under
-``<output_dir>/test_outputs``. ``state_dict_filepath`` names a checkpoint of
-the port's trainer (``results/checkpoints/best/state``) or a model-only
-``state_dict``. As in the JAX package, the corpus is read without a
-temporary directory for sentence wavs, so ``feature: melspec`` is refused by
-the dataset. Scoring a synthesized corpus (``synthetic: true``) is not
-ported yet.
+Equivalent of reference test_phoneme_recognition.py:46-169, including the
+evaluation-by-synthesis loop: with ``synthetic: true`` and ``datadir`` at a
+``generate_vocal_tract_shape`` output directory (its ``save_to``), every
+sentence found there is scored with PER/WIL. Writes substitution and
+confusion artifacts under ``<output_dir>/test_outputs``.
+``state_dict_filepath`` names a checkpoint of the port's trainer
+(``results/checkpoints/best/state``) or a model-only ``state_dict``. As in
+the JAX package, a recorded corpus is read without a temporary directory for
+sentence wavs, so ``feature: melspec`` is refused by the dataset.
 
 Usage: python -m artspeech_tpu_torch.cli.test_phoneme_recognition \\
            --config cfg.yaml [--output_dir results] [--device cpu]
@@ -25,6 +26,7 @@ from artspeech_tpu_torch.data.recognition import (
     TARGET_KEYS,
     PhonemeRecognitionDataset,
     RecognitionLoader,
+    SyntheticPhonemeRecognitionDataset,
 )
 from artspeech_tpu_torch.eval.recognition import run_recognition_test
 from artspeech_tpu_torch.losses.recognition import load_class_weights
@@ -36,10 +38,6 @@ from artspeech_tpu_torch.utils.io import sequences_from_dict
 
 
 def main(cfg, args, tracker):
-    if cfg.get("synthetic", False):
-        raise NotImplementedError(
-            "scoring a synthesized corpus (synthetic: true) is not ported to "
-            "artspeech_tpu_torch yet: ROADMAP Queue 1, item 3b")
     device = resolve_device(args.device)
     vocabulary = load_vocabulary(cfg["vocab_filepath"])
     feature = cfg.get("feature", "vocal_tract")
@@ -50,14 +48,17 @@ def main(cfg, args, tracker):
     model_params = model_kwargs_from_cfg({"model_params": cfg.get("model_params")}, "model_params")
     model = DeepSpeech2(num_classes=len(vocabulary), **model_params, device=device)
     model.load_state_dict(load_params(cfg["state_dict_filepath"]))
-    dataset = PhonemeRecognitionDataset(
-        datadir=cfg["datadir"],
-        database_name=cfg["database_name"],
-        sequences=sequences_from_dict(cfg["datadir"], cfg["test_seq_dict"]),
-        vocabulary=vocabulary,
-        features=[feature],
-        voiced_tokens=load_voiced_tokens(cfg),
-    )
+    datadir = cfg["datadir"]
+    common = dict(datadir=datadir, vocabulary=vocabulary, features=[feature],
+                  voiced_tokens=load_voiced_tokens(cfg))
+    if cfg.get("synthetic", False):
+        dataset = SyntheticPhonemeRecognitionDataset(
+            sequences=SyntheticPhonemeRecognitionDataset.sequences_from_corpus(datadir),
+            database_name=cfg.get("database_name", "artspeech"), **common)
+    else:
+        dataset = PhonemeRecognitionDataset(
+            sequences=sequences_from_dict(datadir, cfg["test_seq_dict"]),
+            database_name=cfg["database_name"], **common)
     loader = RecognitionLoader(dataset, feature, batch_size=cfg.get("batch_size", 4),
                                shuffle=False)
 

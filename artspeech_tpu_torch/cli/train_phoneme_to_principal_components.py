@@ -4,10 +4,10 @@
 Equivalent of reference train_phoneme_to_principal_components.py:58-471:
 ``PrincipalComponentsArtSpeech`` (BiGRU or BiLSTM, ``model_kwargs.rnn``)
 trained with the AutoencoderLoss composite over a frozen autoencoder (latent
-MSE, decoded-contour MSE and the critical TV loss), valid metric the decoder
-P2CP in mm, through ``fit``; then the final test with TV and contour dumps.
-The recognizer term (``recognizer:``, ``beta4 > 0``) is not ported yet
-(ROADMAP Queue 1, item 3) and raises. One device.
+MSE, decoded-contour MSE, the critical TV loss and, with a ``recognizer:``
+block, ``beta4`` times the feature MSE of a frozen DeepSpeech2), valid metric
+the decoder P2CP in mm, through ``fit``; then the final test with TV and
+contour dumps. One device.
 
 Usage: python -m artspeech_tpu_torch.cli.train_phoneme_to_principal_components \
            --config cfg.yaml [--output_dir results] [--device cpu]
@@ -15,7 +15,8 @@ Config keys: datadir, database_name, num_epochs, batch_size, patience,
 learning_rate, weight_decay, indices_dict, vocab_filepath,
 encoder_state_dict_filepath, decoder_state_dict_filepath, encoder_cls,
 decoder_cls, in_features, hidden_features, beta1..beta4, rescale_factor,
-TV_to_phoneme_map, model_kwargs (rnn=GRU|LSTM), clip_tails, seed.
+TV_to_phoneme_map, model_kwargs (rnn=GRU|LSTM), recognizer (optional:
+{state_dict_filepath, model_params}), clip_tails, seed.
 """
 
 import json
@@ -40,6 +41,7 @@ from artspeech_tpu_torch.models.autoencoder import (
     MultiEncoder,
     normalize_indices_dict,
 )
+from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2, frozen_recognizer_fn
 from artspeech_tpu_torch.models.latent_rnn import PrincipalComponentsArtSpeech
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
 from artspeech_tpu_torch.train.loop import fit
@@ -87,11 +89,24 @@ def build_frozen_ae(cfg, indices_dict, require_encoder=True, device=None):
     return encode_fn, _frozen(decoder)
 
 
+def build_frozen_recognizer(cfg, vocabulary, device=None):
+    """The config's ``recognizer:`` block as a frozen feature extractor, or
+    None without one: ``DeepSpeech2(**model_params)`` loaded from its
+    ``state_dict_filepath`` on ``device``
+    (``models.deepspeech2.frozen_recognizer_fn``)."""
+    rec_cfg = cfg.get("recognizer")
+    if not rec_cfg:
+        return None
+    model = DeepSpeech2(num_classes=len(vocabulary),
+                        **model_kwargs_from_cfg({"model_params": rec_cfg.get("model_params")},
+                                                "model_params"),
+                        device=resolve_device(device))
+    model.load_state_dict(load_params(rec_cfg["state_dict_filepath"]))
+    return frozen_recognizer_fn(model)
+
+
 def main(cfg, args, tracker):
     device = resolve_device(args.device)
-    if cfg.get("recognizer"):
-        raise NotImplementedError("recognizer: the recognizer term of the latent-RNN loss is "
-                                  "not ported to artspeech_tpu_torch yet (ROADMAP Queue 1, item 3)")
     database_name = cfg["database_name"]
     to_mm = mm_per_unit(DATASET_CONFIG[database_name])
     vocabulary = load_vocabulary(cfg["vocab_filepath"])
@@ -121,7 +136,8 @@ def main(cfg, args, tracker):
         encode_fn, decode_fn, tvs, articulators, beta1=cfg.get("beta1", 1.0),
         beta2=cfg.get("beta2", 1.0), beta3=cfg.get("beta3", 1.0), beta4=cfg.get("beta4", 0.0),
         rescale_factor=rescale, denorm_mean=torch.as_tensor(denorm_mean, device=device),
-        denorm_std=torch.as_tensor(denorm_std, device=device))
+        denorm_std=torch.as_tensor(denorm_std, device=device),
+        recognizer_fn=build_frozen_recognizer(cfg, vocabulary, device))
 
     model = PrincipalComponentsArtSpeech(
         len(vocabulary), indices_dict, **model_kwargs_from_cfg(cfg),

@@ -2,17 +2,18 @@
 artspeech_tpu/data/recognition.py, on one device).
 
 Equivalents of reference phoneme_recognition/datasets.py:51-302
-(``PhonemeRecognitionDataset`` + ``collate_fn``). Items carry RAW audio
+(``PhonemeRecognitionDataset`` + ``collate_fn``) and synthetic_shapes.py:38-158
+(``SyntheticPhonemeRecognitionDataset``, over a synthesized corpus). Items carry RAW audio
 (resampled to 16 kHz host-side) and the mel spectrogram is computed on the
 device by the train and eval steps (ops/melspec.py). Contour and air-column
 features stay host-loaded in the reference (C, D, T) layout. Batches are
 padded to fixed bucket lengths and to ``batch_size`` rows; padded rows have
-``input_lengths`` 0. The dataset over a synthesized corpus
-(``SyntheticPhonemeRecognitionDataset``) is not ported yet.
+``input_lengths`` 0.
 """
 
 import logging
 import os
+from glob import glob
 from itertools import groupby
 from typing import Dict, List, Optional, Sequence
 
@@ -172,6 +173,11 @@ class PhonemeRecognitionDataset:
             sample[AIR_COLUMN] = ac.reshape(c, w * d, t)
             sample[f"{AIR_COLUMN}_length"] = t
 
+        return self._add_targets(sample, phonemes)
+
+    def _add_targets(self, sample: dict, phonemes: Sequence[str]) -> dict:
+        """The articulatory and CTC token targets and the voicing of a
+        sentence's phonemes, added to ``sample``."""
         token_ids = np.array(
             [token_id(p, self.vocabulary) for p in phonemes], np.int32
         )
@@ -186,6 +192,101 @@ class PhonemeRecognitionDataset:
         sample[TARGET_CTC] = ctc_tokens
         sample[f"{TARGET_CTC}_length"] = len(ctc_tokens)
         return sample
+
+
+class SyntheticPhonemeRecognitionDataset(PhonemeRecognitionDataset):
+    """Recognition dataset over a SYNTHESIZED corpus (what
+    ``synth.pipeline.synthesize_corpus`` and the generate CLI write): closes
+    the synthesize -> recognize -> PER loop (reference
+    synthetic_shapes.py:38-158).
+
+    Directory schema per sentence: {datadir}/{subject}/{sentence_name}/
+    {air_column,inference_contours}/*.npy + target_sequence.txt. Frames are
+    the sentence's ``air_column/*.npy``; a sentence without any is skipped.
+    ``melspec`` is dropped from ``features`` (a synthesized corpus has no
+    audio).
+    """
+
+    def __init__(
+        self,
+        datadir: str,
+        sequences,  # (subject, sentence_name) pairs
+        vocabulary: Dict[str, int],
+        features: Sequence[str],
+        database_name: str = "artspeech",
+        articulators: Sequence[str] = None,
+        voiced_tokens: Optional[Sequence[str]] = None,
+    ):
+        self.datadir = datadir
+        self.dataset_config = DATASET_CONFIG[database_name]
+        self.vocabulary = vocabulary
+        self.features = [f for f in features if f != MELSPEC]
+        self.voiced_tokens = set(voiced_tokens or [])
+        self.articulators = list(articulators or RECOGNITION_ARTICULATORS)
+        self.data = self._collect(sequences)
+
+    def _collect(self, sequences) -> List[dict]:
+        data = []
+        for subject, sentence_name in sequences:
+            sentence_dir = os.path.join(self.datadir, subject, sentence_name)
+            frame_fps = glob(os.path.join(sentence_dir, "air_column", "*.npy"))
+            frame_ids = sorted(os.path.basename(fp).split(".")[0] for fp in frame_fps)
+            if not frame_ids:
+                continue
+            with open(os.path.join(sentence_dir, "target_sequence.txt")) as f:
+                phonemes = f.read().strip().split()
+            data.append({
+                "subject": subject,
+                "sequence": sentence_name,
+                "sentence_name": f"{subject}-{sentence_name}",
+                "frame_ids": frame_ids,
+                "phonemes": phonemes,
+                "phonemes_with_time": [],
+                "audio_duration": len(frame_ids) / self.dataset_config.FRAMERATE,
+            })
+        return data
+
+    def __getitem__(self, index: int) -> dict:
+        """Load the synthesized npys RAW: they are already in model-output
+        space (normalized, incisor-recentered); the recorded corpus's 1/RES
+        scaling and re-centring would corrupt them (reference
+        synthetic_shapes.py:86-130 also loads them verbatim)."""
+        item = self.data[index]
+        frame_ids = item["frame_ids"]
+        sample = {"sentence_name": item["sentence_name"]}
+        base = os.path.join(self.datadir, item["subject"], item["sequence"])
+
+        if VOCAL_TRACT in self.features:
+            frames = [np.stack([
+                np.load(os.path.join(base, "inference_contours", f"{frame_id}_{a}.npy"))
+                .astype(np.float32) for a in self.articulators]) for frame_id in frame_ids]
+            vt = np.stack(frames).transpose(2, 1, 3, 0)  # (C, Nart, D, T)
+            c, n, d, t = vt.shape
+            sample[VOCAL_TRACT] = vt.reshape(c, n * d, t)
+            sample[f"{VOCAL_TRACT}_length"] = t
+
+        if AIR_COLUMN in self.features:
+            cols = [np.load(os.path.join(base, "air_column", f"{frame_id}.npy")).astype(np.float32)
+                    for frame_id in frame_ids]  # each (2, 2, D)
+            ac = np.stack(cols).transpose(2, 1, 3, 0)  # (C, walls, D, T)
+            c, w, d, t = ac.shape
+            sample[AIR_COLUMN] = ac.reshape(c, w * d, t)
+            sample[f"{AIR_COLUMN}_length"] = t
+
+        return self._add_targets(sample, item["phonemes"])
+
+    @staticmethod
+    def sequences_from_corpus(datadir: str) -> List:
+        """All (subject, sentence_name) pairs under a synthetic corpus dir."""
+        pairs = []
+        for subject in sorted(os.listdir(datadir)):
+            subj_dir = os.path.join(datadir, subject)
+            if not os.path.isdir(subj_dir):
+                continue
+            for name in sorted(os.listdir(subj_dir)):
+                if os.path.isdir(os.path.join(subj_dir, name)):
+                    pairs.append((subject, name))
+        return pairs
 
 
 def collate_recognition_batch(

@@ -1,10 +1,10 @@
 """Losses and metrics for phoneme-to-articulation models (counterpart of
 artspeech_tpu/losses/articulation.py: ``masked_euclidean_loss``,
-``p2cp_distance_mm``, ``euclidean_distance_mm``).
+``p2cp_distance_mm``, ``euclidean_distance_mm`` and
+``recognition_feature_loss``).
 
 Masked reductions over padded (B, T, Nart, 2, D) contour batches: the
 per-sentence mean over valid frames is a masked sum, no host loop.
-``recognition_feature_loss`` comes with the recognizer.
 """
 
 from typing import Optional
@@ -66,3 +66,20 @@ def euclidean_distance_mm(outputs, targets, lengths, to_mm: float):
         torch.clamp(lengths.to(dist.dtype), min=1.0) * dist.shape[2])
     valid = (lengths > 0).to(dist.dtype)
     return (per_sentence * valid).sum() / torch.clamp(valid.sum(), min=1.0) * to_mm
+
+
+def recognition_feature_loss(output_features, target_features, lengths):
+    """MSE between a frozen recognizer's features of the outputs and of the
+    targets over valid frames: the deep perceptual supervision term of
+    reference encoder_decoder/loss.py:6-37 (``ArtSpeechLoss``).
+
+    Args:
+        output_features, target_features: (B, T, F); lengths: (B,).
+    Returns:
+        the masked sum of squares over (valid frames x F).
+    """
+    mask = make_padding_mask(lengths, output_features.shape[1])
+    sq = (output_features - target_features) ** 2
+    w = mask[:, :, None].to(sq.dtype)
+    n_valid = torch.clamp(mask.sum().to(sq.dtype), min=1.0) * sq.shape[-1]
+    return (sq * w).sum() / n_valid

@@ -9,9 +9,9 @@ Equivalents of reference principal_components/losses.py:
 The frozen encoder and decoder of AutoencoderLoss2 are callables over modules
 whose parameters do not require grad: the latent targets are encoded under
 ``torch.no_grad()`` (JAX's ``stop_gradient``), and the decoder passes
-gradients to its input only. The recognizer term (``recognizer_fn``,
-``beta4``) waits for the recognizer's port (ROADMAP Queue 1, item 3) and
-raises.
+gradients to its input only. The optional recognizer term (``recognizer_fn``,
+``beta4``) is the feature MSE of a frozen DeepSpeech2 between the decoded
+and the target contours, the targets' features under ``torch.no_grad()``.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -27,6 +27,7 @@ from artspeech_tpu_torch.core.constants import (
     UPPER_INCISOR,
     UPPER_LIP,
 )
+from artspeech_tpu_torch.models.deepspeech2 import to_recognizer_layout
 from artspeech_tpu_torch.ops.distances import (
     mean_p2cp_channel_major,
     min_pairwise_distance_channel_major,
@@ -148,17 +149,16 @@ def make_autoencoder_loss(encode_fn: Callable, decode_fn: Callable, TVs: Sequenc
     Args:
         encode_fn: (B*T, Nart, 2*D) -> (B*T, L) FROZEN encoder (tanh'd).
         decode_fn: (B, T, L) -> (B, T, Nart, 2*D) FROZEN decoder.
-        recognizer_fn, beta4: the recognizer term, not ported yet: a
-            ``recognizer_fn`` or ``beta4 > 0`` raises ``NotImplementedError``.
+        recognizer_fn: optional (shapes (B, C, Nart*D, T), voicing) ->
+            (B, T, F) features of a FROZEN recognizer
+            (``models.deepspeech2.frozen_recognizer_fn``); its term, weighted
+            by ``beta4``, is the features' MSE over valid frames.
     Returns loss_fn(output_pcs, target_shapes, reference_arrays, lengths,
-                    critical_mask) -> scalar.
+                    critical_mask, voicing=None) -> scalar.
     """
-    if recognizer_fn is not None or beta4 > 0.0:
-        raise NotImplementedError(
-            "the recognizer term of the latent-RNN loss (recognizer_fn, beta4 > 0) is not "
-            "ported to artspeech_tpu_torch yet (ROADMAP Queue 1, item 3)")
 
-    def loss_fn(output_pcs, target_shapes, reference_arrays, lengths, critical_mask):
+    def loss_fn(output_pcs, target_shapes, reference_arrays, lengths, critical_mask,
+                voicing=None):
         b, t, n_art, _, d = target_shapes.shape
         mask = make_padding_mask(lengths, t).to(target_shapes.dtype)
         n_valid = torch.clamp(torch.sum(mask), min=1.0)
@@ -177,7 +177,14 @@ def make_autoencoder_loss(encode_fn: Callable, decode_fn: Callable, TVs: Sequenc
         recon_loss = torch.sum(recon_sq.mean(dim=(-3, -2, -1)) * mask) / n_valid
         crit_loss = critical_loss(output_shapes, reference_arrays, critical_mask, TVs,
                                   articulators, denorm_mean=denorm_mean, denorm_std=denorm_std)
-        return beta1 * latent_loss + beta2 * recon_loss + beta3 * crit_loss
+        loss = beta1 * latent_loss + beta2 * recon_loss + beta3 * crit_loss
+        if recognizer_fn is not None:
+            with torch.no_grad():
+                tgt_feats = recognizer_fn(to_recognizer_layout(target_shapes), voicing)
+            out_feats = recognizer_fn(to_recognizer_layout(output_shapes), voicing)
+            rec_sq = (out_feats - tgt_feats) ** 2  # (B, T, F)
+            loss = loss + beta4 * torch.sum(rec_sq.mean(dim=-1) * mask) / n_valid
+        return loss
 
     return loss_fn
 

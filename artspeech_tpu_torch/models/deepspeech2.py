@@ -33,7 +33,7 @@ passes ``device="cpu"``), ending in ``.eval()``. In training mode with
 device for the dropout masks.
 """
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -237,6 +237,29 @@ class DeepSpeech2(nn.Module):
         if return_features:
             return logits, features
         return logits
+
+
+def to_recognizer_layout(shapes: torch.Tensor) -> torch.Tensor:
+    """(B, T, Nart, 2, D) contours -> (B, 2, Nart * D, T), the vocal-tract
+    feature layout (JAX train/step.py ``to_rec``)."""
+    b, t, n_art, _, d = shapes.shape
+    return shapes.permute(0, 3, 2, 4, 1).reshape(b, 2, n_art * d, t)
+
+
+def frozen_recognizer_fn(model: DeepSpeech2) -> Callable:
+    """Freeze ``model`` (eval mode, no parameter requires grad) and return
+    ``recognizer_fn(shapes, voicing) -> (B, T, H)`` features: the model called
+    with ``return_features=True`` and no ``lengths``, so its GRU runs over
+    every frame, as the JAX package's frozen recognizer does
+    (cli/train_phoneme_to_principal_components.py:105-125). Gradients pass
+    through it to ``shapes`` only; an optimizer over another model never
+    sees its parameters."""
+    model.requires_grad_(False).eval()
+
+    def recognizer_fn(shapes: torch.Tensor, voicing: Optional[torch.Tensor]) -> torch.Tensor:
+        return model(shapes, voicing=voicing, return_features=True)[1]
+
+    return recognizer_fn
 
 
 def get_noise_logits(logits: torch.Tensor, factor: float,

@@ -7,7 +7,9 @@ walls run on the device per batch; the host writes the synthetic corpus
 (inference_contours/*.npy, air_column/*.npy, xarticul/*.txt,
 target_sequence.txt) in the JAX package's directory schema.
 ``SynthesisDataset`` is a copy of the JAX package's without its voiced-token
-option, whose callers (the recognizer CLIs) are not ported.
+option, which no caller passes (the JAX generate CLI builds it without one);
+the recognizer scores the corpus with its own voicing, through the test
+CLI's ``synthetic: true``.
 """
 
 import logging

@@ -120,6 +120,13 @@ def _sentences(batch, device):
                  for k in ("tokens", "targets", "references", "lengths", "critical_masks"))
 
 
+def _voicing(batch, device):
+    """The batch's voicing (padded frames -1) for the loss's recognizer
+    term, or None where the batch has none (JAX pc_step.py:150,192)."""
+    voicing = batch.get("voicing")
+    return None if voicing is None else torch.as_tensor(voicing, device=device)
+
+
 def make_latent_rnn_train_step(loss_fn: Callable, decode_fn: Callable, denorm_mean, denorm_std,
                                to_mm: float, rescale_factor: float = 1.0, with_p2cp: bool = False,
                                device: DeviceLike = None):
@@ -140,7 +147,7 @@ def make_latent_rnn_train_step(loss_fn: Callable, decode_fn: Callable, denorm_me
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         pcs = model(tokens, lengths, generator=generator)
-        loss = loss_fn(pcs, targets, references, lengths, critical)
+        loss = loss_fn(pcs, targets, references, lengths, critical, voicing=_voicing(batch, dev))
         loss.backward()
         state.optimizer.step()
         state.step += 1
@@ -169,7 +176,8 @@ def make_latent_rnn_eval_step(loss_fn: Callable, decode_fn: Callable, denorm_mea
         with torch.no_grad():
             pcs = model(tokens, lengths)
             metrics = {
-                "loss": loss_fn(pcs, targets, references, lengths, critical),
+                "loss": loss_fn(pcs, targets, references, lengths, critical,
+                                voicing=_voicing(batch, dev)),
                 "p2cp_mm": decoder_mean_p2cp_mm(pcs, targets, lengths, decode_fn, mean, std,
                                                 to_mm, rescale_factor=rescale_factor),
             }

@@ -10,16 +10,22 @@ training mode (dropout drawn from the caller's generator), the
 masked-Euclidean loss, one backward (the GRU backward kernel on CUDA) and one
 AdamW step. P2CP is a metric computed on detached outputs under
 ``torch.no_grad()`` (the P2CP kernel on CUDA): opt-in in the train step, as in
-the JAX package, and always in the eval step. The recognizer loss term and
-the shard_map variant are not ported yet.
+the JAX package, and always in the eval step. With a frozen recognizer
+(``recognizer_fn``) the ArtSpeech train step adds the recognizer-feature
+loss. The shard_map variant is not ported yet.
 """
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss, p2cp_distance_mm
+from artspeech_tpu_torch.losses.articulation import (
+    masked_euclidean_loss,
+    p2cp_distance_mm,
+    recognition_feature_loss,
+)
+from artspeech_tpu_torch.models.deepspeech2 import to_recognizer_layout
 from artspeech_tpu_torch.ops.distances import euclidean_distance
 from artspeech_tpu_torch.train.state import TrainState
 from artspeech_tpu_torch.utils.masks import make_padding_mask
@@ -30,13 +36,25 @@ def _inputs(batch, device):
                  for k in ("tokens", "targets", "lengths"))
 
 
-def make_artspeech_train_step(to_mm: float, with_p2cp: bool = False, device: DeviceLike = None):
+def make_artspeech_train_step(to_mm: float, with_p2cp: bool = False, device: DeviceLike = None,
+                              recognizer_fn: Optional[Callable] = None,
+                              recognition_weight: float = 1.0):
     """``step(state, batch, generator=None) -> metrics``.
 
     ``generator`` is a ``torch.Generator`` on ``device`` for the dropout
     masks (needed when the model's dropout is > 0). The state's gradients
     stay in ``p.grad`` after the step. Metrics are 0-d tensors on the device:
     ``loss`` and, with ``with_p2cp``, ``p2cp_mm``.
+
+    With ``recognizer_fn`` (a FROZEN feature extractor, (shapes (B, 2,
+    Nart * D, T), voicing (B, T) or None) -> (B, T, F), from
+    ``models.deepspeech2.frozen_recognizer_fn``), the loss adds
+    ``recognition_weight`` times the MSE between its features of the outputs
+    and of the targets (reference encoder_decoder/loss.py:6-37,
+    ``ArtSpeechLoss``). The targets' features take no gradient; the outputs'
+    pass theirs through the recognizer into the model. The batch's
+    ``voicing`` (padded frames -1), where it has one, goes to the recognizer
+    as it is.
     """
     dev = resolve_device(device)
 
@@ -48,6 +66,15 @@ def make_artspeech_train_step(to_mm: float, with_p2cp: bool = False, device: Dev
         state.optimizer.zero_grad(set_to_none=True)
         outputs = model(tokens, lengths, generator=generator)
         loss = masked_euclidean_loss(outputs, targets, lengths)
+        if recognizer_fn is not None:
+            voicing = batch.get("voicing")
+            if voicing is not None:
+                voicing = torch.as_tensor(voicing, device=dev)
+            out_feats = recognizer_fn(to_recognizer_layout(outputs), voicing)
+            with torch.no_grad():
+                tgt_feats = recognizer_fn(to_recognizer_layout(targets), voicing)
+            loss = loss + recognition_weight * recognition_feature_loss(out_feats, tgt_feats,
+                                                                        lengths)
         loss.backward()
         state.optimizer.step()
         state.step += 1

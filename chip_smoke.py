@@ -1,8 +1,9 @@
 """Drive the PyTorch/CUDA port's synthesis and training paths, the thesis
 workflow through its CLIs, the transformer's KV-cached decode and its
 training, the autoencoder-based method (phonemes -> principal
-components), the mean-contour baseline, the phoneme recognizer and the bf16
-configs on one NVIDIA GPU, and check them.
+components), the mean-contour baseline, the phoneme recognizer (on recorded
+and synthesized corpora, and frozen inside the two trainers' losses) and the
+bf16 configs on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -111,7 +112,7 @@ Phases, each printing its own lines:
                configs/model_free/ configs (only the corpus paths, the
                database, num_epochs: 2, state_dict_filepath and save_to
                changed) over a seeded gottingen-layout corpus on disk (one
-               subject, S01-S05, 6 sentences of about 100 frames each):
+               subject, S01-S05, 6 sentences of about 75 frames each):
                train_phoneme_to_articulation (fit + the final test with tract
                variables), test_phoneme_to_articulation on best/state,
                generate_vocal_tract_shape on S05 and, from best_model, on a
@@ -167,6 +168,26 @@ Phases, each printing its own lines:
                ids); one train step at dropout 0 and margins 0 on the card
                against the CPU, held to float64 as the transformer's; 10
                steps on one batch with dropout (the loss must fall);
+     synthetic — in the same temporary directory: the seven
+               test_synthetic_*.yaml through the test CLI with synthetic:
+               true, each datadir at the corpus [cli], [pc] or
+               [mean_contour] synthesized (SYNTHESIS_DIRS) and the best
+               checkpoint of [recognizer]'s train_vocal_tract (or _voicing)
+               run: gru_fwd launches = layers x test batches, the artifacts,
+               finite PER/WIL, and one voiced synthetic batch through the
+               eval step on the card against the CPU; the latent RNN's train
+               CLI (train_autoencoder_based.yaml, 1 epoch) with a
+               recognizer: block and beta4 0.5: launches, checkpoints, finite
+               metrics, the same parameter count as without; both GRU
+               kernels at the frozen recognizer's shape (T = 128, B = 12, H =
+               64, one direction, f32; the all-ones mask and rows of length
+               T, 1, 0) against their plain versions; the ArtSpeech and the
+               LSTM latent-RNN train steps with the recognizer frozen in
+               their losses at B = 12, T = 128: exact launches, the
+               recognizer untouched and outside the optimizer, step ms,
+               frames/s and the device breakdown; the ArtSpeech one at
+               dropout 0 on the card against the CPU, held to float64; 10
+               steps on one batch (the loss must fall);
   8. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
@@ -229,7 +250,8 @@ Phases, each printing its own lines:
                launch geometry (C, rows a cluster, CTAs, waves at one CTA
                an SM) and microseconds a step, its plain
                version and cuDNN's nn.GRU; the GRU forward and backward at the
-               recognizer's T = 512, B = 4, H = 64, one direction (graph_ms,
+               recognizer's T = 512, B = 4, H = 64, and at the frozen
+               recognizer's T = 128, B = 12, H = 64, one direction (graph_ms,
                back to back, the bound, cuDNN's one-direction nn.GRU
                forward and backward alone); and the recognizer's train step
                at full width (melspec: B = 4, 5.1 s of 16 kHz audio, 319
@@ -291,7 +313,11 @@ from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, p
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
 from artspeech_tpu_torch.data.pc_datasets import AutoencoderDataset, PrincipalComponentsDataset
-from artspeech_tpu_torch.data.recognition import PhonemeRecognitionDataset, RecognitionLoader
+from artspeech_tpu_torch.data.recognition import (
+    PhonemeRecognitionDataset,
+    RecognitionLoader,
+    SyntheticPhonemeRecognitionDataset,
+)
 from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
 from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry import tract_variables
@@ -300,7 +326,12 @@ from artspeech_tpu_torch.geometry.grid import build_semipolar_grid
 from artspeech_tpu_torch.losses.autoencoder import make_autoencoder_loss
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
 from artspeech_tpu_torch.models.autoencoder import MultiArticulatorAutoencoder, normalize_indices_dict
-from artspeech_tpu_torch.models.deepspeech2 import Conv, DeepSpeech2
+from artspeech_tpu_torch.models.deepspeech2 import (
+    Conv,
+    DeepSpeech2,
+    frozen_recognizer_fn,
+    to_recognizer_layout,
+)
 from artspeech_tpu_torch.models.latent_rnn import (
     PrincipalComponentsArtSpeech,
     make_latent_rnn_synthesis_forward,
@@ -318,7 +349,7 @@ from artspeech_tpu_torch.ops import (
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
-from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss
+from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss, recognition_feature_loss
 from artspeech_tpu_torch.losses.recognition import ctc_loss
 from artspeech_tpu_torch.train.pc_step import make_latent_rnn_train_step
 from artspeech_tpu_torch.train.recognition_step import (
@@ -413,9 +444,11 @@ TV_STACK_ARTS = sorted(set(RECOGNITION_ARTICULATORS) | {UPPER_INCISOR})
 REPO = os.path.dirname(os.path.abspath(__file__))
 THESIS_CONFIGS = os.path.join(REPO, "configs", "model_free")
 #: The [cli] corpus: one subject, S01-S05 split as train_model_free.yaml
-#: splits them, about 100 frames a sentence so that batches fill bucket 128.
+#: splits them, about 75 frames a sentence: above bucket 64 after tail
+#: clipping, so that batches take bucket 128 (100 frames until the
+#: [synthetic] phase came: the CLI phases are host bound, per frame).
 CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S05"),
-                  n_sentences=6, frames_per_sentence=100)
+                  n_sentences=6, frames_per_sentence=75)
 # Card against CPU, the test step: the tract variables and metrics of one
 # test batch within 1e-4 (f32 sums in another order), and the same argmin
 # pair on at least 99 % of the frames (near-ties may flip on ulp-level
@@ -536,6 +569,23 @@ REC_TOL = 1e-4
 #: The conv stem bias's float32 gradient against float64, in units of 2^-24
 #: times the summed magnitudes of its terms (recognizer_train_against_cpu).
 REC_BIAS_ROUNDING = 8.0
+#: [synthetic]: the seven test_synthetic_* configs, and the [cli], [pc] and
+#: [mean_contour] synthesis directories (in the temporary directory) that
+#: stand for the corpora their datadirs name: the model-free generate
+#: config's save_to (results/synthesis) and the three methods' own.
+SYNTHETIC_TESTS = tuple(sorted(name[:-5] for name in os.listdir(REC_CONFIGS)
+                               if name.startswith("test_synthetic_")))
+SYNTHESIS_DIRS = {"results/synthesis": "synthesis",
+                  "results/synthesis_encoder_decoder": "synthesis",
+                  "results/synthesis_autoencoder": "pc_synthesis",
+                  "results/synthesis_mean_contour": "mc_synthesis"}
+SYNTHETIC_PATHS = tuple(f"syn_{name}" for name in SYNTHETIC_TESTS) + ("syn_pc_train_recognizer",)
+#: [synthetic]: the train steps through a frozen recognizer at the thesis
+#: batch (12) and bucket (128); the recognizer's one-direction GRU there
+#: (T, B, H) for the kernel checks and timings; beta4 of the latent-RNN loss.
+FROZEN_B, FROZEN_T = 12, 128
+FROZEN_GRU = (FROZEN_T, FROZEN_B, 64)
+FROZEN_BETA4 = 0.5
 #: The [latent_rnn] phase: train_autoencoder_based.yaml's latent RNN (embed
 #: 64, hidden 128, latent 35 from its indices_dict) with rnn: LSTM, its loss
 #: over a seeded frozen autoencoder (in 100, hidden 50), trained at its batch
@@ -2011,7 +2061,7 @@ def n_batches(lengths, batch_size):
 def thesis_config(name, path, changes, added=None, folder=THESIS_CONFIGS):
     """Write ``folder``/<name>.yaml to ``path`` with the value of each
     top-level key in ``changes`` replaced, line by line, and the keys of
-    ``added`` appended; a key ``parent.child`` of ``changes`` replaces, or
+    ``added`` appended (a mapping as a block); a key ``parent.child`` of ``changes`` replaces, or
     adds, the child's line in the block of the top-level mapping ``parent``.
     Returns the config as the CLI reads it, after checking that no other key
     differs from the repository's."""
@@ -2035,7 +2085,8 @@ def thesis_config(name, path, changes, added=None, folder=THESIS_CONFIGS):
             out[mine[0]] = entry
         else:
             out.insert(at, entry)
-    out += [f"{key}: {value}" for key, value in added.items()]
+    for key, value in added.items():
+        out += yaml_lines(key, value)
     with open(path, "w") as f:
         f.write("\n".join(out) + "\n")
     cfg, original = config_file.load(path), config_file.load(src)
@@ -2049,6 +2100,16 @@ def thesis_config(name, path, changes, added=None, folder=THESIS_CONFIGS):
     check(changed <= set(changes) | set(added) and set(cfg) == set(original) | set(added),
           f"{name}: keys {sorted(changed)} changed, only {sorted(changes)} and {sorted(added)} may")
     return cfg
+
+
+def yaml_lines(key, value, indent=""):
+    """``key: value`` as block YAML lines; a mapping value becomes a block."""
+    if not isinstance(value, dict):
+        return [f"{indent}{key}: {value}"]
+    lines = [f"{indent}{key}:"]
+    for k, v in value.items():
+        lines += yaml_lines(k, v, indent + "  ")
+    return lines
 
 
 def run_cli(module, config_path, output_dir):
@@ -2972,19 +3033,20 @@ def pc_stats():
     return mean, std
 
 
-def latent_loss(device, dtype=torch.float32):
+def latent_loss(device, dtype=torch.float32, recognizer_fn=None, beta4=0.0):
     """The config's composite loss (beta 0.5 / 3 / 1, the LA, TTCD and TBCD
-    critical loss) over a frozen autoencoder at the config's widths (in 100,
-    hidden 50) with seeded weights. Returns (loss_fn, decode, mean, std), the
-    statistics as numpy."""
+    critical loss; with ``recognizer_fn``, ``beta4`` times its feature term)
+    over a frozen autoencoder at the config's widths (in 100, hidden 50) with
+    seeded weights. Returns (loss_fn, decode, mean, std), the statistics as
+    numpy."""
     cfg, indices = latent_config()
     ae = MultiArticulatorAutoencoder(indices, 100, 50, generator=torch.Generator().manual_seed(4),
                                      device=device).to(dtype).requires_grad_(False)
     mean, std = pc_stats()
     loss_fn = make_autoencoder_loss(
         ae.encode, ae.decode, sorted(cfg["TV_to_phoneme_map"]), sorted(indices),
-        beta1=cfg["beta1"], beta2=cfg["beta2"], beta3=cfg["beta3"],
-        rescale_factor=cfg["rescale_factor"],
+        beta1=cfg["beta1"], beta2=cfg["beta2"], beta3=cfg["beta3"], beta4=beta4,
+        rescale_factor=cfg["rescale_factor"], recognizer_fn=recognizer_fn,
         denorm_mean=torch.as_tensor(mean, dtype=dtype, device=device),
         denorm_std=torch.as_tensor(std, dtype=dtype, device=device))
     return loss_fn, ae.decode, mean, std
@@ -3236,24 +3298,25 @@ def rec_model(cfg, device, seed=0, **overrides):
                        generator=torch.Generator().manual_seed(seed), device=device)
 
 
-def recognizer_eval_against_cpu(corpus, cfg):
-    """One test batch of train_vocal_tract's widths (4 residual layers of 32
-    channels, the Adapter 500 -> 80, 2 GRU layers of 64) through the eval
-    step on the card and on the CPU, the same seeded weights: logits and
-    log-probs within REC_TOL of max(|ref|, 1), the loss within REC_TOL
-    relative, the same greedy ids."""
-    dataset = PhonemeRecognitionDataset(
-        corpus, "gottingen", sequences_from_dict(corpus, cfg["test_seq_dict"]),
-        load_vocabulary(cfg["vocab_filepath"]), ["vocal_tract"])
+def recognizer_eval_against_cpu(dataset, cfg, tag, label):
+    """One batch of ``dataset``'s vocal-tract features, at ``cfg``'s widths
+    (train_vocal_tract's: 4 residual layers of 32 channels, the Adapter 500
+    -> 80, 2 GRU layers of 64) and its use_voicing, through the eval step on
+    the card and on the CPU, the same seeded weights: logits and log-probs
+    within REC_TOL of max(|ref|, 1), the loss within REC_TOL relative, the
+    same greedy ids."""
     batch, _ = next(iter(RecognitionLoader(dataset, "vocal_tract", cfg["batch_size"],
                                            shuffle=False)))
+    use_voicing = cfg.get("use_voicing", False)
     out = {}
     for device in ("cuda", "cpu"):
         model = rec_model(cfg, device, seed=3)
         step = make_recognition_eval_step("ctc", "ctc_target", feature="vocal_tract",
-                                          device=device)
+                                          use_voicing=use_voicing, device=device)
         with torch.no_grad():
             logits = model(torch.as_tensor(batch["features"], device=device),
+                           voicing=(torch.as_tensor(batch["voicing"], device=device)
+                                    if use_voicing else None),
                            lengths=torch.as_tensor(batch["input_lengths"], device=device))
         result = step(state.TrainState(model=model, optimizer=None), batch)
         out[device] = (logits.cpu(), {k: v.cpu() for k, v in result.items()})
@@ -3263,12 +3326,13 @@ def recognizer_eval_against_cpu(corpus, cfg):
             "loss": abs(card["loss"].item() - cpu["loss"].item()) / abs(cpu["loss"].item())}
     same_ids = torch.equal(card["decoded"], cpu["decoded"]) and torch.equal(
         card["decoded_lengths"], cpu["decoded_lengths"])
-    phase("recognizer", against_cpu="eval_step,train_vocal_tract,B={},T={}".format(
-        *batch["input_lengths"].shape, batch["features"].shape[-1]),
+    phase(tag, against_cpu="eval_step,{},B={},T={},use_voicing={}".format(
+        label, *batch["input_lengths"].shape, batch["features"].shape[-1], use_voicing),
           **{f"{k}_rel_err": f"{v:.3g}" for k, v in errs.items()}, tol=REC_TOL,
           same_greedy_ids=same_ids)
     check(all(v <= REC_TOL for v in errs.values()) and same_ids,
-          f"the recognizer's eval step on the card differs from the CPU: {errs}, ids {same_ids}")
+          f"the recognizer's eval step on the card differs from the CPU ({label}): {errs}, "
+          f"ids {same_ids}")
 
 
 def rec_batch(b, t, d, n_classes, seed, device, ragged=True, n_labels=None):
@@ -3358,6 +3422,260 @@ def recognizer_loss_falls(cfg):
           loss_first=f"{losses[0]:.6g}", loss_last=f"{losses[-1]:.6g}",
           ratio=f"{losses[-1] / losses[0]:.4f}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+# -- scoring synthesized corpora, and training through a frozen recognizer ------
+
+def synthetic_batches(datadir, vocab_path, batch_size):
+    """Batches RecognitionLoader makes of a synthesized corpus: its sentences
+    (those with air columns) grouped by bucket of their frame counts."""
+    dataset = SyntheticPhonemeRecognitionDataset(
+        datadir, SyntheticPhonemeRecognitionDataset.sequences_from_corpus(datadir),
+        load_vocabulary(vocab_path), ["vocal_tract"])
+    per_bucket = {}
+    for item in dataset.data:
+        bucket = pick_bucket(len(item["frame_ids"]), REC_BUCKETS)
+        per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
+    return dataset, sum(-(-n // batch_size) for n in per_bucket.values())
+
+
+def synthetic_path(tmp, corpus, vocab_path):
+    """(a) The recognizer's test CLI with ``synthetic: true`` over the seven
+    test_synthetic_* configs, each datadir at the corpus an earlier phase
+    synthesized (SYNTHESIS_DIRS) and state_dict_filepath at the best
+    checkpoint of [recognizer]'s train_vocal_tract run (its _voicing run's
+    for the _voicing configs): gru_fwd launches = layers x the corpus's test
+    batches and nothing else, the artifacts, finite PER/WIL; then one
+    synthetic batch, voiced, through the eval step on the card against the
+    CPU. (b) The latent RNN's train CLI (train_autoencoder_based.yaml,
+    num_epochs 1, [pc]'s AE checkpoints) with a ``recognizer:`` block
+    (train_vocal_tract.yaml's model_params and best state) and beta4 0.5:
+    exact launches, checkpoints, finite metrics, the recognizer counted in
+    no parameter count. Returns the launches and wall seconds of each run."""
+    none = dict.fromkeys(KERNELS, 0)
+    results, launches, seconds = {}, {}, {}
+    best = {v: os.path.join(tmp, f"rec_train_vocal_tract{v}", "checkpoints", "best", "state")
+            for v in ("", "_voicing")}
+    voiced = None
+    for name in SYNTHETIC_TESTS:
+        p = f"syn_{name}"
+        original = config_file.load(os.path.join(REC_CONFIGS, f"{name}.yaml"))
+        datadir = os.path.join(tmp, SYNTHESIS_DIRS[original["datadir"]])
+        voicing = "voicing_filepath" in original
+        changes = {"datadir": datadir, "vocab_filepath": vocab_path,
+                   "state_dict_filepath": best["_voicing" if voicing else ""],
+                   **({"voicing_filepath": REC_VOICING} if voicing else {})}
+        path = os.path.join(tmp, f"{p}.yaml")
+        cfg = thesis_config(name, path, changes, folder=REC_CONFIGS)
+        check(cfg["synthetic"] is True, f"{name}: synthetic")
+        dataset, test_batches = synthetic_batches(datadir, vocab_path, cfg["batch_size"])
+        expected = {**none, "gru_fwd": cfg["model_params"]["num_rnn_layers"] * test_batches}
+        reset_launch_counts()
+        results[p], seconds[p] = run_cli(test_phoneme_recognition, path, os.path.join(tmp, p))
+        launches[p] = launch_counts()
+        phase("synthetic", cli=p, corpus=os.path.basename(datadir), sentences=len(dataset),
+              frames=sum(len(d["frame_ids"]) for d in dataset.data), seconds=f"{seconds[p]:.3f}",
+              **{f"{k}_launches": v for k, v in launches[p].items() if v or expected[k]},
+              **{f"{k}_expected": v for k, v in expected.items() if v},
+              loss=f"{results[p]['loss']:.6g}", per=f"{results[p]['edit_distance']:.6g}",
+              wil=f"{results[p]['word_info_lost']:.6g}")
+        check(launches[p] == expected, f"{p}: kernel launches {launches[p]}, expected {expected}")
+        check(len(dataset) > 0, f"{p}: no synthesized sentence in {datadir}")
+        check_rec_outputs(os.path.join(tmp, p), results[p], train=False)
+        if voicing and voiced is None:
+            voiced = (dataset, cfg, name)
+    recognizer_eval_against_cpu(*voiced[:2], "synthetic", voiced[2])
+
+    # (b) the latent RNN's train CLI with a frozen recognizer.
+    p = "syn_pc_train_recognizer"
+    rec_cfg = config_file.load(os.path.join(REC_CONFIGS, "train_vocal_tract.yaml"))
+    ae_ckpts = os.path.join(tmp, "pc_train_ae", "checkpoints")
+    path = os.path.join(tmp, f"{p}.yaml")
+    cfg = thesis_config(
+        "train_autoencoder_based", path,
+        {"database_name": "gottingen", "datadir": corpus, "vocab_filepath": vocab_path,
+         "num_epochs": 1, "beta4": FROZEN_BETA4,
+         "encoder_state_dict_filepath": os.path.join(ae_ckpts, "best_encoder"),
+         "decoder_state_dict_filepath": os.path.join(ae_ckpts, "best_decoder")},
+        {"recognizer": {"state_dict_filepath": best[""], "model_params": rec_cfg["model_params"]}},
+        folder=PC_CONFIGS)
+    vocabulary, arts = load_vocabulary(vocab_path), sorted(cfg["indices_dict"])
+    tr, va, te = (n_batches([len(d["frame_ids"]) for d in PrincipalComponentsDataset(
+        corpus, "gottingen", sequences_from_dict(corpus, cfg[key]), vocabulary, arts,
+        clip_tails=cfg["clip_tails"]).data], cfg["batch_size"])
+        for key in ("train_seq_dict", "valid_seq_dict", "test_seq_dict"))
+    # The latent RNN's 2 BiGRU launches a forward (2 backward a train step);
+    # the recognizer's loss term runs it on the targets and on the outputs
+    # in every train and valid step (one GRU launch a recurrent layer each)
+    # and back through the outputs' in every train step; the test decodes
+    # without the loss.
+    layers = rec_cfg["model_params"]["num_rnn_layers"]
+    expected = {**none, "gru_fwd": 2 * (tr + va + te) + 2 * layers * (tr + va),
+                "gru_bwd": 2 * tr + layers * tr, "p2cp": va + te, "min_dist": 2 * te}
+    reset_launch_counts()
+    results[p], seconds[p] = run_cli(train_phoneme_to_principal_components, path,
+                                     os.path.join(tmp, p))
+    launches[p] = launch_counts()
+    out = os.path.join(tmp, p)
+    with open(os.path.join(out, "run", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    counts = {}
+    for run in (p, "pc_train_ae_gru"):
+        with open(os.path.join(tmp, run, "run", "params.json")) as f:
+            counts[run] = json.load(f)["num_network_params"]
+    phase("synthetic", cli=p, seconds=f"{seconds[p]:.3f}", train_batches=tr, valid_batches=va,
+          test_batches=te, **{f"{k}_launches": v for k, v in launches[p].items() if v or expected[k]},
+          **{f"{k}_expected": v for k, v in expected.items() if v},
+          **fmt({k: v for k, v in records[-1].items() if k != "ts"}),
+          p2cp_mm=f"{results[p]['p2cp_mm']:.6g}", num_network_params=counts[p],
+          without_recognizer=counts["pc_train_ae_gru"])
+    check(launches[p] == expected, f"{p}: kernel launches {launches[p]}, expected {expected}")
+    check(len(records) == 1 and all(np.isfinite(v) for k, v in records[0].items() if k != "ts")
+          and all(np.isfinite(v) for v in flat(results[p]).values()), f"{p}: non-finite metrics")
+    for sub in ("checkpoints/best/state.pt", "checkpoints/last/state.pt", "checkpoints/best_model",
+                "test_results.json"):
+        check(os.path.isfile(os.path.join(out, sub)), f"{p} wrote no {sub}")
+    check(counts[p] == counts["pc_train_ae_gru"], f"{p}: the recognizer counted in {counts}")
+    return launches, seconds
+
+
+def frozen_recognizer(cfg, device, dtype=None):
+    """``cfg``'s DeepSpeech2 at full width (num_features = 10 articulators x
+    50 points) with seeded weights, frozen: its recognizer_fn and module."""
+    model = rec_model(cfg, device, seed=6)
+    if dtype is not None:
+        model = model.to(dtype)
+    return frozen_recognizer_fn(model), model
+
+
+def voiced_batch(batch, seed):
+    """``batch`` with a seeded 0/1 voicing, -1 past each row's length (the
+    loaders' padding)."""
+    lengths = batch["lengths"].cpu().numpy()
+    b, t = batch["tokens"].shape
+    rng = np.random.default_rng(seed)
+    pad = np.arange(t)[None, :] >= lengths[:, None]
+    voicing = np.where(pad, np.float32(-1.0), rng.integers(0, 2, (b, t)).astype(np.float32))
+    return {**batch, "voicing": torch.as_tensor(voicing, device=batch["tokens"].device)}
+
+
+def frozen_steps_path(cfg):
+    """(c) The thesis ArtSpeech train step (dropout 0.1) with train_vocal_tract's
+    recognizer frozen in its loss, and the LSTM latent RNN's with it in the
+    beta4 term, at B = 12, T = 128 on the card: exact launches (each
+    recognizer pass a gru_fwd launch a recurrent layer, on the targets and
+    on the outputs, and a gru_bwd one back through the outputs'), the
+    recognizer's parameters untouched and outside the optimizer, step ms,
+    frames/s and the device breakdown. Returns the launches of one step of
+    each."""
+    layers = cfg["model_params"]["num_rnn_layers"]
+    total = dict.fromkeys(KERNELS, 0)
+    rec_fn, rec = frozen_recognizer(cfg, "cuda")
+    before = {n: p.detach().clone() for n, p in rec.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    latent_cfg, _ = latent_config()
+    loss_fn, decode, mean, std = latent_loss("cuda", recognizer_fn=rec_fn, beta4=FROZEN_BETA4)
+    runs = {
+        "artspeech": (thesis_state(None), make_artspeech_train_step(TO_MM, recognizer_fn=rec_fn),
+                      voiced_batch(fixed_batch(FROZEN_B, FROZEN_T, seed=14, device="cuda"), 14),
+                      {"gru_fwd": 2 + 2 * layers, "gru_bwd": 2 + layers}),
+        "latent_rnn": (state.create_train_state(latent_model("cuda"), latent_cfg["learning_rate"],
+                                                latent_cfg["weight_decay"]),
+                       make_latent_rnn_train_step(loss_fn, decode, mean, std, TO_MM,
+                                                  latent_cfg["rescale_factor"]),
+                       voiced_batch(pc_batch(FROZEN_B, FROZEN_T, seed=15, device="cuda"), 15),
+                       {"lstm_fwd": 2, "lstm_bwd": 2, "gru_fwd": 2 * layers, "gru_bwd": layers}),
+    }
+    for name, (st, step, batch, counts) in runs.items():
+        reset_launch_counts()
+        loss = step(st, batch, gen)["loss"].item()
+        got = launch_counts()
+        expected = {**dict.fromkeys(KERNELS, 0), **counts}
+        check(got == expected, f"{name} step with a frozen recognizer: launches {got}, "
+                               f"expected {expected}")
+        total = {k: total[k] + v for k, v in got.items()}
+        frames = int(batch["lengths"].sum())
+        step_ms, peak_gib = timed_step(step, st, batch, gen, f"{name}_frozen_recognizer_B{FROZEN_B}")
+        phase("synthetic", step=name, recognizer="train_vocal_tract (frozen)", B=FROZEN_B,
+              T=FROZEN_T, valid_frames=frames, loss=f"{loss:.6g}", step_ms=f"{step_ms:.6g}",
+              frames_per_s=f"{frames / step_ms * 1e3:.6g}", peak_gib=f"{peak_gib:.3f}",
+              **{f"{k}_launches": v for k, v in got.items() if v})
+        check(np.isfinite(loss), f"{name} step with a frozen recognizer: loss {loss}")
+        optimized = {id(p) for group in st.optimizer.param_groups for p in group["params"]}
+        check(not optimized & {id(p) for p in rec.parameters()},
+              f"{name}: the optimizer holds the recognizer's parameters")
+    same = all(torch.equal(p, before[n]) and p.grad is None for n, p in rec.named_parameters())
+    phase("synthetic", recognizer_parameters_unchanged=same)
+    check(same, "a step moved or gave gradients to the frozen recognizer")
+    return total
+
+
+def frozen_step_against_f64(cfg):
+    """(c) One ArtSpeech train step with the frozen recognizer (dropout 0, B =
+    12, T = 128 ragged, voicing -1 past each row's length) on the card and on
+    the CPU, the same seeded weights, held to float64 gradients on the CPU by
+    step_against_f64; then 10 steps on one batch at lr 1e-3 on the card: the
+    loss must fall."""
+    batch = voiced_batch(fixed_batch(FROZEN_B, FROZEN_T, seed=16, device="cpu"), 16)
+    out = {}
+    for device in ("cuda", "cpu"):
+        st = thesis_state(device, dropout=0.0)
+        step = make_artspeech_train_step(TO_MM, device=device,
+                                         recognizer_fn=frozen_recognizer(cfg, device)[0])
+        metrics = step(st, {k: v.to(device) for k, v in batch.items()})
+        out[device] = ({k: v.item() for k, v in metrics.items()},
+                       {n: p.grad.cpu().double() for n, p in st.model.named_parameters()},
+                       {n: p.detach().cpu() for n, p in st.model.named_parameters()})
+    model = thesis_state("cpu", dropout=0.0).model.double().train()
+    rec_fn = frozen_recognizer(cfg, "cpu", torch.float64)[0]
+    targets, voicing = batch["targets"].double(), batch["voicing"].double()
+    outputs = model(batch["tokens"], batch["lengths"])
+    with torch.no_grad():
+        tgt_feats = rec_fn(to_recognizer_layout(targets), voicing)
+    loss = masked_euclidean_loss(outputs, targets, batch["lengths"]) + recognition_feature_loss(
+        rec_fn(to_recognizer_layout(outputs), voicing), tgt_feats, batch["lengths"])
+    loss.backward()
+    step_against_f64("synthetic", f"artspeech+frozen_recognizer,dropout=0,B={FROZEN_B},"
+                                  f"T={FROZEN_T}", out,
+                     {n: p.grad for n, p in model.named_parameters()})
+
+    st = thesis_state(None, lr=1e-3)
+    step = make_artspeech_train_step(TO_MM, recognizer_fn=frozen_recognizer(cfg, "cuda")[0])
+    batch = voiced_batch(fixed_batch(FROZEN_B, FROZEN_T, seed=17, device="cuda"), 17)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    losses = [step(st, batch, gen)["loss"].item() for _ in range(10)]
+    phase("synthetic", step="artspeech+frozen_recognizer", fixed_batch_lr=1e-3,
+          loss_first=f"{losses[0]:.6g}", loss_last=f"{losses[-1]:.6g}",
+          ratio=f"{losses[-1] / losses[0]:.4f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+
+def frozen_gru_vs_plain():
+    """(d) Both GRU kernels at the frozen recognizer's shape (FROZEN_GRU: T =
+    128, B = 12, H = 64, one direction, f32), with the all-ones mask of a
+    recognizer called without lengths and with rows of length T, 1 and 0:
+    gru_fwd within F32_TOL, gru_bwd's dx_proj, dW_h and db_h within
+    BWD_F32_TOL of max(|ref|, 1) of the plain versions."""
+    t, b, h = FROZEN_GRU
+    xp, wh, bh, ragged = recognizer_gru_inputs(t, b, h, torch.float32, seed=18)
+    gy = torch.randn(t, b, h, generator=torch.Generator().manual_seed(19)).cuda()
+    for label, mask in (("all_ones", torch.ones_like(ragged)), ("T,1,0,...", ragged)):
+        ys = hopper_gru.gru_sequence(xp, wh, bh, mask)
+        fwd_err = (ys - hopper_gru.gru_sequence_reference(xp, wh, bh, mask)).abs().max().item()
+        got = hopper_gru.gru_backward(xp, wh[None], bh[None], mask, ys, gy, 0)
+        ref = hopper_gru.gru_sequence_backward_reference(xp, wh, bh, mask, ys, gy)
+        errs = {n: rel_err(a, r) for n, a, r in zip(("dx", "dW", "db"),
+                                                   (got[0], got[1][0], got[2][0]), ref)}
+        torch.cuda.synchronize()
+        phase("synthetic", kernels="gru_fwd,gru_bwd", T=t, B=b, H=h, directions=1,
+              dtype="float32", mask=label, fwd_max_abs_err=f"{fwd_err:.3g}", fwd_tol=F32_TOL,
+              **{f"bwd_rel_err_{k}": f"{v:.3g}" for k, v in errs.items()}, bwd_tol=BWD_F32_TOL,
+              fwd_C=geometry_fields(b, 1, h, 3, torch.float32)["C"],
+              bwd_C=bwd_geometry_fields(b, 1, h, 3, torch.float32)["C"])
+        check(np.isfinite(fwd_err) and fwd_err <= F32_TOL,
+              f"gru_fwd at the frozen recognizer's shape ({label}): {fwd_err}")
+        check(all(np.isfinite(v) and v <= BWD_F32_TOL for v in errs.values()),
+              f"gru_bwd at the frozen recognizer's shape ({label}): {errs}")
 
 
 # -- timing --------------------------------------------------------------------
@@ -3799,15 +4117,16 @@ def time_gru_bwd():
     return results
 
 
-def time_recognizer_gru():
-    """Both GRU kernels at the recognizer's T = 512, B = 4, H = 64, one
-    direction, f32, every row full: by graph_ms and back to back, the
-    backward also by profiler device time (main and partial-sum kernels
-    apart), beside the plain versions, the bounds and cuDNN's one-direction
-    nn.GRU (its inference forward back to back and by profiler device time;
-    its backward alone, cudnn_bwd_ms), with the launch geometry and
-    microseconds a step. Returns {kernel: numbers}."""
-    t, b, h = RECOGNIZER_GRU_CASES[0]
+def time_recognizer_gru(shape, label):
+    """Both GRU kernels at a recognizer's (T, B, H) = ``shape``, one
+    direction, f32, every row full (the recognizer's own T = 512, B = 4, H =
+    64; inside the train steps' frozen recognizer, T = 128, B = 12): by
+    graph_ms and back to back, the backward also by profiler device time
+    (main and partial-sum kernels apart), beside the plain versions, the
+    bounds and cuDNN's one-direction nn.GRU (its inference forward back to
+    back and by profiler device time; its backward alone, cudnn_bwd_ms), with
+    the launch geometry and microseconds a step. Returns {kernel: numbers}."""
+    t, b, h = shape
     xp, wh, bh, _ = recognizer_gru_inputs(t, b, h, torch.float32, seed=5)
     mask = torch.ones(t, b, dtype=torch.bool, device="cuda")
     ys = hopper_gru.gru_sequence(xp, wh, bh, mask)
@@ -3845,7 +4164,7 @@ def time_recognizer_gru():
         us_per_step=bwd_graph * 1e3 / t, geometry=bwd_geometry_fields(b, 1, h, 3, torch.float32))
     for name, numbers in results.items():
         phase("timing", kernel=name, T=t, B=b, H=h, directions=1, dtype="float32",
-              shape="recognizer", **fmt({k: v for k, v in numbers.items() if k != "geometry"}),
+              shape=label, **fmt({k: v for k, v in numbers.items() if k != "geometry"}),
               **numbers["geometry"])
     return results
 
@@ -4255,11 +4574,23 @@ def main():
         phase("mean_contour", seconds=f"{time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
         rec_launches, rec_seconds, rec_cfg = recognizer_path(tmp, *test_step_inputs[1:3])
-        recognizer_eval_against_cpu(test_step_inputs[1], rec_cfg)
+        corpus = test_step_inputs[1]
+        recognizer_eval_against_cpu(
+            PhonemeRecognitionDataset(corpus, "gottingen",
+                                      sequences_from_dict(corpus, rec_cfg["test_seq_dict"]),
+                                      load_vocabulary(rec_cfg["vocab_filepath"]),
+                                      ["vocal_tract"]),
+            rec_cfg, "recognizer", "train_vocal_tract")
         recognizer_train_against_cpu(rec_cfg)
         recognizer_loss_falls(rec_cfg)
         phase("recognizer", seconds=f"{time.perf_counter() - t0:.3f}")
-    elapsed("cli_pc_mean_contour_recognizer")
+        t0 = time.perf_counter()
+        syn_launches, syn_seconds = synthetic_path(tmp, *test_step_inputs[1:3])
+        frozen_gru_vs_plain()
+        frozen_launches = frozen_steps_path(rec_cfg)
+        frozen_step_against_f64(rec_cfg)
+        phase("synthetic", seconds=f"{time.perf_counter() - t0:.3f}")
+    elapsed("cli_pc_mean_contour_recognizer_synthetic")
     decode_launches = decode_path()
     decode_against_cpu()
     elapsed("decode")
@@ -4287,7 +4618,8 @@ def main():
     numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
     gru_seq = time_gru_seq()
     numbers["gru_seq"] = gru_seq[BENCH_B]
-    recognizer_gru = time_recognizer_gru()
+    recognizer_gru = time_recognizer_gru(RECOGNIZER_GRU_CASES[0], "recognizer")
+    frozen_gru = time_recognizer_gru(FROZEN_GRU, "frozen_recognizer")
     t0 = time.perf_counter()
     time_recognizer_steps()
     phase("timing", recognizer_steps_seconds=f"{time.perf_counter() - t0:.3f}")
@@ -4297,7 +4629,7 @@ def main():
     time_test_step()
     phase("timing", **{f"{p}_wall_s": f"{s:.3f}"
                        for p, s in {**cli_seconds, **pc_seconds, **mc_seconds,
-                                    **rec_seconds}.items()})
+                                    **rec_seconds, **syn_seconds}.items()})
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
@@ -4308,6 +4640,8 @@ def main():
                    **{p: mc_launches[p][k] for p in MC_PATHS},
                    "latent_rnn": latent_launches[k],
                    **{p: rec_launches[p][k] for p in REC_PATHS},
+                   **{p: syn_launches[p][k] for p in SYNTHETIC_PATHS},
+                   "frozen_recognizer_steps": frozen_launches[k],
                    "gru_seq": gru_seq_launches if k == "gru_seq" else 0} for k in KERNELS}
     unlaunched = [k for k in KERNELS if sum(by_path[k].values()) == 0]
     check(not unlaunched, f"kernels launched on no path: {unlaunched}")
@@ -4351,6 +4685,8 @@ def main():
     for k in ("gru_fwd", "gru_bwd"):
         extra[k]["recognizer"] = {"shape": "T={},B={},H={},directions=1,float32".format(
             *RECOGNIZER_GRU_CASES[0]), **recognizer_gru[k]}
+        extra[k]["frozen_recognizer"] = {"shape": "T={},B={},H={},directions=1,float32".format(
+            *FROZEN_GRU), **frozen_gru[k]}
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
     elapsed("timing")

@@ -34,7 +34,6 @@ import yaml
 from artspeech_tpu.data.synthetic_corpus import make_synthetic_corpus
 from artspeech_tpu.models.artspeech_rnn import ArtSpeech as JaxArtSpeech
 from artspeech_tpu.train.checkpoint import save_params as jax_save_params
-from artspeech_tpu_torch.cli import config_file
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg
 from artspeech_tpu_torch.core.constants import TUBE_ARTICULATORS, UPPER_INCISOR
 from artspeech_tpu_torch.core.vocab import load_vocabulary
@@ -235,14 +234,9 @@ def test_cli_refuses_what_is_not_ported(workdir, tmp_path, monkeypatch):
         == {"dropout": 0.1}
     with pytest.raises(NotImplementedError, match="float16 is not ported"):
         model_kwargs_from_cfg({"compute_dtype": "float16"})
-    # The recognizer's CLIs run on a recorded corpus, its bf16 config among
-    # them (tests/test_torch_port_recognition_train.py); scoring a
-    # synthesized corpus is not ported.
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        _run("artspeech_tpu_torch", "test_phoneme_recognition",
-             config_file.load(os.path.join(REPO, "configs", "phoneme_recognition",
-                                           "test_synthetic_vocal_tract.yaml")),
-             tmp_path, monkeypatch, tmp_path)
+    # The recognizer's CLIs are ported, scoring a synthesized corpus among
+    # them (tests/test_torch_port_recognition_train.py,
+    # tests/test_torch_port_synthetic.py).
     # method: mean_contour is ported (tests/test_torch_port_mean_contour.py):
     # it now fails only for want of its table.
     cfg = {**workdir["base"], "method": "mean_contour", "seq_dict": {"s1": ["S03"]},

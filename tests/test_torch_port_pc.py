@@ -9,7 +9,8 @@ articulators of 10 points, latent 7, hidden 16), weights carried across by
 - ``fit_pca`` (eigenvectors up to a sign: the SVD's choice) and the
   composite loss pieces;
 - the latent RNN with GRU and LSTM, and its synthesis forward, within 1e-5;
-- ``make_autoencoder_loss`` with the critical loss on: value within 1e-5,
+- ``make_autoencoder_loss`` with the critical loss on, and with the
+  recognizer term of a frozen DeepSpeech2 (``beta4``): value within 1e-5,
   gradients by the predicted latents within 1e-4 * max(|ref|, 1);
 - one latent-RNN and one autoencoder train step (AdamW) and their eval
   steps: loss, gradients and metrics within 1e-5 (gradients relative to
@@ -26,6 +27,7 @@ import torch
 from artspeech_tpu.losses import autoencoder as jax_losses
 from artspeech_tpu.models import autoencoder as jax_ae
 from artspeech_tpu.models import latent_rnn as jax_latent
+from artspeech_tpu.models.deepspeech2 import DeepSpeech2 as JaxDeepSpeech2
 from artspeech_tpu.ops.pca import fit_pca as jax_fit_pca
 from artspeech_tpu.train import pc_step as jax_pc_step
 from artspeech_tpu.train import state as jax_state
@@ -39,6 +41,7 @@ from artspeech_tpu_torch.models.autoencoder import (
     latent_size_of,
     normalize_indices_dict,
 )
+from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2, frozen_recognizer_fn
 from artspeech_tpu_torch.models.latent_rnn import (
     PrincipalComponentsArtSpeech,
     make_latent_rnn_synthesis_forward,
@@ -48,6 +51,7 @@ from artspeech_tpu_torch.train import pc_step
 from artspeech_tpu_torch.train.state import create_train_state
 from artspeech_tpu_torch.utils.convert import (
     autoencoder_state_dict_from_flax,
+    deepspeech2_state_dict_from_flax,
     latent_rnn_state_dict_from_flax,
 )
 from artspeech_tpu_torch.utils.io import make_indices_dict
@@ -276,10 +280,51 @@ def test_critical_loss_and_cov_penalty_match_jax():
         np.testing.assert_allclose(got.item(), float(ref), rtol=TOL)
 
 
-def test_recognizer_term_raises():
-    for kwargs in ({"recognizer_fn": lambda s, v: s}, {"beta4": 0.5}):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-            losses.make_autoencoder_loss(None, None, TVS, ARTS, **kwargs)
+def test_recognizer_term_raises(flax):
+    """The recognizer term of the loss, which the port once refused
+    (``recognizer_fn``, ``beta4 > 0``): a frozen DeepSpeech2 (one flax init,
+    narrow) over the decoded and the target contours, with voicing that is
+    -1 on padded frames, against JAX's. Value within 1e-5, gradients by the
+    predicted latents within 1e-4 * max(|ref|, 1); the term moves both; the
+    recognizer's parameters take no gradient."""
+    mean, std = _stats(seed=30)
+    (j_enc, j_dec), (p_enc, p_dec) = _frozen_ae(flax)
+    ds2_kwargs = dict(num_classes=VOCAB, num_features=len(ARTS) * N_SAMPLES,
+                      adapter_out_features=6, num_residual_layers=1, conv_channels=4,
+                      num_rnn_layers=1, rnn_hidden_size=8, dropout=0.0)
+    ds2 = JaxDeepSpeech2(**ds2_kwargs)
+    ds2_params = _tree(jax.jit(ds2.init)(jax.random.PRNGKey(5),
+                                         jnp.zeros((1, 2, len(ARTS) * N_SAMPLES, 8)))["params"])
+    port_ds2 = DeepSpeech2(**ds2_kwargs, device="cpu")
+    port_ds2.load_state_dict(deepspeech2_state_dict_from_flax(ds2_params))
+    batch = _batch(seed=31)
+    pad = np.arange(T)[None, :] >= batch["lengths"][:, None]
+    voicing = np.where(pad, np.float32(-1.0),
+                       np.random.default_rng(32).integers(0, 2, (B, T)).astype(np.float32))
+    pcs = np.tanh(np.random.default_rng(33).standard_normal((B, T, LATENT))).astype(np.float32)
+    args = (batch["targets"], batch["references"], batch["lengths"], batch["critical_masks"])
+    kwargs = dict(beta1=0.5, beta2=3.0, beta3=1.0, beta4=0.7)
+    ref_fn = jax_losses.make_autoencoder_loss(
+        j_enc, j_dec, TVS, ARTS, denorm_mean=jnp.asarray(mean), denorm_std=jnp.asarray(std),
+        recognizer_fn=lambda s, v: ds2.apply({"params": ds2_params}, s, voicing=v,
+                                             return_features=True)[1], **kwargs)
+    ref, ref_g = jax.jit(jax.value_and_grad(
+        lambda p: ref_fn(p, *args, voicing=jnp.asarray(voicing))))(jnp.asarray(pcs))
+    t_args = [torch.from_numpy(a) for a in args]
+    results = {}
+    for name, rec in (("with", frozen_recognizer_fn(port_ds2)), ("without", None)):
+        got_fn = losses.make_autoencoder_loss(
+            p_enc, p_dec, TVS, ARTS, denorm_mean=torch.from_numpy(mean),
+            denorm_std=torch.from_numpy(std), recognizer_fn=rec, **kwargs)
+        pt = torch.from_numpy(pcs).requires_grad_()
+        got = got_fn(pt, *t_args, voicing=torch.from_numpy(voicing))
+        got.backward()
+        results[name] = (got.item(), pt.grad.numpy())
+    np.testing.assert_allclose(results["with"][0], float(ref), rtol=TOL)
+    assert _rel_err(results["with"][1], np.asarray(ref_g)) <= 1e-4
+    assert results["with"][0] - results["without"][0] > 1e-3 * results["with"][0]
+    assert _rel_err(results["without"][1], np.asarray(ref_g)) > 1e-3
+    assert all(p.grad is None and not p.requires_grad for p in port_ds2.parameters())
 
 
 def test_synthesis_forward_and_nomograms_match_jax(flax):

@@ -15,7 +15,10 @@ tests/test_method_comparison.py drives the JAX chain):
 - the whole chain on the port: train and test the autoencoder, train the
   latent RNN (AE with GRU, AE with LSTM, PCA-based), test it and synthesize
   from it with ``generate_vocal_tract_shape`` (``method: autoencoder``): the
-  files each writes, finite values, and the launch counters untouched.
+  files each writes, finite values, and the launch counters untouched;
+- the latent RNN's train CLI with a ``recognizer:`` block and ``beta4`` for
+  one epoch: finite results, checkpoints, the term in the loss, and the
+  recognizer's parameters neither counted nor trained.
 """
 
 import importlib
@@ -27,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 import yaml
 
 from artspeech_tpu.data.synthetic_corpus import make_synthetic_corpus
@@ -37,7 +41,8 @@ from artspeech_tpu.train.checkpoint import save_params as jax_save_params
 from artspeech_tpu_torch.core.constants import TUBE_ARTICULATORS, UPPER_INCISOR
 from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data.pc_datasets import compute_normalization_statistics
-from artspeech_tpu_torch.models.autoencoder import MultiDecoder
+from artspeech_tpu_torch.models.autoencoder import MultiDecoder, MultiEncoder
+from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2
 from artspeech_tpu_torch.models.latent_rnn import PrincipalComponentsArtSpeech
 from artspeech_tpu_torch.ops import hopper_gru, hopper_lstm, hopper_min_dist, hopper_p2cp
 from artspeech_tpu_torch.train import checkpoint
@@ -271,3 +276,50 @@ def test_cli_chain_on_cpu(corpus, tmp_path, monkeypatch):
                    for n in os.listdir(contours))
     assert (hopper_gru.launches, hopper_gru.bwd_launches, hopper_lstm.launches,
             hopper_lstm.bwd_launches, hopper_p2cp.launches, hopper_min_dist.launches) == before
+
+
+def test_latent_rnn_train_cli_with_a_recognizer(corpus, tmp_path, monkeypatch):
+    """One epoch of train_phoneme_to_principal_components with a frozen
+    DeepSpeech2 (``recognizer:``, ``beta4: 0.5``) over seeded AE halves,
+    against the same run without the block."""
+    weights = tmp_path / "weights"
+    n_classes = len(load_vocabulary(corpus["vocab_filepath"]))
+    rec_params = {"num_residual_layers": 1, "num_rnn_layers": 1, "rnn_hidden_size": 8,
+                  "conv_channels": 4, "num_features": 50 * len(ARTS),
+                  "adapter_out_features": 8, "dropout": 0.1}
+    for name, module in (("encoder", MultiEncoder(INDICES, **AE, device="cpu")),
+                         ("decoder", MultiDecoder(INDICES, **AE, device="cpu")),
+                         ("recognizer", DeepSpeech2(num_classes=n_classes, **rec_params,
+                                                    device="cpu"))):
+        checkpoint.save_params(str(weights / name), module)
+    cfg = {**corpus, **SEQS, **AE, "indices_dict": INDICES, "batch_size": 2, "num_epochs": 1,
+           "patience": 5, "learning_rate": 1e-3, "weight_decay": 1e-5, "beta1": 0.5,
+           "beta2": 3.0, "beta3": 1.0, "beta4": 0.5, "TV_to_phoneme_map": TV_MAP,
+           "model_kwargs": {**MODEL, "rnn": "GRU"},
+           "encoder_state_dict_filepath": str(weights / "encoder"),
+           "decoder_state_dict_filepath": str(weights / "decoder")}
+    before = (hopper_gru.launches, hopper_gru.bwd_launches)
+    runs = {}
+    for name, extra in (("with", {"recognizer": {"state_dict_filepath": str(weights / "recognizer"),
+                                                 "model_params": rec_params}}),
+                        ("without", {})):
+        out = tmp_path / name
+        info = _run("artspeech_tpu_torch", "train_phoneme_to_principal_components",
+                    {**cfg, **extra}, out, tmp_path, monkeypatch)
+        assert set(info) == {"p2cp_mm", *ARTS} and np.isfinite(info["p2cp_mm"])
+        for sub in ("checkpoints/best/state.pt", "checkpoints/last/state.pt",
+                    "checkpoints/best_model", "test_results.json"):
+            assert (out / sub).is_file(), sub
+        with open(out / "run" / "metrics.jsonl") as f:
+            (record,) = [json.loads(line) for line in f]
+        with open(out / "run" / "params.json") as f:
+            params = json.load(f)
+        runs[name] = (record, params["num_network_params"],
+                      torch.load(out / "checkpoints" / "last" / "state.pt", weights_only=True))
+    assert all(np.isfinite(v) for k, v in runs["with"][0].items() if k != "ts")
+    # Same seed, same data: the term adds to the loss, and only the latent
+    # RNN is counted, trained and saved.
+    assert runs["with"][0]["train_loss"] > runs["without"][0]["train_loss"]
+    assert runs["with"][1] == runs["without"][1]
+    assert runs["with"][2]["model"].keys() == runs["without"][2]["model"].keys()
+    assert (hopper_gru.launches, hopper_gru.bwd_launches) == before

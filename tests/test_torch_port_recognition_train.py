@@ -20,7 +20,8 @@ length 0), weights carried across by ``utils/convert.py``:
   the parallel test run);
 - the train CLI on every ``train_*.yaml`` (its feature and flags, narrow
   ``model_params``, one epoch) at ``--device cpu``, then the test CLI on its
-  checkpoint; ``synthetic: true`` raises.
+  checkpoint; the test CLI with ``synthetic: true`` over a corpus from the
+  port's synthesis, for every ``test_synthetic_*`` config.
 """
 
 import importlib
@@ -47,14 +48,17 @@ from artspeech_tpu.train import recognition_step as jax_step
 from artspeech_tpu.train.state import TrainState as JaxTrainState
 from artspeech_tpu_torch.cli import config_file
 from artspeech_tpu_torch.core.config import DATASET_CONFIG
-from artspeech_tpu_torch.core.constants import TUBE_ARTICULATORS
+from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS, TUBE_ARTICULATORS
 from artspeech_tpu_torch.core.vocab import load_vocabulary
 from artspeech_tpu_torch.data import datasets, pc_datasets, recognition
 from artspeech_tpu_torch.eval import recognition as eval_recognition
 from artspeech_tpu_torch.eval.recognition import run_recognition_test
 from artspeech_tpu_torch.losses.recognition import load_class_weights
+from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
 from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2
 from artspeech_tpu_torch.ops import hopper_gru
+from artspeech_tpu_torch.synth.pipeline import SynthesisDataset, synthesize_corpus
+from artspeech_tpu_torch.train import checkpoint
 from artspeech_tpu_torch.train import recognition_step as step
 from artspeech_tpu_torch.train.state import TrainState, create_train_state
 from artspeech_tpu_torch.utils.convert import deepspeech2_state_dict_from_flax
@@ -450,9 +454,49 @@ def test_train_then_test_cli(corpus, train_name, tmp_path, monkeypatch, no_tsne)
     assert len(no_tsne) == 2
 
 
-def test_test_cli_refuses_a_synthetic_corpus(corpus, tmp_path, monkeypatch):
+SYNTHETIC_CONFIGS = sorted(name[:-5] for name in os.listdir(CONFIGS)
+                           if name.startswith("test_synthetic_"))
+
+
+def test_test_cli_refuses_a_synthetic_corpus(corpus, tmp_path, monkeypatch, no_tsne):
+    """The test CLI once refused ``synthetic: true``; it now scores a
+    synthesized corpus. The corpus's test sentences go through the port's
+    synthesis (a seeded ArtSpeech over the ten recognition articulators,
+    ``synthesize_corpus`` as the generate CLI calls it), and every
+    ``test_synthetic_*`` config (seven: the encoder-decoder, autoencoder
+    and mean-contour corpora, with and without voicing, and the plain one)
+    scores it with one seeded narrow recognizer: finite results, the
+    artifacts, one prediction a sentence, the voicing configs' voicing
+    moving the loss, and no kernel launched on the CPU."""
     root, vocab_path = corpus
-    cfg = _config("test_synthetic_vocal_tract", root, vocab_path)
-    assert cfg["synthetic"] is True
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3b"):
-        _run("test_phoneme_recognition", cfg, tmp_path, monkeypatch, tmp_path)
+    vocab = load_vocabulary(vocab_path)
+    assert len(SYNTHETIC_CONFIGS) == 7
+    sentences = SynthesisDataset(root, "gottingen", sequences_from_dict(root, {"s1": ["S03"]}),
+                                 vocab, RECOGNITION_ARTICULATORS)
+    save_to = str(tmp_path / "synthesis")
+    synthesize_corpus(ArtSpeech(len(vocab), len(RECOGNITION_ARTICULATORS), embed_dim=8,
+                                hidden_size=8, generator=torch.Generator().manual_seed(7),
+                                device="cpu"),
+                      sentences, save_to, DATASET_CONFIG["gottingen"], device="cpu")
+    weights = str(tmp_path / "recognizer")
+    results, launches = {}, (hopper_gru.launches, hopper_gru.bwd_launches)
+    for name in SYNTHETIC_CONFIGS:
+        cfg = {**_config(name, root, vocab_path, state_dict_filepath=weights), "datadir": save_to}
+        assert cfg["synthetic"] is True and cfg["model_params"]["adapter_out_features"] == 80
+        if not os.path.exists(weights):
+            checkpoint.save_params(weights, DeepSpeech2(num_classes=len(vocab),
+                                                        **cfg["model_params"], device="cpu"))
+        out = tmp_path / name
+        results[name] = _run("test_phoneme_recognition", cfg, out, monkeypatch, tmp_path)
+        assert set(results[name]) == {"loss", "edit_distance", "word_info_lost"}
+        assert all(np.isfinite(v) for v in results[name].values()), name
+        outputs = out / "test_outputs"
+        assert {"substitution_matrix.npy", "grouped_confusion_matrix.npy", "test_results.json",
+                "predictions.json", "features.npz"} <= set(os.listdir(outputs))
+        assert len(json.loads((outputs / "predictions.json").read_text())) == len(sentences)
+    assert (hopper_gru.launches, hopper_gru.bwd_launches) == launches
+    plain = results["test_synthetic_encoder_decoder_vocal_tract"]
+    voiced = results["test_synthetic_encoder_decoder_vocal_tract_voicing"]
+    assert plain == results["test_synthetic_vocal_tract"]
+    assert voiced["loss"] != plain["loss"]
+    assert len(no_tsne) == 7
