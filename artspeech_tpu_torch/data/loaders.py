@@ -1,8 +1,7 @@
 """Contour loading and recentering (host-side, cached; copy of
-artspeech_tpu/data/loaders.py without ``prefetch_contours``, which needs the
-native C++ loader: the contours load one by one, as the JAX package loads
-them when that library is absent, and without the normalization hook, whose
-callers are not ported).
+artspeech_tpu/data/loaders.py without the normalization hook, whose callers
+are not ported). ``prefetch_contours`` primes the cache through the native
+C++ loader (data/native.py), which the port always builds.
 
 Equivalents of ``vt_shape_gen.helpers.load_articulator_array`` plus reference
 phoneme_to_articulation/__init__.py:52-118 (``InputLoaderMixin``) and
@@ -18,6 +17,7 @@ import numpy as np
 
 from artspeech_tpu_torch.core.config import DatasetConfig
 from artspeech_tpu_torch.core.constants import UPPER_INCISOR
+from artspeech_tpu_torch.data import native
 from artspeech_tpu_torch.data.tail_clipper import TAIL_CLIP_REFERENCES, TailClipper
 from artspeech_tpu_torch.ops.resample import resample_linear_np
 
@@ -31,7 +31,7 @@ N_SAMPLES = 50
 
 #: In-RAM contour cache keyed by (filepath, norm_value) — the explicit-dict
 #: version of the reference's lru_cache (phoneme_to_articulation/
-#: __init__.py:52-54).
+#: __init__.py:52-54), so the native batch loader can prime it.
 _CONTOUR_CACHE: Dict[Tuple[str, float], np.ndarray] = {}
 
 
@@ -49,6 +49,36 @@ def cached_load_articulator_array(filepath: str, norm_value: float) -> np.ndarra
     arr = arr / float(norm_value)
     _CONTOUR_CACHE[key] = arr
     return arr
+
+
+def prefetch_contours(
+    filepaths: Sequence[str], norm_value: float, n_samples: int = N_SAMPLES
+) -> int:
+    """Bulk-load contours into the cache with the native C++ loader.
+
+    Only files whose original point count equals ``n_samples`` are cached
+    (for those the native resample is the identity and the scaling is
+    numpy's, so the cached array equals the Python path's bit for bit);
+    others, and files that are missing, fall through to the lazy loader.
+    Returns the number of files primed.
+    """
+    todo = [
+        fp
+        for fp in dict.fromkeys(filepaths)
+        if (fp, float(norm_value)) not in _CONTOUR_CACHE
+    ]
+    if not todo:
+        return 0
+    contours, ok, orig = native.load_contour_batch(
+        todo, norm_value=norm_value, n_samples=n_samples
+    )
+    primed = 0
+    for i, fp in enumerate(todo):
+        if ok[i] and orig[i] == n_samples:
+            # native layout (2, N) -> cache layout (N, 2)
+            _CONTOUR_CACHE[(fp, float(norm_value))] = contours[i].T.copy()
+            primed += 1
+    return primed
 
 
 def load_articulator_array(
@@ -115,7 +145,6 @@ def prepare_articulator_array(
     return articulator_array.astype(np.float32), reference_array.astype(np.float32)
 
 
-
 class VocalTractShapeLoader:
     """Sentence-level loader stacking frames into (T, Nart, 2, D) plus
     (T, 2, D) references (reference vocal_tract_loader.py:16-134)."""
@@ -137,6 +166,22 @@ class VocalTractShapeLoader:
     def load_vocal_tract_shapes(
         self, subject: str, sequence: str, frame_ids: Sequence[str], skip_missing=False
     ):
+        # Prime the contour cache for the whole sentence in one native
+        # batched, multithreaded load.
+        arts = list(self.articulators)
+        if self.clip_tails:
+            arts += [r for r in TAIL_CLIP_REFERENCES if r not in arts]
+        if UPPER_INCISOR not in arts:
+            arts.append(UPPER_INCISOR)
+        prefetch_contours(
+            [
+                contour_path(self.datadir, subject, sequence, fid, art)
+                for fid in frame_ids
+                for art in arts
+            ],
+            norm_value=self.dataset_config.RES,
+            n_samples=self.num_samples,
+        )
         targets: List[np.ndarray] = []
         references: List[np.ndarray] = []
         for frame_id in frame_ids:

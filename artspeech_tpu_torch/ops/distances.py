@@ -37,7 +37,8 @@ def min_distance(u, v):
 
 def min_distance_channel_major(u, v):
     """min_distance for channel-major (..., 2, N) / (..., 2, M) contours.
-    CUDA: the min-distance kernel (forward only); CPU: the plain formula."""
+    CUDA: the min-distance kernel (a gradient through the plain formula's
+    VJP); CPU: the plain formula."""
     return hopper_min_dist.min_distance_channel_major(u, v)
 
 
@@ -67,7 +68,8 @@ def mean_p2cp(u, v):
 def mean_p2cp_channel_major(u, v):
     """mean_p2cp for channel-major (..., 2, N) / (..., 2, M) contours — the
     model-tensor layout (B, T, Nart, 2, n_samples), read without a transpose.
-    CUDA: the P2CP kernel (forward only); CPU: the plain formula."""
+    CUDA: the P2CP kernel (a gradient through the plain formula's VJP, as
+    JAX's ``_mean_p2cp_fast``); CPU: the plain formula."""
     return hopper_p2cp.mean_p2cp_channel_major(u, v)
 
 

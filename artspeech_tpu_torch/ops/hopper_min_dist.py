@@ -15,9 +15,14 @@ launch). :func:`min_distance_channel_major` is the table of one problem.
   :func:`min_distance_channel_major_reference`.
 - A CUDA tensor takes the kernel, or the call raises. Nothing falls back.
 
-The kernel is forward only: the tract variables are outputs of the test step
-under ``torch.inference_mode``, and the wrapper raises for a CUDA input that
-requires grad. ``launches`` counts kernel launches. The kernel launches with
+A gradient through a CUDA call takes :class:`_MinDistanceWindows` or
+:class:`_MinDistance`: the kernel forward and, as backward, the VJP of the
+plain version recomputed from the saved inputs (JAX differentiates its XLA
+formula; there is no backward kernel). The gradient reaches the sources
+through the distances and, for a table, through the gathered places of
+constriction, as JAX's ``take_along_axis`` passes it; the indices carry
+none. Without a gradient asked for, the wrappers launch the kernel
+directly. ``launches`` counts kernel launches. The kernel launches with
 the geometry of :func:`min_dist_launch_geometry`, from the shapes alone.
 """
 
@@ -27,6 +32,7 @@ from typing import NamedTuple, Sequence, Tuple
 import torch
 
 from artspeech_tpu_torch.ops import _build
+from artspeech_tpu_torch.ops.hopper_p2cp import plain_vjp
 from artspeech_tpu_torch.ops.point_pairs import (
     MAX_SMEM,
     ROWS_A_WARP,
@@ -167,9 +173,6 @@ def _check(sources: Sequence[torch.Tensor], problems: Sequence[Problem]):
     for s in sources:
         if s.device.type != "cuda" or s.device != device:
             raise ValueError(f"min_dist kernel needs CUDA tensors on one device, got {s.device}")
-        if s.requires_grad:
-            raise RuntimeError("min_dist kernel has no backward; call it on tensors that do not "
-                               "require grad (the test step runs under torch.inference_mode)")
         if s.dim() < 2 or s.shape[-2] != 2 or s.shape[:-2] != lead:
             raise ValueError(f"min_dist kernel sources: (..., 2, N) with the same leading dims, "
                              f"got {[tuple(t.shape) for t in sources]}")
@@ -227,6 +230,46 @@ def _launch(sources, problems, with_idx):
     return out, idx
 
 
+def _grad_asked(tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _MinDistanceWindows(torch.autograd.Function):
+    """The kernel forward over a table; the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, problems, *sources):
+        ctx.problems = problems
+        ctx.save_for_backward(*sources)
+        return _launch(list(sources), problems, with_idx=False)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        def reference(*sources):
+            return min_distance_windows_reference(list(sources), ctx.problems)
+
+        return (None, *plain_vjp(reference, ctx.saved_tensors, grad, ctx.needs_input_grad[1:]))
+
+
+class _MinDistance(torch.autograd.Function):
+    """The kernel forward of one problem; the plain distance's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, u, v):
+        ctx.save_for_backward(u, v)
+        problem = (Window(0, 0, u.shape[-1]), (Window(1, 0, v.shape[-1]),))
+        out, idx = _launch([u, v], [problem], with_idx=True)
+        ctx.mark_non_differentiable(idx)
+        return out[0, ..., 0], idx[0, 0], idx[1, 0]
+
+    @staticmethod
+    def backward(ctx, grad, _grad_u, _grad_v):
+        def reference(u, v):
+            return min_distance_channel_major_reference(u, v)[0]
+
+        return tuple(plain_vjp(reference, ctx.saved_tensors, grad, ctx.needs_input_grad))
+
+
 def min_distance_windows(sources, problems):
     """Each problem's minimum distance and its two places of constriction.
 
@@ -240,10 +283,13 @@ def min_distance_windows(sources, problems):
         y) of each problem's first least squared distance (first flat index
         on ties, NaN first). A CPU tensor takes
         :func:`min_distance_windows_reference`; a CUDA tensor takes the
-        kernel (f32 out), or the call raises.
+        kernel (f32 out), or the call raises. With a gradient asked for, the
+        CUDA call goes through :class:`_MinDistanceWindows`.
     """
     if all(s.device.type == "cpu" for s in sources):
         return min_distance_windows_reference(sources, problems)
+    if _grad_asked(sources):
+        return _MinDistanceWindows.apply(problems, *sources)
     return _launch(sources, problems, with_idx=False)[0]
 
 
@@ -257,13 +303,16 @@ def min_distance_channel_major(u, v):
         (dist (...,) f32, idx_u (...,) int64, idx_v (...,) int64); ties go to
         the smallest flat index ``idx_u * M + idx_v``. A CPU tensor takes
         :func:`min_distance_channel_major_reference`; a CUDA tensor takes the
-        kernel (a table of one problem), or the call raises.
+        kernel (a table of one problem), or the call raises. With a gradient
+        asked for, the CUDA call goes through :class:`_MinDistance`.
     """
     if u.device.type == "cpu" and v.device.type == "cpu":
         return min_distance_channel_major_reference(u, v)
     if u.dim() < 2 or v.dim() < 2:
         raise ValueError(f"min_dist kernel shapes: u (..., 2, N), v (..., 2, M), got "
                          f"{tuple(u.shape)}, {tuple(v.shape)}")
+    if _grad_asked((u, v)):
+        return _MinDistance.apply(u, v)
     problem = (Window(0, 0, u.shape[-1]), (Window(1, 0, v.shape[-1]),))
     out, idx = _launch([u, v], [problem], with_idx=True)
     return out[0, ..., 0], idx[0, 0], idx[1, 0]

@@ -9,9 +9,12 @@ artspeech_tpu/ops/distances.py:mean_p2cp_channel_major. The kernel is
 - A CPU tensor takes the plain version, :func:`mean_p2cp_channel_major_reference`.
 - A CUDA tensor takes the kernel, or the call raises. Nothing falls back.
 
-The kernel is forward only: the train and eval steps use P2CP as a metric,
-outside autograd, and the wrapper raises for a CUDA input that requires grad.
-``launches`` counts kernel launches. It launches with the geometry of
+A gradient through a CUDA call takes :class:`_MeanP2CP`: the kernel forward
+and, as backward, the VJP of the plain version recomputed from the saved
+inputs, as JAX's ``_mean_p2cp_fast`` (ops/distances.py) pairs the Pallas
+forward with the XLA formula's VJP; there is no backward kernel. Without a
+gradient asked for, the wrapper launches the kernel directly. ``launches``
+counts kernel launches. It launches with the geometry of
 :func:`p2cp_launch_geometry`, from the shape alone.
 """
 
@@ -108,9 +111,6 @@ def _check(u, v):
     if u.device.type != "cuda" or v.device.type != "cuda" or u.device != v.device:
         raise ValueError(
             f"p2cp kernel needs CUDA tensors on one device, got {u.device}, {v.device}")
-    if torch.is_grad_enabled() and (u.requires_grad or v.requires_grad):
-        raise RuntimeError("p2cp kernel has no backward; call it under torch.no_grad() "
-                           "on detached tensors")
     if u.dim() < 2 or v.dim() < 2 or u.shape[-2] != 2 or v.shape[-2] != 2 \
             or u.shape[:-2] != v.shape[:-2]:
         raise ValueError(f"p2cp kernel shapes: u (..., 2, N), v (..., 2, M) with the same "
@@ -147,6 +147,32 @@ def _launch(u, v):
     return out
 
 
+def plain_vjp(reference, inputs, grads, needs):
+    """The VJP of ``reference`` at ``inputs`` (recomputed in f32) for the
+    output cotangents ``grads``; None for each input not in ``needs``, each
+    gradient in its input's dtype."""
+    with torch.enable_grad():
+        xs = [x.detach().to(torch.float32).requires_grad_(need) for x, need in zip(inputs, needs)]
+        out = reference(*xs)
+        wanted = [x for x in xs if x.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grads) if wanted else ())
+    return [next(got).to(x.dtype) if need else None for x, need in zip(inputs, needs)]
+
+
+class _MeanP2CP(torch.autograd.Function):
+    """The kernel forward; the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, u, v):
+        ctx.save_for_backward(u, v)
+        return _launch(u, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return tuple(plain_vjp(mean_p2cp_channel_major_reference, ctx.saved_tensors, grad,
+                               ctx.needs_input_grad))
+
+
 def mean_p2cp_channel_major(u, v):
     """Mean bidirectional P2CP per row of channel-major contours.
 
@@ -154,8 +180,11 @@ def mean_p2cp_channel_major(u, v):
         u: (..., 2, N); v: (..., 2, M).
     Returns:
         (...,) f32. A CPU tensor takes :func:`mean_p2cp_channel_major_reference`;
-        a CUDA tensor takes the kernel, or the call raises.
+        a CUDA tensor takes the kernel, or the call raises. With a gradient
+        asked for, the CUDA call goes through :class:`_MeanP2CP`.
     """
     if u.device.type == "cpu" and v.device.type == "cpu":
         return mean_p2cp_channel_major_reference(u, v)
+    if torch.is_grad_enabled() and (u.requires_grad or v.requires_grad):
+        return _MeanP2CP.apply(u, v)
     return _launch(u, v)

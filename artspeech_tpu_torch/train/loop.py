@@ -98,6 +98,7 @@ def fit(
     seed: int = 0,
     resume: bool = False,
     resume_from: Optional[str] = None,
+    epoch_callback: Optional[Callable] = None,
     device: DeviceLike = None,
 ) -> FitResult:
     """Full training run with plateau LR, early stopping and checkpoints.
@@ -107,8 +108,9 @@ def fit(
     and stopper's state in aux.json) and ``best_model`` (model only).
     ``resume_from`` restores that checkpoint directory; plain ``resume``
     restores ``last/`` if it exists. Each epoch's record (without ``best``)
-    goes to ``tracker.log_metrics(..., step=epoch)``. ``device``: ``cuda``
-    unless the caller passes ``device="cpu"``.
+    goes to ``tracker.log_metrics(..., step=epoch)``, and after the epoch's
+    checkpoints to ``epoch_callback(epoch, state, record)`` when given.
+    ``device``: ``cuda`` unless the caller passes ``device="cpu"``.
     """
     dev = resolve_device(device)
     os.makedirs(checkpoints_dir, exist_ok=True)
@@ -171,6 +173,8 @@ def fit(
                 "scheduler_bad_epochs": scheduler.bad_epochs,
             },
         )
+        if epoch_callback is not None:
+            epoch_callback(epoch, state, record)
         if stopper.should_stop:
             break
 

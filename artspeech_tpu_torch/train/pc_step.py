@@ -10,8 +10,8 @@ Covers the two trainers of the reference:
 
 Each train step runs the model in training mode, one backward (the GRU or
 LSTM backward kernel on CUDA for the latent RNN) and one AdamW step. P2CP is
-a metric computed on detached outputs under ``torch.no_grad()`` (the P2CP
-kernel on CUDA has no backward): opt-in in the train steps, as in the JAX
+a metric computed on detached outputs under ``torch.no_grad()`` (no
+gradient is taken through it): opt-in in the train steps, as in the JAX
 package, and always in the eval steps. Dropout masks come from the caller's
 ``torch.Generator``. Metrics are 0-d tensors on the device.
 """

@@ -1,5 +1,6 @@
 """Host-side IO helpers (copy of artspeech_tpu/utils/io.py:
-``npy_to_xarticul``, ``sequences_from_dict``, ``make_indices_dict``)."""
+``npy_to_xarticul``, ``xarticul_to_npy``, ``sequences_from_dict``,
+``make_indices_dict``, ``set_seeds`` and ``assert_expression``)."""
 
 import os
 from typing import Dict, List, Sequence, Tuple
@@ -18,6 +19,13 @@ def npy_to_xarticul(array: np.ndarray, filepath: str = None) -> List[str]:
         with open(filepath, "w") as f:
             f.write("\n".join(lines))
     return lines
+
+
+def xarticul_to_npy(filepath: str) -> np.ndarray:
+    """Read an Xarticul file back into an (N, 2) array (reference helpers.py:48-60)."""
+    with open(filepath) as f:
+        lines = [line.strip() for line in f.readlines()][:-1]
+    return np.array([[float(value) for value in line.split()] for line in lines])
 
 
 def sequences_from_dict(
@@ -52,3 +60,21 @@ def make_indices_dict(num_components: Dict[str, int]) -> Dict[str, List[int]]:
         indices_dict[key] = list(range(start, start + val))
         start += val
     return indices_dict
+
+
+def set_seeds(worker_id: int = 0, base_seed: int = 0):
+    """Deterministic seeding for data-pipeline workers: numpy's global
+    generator and ``random`` (reference helpers.py:8-11). torch's generators
+    are the caller's: the port seeds each of its own explicitly."""
+    import random
+
+    seed = base_seed + worker_id
+    np.random.seed(seed % (2**32))  # numpy accepts the full 0..2**32-1 range
+    random.seed(seed)
+
+
+def assert_expression(expression, exception=AssertionError, message: str = ""):
+    """Raise ``exception(message)`` when the expression is falsy (reference
+    helpers.py:14-24)."""
+    if not expression:
+        raise exception(message)

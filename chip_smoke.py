@@ -188,6 +188,23 @@ Phases, each printing its own lines:
                frames/s and the device breakdown; the ArtSpeech one at
                dropout 0 on the card against the CPU, held to float64; 10
                steps on one batch (the loss must fall);
+     surfaces — in the same temporary directory, timed by the port's
+               StepTimer: the report CLI (configs/model_free/
+               report_model_free.yaml, results_dir and database changed)
+               over the [cli] test run's outputs on the card (one p2cp
+               launch a sentence) and on the CPU, its four CSVs within 1e-5
+               relative; shape_to_air_column over S05 on the card and on the
+               CPU, the (2, 2, 100) air columns within 1e-5; the corpus's
+               vocal-tract shapes through VocalTractShapeLoader with the
+               native prefetch and without it, the same bits, both host
+               times; p2cp_distance_mm and the tract variables at B = 12,
+               T = 128 through the kernels' autograd path (one p2cp and one
+               min_dist launch) against the plain route, values within
+               1e-5 and gradients within 1e-4 * max(|ref|, 1);
+               make_sentence_layer over the corpus's TextGrids; and the
+               generate CLI's save_plots / save_videos over a one-sentence
+               corpus: jpgs and an .avi where matplotlib and cv2 import, the
+               named RuntimeError where they do not;
   8. decode  — the full-width transformer (train_transformer.yaml: embed 64,
                4 heads, 4 layers, 10 articulators) with seeded weights:
                make_fast_generate at T = 128, B = 12 and 64, f32 and bf16
@@ -266,10 +283,12 @@ raises and exits non-zero; without CUDA nothing is printed as a result.
 """
 
 import csv
+import glob
 import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -283,6 +302,9 @@ from artspeech_tpu_torch.cli import (
     calculate_normalization_statistics,
     config_file,
     generate_vocal_tract_shape,
+    make_sentence_layer,
+    report_phoneme_to_articulation,
+    shape_to_air_column,
     test_phoneme_to_articulation,
     test_phoneme_to_articulation_transformer,
     test_phoneme_recognition,
@@ -309,6 +331,7 @@ from artspeech_tpu_torch.core.constants import (
 )
 from artspeech_tpu_torch.core.device import resolve_device
 from artspeech_tpu_torch.core.vocab import load_vocabulary
+from artspeech_tpu_torch.data import loaders
 from artspeech_tpu_torch.data.batching import DEFAULT_BUCKETS, BucketedLoader, pick_bucket
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
@@ -319,6 +342,7 @@ from artspeech_tpu_torch.data.recognition import (
     SyntheticPhonemeRecognitionDataset,
 )
 from artspeech_tpu_torch.data.synthetic_corpus import make_synthetic_corpus, make_vcv_corpus
+from artspeech_tpu_torch.data.textgrid import read_textgrid
 from artspeech_tpu_torch.eval.articulation import make_test_step
 from artspeech_tpu_torch.geometry import tract_variables
 from artspeech_tpu_torch.geometry.area_function import tube_area_function
@@ -347,8 +371,10 @@ from artspeech_tpu_torch.ops import (
     hopper_train_attention,
 )
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
+from artspeech_tpu_torch.synth.viz import missing_packages
 from artspeech_tpu_torch.train import loop, state
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
+from artspeech_tpu_torch.losses import articulation as articulation_losses
 from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss, recognition_feature_loss
 from artspeech_tpu_torch.losses.recognition import ctc_loss
 from artspeech_tpu_torch.train.pc_step import make_latent_rnn_train_step
@@ -364,6 +390,7 @@ from artspeech_tpu_torch.train.step import (
     shift_targets_right,
 )
 from artspeech_tpu_torch.utils.io import sequences_from_dict
+from artspeech_tpu_torch.utils.profiling import StepTimer
 
 VOCAB, HIDDEN = 64, 128
 BENCH_B, BENCH_T = 16, 128
@@ -2112,12 +2139,13 @@ def yaml_lines(key, value, indent=""):
     return lines
 
 
-def run_cli(module, config_path, output_dir):
+def run_cli(module, config_path, output_dir, device=None):
     """One CLI in-process through its run_experiment, as ``python -m`` runs
-    it (no --device: the card). Returns (result, wall seconds)."""
+    it (no --device: the card, unless ``device`` is given). Returns (result,
+    wall seconds)."""
     saved = sys.argv
     sys.argv = [module.__name__, "--config", config_path, "--output_dir", output_dir,
-                "--run_name", "run"]
+                "--run_name", "run"] + (["--device", device] if device else [])
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3680,6 +3708,299 @@ def frozen_gru_vs_plain():
 
 # -- timing --------------------------------------------------------------------
 
+SURFACE_TOL = 1e-5  # card against CPU: the report's CSV numbers, the air columns
+SURFACE_GRAD = dict(b=12, t=128)  # the thesis test batch through the autograd path
+SURFACE_GRAD_TOL = 1e-4  # gradients, relative to max(|ref|, 1)
+SURFACE_PLOT_FRAMES = 10  # frames of the one-sentence corpus the generate CLI renders
+
+
+def csv_numbers(path):
+    """Every row of a CSV (its header rows too) with each field that parses
+    as a number read as a float (an empty field stays text)."""
+    head, rows = read_csv(path)
+
+    def number(field):
+        try:
+            return float(field)
+        except ValueError:
+            return field
+
+    return [[number(field) for field in row] for row in [head] + rows]
+
+
+def same_csv(got, ref, rtol, name):
+    """Two CSVs read by csv_numbers with the same text fields and numbers
+    within ``rtol`` relative (NaN where NaN). Returns the largest relative
+    difference."""
+    check(len(got) == len(ref) and all(len(a) == len(b) for a, b in zip(got, ref)),
+          f"{name}: the card's and the CPU's differ in shape")
+    worst = 0.0
+    for a_row, b_row in zip(got, ref):
+        for a, b in zip(a_row, b_row):
+            if isinstance(b, float) and isinstance(a, float):
+                if np.isnan(a) and np.isnan(b):
+                    continue
+                diff = abs(a - b) / max(abs(b), np.finfo(np.float32).tiny)
+                worst = max(worst, diff if a != b else 0.0)
+            else:
+                check(a == b, f"{name}: {a!r} on the card where the CPU has {b!r}")
+    check(worst <= rtol, f"{name}: the card's numbers differ from the CPU's by {worst:.3g} "
+                         f"relative")
+    return worst
+
+
+REPORT_CSVS = ("tract_variables.csv", "error_report_full.csv", "error_report_agg.csv",
+               "TV_corr_report.csv")
+
+
+def report_surface(tmp):
+    """The report CLI over the [cli] test run's outputs, on the card and
+    then on the CPU (each writes its CSVs into the run's directory; the
+    card's are read before the CPU's overwrite them): one p2cp launch a
+    sentence, the four CSVs within SURFACE_TOL. Returns the card run's
+    launches."""
+    results = os.path.join(tmp, "test_run")
+    sentences = len(os.listdir(os.path.join(results, "test_outputs", "0")))
+    runs, seconds, tables, launches = {}, {}, {}, None
+    for device in ("cuda", "cpu"):
+        cfg_path = os.path.join(tmp, f"report_{device}.yaml")
+        thesis_config("report_model_free", cfg_path,
+                      {"database_name": "gottingen", "results_dir": results},
+                      None if device == "cuda" else {"make_plots": "false"})
+        reset_launch_counts()
+        runs[device], seconds[device] = run_cli(report_phoneme_to_articulation, cfg_path,
+                                                os.path.join(tmp, f"report_{device}_run"),
+                                                None if device == "cuda" else "cpu")
+        if device == "cuda":
+            launches = launch_counts()
+        tables[device] = {name: csv_numbers(os.path.join(results, name)) for name in REPORT_CSVS}
+    expected = {**dict.fromkeys(KERNELS, 0), "p2cp": sentences}
+    check(launches == expected, f"report CLI: launches {launches}, expected {expected}")
+    diffs = {name: same_csv(tables["cuda"][name], tables["cpu"][name], SURFACE_TOL, name)
+             for name in REPORT_CSVS}
+    errors = runs["cuda"]["errors"]
+    check(len(errors.rows) > 0 and all(np.isfinite(r["p2cp_mm"]) for r in errors.rows),
+          "report CLI: no finite P2CP")
+    phase("surfaces", check="report", sentences=sentences, p2cp_launches=launches["p2cp"],
+          error_rows=len(errors.rows), plots_skipped=runs["cuda"]["plots_skipped"],
+          cuda_seconds=f"{seconds['cuda']:.3f}", cpu_seconds=f"{seconds['cpu']:.3f}",
+          **{f"{n[:-4]}_max_rel_diff": f"{d:.3g}" for n, d in diffs.items()}, tol=SURFACE_TOL)
+    return launches
+
+
+def air_column_surface(corpus):
+    """shape_to_air_column over one sequence of the corpus on the card and
+    then on the CPU (the card's arrays read before the CPU's overwrite
+    them): one (2, 2, 100) array a frame, within SURFACE_TOL."""
+    subject, sequence = CLI_CORPUS["subject"], CLI_CORPUS["sequences"][-1]
+    air_dir = os.path.join(corpus, subject, sequence, "air_column")
+    cfg_path = os.path.join(os.path.dirname(corpus), "air_column.yaml")
+    with open(cfg_path, "w") as f:
+        f.write("\n".join([f"datadir: {corpus}", "database_name: gottingen", "seq_dict:",
+                           f"  {subject}:", f"  - {sequence}", "batch_size: 64"]) + "\n")
+    arrays, seconds = {}, {}
+    for device in ("cuda", "cpu"):
+        shutil.rmtree(air_dir, ignore_errors=True)  # [recognizer]'s seeded arrays, then the card's
+        written, seconds[device] = run_cli(shape_to_air_column, cfg_path,
+                                           os.path.join(os.path.dirname(corpus),
+                                                        f"air_{device}_run"),
+                                           None if device == "cuda" else "cpu")
+        arrays[device] = {n: np.load(os.path.join(air_dir, n)) for n in sorted(os.listdir(air_dir))}
+        check(written == len(arrays[device]), f"shape_to_air_column: {written} reported, "
+                                              f"{len(arrays[device])} written")
+    frames = len(DATABASE_COLLECTORS["gottingen"](corpus).get_frame_ids(subject, sequence))
+    check(sorted(arrays["cuda"]) == sorted(arrays["cpu"]) and len(arrays["cuda"]) == frames,
+          "shape_to_air_column: the card and the CPU wrote other files")
+    diff = max(np.abs(arrays["cuda"][n] - arrays["cpu"][n]).max() for n in arrays["cpu"])
+    shapes = {a.shape for a in arrays["cuda"].values()}
+    check(shapes == {(2, 2, 100)} and diff <= SURFACE_TOL,
+          f"shape_to_air_column: shapes {shapes}, card against CPU {diff}")
+    phase("surfaces", check="shape_to_air_column", sequence=sequence, frames=frames,
+          max_abs_diff=f"{diff:.3g}", tol=SURFACE_TOL, cuda_seconds=f"{seconds['cuda']:.3f}",
+          cpu_seconds=f"{seconds['cpu']:.3f}")
+
+
+def native_loader_surface(corpus):
+    """The [cli] corpus's vocal-tract shapes through VocalTractShapeLoader
+    with the native prefetch and without it (cache cleared between): the
+    same arrays bit for bit, with both host times."""
+    subject = CLI_CORPUS["subject"]
+    collector = DATABASE_COLLECTORS["gottingen"](corpus)
+    loader = loaders.VocalTractShapeLoader(corpus, sorted(RECOGNITION_ARTICULATORS), 50,
+                                           DATASET_CONFIG["gottingen"])
+    native_prefetch = loaders.prefetch_contours
+
+    def load_all():
+        loaders.clear_contour_cache()
+        t0 = time.perf_counter()
+        out = [loader.load_vocal_tract_shapes(subject, seq, collector.get_frame_ids(subject, seq))
+               for seq in CLI_CORPUS["sequences"]]
+        return out, time.perf_counter() - t0
+
+    loaders.prefetch_contours(["warm.npy"], 1.0)  # build and load the library first
+    primed = []
+    loaders.prefetch_contours = lambda *a, **k: primed.append(native_prefetch(*a, **k))
+    try:
+        with_prefetch, native_s = load_all()
+        loaders.prefetch_contours = lambda *a, **k: 0
+        plain, plain_s = load_all()
+    finally:
+        loaders.prefetch_contours = native_prefetch
+        loaders.clear_contour_cache()
+    same = all(np.array_equal(a.view(np.uint32), b.view(np.uint32))
+               for x, y in zip(with_prefetch, plain) for a, b in zip(x[:2], y[:2]))
+    frames = sum(x[2] for x in plain)
+    check(same and frames > 0 and sum(primed) > 0,
+          f"native loader: bitwise {same}, {frames} frames, {sum(primed)} files primed")
+    phase("surfaces", check="native_loader", frames=frames, files_primed=sum(primed),
+          bitwise_equal=same, prefetch_host_s=f"{native_s:.4f}", plain_host_s=f"{plain_s:.4f}",
+          speedup=f"{plain_s / native_s:.3g}")
+
+
+def gradient_surface():
+    """p2cp_distance_mm and the tract variables at B = 12, T = 128 through
+    the kernels' autograd path against the plain route on the same card
+    inputs: values within SURFACE_TOL, gradients within SURFACE_GRAD_TOL *
+    max(|ref|, 1); one p2cp and one min_dist launch, none on the plain route.
+    Returns the launches and the TVs' gradient."""
+    b, t = SURFACE_GRAD["b"], SURFACE_GRAD["t"]
+    arts = TV_STACK_ARTS
+    g = torch.Generator().manual_seed(30)
+    outputs = torch.rand(b, t, len(arts), 2, 50, generator=g).cuda()
+    targets = torch.rand(b, t, len(arts), 2, 50, generator=g).cuda()
+    lengths = torch.randint(1, t + 1, (b,), generator=g).cuda()
+    lengths[0] = t
+    cotangent = torch.randn(len(TV_SHAPES), b, t, 5, generator=g).cuda()
+
+    def run():
+        x = outputs.clone().requires_grad_()
+        p2cp = articulation_losses.p2cp_distance_mm(x, targets, lengths, to_mm=TO_MM)
+        (grad_p2cp,) = torch.autograd.grad(p2cp, (x,))
+        tvs = tract_variables.tract_variables_from_stack(x, arts)
+        stacked = torch.stack([torch.cat([tvs[n]["value"][..., None], tvs[n]["poc_1"],
+                                          tvs[n]["poc_2"]], -1) for n in TV_SHAPES])
+        (grad_tvs,) = torch.autograd.grad(stacked, (x,), cotangent)
+        return p2cp.detach(), grad_p2cp, stacked.detach(), grad_tvs
+
+    reset_launch_counts()
+    kernel = run()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    plain_p2cp, plain_windows = (articulation_losses.mean_p2cp_channel_major,
+                                 tract_variables.min_distance_windows)
+    articulation_losses.mean_p2cp_channel_major = hopper_p2cp.mean_p2cp_channel_major_reference
+    tract_variables.min_distance_windows = hopper_min_dist.min_distance_windows_reference
+    try:
+        reset_launch_counts()
+        plain = run()
+        plain_launches = launch_counts()
+    finally:
+        articulation_losses.mean_p2cp_channel_major = plain_p2cp
+        tract_variables.min_distance_windows = plain_windows
+    expected = {**dict.fromkeys(KERNELS, 0), "p2cp": 1, "min_dist": 1}
+    check(launches == expected and plain_launches == dict.fromkeys(KERNELS, 0),
+          f"autograd path: launches {launches} (plain route {plain_launches}), expected {expected}")
+    errs = {name: rel_err(got, ref) for name, got, ref in
+            zip(("p2cp_value", "p2cp_grad", "tv_outputs", "tv_grad"), kernel, plain)}
+    value_errs = {"p2cp_value": errs["p2cp_value"],
+                  "tv_values": rel_err(kernel[2][..., 0], plain[2][..., 0])}
+    same_places = bool(torch.equal(kernel[2][..., 1:], plain[2][..., 1:]))
+    phase("surfaces", check="autograd", shape=f"B={b},T={t},arts={len(arts)}",
+          p2cp_launches=launches["p2cp"], min_dist_launches=launches["min_dist"],
+          same_places=same_places, **{k: f"{v:.3g}" for k, v in {**errs, **value_errs}.items()},
+          value_tol=SURFACE_TOL, grad_tol=SURFACE_GRAD_TOL)
+    check(max(value_errs.values()) <= SURFACE_TOL and same_places,
+          f"autograd path values: {value_errs}, the same places: {same_places}")
+    check(errs["p2cp_grad"] <= SURFACE_GRAD_TOL and errs["tv_grad"] <= SURFACE_GRAD_TOL,
+          f"autograd path gradients: {errs}")
+    return launches, kernel[3]
+
+
+def sentence_layer_surface(tmp, corpus):
+    """make_sentence_layer over the corpus's TextGrids."""
+    grids = sorted(glob.glob(os.path.join(corpus, "*", "*", "*.textgrid")))
+    cfg_path = os.path.join(tmp, "sentence_layer.yaml")
+    save_to = os.path.join(tmp, "sentence_layers")
+    with open(cfg_path, "w") as f:
+        f.write(f"glob: {os.path.join(corpus, '*', '*', '*.textgrid')}\nsave_to: {save_to}\n")
+    written, seconds = run_cli(make_sentence_layer, cfg_path, os.path.join(tmp, "sentence_run"))
+    tiers = {tuple(read_textgrid(p).get_tier_names()) for p in written}
+    check(len(written) == len(grids) > 0 and tiers == {("LongSentenceTier", "ShortSentenceTier",
+                                                        "WordTier", "PhonTier")},
+          f"make_sentence_layer: {len(written)} of {len(grids)} TextGrids, tiers {tiers}")
+    phase("surfaces", check="make_sentence_layer", textgrids=len(written),
+          seconds=f"{seconds:.3f}")
+
+
+def optional_libraries_surface(tmp, vocab_path, best_state):
+    """The generate CLI's save_plots and save_videos over a one-sentence
+    corpus: one jpg a frame and one .avi where matplotlib (and cv2) import,
+    else the RuntimeError naming what is missing."""
+    present = {name: not missing_packages(name) for name in ("matplotlib", "cv2")}
+    corpus = os.path.join(tmp, "plot_corpus")
+    make_synthetic_corpus(corpus, subjects=(CLI_CORPUS["subject"],),
+                          sequences=(CLI_CORPUS["sequences"][-1],), n_sentences=1,
+                          frames_per_sentence=SURFACE_PLOT_FRAMES,
+                          framerate=DATASET_CONFIG["gottingen"].FRAMERATE)
+    outcome = {}
+    for key, needs in (("save_plots", ("matplotlib",)), ("save_videos", ("cv2", "matplotlib"))):
+        save_to = os.path.join(tmp, f"plot_{key}")
+        cfg_path = os.path.join(tmp, f"{key}.yaml")
+        thesis_config("generate_vocal_tract_shape_model_free", cfg_path,
+                      {"database_name": "gottingen", "datadir": corpus,
+                       "vocab_filepath": vocab_path, "state_dict_filepath": best_state,
+                       "save_to": save_to}, {key: "true"})
+        try:
+            written, _ = run_cli(generate_vocal_tract_shape, cfg_path,
+                                 os.path.join(tmp, f"{key}_run"))
+        except RuntimeError as err:
+            check(not all(present[n] for n in needs) and key in str(err),
+                  f"{key}: {err} with {present}")
+            outcome[key] = f"raised:{str(err).replace(' ', '_')}"
+            continue
+        check(all(present[n] for n in needs), f"{key} rendered without {needs}")
+        for sentence in written:
+            if key == "save_plots":
+                jpgs = os.listdir(os.path.join(sentence, "vocal_tract_shapes"))
+                with open(os.path.join(sentence, "target_sequence.txt")) as f:
+                    frames = len(f.read().split())
+                check(len(jpgs) == frames > 0, f"save_plots: {len(jpgs)} jpgs for {frames} frames")
+            else:
+                avi = os.path.join(sentence, os.path.basename(sentence) + ".avi")
+                check(os.path.getsize(avi) > 0, f"save_videos wrote no {avi}")
+        outcome[key] = "rendered"
+    phase("surfaces", check="optional_libraries", **{f"{n}_present": p for n, p in present.items()},
+          **outcome)
+
+
+def surfaces_path(tmp, corpus, vocab_path, best_state):
+    """[surfaces]: the report CLI, shape_to_air_column, the native loader,
+    the distance kernels under autograd, make_sentence_layer and the
+    optional plotting libraries, each timed by StepTimer. Returns the
+    launches of the report CLI and of the autograd check."""
+    timer = StepTimer()
+    launches = {}
+    with timer.step():
+        launches["surfaces_report"] = report_surface(tmp)
+    with timer.step():
+        air_column_surface(corpus)
+    with timer.step():
+        native_loader_surface(corpus)
+    with timer.step() as out:
+        launches["surfaces_autograd"], out["result"] = gradient_surface()
+    with timer.step():
+        sentence_layer_surface(tmp, corpus)
+    with timer.step():
+        optional_libraries_surface(tmp, vocab_path, best_state)
+    names = ("report", "air_column", "native_loader", "autograd", "sentence_layer",
+             "optional_libraries")
+    phase("surfaces", seconds=f"{sum(timer.times_ms) / 1e3:.3f}",
+          **{f"{n}_s": f"{ms / 1e3:.3f}" for n, ms in zip(names, timer.times_ms)},
+          **{f"step_{k}": (f"{v:.6g}" if isinstance(v, float) else v)
+             for k, v in timer.summary().items()})
+    return launches
+
+
 def gru_bound_ms(t, b, h, n_dir, elem_bytes):
     """Least time for the forward's work: bytes moved once over HBM, FLOPs of
     the recurrent product over the f32 (non-tensor-core) peak; the larger."""
@@ -4590,7 +4911,8 @@ def main():
         frozen_launches = frozen_steps_path(rec_cfg)
         frozen_step_against_f64(rec_cfg)
         phase("synthetic", seconds=f"{time.perf_counter() - t0:.3f}")
-    elapsed("cli_pc_mean_contour_recognizer_synthetic")
+        surface_launches = surfaces_path(tmp, corpus, test_step_inputs[2], test_step_inputs[0])
+    elapsed("cli_pc_mean_contour_recognizer_synthetic_surfaces")
     decode_launches = decode_path()
     decode_against_cpu()
     elapsed("decode")
@@ -4642,6 +4964,7 @@ def main():
                    **{p: rec_launches[p][k] for p in REC_PATHS},
                    **{p: syn_launches[p][k] for p in SYNTHETIC_PATHS},
                    "frozen_recognizer_steps": frozen_launches[k],
+                   **{p: surface_launches[p][k] for p in surface_launches},
                    "gru_seq": gru_seq_launches if k == "gru_seq" else 0} for k in KERNELS}
     unlaunched = [k for k in KERNELS if sum(by_path[k].values()) == 0]
     check(not unlaunched, f"kernels launched on no path: {unlaunched}")

@@ -245,10 +245,28 @@ def test_cli_refuses_what_is_not_ported(workdir, tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="missing.npz"):
         _run("artspeech_tpu_torch", "generate_vocal_tract_shape", cfg, tmp_path, monkeypatch,
              tmp_path)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        _run("artspeech_tpu_torch", "generate_vocal_tract_shape",
-             {**cfg, "method": "encoder_decoder", "save_plots": True}, tmp_path, monkeypatch,
+    # save_plots is ported (synth/viz.py): one jpg a frame, named as JAX
+    # names them; without matplotlib the port raises where JAX writes nothing.
+    plots = {}
+    for package, ckpts in (("artspeech_tpu", "jax_ckpts"), ("artspeech_tpu_torch", "ckpts")):
+        save_to = tmp_path / package / "plotted"
+        _run(package, "generate_vocal_tract_shape",
+             {**cfg, "method": "encoder_decoder", "model_params": MODEL, "save_plots": True,
+              "state_dict_filepath": str(workdir["root"] / ckpts / "best_model"),
+              "save_to": str(save_to), "batch_size": 4}, tmp_path / package, monkeypatch,
              tmp_path)
+        plots[package] = [name for name in _files(save_to) if name.endswith(".jpg")]
+    assert plots["artspeech_tpu_torch"] == plots["artspeech_tpu"]
+    frames = sum(len(open(os.path.join(d, "target_sequence.txt")).read().split())
+                 for d, _, names in os.walk(tmp_path / "artspeech_tpu_torch" / "plotted")
+                 if "target_sequence.txt" in names)
+    assert len(plots["artspeech_tpu_torch"]) == frames > 0
+    monkeypatch.setitem(sys.modules, "matplotlib", None)  # ``import matplotlib`` raises
+    with pytest.raises(RuntimeError, match="save_plots needs matplotlib"):
+        _run("artspeech_tpu_torch", "generate_vocal_tract_shape",
+             {**cfg, "method": "encoder_decoder", "model_params": MODEL, "save_plots": True,
+              "state_dict_filepath": str(workdir["root"] / "ckpts" / "best_model")},
+             tmp_path, monkeypatch, tmp_path)
 
 
 def test_explicit_mlflow_tracker_raises_when_it_cannot_start(tmp_path, monkeypatch):
