@@ -2,8 +2,8 @@
 
 The JAX package ``artspeech_tpu`` stays the reference; this package mirrors its
 layout (core/, ops/, models/, geometry/, synth/, utils/, data/, losses/,
-train/, eval/, cli/) and names, so each module's counterpart is found at the
-same path. It imports torch and numpy, never jax or anything of
+train/, eval/, cli/, parallel/) and names, so each module's counterpart is
+found at the same path. It imports torch and numpy, never jax or anything of
 ``artspeech_tpu``: what it needs of the framework-free JAX modules
 (constants, vocabulary, the semipolar grid, the B-spline basis, the canonical
 incisor, the corpus readers, the synthetic corpora, the tracker) is copied
@@ -23,7 +23,9 @@ dropout, the masked-Euclidean loss, the P2CP metric kernel, the train and
 eval steps with AdamW, checkpoints and ``fit`` (losses/, train/); and the
 model-free thesis workflow through its CLIs (cli/): corpora on disk (data/),
 the test harness with tract variables on the min-distance kernel (eval/,
-geometry/tract_variables.py), and the train, test and generate CLIs.
+geometry/tract_variables.py), and the train, test and generate CLIs. Every
+module of the JAX package has its counterpart, data parallelism over
+``torch.distributed`` (parallel/) the last.
 """
 
 __version__ = "0.1.0"

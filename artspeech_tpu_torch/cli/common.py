@@ -8,6 +8,12 @@ experiments the same way. The config is read with the port's own reader of
 the configs' YAML subset (cli/config_file.py). ``--device`` is the CLI's form
 of the ``device=`` that every entry point of the port takes: ``cuda`` unless
 ``--device cpu`` is given.
+
+Launched by ``python -m torch.distributed.run --nproc_per_node=N -m
+artspeech_tpu_torch.cli.<train_cli> ...``, ``run_experiment`` joins the group
+that torchrun's environment describes (each rank on ``cuda:LOCAL_RANK``, NCCL;
+gloo with ``--device cpu``), and only rank 0 gets a tracker that writes. A
+plain ``python -m ...`` run is world size 1.
 """
 
 import argparse
@@ -16,9 +22,15 @@ import time
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from artspeech_tpu_torch.cli import config_file
-from artspeech_tpu_torch.utils.tracking import make_tracker
+from artspeech_tpu_torch.parallel.distributed import (
+    initialize_multihost,
+    is_initialized,
+    is_main_process,
+)
+from artspeech_tpu_torch.utils.tracking import NullTracker, make_tracker
 
 #: Compute dtypes the port takes, by their config spellings; float32 is the
 #: models' default, so it is dropped from the kwargs.
@@ -69,21 +81,28 @@ def parse_cli(description: str):
 
 
 def run_experiment(description: str, main_fn: Callable):
-    """Parse CLI, build tracker, call ``main_fn(cfg, args, tracker)``."""
+    """Parse CLI, join torchrun's process group if there is one, build the
+    tracker (rank 0's; the other ranks' records nothing), call
+    ``main_fn(cfg, args, tracker)``, and leave the group it joined."""
     args, cfg = parse_cli(description)
+    joined = not is_initialized() and initialize_multihost(device=args.device)
     # Unique default so two runs without --run_name never interleave their
     # metrics.jsonl/params.json.
     default_name = f"run_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}"
     run_dir = os.path.join(args.output_dir, args.run_name or default_name)
-    tracker = make_tracker(
-        run_dir,
-        mlflow_uri=args.mlflow_tracking_uri,
-        experiment=args.experiment_name,
-        run_id=args.run_id,
-        run_name=args.run_name,
-    )
+    tracker = NullTracker()
+    if is_main_process():
+        tracker = make_tracker(
+            run_dir,
+            mlflow_uri=args.mlflow_tracking_uri,
+            experiment=args.experiment_name,
+            run_id=args.run_id,
+            run_name=args.run_name,
+        )
     tracker.log_params(cfg)
     try:
         return main_fn(cfg, args, tracker)
     finally:
         tracker.end()
+        if joined:
+            dist.destroy_process_group()

@@ -1,5 +1,5 @@
 """Train the DeepSpeech2 phoneme recognizer (counterpart of
-artspeech_tpu/cli/train_phoneme_recognition.py, on one device).
+artspeech_tpu/cli/train_phoneme_recognition.py).
 
 Equivalent of reference train_phoneme_recognition.py:51-329: CTC or CE over
 melspec / vocal_tract / air_column features, AdamW + CyclicLR, early stopping
@@ -12,7 +12,14 @@ batch_size, patience, learning_rate, weight_decay, feature, target, loss
 (ctc|ce), train/valid/test_seq_dict, vocab_filepath, model_params,
 voicing_filepath, use_voicing, logits_large_margins, class_weights_filepath,
 pretrained / pretrained_filepath, compute_dtype, accum_steps (default 1),
-seed. Data parallelism is not ported yet.
+seed.
+
+Data-parallel over torchrun's ranks: the loaders pad the collated batch to a
+multiple of the world size with rows of input length 0, each rank trains on
+its rows of every batch (the whole batch's loss, train/recognition_step.py),
+and the epoch loss is weighted by each batch's global count of real
+sentences. Rank 0 runs the valid pass and the test and writes; the others
+take its valid record.
 
 Usage: python -m artspeech_tpu_torch.cli.train_phoneme_recognition \\
            --config cfg.yaml [--output_dir results] [--device cpu]
@@ -27,6 +34,7 @@ import torch
 from artspeech_tpu_torch.cli.common import model_kwargs_from_cfg, run_experiment
 from artspeech_tpu_torch.core.device import resolve_device
 from artspeech_tpu_torch.core.vocab import load_vocabulary
+from artspeech_tpu_torch.data.batching import prefetch_to_device
 from artspeech_tpu_torch.data.recognition import (
     MELSPEC,
     TARGET_KEYS,
@@ -36,7 +44,16 @@ from artspeech_tpu_torch.data.recognition import (
 from artspeech_tpu_torch.eval.recognition import run_recognition_test
 from artspeech_tpu_torch.losses.recognition import load_class_weights
 from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2
+from artspeech_tpu_torch.parallel.distributed import (
+    barrier,
+    broadcast_object,
+    distribute_state,
+    is_initialized,
+    is_main_process,
+)
+from artspeech_tpu_torch.parallel.mesh import batch_sharding, data_parallel_mesh, world
 from artspeech_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+from artspeech_tpu_torch.train.loop import folded_seed
 from artspeech_tpu_torch.train.recognition_step import (
     cyclic_triangular_schedule,
     make_recognition_eval_step,
@@ -87,6 +104,7 @@ def main(cfg, args, tracker):
     if cfg.get("class_weights_filepath"):
         class_weights = load_class_weights(cfg["class_weights_filepath"], vocabulary)
 
+    n_ranks, _ = world()
     loaders = {}
     tmp_dir = tempfile.mkdtemp() if feature == MELSPEC else None
     for split, key, shuffle in (
@@ -104,13 +122,17 @@ def main(cfg, args, tracker):
             tmp_dir=tmp_dir,
         )
         loaders[split] = RecognitionLoader(dataset, feature, batch_size=cfg["batch_size"],
-                                           shuffle=shuffle)
+                                           shuffle=shuffle, pad_to_multiple=n_ranks)
 
     # AdamW with the cyclic LR applied per optimizer step (reference :184-189).
     lr = cfg["learning_rate"]
     state = create_train_state(model, lr, cfg.get("weight_decay", 0.0))
     if args.checkpoint_filepath:
         state, _ = restore_checkpoint(args.checkpoint_filepath, state)
+    mesh = None
+    if is_initialized():
+        mesh = data_parallel_mesh(loaders["train"].collate_batch_size, device=device)
+        distribute_state(state, mesh)
 
     n_params = count_parameters(model)
     tracker.log_params({"num_network_params": n_params})
@@ -124,44 +146,63 @@ def main(cfg, args, tracker):
                   device=device)
     train_step = make_recognition_train_step(
         criterion, target_key, logits_large_margins=cfg.get("logits_large_margins", 0.0),
-        accum_steps=accum, schedule=cyclic_triangular_schedule(lr / 25, lr), **common)
+        accum_steps=accum, schedule=cyclic_triangular_schedule(lr / 25, lr), mesh=mesh,
+        **common)
     eval_step = make_recognition_eval_step(criterion, target_key, **common)
 
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     best_dir = os.path.join(ckpt_dir, "best")
     best_metric, since_best = float("inf"), 0
-    step_gen = torch.Generator(device=device).manual_seed(seed)
+    # Each data rank draws its own dropout and logit noise (rank 0 the
+    # one-device run's).
+    rank = mesh.data_index if mesh is not None else 0
+    step_gen = torch.Generator(device=device).manual_seed(
+        seed if rank == 0 else folded_seed(seed, rank))
+    sharding = batch_sharding(mesh) if mesh is not None else None
+    main = is_main_process()
     for epoch in range(cfg["num_epochs"]):
         loss_sum, weight_sum = 0.0, 0.0
-        for batch, meta in loaders["train"]:
+        batches = loaders["train"] if sharding is None else prefetch_to_device(
+            loaders["train"], sharding=sharding)
+        for batch, meta in batches:
             metrics = train_step(state, batch, step_gen)
             w = float(meta.get("n_real", 1))  # sentence-weighted epoch mean
             loss_sum += w * float(metrics["loss"])
             weight_sum += w
         train_loss = loss_sum / weight_sum if weight_sum else float("nan")
 
-        valid_info = run_recognition_test(state, eval_step, loaders["valid"], target_key,
-                                          vocabulary)
-        record = {
-            "train_loss": train_loss,
-            "valid_loss": valid_info["loss"],
-            "valid_edit_distance": valid_info["edit_distance"],
-        }
+        record = None
+        if main:
+            valid_info = run_recognition_test(state, eval_step, loaders["valid"], target_key,
+                                              vocabulary)
+            record = {
+                "train_loss": train_loss,
+                "train_manual_spmd": float(mesh is not None),
+                "valid_loss": valid_info["loss"],
+                "valid_edit_distance": valid_info["edit_distance"],
+            }
+        record = broadcast_object(record, mesh)
         tracker.log_metrics(record, step=epoch)
         print(f"epoch {epoch}: {record}")
 
-        if valid_info["edit_distance"] < best_metric:
-            best_metric, since_best = valid_info["edit_distance"], 0
-            save_checkpoint(best_dir, state, aux={"epoch": epoch, "edit_distance": best_metric})
+        if record["valid_edit_distance"] < best_metric:
+            best_metric, since_best = record["valid_edit_distance"], 0
+            if main:
+                save_checkpoint(best_dir, state,
+                                aux={"epoch": epoch, "edit_distance": best_metric})
         else:
             since_best += 1
-        save_checkpoint(
-            os.path.join(ckpt_dir, "last"),
-            state,
-            aux={"epoch": epoch, "best_metric": best_metric, "epochs_since_best": since_best},
-        )
+        if main:
+            save_checkpoint(
+                os.path.join(ckpt_dir, "last"),
+                state,
+                aux={"epoch": epoch, "best_metric": best_metric, "epochs_since_best": since_best},
+            )
+        barrier(mesh)
         if since_best > cfg.get("patience", 30):
             break
+    if not main:
+        return None
 
     state, _ = restore_checkpoint(best_dir, state)
     eval_step_f = make_recognition_eval_step(criterion, target_key, return_features=True,

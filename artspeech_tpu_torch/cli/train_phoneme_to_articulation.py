@@ -6,11 +6,18 @@ trainer): AdamW + plateau LR + early stopping on valid P2CP-mm, then a final
 test pass with artifact dumps. YAML config keys mirror the reference
 ``main(**cfg)`` surface (datadir, database_name, num_epochs, batch_size,
 patience, learning_rate, weight_decay, train/valid/test_seq_dict,
-vocab_filepath, articulators, model_kwargs, clip_tails, seed). One device;
-data parallelism is not ported yet.
+vocab_filepath, articulators, model_kwargs, clip_tails, seed).
+
+Data-parallel over torchrun's ranks: the loaders pad the collated batch to a
+multiple of the world size with zero-length dummy rows, ``fit`` resolves the
+mesh, and the steps are built against it: the multi-rank steps over a
+group, the one-device steps at world size 1, where there is no group. Rank 0
+writes and runs the final test.
 
 Usage: python -m artspeech_tpu_torch.cli.train_phoneme_to_articulation \
            --config config.yaml [--output_dir results] [--device cpu]
+       python -m torch.distributed.run --nproc_per_node=N \
+           -m artspeech_tpu_torch.cli.train_phoneme_to_articulation --config config.yaml
 """
 
 import json
@@ -26,6 +33,8 @@ from artspeech_tpu_torch.data.batching import BucketedLoader
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
 from artspeech_tpu_torch.eval.articulation import run_test
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
+from artspeech_tpu_torch.parallel.distributed import is_main_process
+from artspeech_tpu_torch.parallel.mesh import world
 from artspeech_tpu_torch.train.checkpoint import restore_checkpoint
 from artspeech_tpu_torch.train.loop import fit
 from artspeech_tpu_torch.train.state import count_parameters, create_train_state
@@ -47,6 +56,7 @@ def main(cfg, args, tracker):
                       **model_kwargs_from_cfg(cfg),
                       generator=torch.Generator().manual_seed(seed), device=device)
 
+    n_ranks, _ = world()
     loaders = {}
     for split, seq_key, shuffle in (
         ("train", "train_seq_dict", True),
@@ -57,7 +67,7 @@ def main(cfg, args, tracker):
                                    sequences_from_dict(datadir, cfg[seq_key]), vocabulary,
                                    articulators, clip_tails=clip_tails)
         loaders[split] = BucketedLoader(dataset, batch_size=cfg["batch_size"], shuffle=shuffle,
-                                        seed=seed)
+                                        seed=seed, pad_to_multiple=n_ranks)
 
     state = create_train_state(model, cfg["learning_rate"], cfg.get("weight_decay", 0.0))
     if cfg.get("state_dict_filepath"):
@@ -72,8 +82,12 @@ def main(cfg, args, tracker):
         state,
         loaders["train"],
         loaders["valid"],
-        make_artspeech_train_step(to_mm, device=device),
-        make_artspeech_eval_step(to_mm, device=device),
+        None,
+        None,
+        train_step_factory=lambda mesh: make_artspeech_train_step(
+            to_mm, device=device, mesh=mesh),
+        eval_step_factory=lambda mesh: make_artspeech_eval_step(
+            to_mm, device=device, mesh=mesh),
         n_epochs=cfg["num_epochs"],
         checkpoints_dir=ckpt_dir,
         monitor="p2cp_mm",
@@ -85,6 +99,8 @@ def main(cfg, args, tracker):
         device=device,
     )
     print(f"Best valid p2cp_mm: {result.best_metric:.4f} @ <= epoch {result.last_epoch}")
+    if not is_main_process():
+        return None
 
     # Final test with the best model (reference :331-371).
     best_state, _ = restore_checkpoint(result.best_params_dir, result.state)

@@ -12,7 +12,9 @@ model_kwargs, clip_tails, seed), ``n_samples``, ``accum_steps`` (default:
 (default ``bfloat16``) and ``regularize_out``. Training runs the pair
 attention on the fused training-attention kernels, the final test the KV-cached
 decode on the flash decode-attention kernel and the metrics on the P2CP and
-min-distance kernels. One device; data parallelism is not ported yet.
+min-distance kernels. Data-parallel over torchrun's ranks as the
+model-free trainer (cli/train_phoneme_to_articulation.py), the microbatches of
+``accum_steps`` inside each rank; rank 0 writes, decodes and tests.
 
 Usage: python -m artspeech_tpu_torch.cli.train_phoneme_to_articulation_transformer \
            --config cfg.yaml [--output_dir results] [--device cpu]
@@ -32,6 +34,8 @@ from artspeech_tpu_torch.data.batching import BucketedLoader
 from artspeech_tpu_torch.data.datasets import ArtSpeechDataset
 from artspeech_tpu_torch.eval.articulation import run_test
 from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_auto_generate
+from artspeech_tpu_torch.parallel.distributed import is_main_process
+from artspeech_tpu_torch.parallel.mesh import world
 from artspeech_tpu_torch.train.checkpoint import restore_checkpoint
 from artspeech_tpu_torch.train.loop import fit
 from artspeech_tpu_torch.train.state import count_parameters, create_train_state
@@ -57,6 +61,7 @@ def main(cfg, args, tracker):
                                  num_feat=2 * n_samples, **model_kwargs_from_cfg(cfg),
                                  generator=torch.Generator().manual_seed(seed), device=device)
 
+    n_ranks, _ = world()
     loaders = {}
     for split, seq_key, shuffle in (
         ("train", "train_seq_dict", True),
@@ -67,7 +72,7 @@ def main(cfg, args, tracker):
                                    sequences_from_dict(datadir, cfg[seq_key]), vocabulary,
                                    articulators, clip_tails=cfg.get("clip_tails", True))
         loaders[split] = BucketedLoader(dataset, batch_size=cfg["batch_size"], shuffle=shuffle,
-                                        seed=seed)
+                                        seed=seed, pad_to_multiple=n_ranks)
 
     state = create_train_state(model, cfg["learning_rate"], cfg.get("weight_decay", 0.0))
     n_params = count_parameters(state.model)
@@ -80,8 +85,12 @@ def main(cfg, args, tracker):
         state,
         loaders["train"],
         loaders["valid"],
-        make_transformer_train_step(to_mm, accum_steps=accum, device=device),
-        make_transformer_eval_step(to_mm, device=device),
+        None,
+        None,
+        train_step_factory=lambda mesh: make_transformer_train_step(
+            to_mm, accum_steps=accum, device=device, mesh=mesh),
+        eval_step_factory=lambda mesh: make_transformer_eval_step(
+            to_mm, device=device, mesh=mesh),
         n_epochs=cfg["num_epochs"],
         checkpoints_dir=os.path.join(args.output_dir, "checkpoints"),
         monitor="p2cp_mm",
@@ -93,6 +102,8 @@ def main(cfg, args, tracker):
         device=device,
     )
     print(f"Best valid p2cp_mm: {result.best_metric:.4f} @ <= epoch {result.last_epoch}")
+    if not is_main_process():
+        return None
 
     # Final autoregressive test with the best model (reference :331-371).
     best_state, _ = restore_checkpoint(result.best_params_dir, result.state)

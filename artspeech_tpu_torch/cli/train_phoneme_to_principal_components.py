@@ -7,7 +7,8 @@ trained with the AutoencoderLoss composite over a frozen autoencoder (latent
 MSE, decoded-contour MSE, the critical TV loss and, with a ``recognizer:``
 block, ``beta4`` times the feature MSE of a frozen DeepSpeech2), valid metric
 the decoder P2CP in mm, through ``fit``; then the final test with TV and
-contour dumps. One device.
+contour dumps. Data-parallel over torchrun's ranks as the model-free trainer
+(cli/train_phoneme_to_articulation.py); rank 0 writes and tests.
 
 Usage: python -m artspeech_tpu_torch.cli.train_phoneme_to_principal_components \
            --config cfg.yaml [--output_dir results] [--device cpu]
@@ -43,6 +44,8 @@ from artspeech_tpu_torch.models.autoencoder import (
 )
 from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2, frozen_recognizer_fn
 from artspeech_tpu_torch.models.latent_rnn import PrincipalComponentsArtSpeech
+from artspeech_tpu_torch.parallel.distributed import is_main_process
+from artspeech_tpu_torch.parallel.mesh import world
 from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
 from artspeech_tpu_torch.train.loop import fit
 from artspeech_tpu_torch.train.pc_step import (
@@ -118,6 +121,7 @@ def main(cfg, args, tracker):
     norm_stats = load_norm_stats(datadir, articulators)
     denorm_mean, denorm_std = stack_norm_stats(norm_stats, articulators)
 
+    n_ranks, _ = world()
     loaders = {}
     for split, key, shuffle in (("train", "train_seq_dict", True),
                                 ("valid", "valid_seq_dict", False),
@@ -127,7 +131,7 @@ def main(cfg, args, tracker):
             articulators, TV_to_phoneme_map=cfg.get("TV_to_phoneme_map"),
             clip_tails=cfg.get("clip_tails", True), norm_stats=norm_stats)
         loaders[split] = BucketedLoader(dataset, batch_size=cfg["batch_size"], shuffle=shuffle,
-                                        seed=seed)
+                                        seed=seed, pad_to_multiple=n_ranks)
 
     encode_fn, decode_fn = build_frozen_ae(cfg, indices_dict, device=device)
     tvs = sorted((cfg.get("TV_to_phoneme_map") or {}).keys())
@@ -151,10 +155,14 @@ def main(cfg, args, tracker):
         state,
         loaders["train"],
         loaders["valid"],
-        make_latent_rnn_train_step(loss_fn, decode_fn, denorm_mean, denorm_std, to_mm, rescale,
-                                   device=device),
-        make_latent_rnn_eval_step(loss_fn, decode_fn, denorm_mean, denorm_std, to_mm, rescale,
-                                  device=device),
+        None,
+        None,
+        train_step_factory=lambda mesh: make_latent_rnn_train_step(
+            loss_fn, decode_fn, denorm_mean, denorm_std, to_mm, rescale, device=device,
+            mesh=mesh),
+        eval_step_factory=lambda mesh: make_latent_rnn_eval_step(
+            loss_fn, decode_fn, denorm_mean, denorm_std, to_mm, rescale, device=device,
+            mesh=mesh),
         n_epochs=cfg["num_epochs"],
         checkpoints_dir=os.path.join(args.output_dir, "checkpoints"),
         monitor="p2cp_mm",
@@ -165,6 +173,8 @@ def main(cfg, args, tracker):
         resume_from=args.checkpoint_filepath,
         device=device,
     )
+    if not is_main_process():
+        return None
 
     best_state, _ = restore_checkpoint(result.best_params_dir, result.state)
     info = run_latent_rnn_test(best_state.model, decode_fn, loaders["test"], articulators,

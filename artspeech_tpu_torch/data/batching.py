@@ -1,19 +1,22 @@
 """Bucketed fixed-shape batching (copy of artspeech_tpu/data/batching.py:
 ``DEFAULT_BUCKETS``, ``pick_bucket``, ``pad_to``,
-``collate_articulation_batch``, ``BucketedLoader``),
-and :func:`to_device`, the single-device counterpart of its
-``prefetch_to_device``.
+``collate_articulation_batch``, ``round_up_to_multiple``, ``BucketedLoader``,
+``CachedLoader``), and ``prefetch_to_device``, which copies batches to the
+device one ahead and, on a mesh, keeps the rank's rows.
 
 Sentences are padded up to a small set of bucket lengths, so the steps see a
 few shapes only. Short batches are padded with zero-length dummy rows; every
 loss and metric is padding-mask aware, so dummies contribute nothing.
 """
 
+import collections
 import logging
 from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
 import torch
+
+from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -82,10 +85,25 @@ def collate_articulation_batch(
     return batch, meta
 
 
+def round_up_to_multiple(n: int, multiple: int) -> int:
+    """Smallest multiple of ``multiple`` >= n (multiple <= 1: n itself).
+
+    Shared by every loader that pads the collated batch so that it splits
+    evenly over a data-parallel mesh's ranks.
+    """
+    m = max(int(multiple), 1)
+    return ((int(n) + m - 1) // m) * m
+
+
 class BucketedLoader:
     """Length-bucketed batch iterator over an ArtSpeechDataset-like dataset.
 
     Yields (batch_dict, meta) with static shapes per (bucket, batch_size).
+    Sentences are chunked by ``batch_size`` (the configured batch's gradient
+    semantics) and collated to ``collate_batch_size``, the next multiple of
+    ``pad_to_multiple``, with zero-length dummy rows, so the batch splits
+    evenly over a data-parallel mesh. ``drop_last`` skips a short chunk;
+    ``cache_items`` keeps every item once loaded.
     """
 
     def __init__(
@@ -95,16 +113,23 @@ class BucketedLoader:
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         shuffle: bool = True,
         seed: int = 0,
+        drop_last: bool = False,
+        cache_items: bool = True,
+        pad_to_multiple: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.buckets = tuple(sorted(buckets))
         self.shuffle = shuffle
         self.seed = seed
+        self.drop_last = drop_last
+        self.collate_batch_size = round_up_to_multiple(batch_size, pad_to_multiple)
         self._epoch = 0
-        self._cache = [None] * len(dataset)
+        self._cache = [None] * len(dataset) if cache_items else None
 
     def _get(self, i: int) -> dict:
+        if self._cache is None:
+            return self.dataset[i]
         if self._cache[i] is None:
             self._cache[i] = self.dataset[i]
         return self._cache[i]
@@ -151,32 +176,64 @@ class BucketedLoader:
         for bucket in sorted(by_bucket):
             indices = by_bucket[bucket]
             for start in range(0, len(indices), self.batch_size):
-                items = [self._get(i) for i in indices[start : start + self.batch_size]]
-                yield collate_articulation_batch(items, bucket, self.batch_size)
+                chunk = indices[start : start + self.batch_size]
+                if self.drop_last and len(chunk) < self.batch_size:
+                    continue
+                items = [self._get(i) for i in chunk]
+                yield collate_articulation_batch(items, bucket, self.collate_batch_size)
 
 
-def to_device(loader, device):
-    """Yield a loader's (batch, meta) pairs with the batch's arrays as tensors
-    on ``device``, copied one batch ahead: on CUDA from pinned host memory
-    with ``non_blocking=True``, so the next batch's copy overlaps the current
-    step. ``meta`` stays on the host."""
-    device = torch.device(device)
+def prefetch_to_device(iterator, size: int = 2, sharding=None, device: DeviceLike = None):
+    """Yield an iterator's (batch, meta) pairs with the batch's arrays as
+    tensors on the device, ``size - 1`` batches ahead: on CUDA from pinned
+    host memory with ``non_blocking=True``, so the next batch's copy overlaps
+    the current step. With ``sharding`` (``parallel.mesh.batch_sharding``)
+    only the rank's rows are copied, to the mesh's device; ``meta`` stays
+    global and on the host. ``device``: ``cuda`` unless the caller passes
+    ``device="cpu"`` (ignored with a ``sharding``)."""
+    device = sharding.mesh.device if sharding is not None else resolve_device(device)
     pinned = device.type == "cuda"
 
     def put(batch):
         out = {}
         for key, value in batch.items():
             host = torch.from_numpy(np.ascontiguousarray(value))
+            if sharding is not None:
+                host = host[sharding.rows(host.shape[0])]
             if pinned:
                 host = host.pin_memory()
             out[key] = host.to(device, non_blocking=pinned)
         return out
 
-    pending = None
-    for batch, meta in loader:
-        item = (put(batch), meta)
-        if pending is not None:
-            yield pending
-        pending = item
-    if pending is not None:
-        yield pending
+    queue = collections.deque()
+    for batch, meta in iterator:
+        queue.append((put(batch), meta))
+        if len(queue) >= size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+
+
+class CachedLoader:
+    """Materialise a loader's batches once and replay them (a deterministic
+    eval loader would otherwise collate the same batches every epoch)."""
+
+    def __init__(self, loader):
+        self._loader = loader
+        self._batches = None
+
+    def __getattr__(self, name):
+        # Delegate the loader's attributes (batch_size, collate_batch_size,
+        # ...), never underscored ones: copy and unpickle probe attributes
+        # before __init__ ran, and self._loader would recurse.
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._loader, name)
+
+    def __len__(self):
+        return len(self._batches) if self._batches is not None else len(self._loader)
+
+    def __iter__(self):
+        if self._batches is None:
+            self._batches = list(self._loader)
+        return iter(self._batches)

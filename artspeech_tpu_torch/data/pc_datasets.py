@@ -1,5 +1,5 @@
 """Datasets for the principal-components (autoencoder) method (copy of
-artspeech_tpu/data/pc_datasets.py, on one device).
+artspeech_tpu/data/pc_datasets.py).
 
 Equivalents of reference principal_components/dataset.py:15-263:
 - frame-level ``AutoencoderDataset`` with phoneme-dependent sample weights
@@ -8,8 +8,8 @@ Equivalents of reference principal_components/dataset.py:15-263:
   config-supplied ``TV_to_phoneme_map``, references and voicing;
 plus the normalization-statistics computation itself (reference
 scripts/calculate_normalization_statistics.py). Frame batches are padded to
-the batch size with zero-weight rows, as the JAX package pads them on one
-device; its ``pad_to_multiple`` for a data-parallel mesh is not ported.
+the batch size, or to ``pad_to_multiple`` of it for a data-parallel mesh,
+with zero-weight rows, as the JAX package pads them.
 """
 
 import os
@@ -19,6 +19,7 @@ import numpy as np
 
 from artspeech_tpu_torch.core.config import DATASET_CONFIG
 from artspeech_tpu_torch.core.vocab import token_id
+from artspeech_tpu_torch.data.batching import round_up_to_multiple
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.loaders import prepare_articulator_array
 
@@ -165,11 +166,15 @@ class AutoencoderDataset:
             "phoneme": item["phoneme"],
         }
 
-    def batches(self, batch_size: int, shuffle=True, seed=0, drop_last=False):
+    def batches(self, batch_size: int, shuffle=True, seed=0, drop_last=False,
+                pad_to_multiple: int = 1):
         """Fixed-shape frame batches: ({inputs (B, Nart, F), weights (B,)},
         {frame_names, phonemes, n_valid}) — arrays and metadata split so the
-        batch dict can go straight into a step. A short last batch is padded
-        to ``batch_size`` with zero-weight dummies."""
+        batch dict can go straight into a step. Frames are chunked by
+        ``batch_size`` and collated to its next multiple of
+        ``pad_to_multiple`` with zero-weight dummies, so the batch splits
+        evenly over a data-parallel mesh."""
+        collate_bs = round_up_to_multiple(batch_size, pad_to_multiple)
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
@@ -181,8 +186,8 @@ class AutoencoderDataset:
             n = len(items)
             inputs = np.stack([it["inputs"] for it in items])
             weights = np.array([it["weight"] for it in items], np.float32)
-            if n < batch_size:  # pad with zero-weight dummies
-                pad = batch_size - n
+            if n < collate_bs:  # pad with zero-weight dummies
+                pad = collate_bs - n
                 inputs = np.concatenate([inputs, np.zeros((pad,) + inputs.shape[1:], np.float32)])
                 weights = np.concatenate([weights, np.zeros(pad, np.float32)])
             batch = {"inputs": inputs, "weights": weights}

@@ -23,7 +23,7 @@ from artspeech_tpu_torch.core.config import DATASET_CONFIG
 from artspeech_tpu_torch.core.constants import RECOGNITION_ARTICULATORS, UPPER_INCISOR
 from artspeech_tpu_torch.core.vocab import token_id
 from artspeech_tpu_torch.data.audio import read_wav
-from artspeech_tpu_torch.data.batching import pick_bucket
+from artspeech_tpu_torch.data.batching import pick_bucket, round_up_to_multiple
 from artspeech_tpu_torch.data.collectors import DATABASE_COLLECTORS
 from artspeech_tpu_torch.data.loaders import VocalTractShapeLoader, cached_load_articulator_array
 
@@ -354,7 +354,9 @@ def collate_recognition_batch(
 
 
 class RecognitionLoader:
-    """Bucketed loader over a PhonemeRecognitionDataset for one feature."""
+    """Bucketed loader over a PhonemeRecognitionDataset for one feature.
+    ``pad_to_multiple`` rounds the collated batch up with rows of input
+    length 0 (JAX data/recognition.py:388-409)."""
 
     def __init__(
         self,
@@ -365,10 +367,14 @@ class RecognitionLoader:
         shuffle: bool = True,
         seed: int = 0,
         hop_length: int = 256,
+        pad_to_multiple: int = 1,
     ):
         self.dataset = dataset
         self.feature = feature
         self.batch_size = batch_size
+        # Chunked by batch_size, collated to a multiple of pad_to_multiple
+        # (rows of input length 0) so the batch splits over a mesh's ranks.
+        self.collate_batch_size = round_up_to_multiple(batch_size, pad_to_multiple)
         self.buckets = tuple(sorted(buckets))
         self.shuffle = shuffle
         self.seed = seed
@@ -416,6 +422,6 @@ class RecognitionLoader:
                     items,
                     self.feature,
                     bucket,
-                    self.batch_size,
+                    self.collate_batch_size,
                     hop_length=self.hop_length,
                 )

@@ -18,7 +18,7 @@ from torch import nn
 
 from artspeech_tpu_torch.core.constants import REQUIRED_ARTICULATORS_FOR_TVS, UPPER_INCISOR
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.data.batching import to_device
+from artspeech_tpu_torch.data.batching import prefetch_to_device
 from artspeech_tpu_torch.eval.artifacts import (
     save_contours,
     save_tract_variables_csv,
@@ -181,7 +181,7 @@ def run_test(
 
     losses = []
     acc = {k: [] for k in ("p2cp", "med", "x_corr", "y_corr")}
-    for batch, meta in to_device(loader, dev):
+    for batch, meta in prefetch_to_device(loader, device=dev):
         result = _to_host(test_step(batch))
         lengths = batch["lengths"].cpu().numpy()
         valid = lengths > 0

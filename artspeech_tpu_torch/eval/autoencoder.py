@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.data.batching import to_device
+from artspeech_tpu_torch.data.batching import prefetch_to_device
 from artspeech_tpu_torch.eval.articulation import run_test
 from artspeech_tpu_torch.models.latent_rnn import make_latent_rnn_synthesis_forward
 from artspeech_tpu_torch.ops.distances import mean_p2cp_channel_major
@@ -42,7 +42,7 @@ def run_autoencoder_test(state, eval_step, dataset, batch_size: int, denorm_mean
     arts = sorted(articulators)
     mean, std = (torch.as_tensor(v, device=dev) for v in (denorm_mean, denorm_std))
     losses, all_latents, per_art_p2cp = [], [], []
-    for batch, meta in to_device(dataset.batches(batch_size, shuffle=False), dev):
+    for batch, meta in prefetch_to_device(dataset.batches(batch_size, shuffle=False), device=dev):
         metrics, (recon, latents) = eval_step(state, batch)
         n = meta["n_valid"]
         losses.append(float(metrics["loss"]))

@@ -4,7 +4,10 @@ artspeech_tpu/losses/articulation.py: ``masked_euclidean_loss``,
 ``recognition_feature_loss``).
 
 Masked reductions over padded (B, T, Nart, 2, D) contour batches: the
-per-sentence mean over valid frames is a masked sum, no host loop.
+per-sentence mean over valid frames is a masked sum, no host loop. The masked
+means are also exposed split, as (numerator, count) (``masked_euclidean_parts``,
+``recognition_feature_parts``, ``p2cp_distance_mm(reduce=False)``), so that a
+step over microbatches or ranks divides each part by the whole batch's count.
 """
 
 from typing import Optional
@@ -24,11 +27,23 @@ def masked_euclidean_loss(outputs, targets, lengths):
     Returns:
         scalar (reference train_phoneme_to_articulation.py:85-90).
     """
+    num, n_frames = masked_euclidean_parts(outputs, targets, lengths)
+    return num / euclidean_denominator(n_frames, outputs)
+
+
+def masked_euclidean_parts(outputs, targets, lengths):
+    """``(numerator, n_frames)`` of :func:`masked_euclidean_loss`: the point
+    distances summed over valid frames, and the number of valid frames."""
     dist = euclidean_distance(outputs, targets)  # (B, T, Nart, D)
     mask = make_padding_mask(lengths, outputs.shape[1])
     w = mask[:, :, None, None].to(dist.dtype)
-    n_valid = torch.clamp(mask.sum().to(dist.dtype), min=1.0) * dist.shape[2] * dist.shape[3]
-    return (dist * w).sum() / n_valid
+    return (dist * w).sum(), mask.sum().to(dist.dtype)
+
+
+def euclidean_denominator(n_frames, outputs):
+    """The masked-Euclidean mean's divisor for ``n_frames`` valid frames
+    (of the batch, or of a whole group's batches) of (.., Nart, 2, D) outputs."""
+    return torch.clamp(n_frames, min=1.0) * outputs.shape[-3] * outputs.shape[-1]
 
 
 def p2cp_distance_mm(outputs, targets, lengths,
@@ -78,8 +93,13 @@ def recognition_feature_loss(output_features, target_features, lengths):
     Returns:
         the masked sum of squares over (valid frames x F).
     """
+    num, n_frames = recognition_feature_parts(output_features, target_features, lengths)
+    return num / (torch.clamp(n_frames, min=1.0) * output_features.shape[-1])
+
+
+def recognition_feature_parts(output_features, target_features, lengths):
+    """``(numerator, n_frames)`` of :func:`recognition_feature_loss`."""
     mask = make_padding_mask(lengths, output_features.shape[1])
     sq = (output_features - target_features) ** 2
     w = mask[:, :, None].to(sq.dtype)
-    n_valid = torch.clamp(mask.sum().to(sq.dtype), min=1.0) * sq.shape[-1]
-    return (sq * w).sum() / n_valid
+    return (sq * w).sum(), mask.sum().to(sq.dtype)

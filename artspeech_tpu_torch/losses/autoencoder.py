@@ -12,6 +12,13 @@ whose parameters do not require grad: the latent targets are encoded under
 gradients to its input only. The optional recognizer term (``recognizer_fn``,
 ``beta4``) is the feature MSE of a frozen DeepSpeech2 between the decoded
 and the target contours, the targets' features under ``torch.no_grad()``.
+
+Each loss takes an optional process ``group`` (``parallel/mesh.py``'s data
+group): its counts are then the group's, so a rank's loss is its share of the
+whole batch's and the step sums losses and gradients over the group. The
+latent covariance is not a mean of rows: with a group its sums run over the
+group's rows through an all-reduce whose backward sums too, and each rank
+carries 1 / (group size) of the penalty.
 """
 
 from typing import Callable, Dict, Optional, Sequence
@@ -31,6 +38,11 @@ from artspeech_tpu_torch.models.deepspeech2 import to_recognizer_layout
 from artspeech_tpu_torch.ops.distances import (
     mean_p2cp_channel_major,
     min_pairwise_distance_channel_major,
+)
+from artspeech_tpu_torch.parallel.collectives import (
+    differentiable_group_sum,
+    group_size,
+    group_sum,
 )
 from artspeech_tpu_torch.utils.masks import make_padding_mask
 
@@ -53,7 +65,7 @@ def _resolve_index(articulator: str, indices: Dict[str, int]) -> int:
 
 
 def critical_loss(output_shapes, reference_arrays, critical_mask, TVs: Sequence[str],
-                  articulators: Sequence[str], denorm_mean=None, denorm_std=None):
+                  articulators: Sequence[str], denorm_mean=None, denorm_std=None, group=None):
     """Mean minimum TV distance over critical frames.
 
     Args:
@@ -88,16 +100,19 @@ def critical_loss(output_shapes, reference_arrays, critical_mask, TVs: Sequence[
         dists.append(min_pairwise_distance_channel_major(a1, a2))  # (B, T)
     per_tv = torch.stack(dists, dim=1)  # (B, Ntv, T)
     w = (critical_mask == 1).to(per_tv.dtype)
-    return torch.sum(per_tv * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(per_tv * w) / torch.clamp(group_sum(torch.sum(w), group), min=1.0)
 
 
-def offdiag_cov_penalty(latents, indices_dict: Dict[str, Sequence[int]], valid=None):
+def offdiag_cov_penalty(latents, indices_dict: Dict[str, Sequence[int]], valid=None,
+                        group=None):
     """Sum over articulator blocks of squared off-diagonal covariance
     entries (reference losses.py:275-283).
 
     Args:
         valid: optional (B,) 0/1 mask — zero-padded dummy rows of a batch
             must not enter the covariance estimate.
+        group: with ``valid``, the covariance of the group's rows (every
+            rank returns the same penalty).
     """
     if valid is None:
         n = latents.shape[0]
@@ -105,10 +120,11 @@ def offdiag_cov_penalty(latents, indices_dict: Dict[str, Sequence[int]], valid=N
         cov = centered.T @ centered / max(n - 1, 1)  # (L, L)
     else:
         v = valid.to(latents.dtype)[:, None]
-        n = torch.clamp(torch.sum(v), min=1.0)
-        mean = torch.sum(latents * v, dim=0, keepdim=True) / n
+        n = torch.clamp(group_sum(torch.sum(v), group), min=1.0)
+        mean = differentiable_group_sum(torch.sum(latents * v, dim=0, keepdim=True), group) / n
         centered = (latents - mean) * v
-        cov = centered.T @ centered / torch.clamp(n - 1.0, min=1.0)
+        cov = differentiable_group_sum(centered.T @ centered, group) \
+            / torch.clamp(n - 1.0, min=1.0)
     total = latents.new_zeros(())
     for idx in indices_dict.values():
         if len(idx) <= 1:
@@ -120,7 +136,7 @@ def offdiag_cov_penalty(latents, indices_dict: Dict[str, Sequence[int]], valid=N
 
 
 def regularized_latents_mse_loss(outputs, latents, targets, indices_dict: Dict[str, Sequence[int]],
-                                 alpha: float, sample_weights=None):
+                                 alpha: float, sample_weights=None, group=None):
     """Weighted reconstruction MSE + alpha * off-diagonal latent covariance
     (reference losses.py:254-285).
 
@@ -128,14 +144,19 @@ def regularized_latents_mse_loss(outputs, latents, targets, indices_dict: Dict[s
         outputs/targets: (B, Nart, F); latents: (B, L);
         sample_weights: (B,). Zero-weight rows (batch-padding dummies) are
             excluded from BOTH the MSE denominator and the covariance.
+        group: with ``sample_weights``, this rank's share of the loss of
+            the group's rows (module docstring).
     """
     sq = (outputs - targets) ** 2
     if sample_weights is not None:
         sq = sq * sample_weights[:, None, None]
         valid = (sample_weights > 0).to(sq.dtype)
-        n_rows = torch.clamp(torch.sum(valid), min=1.0)
+        n_rows = torch.clamp(group_sum(torch.sum(valid), group), min=1.0)
         mse = torch.sum(sq) / (n_rows * sq.shape[1] * sq.shape[2])
-        return mse + alpha * offdiag_cov_penalty(latents, indices_dict, valid)
+        penalty = offdiag_cov_penalty(latents, indices_dict, valid, group)
+        if group is not None:
+            penalty = penalty / group_size(group)
+        return mse + alpha * penalty
     return sq.mean() + alpha * offdiag_cov_penalty(latents, indices_dict)
 
 
@@ -154,14 +175,15 @@ def make_autoencoder_loss(encode_fn: Callable, decode_fn: Callable, TVs: Sequenc
             (``models.deepspeech2.frozen_recognizer_fn``); its term, weighted
             by ``beta4``, is the features' MSE over valid frames.
     Returns loss_fn(output_pcs, target_shapes, reference_arrays, lengths,
-                    critical_mask, voicing=None) -> scalar.
+                    critical_mask, voicing=None, group=None) -> scalar; with a
+    ``group`` every term's count is the group's.
     """
 
     def loss_fn(output_pcs, target_shapes, reference_arrays, lengths, critical_mask,
-                voicing=None):
+                voicing=None, group=None):
         b, t, n_art, _, d = target_shapes.shape
         mask = make_padding_mask(lengths, t).to(target_shapes.dtype)
-        n_valid = torch.clamp(torch.sum(mask), min=1.0)
+        n_valid = torch.clamp(group_sum(torch.sum(mask), group), min=1.0)
 
         # Frozen-encoder latent targets: targets, not a path for gradients.
         with torch.no_grad():
@@ -176,7 +198,8 @@ def make_autoencoder_loss(encode_fn: Callable, decode_fn: Callable, TVs: Sequenc
         recon_sq = (output_shapes - target_shapes) ** 2  # (B, T, Nart, 2, D)
         recon_loss = torch.sum(recon_sq.mean(dim=(-3, -2, -1)) * mask) / n_valid
         crit_loss = critical_loss(output_shapes, reference_arrays, critical_mask, TVs,
-                                  articulators, denorm_mean=denorm_mean, denorm_std=denorm_std)
+                                  articulators, denorm_mean=denorm_mean, denorm_std=denorm_std,
+                                  group=group)
         loss = beta1 * latent_loss + beta2 * recon_loss + beta3 * crit_loss
         if recognizer_fn is not None:
             with torch.no_grad():
@@ -190,14 +213,16 @@ def make_autoencoder_loss(encode_fn: Callable, decode_fn: Callable, TVs: Sequenc
 
 
 def decoder_mean_p2cp_mm(output_pcs, target_shapes, lengths, decode_fn: Callable, denorm_mean,
-                         denorm_std, to_mm: float, rescale_factor: float = 1.0):
+                         denorm_std, to_mm: float, rescale_factor: float = 1.0, group=None):
     """Valid metric: decode latents, denormalize, P2CP in mm (reference
     principal_components/metrics.py:12-61). The P2CP kernel on CUDA has no
-    backward: call it on detached latents under ``torch.no_grad()``."""
+    backward: call it on detached latents under ``torch.no_grad()``. With a
+    ``group``, this rank's share of the group's mean."""
     b, t, n_art, _, d = target_shapes.shape
     shapes = decode_fn(rescale_factor * output_pcs).reshape(b, t, n_art, 2, d)
     shapes = shapes * denorm_std + denorm_mean
     targets = target_shapes * denorm_std + denorm_mean
     p2cp = mean_p2cp_channel_major(shapes, targets)  # (B, T, Nart)
     mask = make_padding_mask(lengths, t).to(p2cp.dtype)[:, :, None]
-    return torch.sum(p2cp * mask * to_mm) / torch.clamp(torch.sum(mask) * n_art, min=1.0)
+    return torch.sum(p2cp * mask * to_mm) / torch.clamp(group_sum(torch.sum(mask), group) * n_art,
+                                                        min=1.0)

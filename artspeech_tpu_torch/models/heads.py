@@ -14,6 +14,12 @@ A model's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
 dtype: parameters stay float32, and each Dense casts its input, kernel and
 bias to it, each LayerNorm takes its statistics in float32 and returns it,
 as flax's ``dtype=`` does (JAX models/heads.py:56-102).
+
+On a mesh with a model axis (``parallel/distributed.distribute_state``) each
+model rank keeps its Nart / model slice of these parameters and computes
+those articulators only; the heads' input takes its gradient summed over the
+model group, and the outputs are gathered along Nart
+(``parallel/collectives.py``).
 """
 
 import math
@@ -21,6 +27,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from artspeech_tpu_torch.parallel.collectives import copy_to_model_axis, gather_model_axis
 
 #: flax ``nn.LayerNorm`` epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
@@ -104,9 +112,22 @@ class ContourDecoder(nn.Module):
             lecun_normal_(kernel, fan_in, generator)
             self.register_parameter(f"dense{i}_kernel", kernel)
             self.register_parameter(f"dense{i}_bias", nn.Parameter(torch.zeros(n_articulators, fan_out)))
+        self.model_axis = None  # (group, index, size) once sharded
+
+    def shard_model_axis(self, group, index: int, size: int) -> None:
+        """Keep this model rank's ``index``-th of ``size`` slices of every
+        stacked parameter, in place (the parameters stay the objects the
+        optimizer holds), and compute those articulators from now on."""
+        per = self.n_articulators // size
+        with torch.no_grad():
+            for p in self.parameters(recurse=False):
+                p.data = p.data[index * per:(index + 1) * per].clone()
+        self.model_axis = (group, index, size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead, dt = x.shape[:-1], self.dtype
+        group, index, size = self.model_axis or (None, 0, 1)
+        x = copy_to_model_axis(x, group)
         h = x.reshape(1, -1, x.shape[-1])  # (1, M, F), shared by every head
         for i in range(2):
             h = layer_norm(h, getattr(self, f"ln{i}_scale")[:, None, :],
@@ -118,5 +139,6 @@ class ContourDecoder(nn.Module):
         w = torch.cat([self.dense2_kernel, self.dense3_kernel], dim=-1)  # (Nart, 256, 2D)
         b = torch.cat([self.dense2_bias, self.dense3_bias], dim=-1)
         xy = torch.baddbmm(cast(b[:, None, :], dt), h, cast(w, dt))  # (Nart, M, 2D) = [x_pos | y_pos]
-        xy = xy.reshape(self.n_articulators, *lead, 2, self.n_samples)
+        xy = xy.reshape(w.shape[0], *lead, 2, self.n_samples)
+        xy = gather_model_axis(xy, group, index, size)  # (Nart, ...)
         return torch.sigmoid(torch.movedim(xy, 0, len(lead)))

@@ -1,5 +1,4 @@
-"""Training orchestration on one device (counterpart of
-artspeech_tpu/train/loop.py).
+"""Training orchestration (counterpart of artspeech_tpu/train/loop.py).
 
 The reference loop (train_phoneme_to_articulation.py:124-426): train and valid
 epochs with sentence-weighted means, ReduceLROnPlateau on the valid loss,
@@ -7,7 +6,14 @@ early stopping on the valid P2CP in mm, ``best/``, ``last/`` and
 ``best_model`` checkpoints, and resume. Each epoch's dropout masks come from a
 ``torch.Generator`` on the device seeded from (``seed``, epoch), in place of
 ``jax.random.split``, so a resumed run draws the masks an uninterrupted one
-would. Data parallelism is not ported yet.
+would.
+
+Over a process group ``fit`` trains data-parallel (JAX :128-162): it resolves
+a mesh from the loader's collated batch, builds the steps against it, gives
+every rank rank 0's state, and feeds each rank its rows of every batch. The
+epoch means stay weighted by each batch's global count of real sentences.
+Only rank 0 writes checkpoints, ``best_model`` and the tracker's records and
+calls the epoch callback; the others wait for it at a barrier.
 """
 
 import os
@@ -18,7 +24,14 @@ import numpy as np
 import torch
 
 from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
-from artspeech_tpu_torch.data.batching import to_device
+from artspeech_tpu_torch.data.batching import prefetch_to_device
+from artspeech_tpu_torch.parallel.distributed import (
+    barrier,
+    distribute_state,
+    is_initialized,
+    is_main_process,
+)
+from artspeech_tpu_torch.parallel.mesh import MODEL_AXIS, batch_sharding, data_parallel_mesh
 from artspeech_tpu_torch.train.checkpoint import (
     has_checkpoint,
     restore_checkpoint,
@@ -45,16 +58,26 @@ def _weighted_means(sums: Dict[str, torch.Tensor], total_w: float) -> Dict[str, 
     return {k: float(v) / max(total_w, 1.0) for k, v in sums.items()}
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
-    """The dropout generator of one epoch, on ``device``."""
-    state = np.random.SeedSequence([seed, epoch]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+def folded_seed(seed: int, *keys: int) -> int:
+    """A seed derived from ``seed`` and ``keys`` (``jax.random.fold_in``'s role)."""
+    return int(np.random.SeedSequence([seed, *keys]).generate_state(1, np.uint64)[0])
 
 
-def run_train_epoch(state, loader, train_step, generator: torch.Generator, device):
-    """One training epoch; returns (state, sentence-weighted mean metrics)."""
+def epoch_generator(seed: int, epoch: int, device, rank: int = 0) -> torch.Generator:
+    """The dropout generator of one epoch, on ``device``. A mesh's data rank
+    ``rank`` > 0 folds its coordinate in, so the ranks draw different masks;
+    rank 0 draws the one-device run's, and the model ranks of one data row
+    the same."""
+    keys = (epoch,) if rank == 0 else (epoch, rank)
+    return torch.Generator(device=device).manual_seed(folded_seed(seed, *keys))
+
+
+def run_train_epoch(state, loader, train_step, generator: torch.Generator, device,
+                    sharding=None):
+    """One training epoch; returns (state, sentence-weighted mean metrics).
+    With ``sharding`` each step gets the rank's rows."""
     sums, total_w = {}, 0.0
-    for batch, meta in to_device(loader, device):
+    for batch, meta in prefetch_to_device(loader, device=device, sharding=sharding):
         metrics = train_step(state, batch, generator)
         w = _batch_weight(meta)
         total_w += w
@@ -63,9 +86,9 @@ def run_train_epoch(state, loader, train_step, generator: torch.Generator, devic
     return state, _weighted_means(sums, total_w)
 
 
-def run_eval_epoch(state, loader, eval_step, device) -> Dict[str, float]:
+def run_eval_epoch(state, loader, eval_step, device, sharding=None) -> Dict[str, float]:
     sums, total_w = {}, 0.0
-    for batch, meta in to_device(loader, device):
+    for batch, meta in prefetch_to_device(loader, device=device, sharding=sharding):
         metrics, _ = eval_step(state, batch)
         w = _batch_weight(meta)
         total_w += w
@@ -100,6 +123,9 @@ def fit(
     resume_from: Optional[str] = None,
     epoch_callback: Optional[Callable] = None,
     device: DeviceLike = None,
+    mesh="auto",
+    train_step_factory: Optional[Callable] = None,
+    eval_step_factory: Optional[Callable] = None,
 ) -> FitResult:
     """Full training run with plateau LR, early stopping and checkpoints.
 
@@ -111,8 +137,31 @@ def fit(
     goes to ``tracker.log_metrics(..., step=epoch)``, and after the epoch's
     checkpoints to ``epoch_callback(epoch, state, record)`` when given.
     ``device``: ``cuda`` unless the caller passes ``device="cpu"``.
+
+    ``mesh="auto"`` trains over the process group's ranks when there is a
+    group: the data axis takes the largest rank count that divides the
+    loader's ``collate_batch_size`` (JAX's rule). Without a group, or with
+    ``mesh=None``, this is the one-device loop. A mesh with a model axis is
+    refused (its checkpoints would hold slices). ``train_step_factory(mesh)``
+    and ``eval_step_factory(mesh)`` build the steps against the resolved mesh
+    (None when there is none) and replace ``train_step`` / ``eval_step``.
+    Every rank must call ``fit`` alike; rank 0 writes, the others wait.
     """
     dev = resolve_device(device)
+    if mesh == "auto":
+        collate_bs = getattr(train_loader, "collate_batch_size",
+                             getattr(train_loader, "batch_size", None))
+        mesh = data_parallel_mesh(collate_bs, device=dev) if is_initialized() else None
+    if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
+        raise ValueError("fit trains over the data axis only; a model axis goes through "
+                         "parallel.distribute_state and run_distributed_step")
+    if train_step_factory is not None:
+        train_step = train_step_factory(mesh)
+    if eval_step_factory is not None:
+        eval_step = eval_step_factory(mesh)
+    sharding = batch_sharding(mesh) if mesh is not None else None
+    rank = mesh.data_index if mesh is not None else 0  # raises on a rank left out
+    main = is_main_process()
     os.makedirs(checkpoints_dir, exist_ok=True)
     best_dir = os.path.join(checkpoints_dir, "best")
     last_dir = os.path.join(checkpoints_dir, "last")
@@ -136,13 +185,16 @@ def fit(
             stopper.epochs_since_best = int(aux.get("epochs_since_best", 0))
             scheduler.best = float(aux.get("scheduler_best", float("inf")))
             scheduler.bad_epochs = int(aux.get("scheduler_bad_epochs", 0))
+    if mesh is not None:
+        state = distribute_state(state, mesh)
 
     history = []
     epoch = start_epoch - 1
     for epoch in range(start_epoch, n_epochs):
-        generator = epoch_generator(seed, epoch, dev)
-        state, train_metrics = run_train_epoch(state, train_loader, train_step, generator, dev)
-        valid_metrics = run_eval_epoch(state, valid_loader, eval_step, dev)
+        generator = epoch_generator(seed, epoch, dev, rank)
+        state, train_metrics = run_train_epoch(state, train_loader, train_step, generator, dev,
+                                               sharding)
+        valid_metrics = run_eval_epoch(state, valid_loader, eval_step, dev, sharding)
         monitored = valid_metrics[monitor]
 
         state = scheduler.step(valid_metrics.get("loss", monitored), state)
@@ -156,33 +208,36 @@ def fit(
             "best": is_best,
         }
         history.append(record)
-        if tracker is not None:
-            tracker.log_metrics({k: v for k, v in record.items() if k != "best"}, step=epoch)
-
-        if is_best:
-            save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: monitored})
-            save_params(best_model, state.model)
-        save_checkpoint(
-            last_dir,
-            state,
-            aux={
-                "epoch": epoch,
-                "best_metric": stopper.best_metric,
-                "epochs_since_best": stopper.epochs_since_best,
-                "scheduler_best": scheduler.best,
-                "scheduler_bad_epochs": scheduler.bad_epochs,
-            },
-        )
-        if epoch_callback is not None:
-            epoch_callback(epoch, state, record)
+        if main:
+            if tracker is not None:
+                tracker.log_metrics({k: v for k, v in record.items() if k != "best"},
+                                    step=epoch)
+            if is_best:
+                save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: monitored})
+                save_params(best_model, state.model)
+            save_checkpoint(
+                last_dir,
+                state,
+                aux={
+                    "epoch": epoch,
+                    "best_metric": stopper.best_metric,
+                    "epochs_since_best": stopper.epochs_since_best,
+                    "scheduler_best": scheduler.best,
+                    "scheduler_bad_epochs": scheduler.bad_epochs,
+                },
+            )
+            if epoch_callback is not None:
+                epoch_callback(epoch, state, record)
+        barrier(mesh)
         if stopper.should_stop:
             break
 
     # A resumed run may complete zero epochs (or never improve): downstream
     # always needs a best checkpoint in this run's directory.
-    if not has_checkpoint(best_dir):
+    if main and not has_checkpoint(best_dir):
         save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: stopper.best_metric})
         save_params(best_model, state.model)
+    barrier(mesh)
 
     return FitResult(
         state=state,

@@ -14,6 +14,12 @@ a metric computed on detached outputs under ``torch.no_grad()`` (no
 gradient is taken through it): opt-in in the train steps, as in the JAX
 package, and always in the eval steps. Dropout masks come from the caller's
 ``torch.Generator``. Metrics are 0-d tensors on the device.
+
+Given a ``mesh`` (``parallel/mesh.py``) each step runs on the rank's rows and
+computes the whole batch's loss, as JAX's automatic partitioning does: every
+count in the losses and metrics is the data group's, the rank's shares of the
+loss and metrics and its gradients are summed over the group in one
+all-reduce, and ``manual_spmd`` is 1.0 (0.0 without a mesh).
 """
 
 from typing import Callable, Dict
@@ -27,10 +33,13 @@ from artspeech_tpu_torch.losses.autoencoder import (
 )
 from artspeech_tpu_torch.models.autoencoder import normalize_indices_dict
 from artspeech_tpu_torch.ops.distances import mean_p2cp_channel_major
+from artspeech_tpu_torch.parallel.collectives import all_reduce_flat, group_sum, reduce_gradients
 from artspeech_tpu_torch.train.state import TrainState
+from artspeech_tpu_torch.train.step import data_group, spmd_marker
 
 
-def reconstruction_p2cp_mm(recon, targets, denorm_mean, denorm_std, to_mm, weights=None):
+def reconstruction_p2cp_mm(recon, targets, denorm_mean, denorm_std, to_mm, weights=None,
+                           group=None):
     """AE reconstruction error in mm (reference
     train_principal_components_autoencoder.py:40-64 ``reconstruction_error``).
 
@@ -39,6 +48,7 @@ def reconstruction_p2cp_mm(recon, targets, denorm_mean, denorm_std, to_mm, weigh
         denorm_mean/denorm_std: (Nart, 2, n_samples) on their device.
         weights: optional (B,) sample weights; zero-weight rows (batch
             padding, whose p2cp is trivially 0) are excluded from the mean.
+        group: with ``weights``, this rank's share of the group's mean.
     """
     b, n_art, flat = recon.shape
     n_samples = flat // 2
@@ -48,7 +58,8 @@ def reconstruction_p2cp_mm(recon, targets, denorm_mean, denorm_std, to_mm, weigh
     if weights is None:
         return p2cp.mean() * to_mm
     valid = (weights > 0).to(p2cp.dtype)
-    return torch.sum(p2cp * valid[:, None]) / torch.clamp(torch.sum(valid) * n_art, min=1.0) * to_mm
+    n_valid = group_sum(torch.sum(valid), group)
+    return torch.sum(p2cp * valid[:, None]) / torch.clamp(n_valid * n_art, min=1.0) * to_mm
 
 
 def _frames(batch, device):
@@ -56,8 +67,14 @@ def _frames(batch, device):
             torch.as_tensor(batch["weights"], device=device))
 
 
+def _summed(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """The metrics' rank shares summed over ``group`` in one all-reduce."""
+    return dict(zip(metrics, all_reduce_flat(list(metrics.values()), group)))
+
+
 def make_autoencoder_train_step(indices_dict: Dict, alpha: float, denorm_mean, denorm_std,
-                                to_mm: float, with_p2cp: bool = False, device: DeviceLike = None):
+                                to_mm: float, with_p2cp: bool = False, device: DeviceLike = None,
+                                mesh=None):
     """Frame AE train step over {inputs (B, Nart, F), weights (B,)}:
     ``step(state, batch, generator=None) -> metrics`` (``generator`` unused:
     the autoencoder has no dropout; the argument keeps ``fit``'s signature).
@@ -68,6 +85,7 @@ def make_autoencoder_train_step(indices_dict: Dict, alpha: float, denorm_mean, d
     dev = resolve_device(device)
     indices = normalize_indices_dict(indices_dict)
     mean, std = (torch.as_tensor(v, device=dev) for v in (denorm_mean, denorm_std))
+    group = data_group(mesh)
 
     def train_step(state: TrainState, batch, generator=None) -> Dict[str, torch.Tensor]:
         inputs, weights = _frames(batch, dev)
@@ -76,27 +94,31 @@ def make_autoencoder_train_step(indices_dict: Dict, alpha: float, denorm_mean, d
         state.optimizer.zero_grad(set_to_none=True)
         recon, latents = model(inputs)
         loss = regularized_latents_mse_loss(recon, latents, inputs, indices, alpha,
-                                            sample_weights=weights)
+                                            sample_weights=weights, group=group)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
         metrics = {"loss": loss.detach()}
         if with_p2cp:
             with torch.no_grad():
                 metrics["p2cp_mm"] = reconstruction_p2cp_mm(recon.detach(), inputs, mean, std,
-                                                             to_mm, weights=weights)
-        return metrics
+                                                             to_mm, weights=weights, group=group)
+        metrics = dict(zip(metrics, reduce_gradients(model.parameters(), group,
+                                                     list(metrics.values()))))
+        state.optimizer.step()
+        state.step += 1
+        return {**metrics, "manual_spmd": spmd_marker(mesh, dev)}
 
     return train_step
 
 
 def make_autoencoder_eval_step(indices_dict: Dict, alpha: float, denorm_mean, denorm_std,
-                               to_mm: float, device: DeviceLike = None):
+                               to_mm: float, device: DeviceLike = None, mesh=None):
     """``eval_step(state, batch) -> (metrics, (recon, latents))`` in eval mode
-    under ``torch.no_grad()``; metrics ``loss`` and ``p2cp_mm``."""
+    under ``torch.no_grad()``; metrics ``loss`` and ``p2cp_mm`` (the whole
+    batch's over a ``mesh``; the outputs the rank's)."""
     dev = resolve_device(device)
     indices = normalize_indices_dict(indices_dict)
     mean, std = (torch.as_tensor(v, device=dev) for v in (denorm_mean, denorm_std))
+    group = data_group(mesh)
 
     def eval_step(state: TrainState, batch):
         inputs, weights = _frames(batch, dev)
@@ -106,11 +128,11 @@ def make_autoencoder_eval_step(indices_dict: Dict, alpha: float, denorm_mean, de
             recon, latents = model(inputs)
             metrics = {
                 "loss": regularized_latents_mse_loss(recon, latents, inputs, indices, alpha,
-                                                     sample_weights=weights),
+                                                     sample_weights=weights, group=group),
                 "p2cp_mm": reconstruction_p2cp_mm(recon, inputs, mean, std, to_mm,
-                                                  weights=weights),
+                                                  weights=weights, group=group),
             }
-        return metrics, (recon, latents)
+        return _summed(metrics, group), (recon, latents)
 
     return eval_step
 
@@ -129,7 +151,7 @@ def _voicing(batch, device):
 
 def make_latent_rnn_train_step(loss_fn: Callable, decode_fn: Callable, denorm_mean, denorm_std,
                                to_mm: float, rescale_factor: float = 1.0, with_p2cp: bool = False,
-                               device: DeviceLike = None):
+                               device: DeviceLike = None, mesh=None):
     """Latent-RNN train step, ``loss_fn`` from ``make_autoencoder_loss``:
     ``step(state, batch, generator=None) -> metrics``; ``generator`` is a
     ``torch.Generator`` on ``device`` for the recurrence's dropout.
@@ -140,6 +162,7 @@ def make_latent_rnn_train_step(loss_fn: Callable, decode_fn: Callable, denorm_me
     (train_phoneme_to_principal_components.py:360-380)."""
     dev = resolve_device(device)
     mean, std = (torch.as_tensor(v, device=dev) for v in (denorm_mean, denorm_std))
+    group = data_group(mesh)
 
     def train_step(state: TrainState, batch, generator=None) -> Dict[str, torch.Tensor]:
         tokens, targets, references, lengths, critical = _sentences(batch, dev)
@@ -147,27 +170,34 @@ def make_latent_rnn_train_step(loss_fn: Callable, decode_fn: Callable, denorm_me
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         pcs = model(tokens, lengths, generator=generator)
-        loss = loss_fn(pcs, targets, references, lengths, critical, voicing=_voicing(batch, dev))
+        loss = loss_fn(pcs, targets, references, lengths, critical, voicing=_voicing(batch, dev),
+                       group=group)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
         metrics = {"loss": loss.detach()}
         if with_p2cp:
             with torch.no_grad():
                 metrics["p2cp_mm"] = decoder_mean_p2cp_mm(pcs.detach(), targets, lengths,
                                                           decode_fn, mean, std, to_mm,
-                                                          rescale_factor=rescale_factor)
-        return metrics
+                                                          rescale_factor=rescale_factor,
+                                                          group=group)
+        metrics = dict(zip(metrics, reduce_gradients(model.parameters(), group,
+                                                     list(metrics.values()))))
+        state.optimizer.step()
+        state.step += 1
+        return {**metrics, "manual_spmd": spmd_marker(mesh, dev)}
 
     return train_step
 
 
 def make_latent_rnn_eval_step(loss_fn: Callable, decode_fn: Callable, denorm_mean, denorm_std,
-                              to_mm: float, rescale_factor: float = 1.0, device: DeviceLike = None):
+                              to_mm: float, rescale_factor: float = 1.0, device: DeviceLike = None,
+                              mesh=None):
     """``eval_step(state, batch) -> (metrics, pcs)`` in eval mode under
-    ``torch.no_grad()``; metrics ``loss`` and ``p2cp_mm``."""
+    ``torch.no_grad()``; metrics ``loss`` and ``p2cp_mm`` (the whole batch's
+    over a ``mesh``; the outputs the rank's)."""
     dev = resolve_device(device)
     mean, std = (torch.as_tensor(v, device=dev) for v in (denorm_mean, denorm_std))
+    group = data_group(mesh)
 
     def eval_step(state: TrainState, batch):
         tokens, targets, references, lengths, critical = _sentences(batch, dev)
@@ -177,10 +207,11 @@ def make_latent_rnn_eval_step(loss_fn: Callable, decode_fn: Callable, denorm_mea
             pcs = model(tokens, lengths)
             metrics = {
                 "loss": loss_fn(pcs, targets, references, lengths, critical,
-                                voicing=_voicing(batch, dev)),
+                                voicing=_voicing(batch, dev), group=group),
                 "p2cp_mm": decoder_mean_p2cp_mm(pcs, targets, lengths, decode_fn, mean, std,
-                                                to_mm, rescale_factor=rescale_factor),
+                                                to_mm, rescale_factor=rescale_factor,
+                                                group=group),
             }
-        return metrics, pcs
+        return _summed(metrics, group), pcs
 
     return eval_step

@@ -1,5 +1,5 @@
 """Train and eval steps for the DeepSpeech2 phoneme recognizer (counterpart
-of artspeech_tpu/train/recognition_step.py, on one device).
+of artspeech_tpu/train/recognition_step.py).
 
 Equivalent role to reference phoneme_recognition/__init__.py:63-153 (the
 ``run_epoch`` body). For the melspec feature the batch carries raw audio and
@@ -13,6 +13,14 @@ semantics, train/state.py); ``schedule`` sets its learning rate before every
 update from the number of updates taken so far (0 for the first), as optax
 evaluates a schedule. Dropout masks and the large-margin logit noise come
 from the ``torch.Generator`` the caller passes to the step.
+
+Given a ``mesh`` (``parallel/mesh.py``) the train step runs on the rank's rows
+and takes the whole batch's loss, as JAX's automatic partitioning does: the
+loss's denominator is summed over the data group before the backward (the
+exact accumulation's global denominator, a rank being one more microbatch),
+and the loss and gradients are summed over it after. JAX's
+``recognizer_accum_steps`` policy is not ported: ``accum_steps`` is the
+caller's (the train CLI's default is 1).
 """
 
 import math
@@ -32,7 +40,9 @@ from artspeech_tpu_torch.losses.recognition import (
 )
 from artspeech_tpu_torch.models.deepspeech2 import get_noise_logits
 from artspeech_tpu_torch.ops.melspec import dynamic_range_compression, melspectrogram
+from artspeech_tpu_torch.parallel.collectives import group_sum, reduce_gradients
 from artspeech_tpu_torch.train.state import TrainState, set_learning_rate
+from artspeech_tpu_torch.train.step import data_group, spmd_marker
 
 
 def cyclic_triangular_schedule(base_lr: float, max_lr: float,
@@ -99,8 +109,10 @@ def make_recognition_train_step(
     accum_steps: int = 1,
     schedule: Optional[Callable[[int], float]] = None,
     device: DeviceLike = None,
+    mesh=None,
 ):
-    """``step(state, batch, generator=None) -> {"loss": 0-d tensor}``.
+    """``step(state, batch, generator=None) -> {"loss", "manual_spmd"}``, 0-d
+    tensors.
 
     criterion: "ctc" | "ce"; target_key: e.g. "ctc_target". ``generator`` is
     a ``torch.Generator`` on ``device`` for the dropout masks and the logit
@@ -114,9 +126,12 @@ def make_recognition_train_step(
     (``ctc_valid``, ``cross_entropy_weights``) and every microbatch adds
     numerator / global denominator. Dropout and noise draw from the one
     generator in turn, so steps with different ``accum_steps`` agree only
-    with both off.
+    with both off. With a ``mesh`` the batch is the rank's rows, split into
+    ``accum_steps`` microbatches inside the rank, and the denominator is the
+    data group's (module docstring).
     """
     dev = resolve_device(device)
+    group = data_group(mesh)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     feature_fn = make_feature_fn(feature)
@@ -135,7 +150,7 @@ def make_recognition_train_step(
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        if accum_steps == 1:
+        if accum_steps == 1 and group is None:
             loss = micro_loss(model, batch, generator, parts=False)
             loss.backward()
         else:
@@ -148,18 +163,19 @@ def make_recognition_train_step(
             else:
                 den = cross_entropy_weights(batch[target_key], batch["input_lengths"],
                                             batch[target_key].shape[1], weights).sum()
-            den = torch.clamp(den.float(), min=1.0)
+            den = torch.clamp(group_sum(den.float(), group), min=1.0)
             loss = torch.zeros((), device=dev)
             for i in range(accum_steps):
                 mb = {k: v[i * mb_size:(i + 1) * mb_size] for k, v in batch.items()}
                 part = micro_loss(model, mb, generator, parts=True) / den
                 part.backward()
                 loss = loss + part.detach()
+        (loss,) = reduce_gradients(model.parameters(), group, [loss.detach()])
         if schedule is not None:
             set_learning_rate(state, schedule(state.step))
         state.optimizer.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return {"loss": loss, "manual_spmd": spmd_marker(mesh, dev)}
 
     return train_step
 

@@ -107,6 +107,28 @@ class MlflowTracker:
         self._mlflow.end_run()
 
 
+class NullTracker:
+    """The tracker of a rank that does not write (every rank but rank 0 of a
+    data-parallel run): the same interface, and nothing is recorded."""
+
+    run_dir = None
+
+    def log_params(self, params: Dict):
+        pass
+
+    def log_metrics(self, metrics: Dict, step: Optional[int] = None):
+        pass
+
+    def log_artifact(self, path: str, name: Optional[str] = None):
+        pass
+
+    def log_dict(self, d: Dict, name: str):
+        pass
+
+    def end(self):
+        pass
+
+
 def make_tracker(
     run_dir: str,
     mlflow_uri: Optional[str] = None,

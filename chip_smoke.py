@@ -106,6 +106,19 @@ Phases, each printing its own lines:
                batch at lr 1e-3 (the loss must fall), and one train step on
                the card against the same step on the CPU (see
                train_against_cpu for how the updated parameters compare);
+  parallel   — data parallelism (parallel/) at train_model_free.yaml's
+               widths (B = 12, H = 128, T = 128, ragged, the last 3 rows
+               dummies of length 0): a one-rank NCCL group, whose mesh step
+               must equal the group-free step after 3 updates (dropout 0.1,
+               within 1e-6) with the same gru_fwd, gru_bwd and p2cp launches,
+               both steps timed in turns and the all-reduce alone (its share
+               of the step); two gloo ranks sharing cuda:0 at dropout 0,
+               whose loss and p2cp_mm (1e-4 relative) and parameters after 2
+               updates (1e-5, where |g| >= 100 eps as in train_against_cpu)
+               must equal the one-rank step's, and the first step's summed
+               gradients too (1e-5 max(|g|, 1)), with the kernels launched in
+               both ranks; and dryrun_multichip(2, backend="gloo"), one step
+               of every family over a (1, 2) mesh of two ranks on the card;
   6. cli     — the thesis workflow through the port's three CLIs, each run
                in-process through its run_experiment with sys.argv set, from
                YAML files written from the text of the repository's
@@ -361,6 +374,14 @@ from artspeech_tpu_torch.models.latent_rnn import (
     make_latent_rnn_synthesis_forward,
 )
 from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_fast_generate
+from artspeech_tpu_torch.parallel.collectives import all_reduce_flat
+from artspeech_tpu_torch.parallel.distributed import (
+    distribute_state,
+    initialize_multihost,
+    run_distributed_step,
+)
+from artspeech_tpu_torch.parallel.dryrun import dryrun_multichip, free_port, spawn
+from artspeech_tpu_torch.parallel.mesh import make_mesh
 from artspeech_tpu_torch.ops import (
     _build,
     hopper_attention,
@@ -2046,6 +2067,173 @@ def train_against_cpu():
     phase("train", against_cpu_tol=1e-4, **{f"rel_err_{k}": f"{v:.3g}" for k, v in errs.items()},
           rel_err_params_max_all=f"{all_params:.3g}", components_g_below_100eps=near_eps_count)
     check(all(v <= 1e-4 for v in errs.values()), f"card and CPU train steps disagree: {errs}")
+
+
+# -- data parallelism ------------------------------------------------------------
+
+PARALLEL = dict(batch=TRAIN["batch"], t=128, dummies=3, steps=3, gloo_steps=2, tol=1e-6,
+                gloo_rel=1e-4, gloo_abs=1e-5)
+PARALLEL_KERNELS = ("gru_fwd", "gru_bwd", "p2cp")
+
+
+def parallel_batch():
+    """train_model_free.yaml's batch (B = 12) at T = 128, ragged, the last
+    PARALLEL["dummies"] rows dummies of length 0, as numpy arrays."""
+    batch = {k: v.numpy() for k, v in fixed_batch(PARALLEL["batch"], PARALLEL["t"], seed=11,
+                                                   device="cpu").items()}
+    dummies = slice(PARALLEL["batch"] - PARALLEL["dummies"], None)
+    batch["lengths"][dummies] = 0
+    batch["tokens"][dummies] = 0
+    batch["targets"][dummies] = 0.0
+    return batch
+
+
+def parallel_steps(st, step, batch, n_steps, mesh=None):
+    """``n_steps`` steps; the metrics of each (floats), and each step's
+    gradients on the host."""
+    metrics, grads = [], []
+    for i in range(n_steps):
+        generator = loop.epoch_generator(0, i, "cuda", 0 if mesh is None else mesh.data_index)
+        m = step(st, batch, generator) if mesh is None else \
+            run_distributed_step(step, st, batch, generator, mesh)
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({n: p.grad.detach().cpu() for n, p in st.model.named_parameters()})
+    torch.cuda.synchronize()
+    return metrics, grads
+
+
+def parallel_rank(rank, host):
+    """One of two gloo ranks on cuda:0: the thesis step at dropout 0 over a
+    two-rank data mesh; its metrics, its launches and (rank 0) parameters
+    and each step's summed gradients."""
+    mesh = make_mesh()
+    st = distribute_state(thesis_state(None, dropout=0.0), mesh)
+    step = make_artspeech_train_step(TO_MM, with_p2cp=True, mesh=mesh)
+    reset_launch_counts()
+    metrics, grads = parallel_steps(st, step, host, PARALLEL["gloo_steps"], mesh)
+    counts = {k: launch_counts()[k] for k in PARALLEL_KERNELS}
+    params = {k: v.cpu() for k, v in parameters(st).items()} if rank == 0 else None
+    return metrics, counts, params, mesh.shape, grads if rank == 0 else None
+
+
+def parallel_one_rank(host):
+    """The mesh step through a one-rank NCCL group against the group-free
+    step (3 updates, dropout 0.1): equal within PARALLEL["tol"], the same
+    launches; both timed in turns, and the gradient all-reduce alone.
+    Returns the group step's launch counts (the main path's of this phase)."""
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+        runs = {}
+        for label, m in (("group_free", None), ("nccl_group", mesh)):
+            st = thesis_state(None)
+            if m is not None:
+                distribute_state(st, m)
+            step = make_artspeech_train_step(TO_MM, with_p2cp=True, mesh=m)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            metrics, _ = parallel_steps(st, step, batch, PARALLEL["steps"], m)
+            runs[label] = dict(metrics=metrics, params=parameters(st), st=st, step=step,
+                               counts={k: launch_counts()[k] for k in PARALLEL_KERNELS})
+        free, group = runs["group_free"], runs["nccl_group"]
+        err = max(rel_err(group["params"][k], v) for k, v in free["params"].items())
+        metric_err = max(abs(g[k] - f[k]) / max(abs(f[k]), 1e-30)
+                         for g, f in zip(group["metrics"], free["metrics"])
+                         for k in ("loss", "p2cp_mm"))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        times = {}
+        for label in ("group_free", "nccl_group", "nccl_group", "group_free"):
+            r = runs[label]
+            times.setdefault(label, []).append(host_ms(lambda: r["step"](r["st"], batch, gen), 10))
+        grads = [p.grad for p in group["st"].model.parameters()]
+        extras = [torch.zeros((), device="cuda") for _ in range(3)]
+        allreduce_ms = cuda_ms(lambda: all_reduce_flat(grads + extras, mesh.data_group), 20)
+        step_ms = {k: min(v) for k, v in times.items()}
+        phase("parallel", case="one_rank_nccl", steps=PARALLEL["steps"],
+              shape=f"B={PARALLEL['batch']},T={PARALLEL['t']},H={HIDDEN},dummies="
+                    f"{PARALLEL['dummies']},dropout={TRAIN['dropout']}",
+              max_rel_err_params=f"{err:.3g}", max_rel_err_metrics=f"{metric_err:.3g}",
+              manual_spmd=[group["metrics"][0]["manual_spmd"], free["metrics"][0]["manual_spmd"]],
+              **{f"{k}_launches": [group["counts"][k], free["counts"][k]]
+                 for k in PARALLEL_KERNELS},
+              step_ms_group_free=f"{step_ms['group_free']:.6g}",
+              step_ms_nccl_group=f"{step_ms['nccl_group']:.6g}",
+              step_ms_turns=";".join(f"{k}={','.join(f'{t:.6g}' for t in v)}"
+                                     for k, v in times.items()),
+              grad_allreduce_ms=f"{allreduce_ms:.6g}",
+              grad_allreduce_share=f"{allreduce_ms / step_ms['nccl_group']:.4f}",
+              grad_elements=sum(g.numel() for g in grads))
+        check(err <= PARALLEL["tol"] and metric_err <= PARALLEL["tol"],
+              f"one-rank NCCL mesh step differs from the group-free step: {err:.3g}, "
+              f"{metric_err:.3g}")
+        check(group["counts"] == free["counts"] and all(group["counts"].values()),
+              f"launches differ: {group['counts']} vs {free['counts']}")
+        check(group["metrics"][0]["manual_spmd"] == 1.0 and free["metrics"][0]["manual_spmd"] == 0.0,
+              "manual_spmd markers")
+        return group["counts"]
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def parallel_two_gloo_ranks(host):
+    """Two gloo ranks sharing cuda:0 (dropout 0) against the one-rank step."""
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    st = thesis_state(None, dropout=0.0)
+    one, grads = parallel_steps(st, make_artspeech_train_step(TO_MM, with_p2cp=True), batch,
+                                PARALLEL["gloo_steps"])
+    one_params = parameters(st)
+    t0 = time.perf_counter()
+    results = spawn(2, parallel_rank, host, device="cuda", backend="gloo", timeout_s=300.0)
+    seconds = time.perf_counter() - t0
+    metric_err = max(abs(m[i][k] - one[i][k]) / max(abs(one[i][k]), 1e-30)
+                     for m, *_ in results for i in range(len(one)) for k in ("loss", "p2cp_mm"))
+    params = results[0][2]
+    stable_err, below = 0.0, 0
+    for name, ref in one_params.items():
+        diff = (params[name] - ref.cpu()).abs()
+        stable = torch.ones_like(diff, dtype=torch.bool)
+        for g in grads:
+            if name in g:
+                stable &= g[name].abs() >= 100 * 1e-8
+        below += int((~stable).sum())
+        stable_err = max(stable_err, diff[stable].max().item() if stable.any() else 0.0)
+    all_err = max((params[n] - v.cpu()).abs().max().item() for n, v in one_params.items())
+    # Each step's gradients summed over the ranks (averaged ones would pass the
+    # parameter check: AdamW's first updates do not see a common scale);
+    # the first step's, from the same parameters, within 1e-5 max(|g|, 1).
+    grad_errs = [max(((got[n] - g).abs().max() / max(g.abs().max().item(), 1.0)).item()
+                     for n, g in ref.items())
+                 for got, ref in zip(results[0][4], grads)]
+    expected = {"gru_fwd": 2 * PARALLEL["gloo_steps"], "gru_bwd": 2 * PARALLEL["gloo_steps"],
+                "p2cp": PARALLEL["gloo_steps"]}
+    phase("parallel", case="two_gloo_ranks_cuda0", steps=PARALLEL["gloo_steps"],
+          mesh=results[0][3], seconds=f"{seconds:.3f}",
+          max_rel_err_metrics=f"{metric_err:.3g}", max_abs_err_params=f"{stable_err:.3g}",
+          max_abs_err_params_all=f"{all_err:.3g}", components_g_below_100eps=below,
+          grad_err_by_step=[f"{e:.3g}" for e in grad_errs],
+          launches_by_rank=[r[1] for r in results],
+          manual_spmd=[m[0]["manual_spmd"] for m, *_ in results])
+    check(metric_err <= PARALLEL["gloo_rel"] and stable_err <= PARALLEL["gloo_abs"],
+          f"two gloo ranks differ from one: metrics {metric_err:.3g}, params {stable_err:.3g}")
+    check(grad_errs[0] <= PARALLEL["gloo_abs"],
+          f"two gloo ranks' summed gradients differ from one rank's: {grad_errs}")
+    check(all(r[1] == expected for r in results), f"rank launches {[r[1] for r in results]}, "
+                                                    f"expected {expected} each")
+
+
+def parallel_path():
+    """The [parallel] phase; returns the one-rank group step's launches."""
+    t0 = time.perf_counter()
+    host = parallel_batch()
+    counts = parallel_one_rank(host)
+    parallel_two_gloo_ranks(host)
+    t1 = time.perf_counter()
+    losses = dryrun_multichip(2, backend="gloo")
+    phase("parallel", case="dryrun_multichip_2_gloo", seconds=f"{time.perf_counter() - t1:.3f}",
+          **{k: f"{v:.6g}" for k, v in losses.items()})
+    phase("parallel", seconds=f"{time.perf_counter() - t0:.3f}")
+    return counts
 
 
 # -- the thesis workflow through the CLIs --------------------------------------
@@ -4884,6 +5072,8 @@ def main():
     loss_falls()
     train_against_cpu()
     elapsed("main_and_train")
+    parallel_launches = parallel_path()
+    elapsed("parallel")
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
         test_step_against_cpu(*test_step_inputs)
@@ -4955,6 +5145,7 @@ def main():
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
+                   "parallel": parallel_launches.get(k, 0),
                    **{p: cli_launches[p][k] for p in CLI_PATHS},
                    "decode": decode_launches if k == "flash_decode" else 0,
                    "train_transformer": train_transformer_launches[k],

@@ -320,8 +320,8 @@ def _fit(tmp_path, n_epochs, model_seed=0, **kwargs):
 def test_fit_writes_checkpoints_and_resumes(tmp_path):
     result = _fit(tmp_path, 2)
     assert [r["epoch"] for r in result.history] == [0, 1]
-    assert set(result.history[0]) == {"epoch", "lr", "train_loss", "valid_loss",
-                                      "valid_p2cp_mm", "best"}
+    assert set(result.history[0]) == {"epoch", "lr", "train_loss", "train_manual_spmd",
+                                      "valid_loss", "valid_p2cp_mm", "best"}
     for record in result.history:
         assert all(np.isfinite(v) for k, v in record.items() if k != "best")
         assert record["lr"] == LR
