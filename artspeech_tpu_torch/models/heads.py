@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from artspeech_tpu_torch.parallel.collectives import copy_to_model_axis, gather_model_axis
+from artspeech_tpu_torch.parallel.mesh import keep_model_slice_
 
 #: flax ``nn.LayerNorm`` epsilon (torch's default is 1e-5).
 LAYER_NORM_EPS = 1e-6
@@ -114,14 +115,15 @@ class ContourDecoder(nn.Module):
             self.register_parameter(f"dense{i}_bias", nn.Parameter(torch.zeros(n_articulators, fan_out)))
         self.model_axis = None  # (group, index, size) once sharded
 
-    def shard_model_axis(self, group, index: int, size: int) -> None:
+    def model_axis_parameters(self):
+        """(name, parameter) of every parameter ``shard_model_axis`` slices."""
+        return list(self.named_parameters())
+
+    def shard_model_axis(self, group, index: int, size: int, optimizer=None) -> None:
         """Keep this model rank's ``index``-th of ``size`` slices of every
-        stacked parameter, in place (the parameters stay the objects the
-        optimizer holds), and compute those articulators from now on."""
-        per = self.n_articulators // size
-        with torch.no_grad():
-            for p in self.parameters(recurse=False):
-                p.data = p.data[index * per:(index + 1) * per].clone()
+        stacked parameter (and of the ``optimizer``'s moments of each), in
+        place, and compute those articulators from now on."""
+        keep_model_slice_(self.parameters(), index, size, optimizer)
         self.model_axis = (group, index, size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -44,6 +44,18 @@ its own cache dtype. In training mode (``.train()``) with dropout > 0,
 ``forward`` needs a ``torch.Generator`` on the model's device for the
 dropout masks, as ``ArtSpeech.forward`` does; in eval mode the dropout is
 inactive, as in JAX.
+
+On a mesh with a model axis of m ranks that divides C
+(``parallel/distributed.distribute_state``), every decoder layer keeps its
+model rank's C/m channels of each (C, ...) and (C, C-1, ...) stack
+(``shard_model_axis``) and computes those channels only, as XLA partitions
+JAX's ``nn.vmap`` lifts by ``params_shardings``: the decoder's input is
+sliced along C, the interactions' queries come from every channel (gathered
+along C), and the head gathers the channels back before it mixes them. The
+training pair attention then runs on the rank's (C/m)(C-1) pairs. Every
+dropout mask over a channel axis is drawn whole from the step's generator
+and sliced, so a model axis draws the masks of the one-device step. Decode
+stays on one device.
 """
 
 import math
@@ -64,6 +76,13 @@ from artspeech_tpu_torch.models.heads import (
 )
 from artspeech_tpu_torch.ops import hopper_attention, hopper_train_attention
 from artspeech_tpu_torch.ops.gru import apply_dropout
+from artspeech_tpu_torch.parallel.collectives import (
+    copy_to_model_axis,
+    exchange_model_axis,
+    gather_model_axis,
+    slice_model_axis,
+)
+from artspeech_tpu_torch.parallel.mesh import keep_model_slice_, part_rows
 from artspeech_tpu_torch.utils.masks import make_padding_mask
 
 
@@ -89,20 +108,34 @@ class PositionalEncoding(nn.Module):
         return x + self.table[: x.shape[-2]].to(x.dtype)  # the caller's dtype, as JAX
 
 
-def _drop(x, rate: float, generator: Optional[torch.Generator]):
+def _drop(x, rate: float, generator: Optional[torch.Generator], axis=None):
     """flax ``nn.Dropout(rate)`` on x, one mask element per element of x;
-    ``generator`` None means no dropout (eval mode, or rate 0)."""
-    return x if generator is None or rate == 0.0 else apply_dropout(x, rate, generator)
+    ``generator`` None means no dropout (eval mode, or rate 0). With a model
+    ``axis`` (group, index, size), x is the rank's slice along dim 1 of a
+    tensor ``size`` times as wide there: the mask is drawn whole and
+    sliced."""
+    if generator is None or rate == 0.0:
+        return x
+    if axis is None or rate >= 1.0:
+        return apply_dropout(x, rate, generator)
+    _, index, size = axis
+    whole = (x.shape[0], x.shape[1] * size, *x.shape[2:])
+    keep_prob = 1.0 - rate
+    keep = torch.rand(whole, generator=generator, device=x.device)[:, part_rows(whole[1], index,
+                                                                                 size)]
+    return torch.where(keep < keep_prob, x / keep_prob, torch.zeros_like(x))
 
 
-def _keep_mask(shape, rate: float, generator: Optional[torch.Generator], device):
+def _keep_mask(shape, rate: float, generator: Optional[torch.Generator], device, axis=None):
     """A pre-scaled keep mask (1 / (1 - rate) where kept, 0 elsewhere) of
     ``shape``, broadcast by the caller as flax broadcasts attention dropout;
-    None without dropout."""
+    None without dropout. With a model ``axis``, the rank's slice of its
+    leading (channel or pair-major) axis."""
     if generator is None or rate == 0.0:
         return None
     keep_prob = 1.0 - rate
-    return (torch.rand(shape, generator=generator, device=device) < keep_prob).float() / keep_prob
+    keep = (torch.rand(shape, generator=generator, device=device) < keep_prob).float() / keep_prob
+    return keep if axis is None else keep[part_rows(shape[0], *axis[1:])]
 
 
 def _norm_f32(x):
@@ -151,10 +184,11 @@ def _others_index(c: int) -> np.ndarray:
     return np.asarray([[j for j in range(c) if j != i] for i in range(c)])
 
 
-def _expand_others(proc, c: int):
+def _expand_others(proc, c: int, rows: slice = slice(None)):
     """(B, C, ...) -> (B, C, C-1, ...): row (i, j) is channel ``j`` skipping
-    ``i`` (JAX transformer.py:154, its index gather)."""
-    return proc[:, torch.as_tensor(_others_index(c), device=proc.device)]
+    ``i`` (JAX transformer.py:154, its index gather); only the channels of
+    ``rows``."""
+    return proc[:, torch.as_tensor(_others_index(c)[rows], device=proc.device)]
 
 
 # -- parameters ----------------------------------------------------------------
@@ -219,11 +253,24 @@ class ChannelProcessingLayer(nn.Module):
     def __init__(self, prefix: Sequence[int], e: int, h: int, generator, dtype=None):
         super().__init__()
         self.n, self.e, self.dtype = int(np.prod(prefix)), e, dtype
+        self.model_axis = None  # (group, index, size) once sharded
         self.ln_scale, self.ln_bias = _ones((*prefix, e)), _zeros((*prefix, e))
         for i in range(3):  # query, key, value MLPs (flax Dense_0/1/2)
             self.register_parameter(f"dense{i}_kernel", _kernel((*prefix, e, e), e, generator))
             self.register_parameter(f"dense{i}_bias", _zeros((*prefix, e)))
         self.attn = MultiHeadParams(prefix, e, h, generator)
+
+    def model_axis_parameters(self):
+        """(name, parameter) of every parameter ``shard_model_axis`` slices."""
+        return list(self.named_parameters())
+
+    def shard_model_axis(self, group, index: int, size: int, optimizer=None) -> None:
+        """Keep this model rank's ``index``-th of ``size`` slices of every
+        stacked parameter's leading axis (and of the ``optimizer``'s moments
+        of each), in place, and compute those parameter sets from now on."""
+        keep_model_slice_(self.parameters(), index, size, optimizer)
+        self.n //= size
+        self.model_axis = (group, index, size)
 
     def _mlp(self, i, x):
         dt = self.dtype
@@ -275,19 +322,43 @@ class ChannelInteractionsLayer(nn.Module):
         self.ln_scale, self.ln_bias = _ones((c, (c - 1) * e)), _zeros((c, (c - 1) * e))
         self.dense_kernel = _kernel((c, (c - 1) * e, e), (c - 1) * e, generator)
         self.dense_bias = _zeros((c, e))
+        self.model_axis = None  # (group, index, size) once sharded
+
+    def model_axis_parameters(self):
+        """(name, parameter) of every parameter ``shard_model_axis`` slices."""
+        return list(self.named_parameters())
+
+    def shard_model_axis(self, group, index: int, size: int, optimizer=None) -> None:
+        """Keep this model rank's C / ``size`` channels of every stack, the
+        pairs' included (and the ``optimizer``'s moments of each), and
+        compute those channels from now on: ``forward`` then takes the
+        rank's (B, C / size, L, E) and gathers the rest for the queries."""
+        keep_model_slice_(self.parameters(recurse=False), index, size, optimizer)
+        self.pairs.shard_model_axis(group, index, size, optimizer)
+        self.model_axis = (group, index, size)
+
+    def _others(self, proc):
+        """The queries' source of the rank's channels: proc (B, C or C/m, L,
+        E) -> (B, C or C/m, C-1, L, E), every channel but the row's own."""
+        if self.model_axis is None:
+            return _expand_others(proc, self.c)
+        group, index, size = self.model_axis
+        whole = exchange_model_axis(proc, group, index, size, dim=1)
+        return _expand_others(whole, self.c, part_rows(self.c, index, size))
 
     def _fused_pairs(self, proc, generator):
         """The training-mode pairs (JAX transformer.py:395-496): proc (B, C, L,
-        E) -> the dropped concat (B, C, L, (C-1) E)."""
+        E) -> the dropped concat (B, C, L, (C-1) E); C the rank's channels on
+        a model axis."""
         b, c, l, e = proc.shape
-        p, a, dt = self.pairs, self.pairs.attn, self.dtype
+        p, a, dt, axis = self.pairs, self.pairs.attn, self.dtype, self.model_axis
         h, hd = a.query_bias.shape[-2:]
         rate = self.dropout
         # The reference drops these inputs twice (decoder and layer): one
         # drop at the composed rate is the same distribution (JAX :399-403).
         composed = 1.0 - (1.0 - rate) ** 2
-        src_n = _norm_f32(_drop(proc, composed, generator))  # (B, C, L, E)
-        others_n = _norm_f32(_drop(_expand_others(proc, c), composed, generator))
+        src_n = _norm_f32(_drop(proc, composed, generator, axis))  # (B, C, L, E)
+        others_n = _norm_f32(_drop(self._others(proc), composed, generator, axis))
 
         def fold(i):
             w = getattr(p, f"dense{i}_kernel")  # (C, C-1, E, E)
@@ -309,29 +380,30 @@ class ChannelInteractionsLayer(nn.Module):
                 y = y * (1.0 / math.sqrt(hd))  # in the compute dtype, as JAX
             return at_least_f32(y.reshape(-1, l, hd)).contiguous()
 
-        n_pairs = c * (c - 1)
-        keep = _keep_mask((n_pairs, l, l), rate, generator, proc.device)
+        n_pairs, n_whole = c * (self.c - 1), self.c * (self.c - 1)
+        keep = _keep_mask((n_whole, l, l), rate, generator, proc.device, axis)
         if keep is None:
             keep, n_pairs = torch.ones(1, l, l, device=proc.device), 1
         av = hopper_train_attention.fused_causal_attend(
             heads(q_mlp, "query"), heads(k_mlp, "key"), heads(v_mlp, "value"), keep, n_pairs)
-        av = cast(av.reshape(c, c - 1, b, h, l, hd), dt)
+        av = cast(av.reshape(c, self.c - 1, b, h, l, hd), dt)
         out_i = (torch.einsum("cjbhld,cjhde->cjble", av, cast(a.out_kernel, dt))
                  + cast(a.out_bias[:, :, None, None], dt))
-        concat = (q_mlp + out_i).permute(2, 0, 3, 1, 4).reshape(b, c, l, (c - 1) * e)
-        return _drop(concat, rate, generator)
+        concat = (q_mlp + out_i).permute(2, 0, 3, 1, 4).reshape(b, c, l, (self.c - 1) * e)
+        return _drop(concat, rate, generator, axis)
 
     def forward(self, proc, mask=None, generator: Optional[torch.Generator] = None):
-        """proc (B, C, L, E) -> (B, C, L, E); ``mask`` the eval path's
-        (B or 1, 1, L, L) tgt_mask; ``generator`` the training dropout's."""
+        """proc (B, C, L, E) -> (B, C, L, E), C the rank's channels on a
+        model axis; ``mask`` the eval path's (B or 1, 1, L, L) tgt_mask;
+        ``generator`` the training dropout's."""
         b, c, l, e = proc.shape
         if self.training:
             concat = self._fused_pairs(proc, generator)
         else:
-            others = _expand_others(proc, c)  # queries: (B, C, C-1, L, E)
+            others = self._others(proc)  # queries: (B, C, C-1, L, E)
             own = proc[:, :, None].expand_as(others)  # keys and values: the channel itself
             outs = self.pairs(own.reshape(b, -1, l, e), others.reshape(b, -1, l, e), mask)
-            concat = outs.reshape(b, c, c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
+            concat = outs.reshape(b, c, self.c - 1, l, e).permute(0, 1, 3, 2, 4).reshape(b, c, l, -1)
         dt = self.dtype
         h = _norm_f32(concat) * self.ln_scale[:, None] + self.ln_bias[:, None]
         return torch.relu(torch.einsum("bclx,cxe->bcle", cast(h, dt), cast(self.dense_kernel, dt))
@@ -352,27 +424,49 @@ class MultiChannelDecoderLayer(nn.Module):
         self.ln0_scale, self.ln0_bias = _ones(e), _zeros(e)
         self.ln1_scale, self.ln1_bias = _ones(e), _zeros(e)
         self.dense_kernel, self.dense_bias = _kernel((e, e), e, generator), _zeros(e)
+        self.model_axis = None  # (group, index, size) once sharded
+
+    def model_axis_parameters(self):
+        """(name, parameter) of every parameter ``shard_model_axis`` slices:
+        the channel stacks. The LayerNorms and the feed-forward, shared by
+        every channel, stay whole."""
+        return [(f"{name}.{n}", p) for name in ("self_attn", "inter", "mem_attn")
+                for n, p in getattr(self, name).model_axis_parameters()]
+
+    def shard_model_axis(self, group, index: int, size: int, optimizer=None) -> None:
+        """Keep this model rank's C / ``size`` channels of every channel
+        stack (and the ``optimizer``'s moments of each); ``forward`` then
+        takes and returns the rank's (B, C / size, L, E)."""
+        for name in ("self_attn", "inter", "mem_attn"):
+            getattr(self, name).shard_model_axis(group, index, size, optimizer)
+        self.model_axis = (group, index, size)
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 generator: Optional[torch.Generator] = None):
         """tgt (B, C, L, E), memory (B, S, E), tgt_mask (B or 1, 1, L, L),
-        memory_mask (B, 1, 1, S) -> (B, C, L, E); ``generator`` draws the
-        training dropout (None: none)."""
-        rate, c, dev = self.dropout, self.c, tgt.device
+        memory_mask (B, 1, 1, S) -> (B, C, L, E), C the rank's channels on a
+        model axis; ``generator`` draws the training dropout (None: none)."""
+        rate, c, dev, axis = self.dropout, self.c, tgt.device, self.model_axis
         l, s = tgt.shape[2], memory.shape[1]
-        tgt_d = _drop(tgt, rate, generator)
-        proc = self.self_attn(tgt_d, tgt_d, tgt_mask, _keep_mask((c, l, l), rate, generator, dev))
+        tgt_d = _drop(tgt, rate, generator, axis)
+        proc = self.self_attn(tgt_d, tgt_d, tgt_mask,
+                              _keep_mask((c, l, l), rate, generator, dev, axis))
         inter = self.inter(proc, tgt_mask, generator)
         # One memory mask shared by every channel (JAX :657).
-        mem_d, inter_d = _drop(memory, rate, generator), _drop(inter, rate, generator)
+        mem_d, inter_d = _drop(memory, rate, generator), _drop(inter, rate, generator, axis)
         attended = self.mem_attn(mem_d[:, None], inter_d, memory_mask,
-                                 _keep_mask((c, l, s), rate, generator, dev))
+                                 _keep_mask((c, l, s), rate, generator, dev, axis))
+        # Shared by every channel: on a model axis each rank's gradient of
+        # these covers its channels only, so the copy sums it over the ranks.
+        group = None if axis is None else axis[0]
+        ln0_scale, ln0_bias, ln1_scale, ln1_bias, kernel, bias = (
+            copy_to_model_axis(p, group) for p in (self.ln0_scale, self.ln0_bias, self.ln1_scale,
+                                                   self.ln1_bias, self.dense_kernel,
+                                                   self.dense_bias))
         dt = self.dtype
-        attended = layer_norm(attended, self.ln0_scale, self.ln0_bias, dtype=dt)
-        h = layer_norm(at_least_f32(_drop(attended, rate, generator)), self.ln1_scale,
-                       self.ln1_bias)
-        return attended + torch.relu(cast(h, dt) @ cast(self.dense_kernel, dt)
-                                     + cast(self.dense_bias, dt))
+        attended = layer_norm(attended, ln0_scale, ln0_bias, dtype=dt)
+        h = layer_norm(at_least_f32(_drop(attended, rate, generator, axis)), ln1_scale, ln1_bias)
+        return attended + torch.relu(cast(h, dt) @ cast(kernel, dt) + cast(bias, dt))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -448,6 +542,12 @@ class ArtSpeechTransformer(nn.Module):
             h = layer(h, enc_mask, generator)
         return h
 
+    @property
+    def channel_axis(self):
+        """(group, index, size) once the decoder's channels are split over a
+        model axis (``shard_model_axis`` of its layers), else None."""
+        return self.decoder_layers[0].model_axis if len(self.decoder_layers) else None
+
     def _decode(self, tgt, memory, tgt_mask, memory_mask, generator=None):
         """tgt (B, L, C, F) -> (B, L, C, 2, D) sigmoid contours."""
         b, l, c, _ = tgt.shape
@@ -455,8 +555,14 @@ class ArtSpeechTransformer(nn.Module):
         h = layer_norm(tgt, self.tgt_embed_ln_scale, self.tgt_embed_ln_bias, dtype=dt)
         h = torch.relu(h @ cast(self.tgt_embed_dense_kernel, dt) + cast(self.tgt_embed_dense_bias, dt))
         h = _drop(self.pos_encoding(h.permute(0, 2, 1, 3)), self.dropout, generator)  # (B, C, L, E)
+        axis = self.channel_axis
+        if axis is not None:  # the layers run on the rank's channels
+            h = slice_model_axis(h, *axis, dim=1)
+            memory = copy_to_model_axis(memory, axis[0])
         for layer in self.decoder_layers:
             h = layer(h, memory, tgt_mask, memory_mask, generator)
+        if axis is not None:
+            h = gather_model_axis(h, *axis, dim=1)
         h = h.permute(0, 2, 1, 3).reshape(b, l, c * self.embed_dim)
         h = layer_norm(h, self.head_ln_scale, self.head_ln_bias, dtype=dt)
         return self.predictors(torch.relu(h @ cast(self.head_dense_kernel, dt)
@@ -565,6 +671,9 @@ def make_fast_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] =
     """
     dev = resolve_device(device)
     dtype = _cache_dtype(cache_dtype)
+    if model.channel_axis is not None:
+        raise ValueError("the decode runs on one device: load the whole checkpoint into an "
+                         "unsharded model")
     c, e, f = model.num_articulators, model.embed_dim, model.num_feat
     n_heads = model.num_heads
     hd = e // n_heads

@@ -8,6 +8,21 @@ one-device step when it is given no group. Only ``all_reduce`` (SUM) is used,
 because gloo supports nothing else on CUDA tensors besides ``broadcast`` and
 ``barrier``: the gather along the model axis is an ``all_reduce`` of a
 zero-filled full tensor, which adds only zeros to every slice and so is exact.
+
+Along the model axis (the ranks of one data row, ``Mesh.model_group``), a
+tensor is either the same on every rank or one rank's slice along an axis:
+
+- ``copy_to_model_axis``: a tensor every rank holds alike and feeds to its
+  own part of the work; its gradient is summed over the ranks.
+- ``slice_model_axis``: the rank's slice of such a tensor along an axis.
+- ``gather_model_axis``: the slices gathered whole, for work every rank then
+  does alike (the heads' outputs into the loss); the backward hands each
+  rank its slice's gradient once.
+- ``exchange_model_axis``: the slices gathered whole, for work each rank
+  does differently (the transformer's queries from every other channel);
+  the backward sums the whole's gradient over the ranks first.
+- ``gather_leading_slices``: parameters and moments gathered whole, without
+  gradient, for a checkpoint.
 """
 
 from typing import Iterable, List, Optional, Sequence
@@ -128,3 +143,31 @@ def copy_to_model_axis(x: torch.Tensor, group: Optional[object]) -> torch.Tensor
 
 def gather_model_axis(x: torch.Tensor, group, index: int, size: int, dim: int = 0):
     return x if group is None else _GatherModelAxis.apply(x, group, index, size, dim)
+
+
+def exchange_model_axis(x: torch.Tensor, group, index: int, size: int, dim: int = 0):
+    return copy_to_model_axis(gather_model_axis(x, group, index, size, dim), group)
+
+
+def slice_model_axis(x: torch.Tensor, group, index: int, size: int, dim: int = 0):
+    if group is None:
+        return x
+    n = x.shape[dim] // size
+    return copy_to_model_axis(x, group).narrow(dim, index * n, n)
+
+
+def gather_leading_slices(tensors: Sequence[torch.Tensor], group, index: int,
+                          size: int) -> List[torch.Tensor]:
+    """Whole tensors from every rank's ``index``-th of ``size`` slices of
+    their leading axes, in ONE all-reduce (float32) of zero-filled whole
+    tensors, each returned with storage of its own (not a view of the
+    flattened buffer, which a pickle or ``torch.save`` would copy whole).
+    Every rank of ``group`` calls it with its slices of the same tensors, in
+    the same order."""
+    wholes = []
+    for t in tensors:
+        n = t.shape[0]
+        whole = t.new_zeros((n * size, *t.shape[1:]))
+        whole[index * n:(index + 1) * n] = t.detach()
+        wholes.append(whole)
+    return [t.clone() for t in all_reduce_flat(wholes, group)]

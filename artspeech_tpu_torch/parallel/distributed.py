@@ -6,7 +6,7 @@ card and gloo on the CPU by default, gloo on the card only when asked for
 (NCCL refuses two ranks on one GPU). ``initialize_multihost`` joins a group,
 ``distribute_state`` gives every rank rank 0's parameters and AdamW moments
 and, on a mesh with a model axis, keeps each rank's slice of the ArtSpeech
-heads, and ``run_distributed_step`` runs a step on the rank's rows of a host
+heads and of the transformer's channel stacks, and ``run_distributed_step`` runs a step on the rank's rows of a host
 batch. Only rank 0 writes files (``is_main_process``); ``barrier`` lets the
 other ranks wait for them.
 
@@ -105,12 +105,19 @@ def distribute_state(state, mesh: Mesh):
 
     Every rank of the mesh takes rank 0's parameters, buffers and AdamW
     moments (a broadcast). With a model axis (> 1), each module that computes
-    over a sharded leading axis (``shard_model_axis``: the ArtSpeech heads)
-    keeps only its rank's slice of the parameters that ``params_shardings``
-    shards, and of their moments. JAX's heuristic also shards any other
-    parameter with a divisible leading axis (embeddings, GRU and dense
-    kernels), which XLA gathers where it is used; the port keeps those, and
-    the transformer's and autoencoder's stacked axes, replicated.
+    over a stacked leading axis (one with ``shard_model_axis``: the ArtSpeech
+    heads, the transformer's decoder layers and heads) keeps only its rank's
+    slice of those parameters and of their moments, when ``params_shardings``
+    places every one of them on ``model``. Where the model axis does not
+    divide that leading axis, JAX's heuristic replicates them, and so does
+    this: the module then computes all of it on every rank.
+
+    Stays replicated, though JAX's heuristic places it on ``model`` too: the
+    embeddings; the GRU, LSTM and Dense kernels (their leading axis is an
+    input width, not a channel or a head; XLA gathers each where it is used,
+    so the numbers are the same whole); the frame autoencoder's and the
+    latent RNN's per-articulator modules, which JAX keeps as separate named
+    modules with no stacked axis.
     """
     if mesh.group is not None:
         model = state.model
@@ -122,19 +129,16 @@ def distribute_state(state, mesh: Mesh):
                          if torch.is_tensor(v) and v.shape == p.shape], mesh)
     if mesh.shape[MODEL_AXIS] > 1:
         shardings = params_shardings(state.model, mesh)
+        done = []
         for name, module in state.model.named_modules():
-            if not hasattr(module, "shard_model_axis"):
+            if not hasattr(module, "shard_model_axis") or \
+                    any(name.startswith(f"{outer}.") or not outer for outer in done):
                 continue
-            own = [(f"{name}.{n}" if name else n, p)
-                   for n, p in module.named_parameters(recurse=False)]
-            if not own or any(shardings[n].axis != MODEL_AXIS for n, _ in own):
-                continue
-            rows = shardings[own[0][0]].rows(own[0][1].shape[0])
-            for _, p in own:
-                for key, value in state.optimizer.state.get(p, {}).items():
-                    if torch.is_tensor(value) and value.shape == p.shape:
-                        state.optimizer.state[p][key] = value[rows].clone()
-            module.shard_model_axis(mesh.model_group, mesh.model_index, mesh.shape[MODEL_AXIS])
+            done.append(name)  # its submodules follow it
+            stacked = [f"{name}.{n}" if name else n for n, _ in module.model_axis_parameters()]
+            if stacked and all(shardings[n].axis == MODEL_AXIS for n in stacked):
+                module.shard_model_axis(mesh.model_group, mesh.model_index,
+                                        mesh.shape[MODEL_AXIS], state.optimizer)
     return state
 
 

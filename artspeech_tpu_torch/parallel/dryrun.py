@@ -6,8 +6,9 @@
 out as a (data, model) mesh (model 2 when n is even) and runs one step of
 each of the seven families at tiny shapes: the ArtSpeech step with its heads
 sharded over ``model``, the ArtSpeech step over a data-only mesh of the same
-ranks, the transformer, the recognizer (CTC), the latent RNN, the frame
-autoencoder and the synthesize-then-recognize pipeline. It asserts that every
+ranks, the transformer with its decoder's channel stacks and its heads
+sharded over ``model`` (C = 4), the recognizer (CTC), the latent RNN, the
+frame autoencoder and the synthesize-then-recognize pipeline. It asserts that every
 loss is finite and prints one summary line. On ``cuda`` the ranks take
 ``cuda:rank`` and NCCL; with fewer cards than ranks it raises unless
 ``backend="gloo"`` is asked for, which lets ranks share a card.

@@ -9,9 +9,12 @@ ranks out row-major as a (data, model) grid, as JAX reshapes its devices:
 - ``data`` axis: each data row holds a contiguous slice of the batch's rows
   (JAX's ``P("data")``); gradients and loss sums are all-reduced over the
   ranks that share a model coordinate (``Mesh.data_group``).
-- ``model`` axis: the ranks of one data row hold the same rows; the
-  ArtSpeech heads' stacked (Nart, ...) parameters split over them
-  (``models/heads.py``), their outputs gathered over ``Mesh.model_group``.
+- ``model`` axis: the ranks of one data row hold the same rows; the stacked
+  (Nart, ...) parameters of the ArtSpeech heads (``models/heads.py``) and the
+  (C, ...) / (C, C-1, ...) channel stacks of the transformer's decoder
+  (``models/transformer.py``) split over them, each rank computing its own
+  heads or channels, the activations gathered over ``Mesh.model_group``
+  where every channel is needed (``parallel/collectives.py``).
 
 Without an initialised process group every mesh is the one-rank mesh with no
 groups, and every collective of ``parallel/collectives.py`` is the identity.
@@ -153,12 +156,34 @@ class Sharding:
         """This rank's contiguous slice of a leading axis of ``n``."""
         if self.axis is None:
             return slice(0, n)
-        parts = self.mesh.shape[self.axis]
-        if n % parts:
-            raise ValueError(f"leading axis {n} does not split over {parts} {self.axis} ranks")
         index = self.mesh.data_index if self.axis == DATA_AXIS else self.mesh.model_index
-        step = n // parts
-        return slice(index * step, (index + 1) * step)
+        return part_rows(n, index, self.mesh.shape[self.axis])
+
+
+def part_rows(n: int, index: int, size: int) -> slice:
+    """The ``index``-th of ``size`` contiguous parts of an axis of ``n``;
+    raises ``ValueError`` when ``size`` does not divide ``n``."""
+    if n % size:
+        raise ValueError(f"axis {n} does not split into {size} parts")
+    step = n // size
+    return slice(index * step, (index + 1) * step)
+
+
+def keep_model_slice_(params, index: int, size: int, optimizer=None) -> None:
+    """Keep, in place, the ``index``-th of ``size`` contiguous slices of
+    every parameter's leading axis and, given the ``optimizer``, of each
+    moment it holds for one (AdamW's ``exp_avg`` / ``exp_avg_sq``; its step
+    count is a scalar and stays). The parameters stay the objects the
+    optimizer holds. A stacked module's ``shard_model_axis`` calls it with
+    its model rank's coordinate (``parallel/distributed.distribute_state``)."""
+    with torch.no_grad():
+        for p in params:
+            rows = part_rows(p.shape[0], index, size)
+            moments = {} if optimizer is None else optimizer.state.get(p, {})
+            for key, value in moments.items():
+                if torch.is_tensor(value) and value.shape == p.shape:
+                    moments[key] = value[rows].clone()
+            p.data = p.data[rows].clone()
 
 
 def batch_sharding(mesh: Mesh) -> Sharding:

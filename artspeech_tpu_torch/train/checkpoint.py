@@ -8,7 +8,12 @@
   the reference ``best_model.pt``.
 
 Files are written to a temporary name and renamed, so a run cut mid-write
-leaves the previous checkpoint whole. They are loaded with
+leaves the previous checkpoint whole. On a mesh with a model axis, the
+parameters that a module keeps one rank's slice of (``shard_model_axis``)
+and their AdamW moments are gathered whole first, so a checkpoint has the
+keys, shapes and dtypes of a one-device run's and loads into an unsharded
+model; the gather is a collective, so every rank of the model group calls
+``save_checkpoint`` / ``save_params``, and only rank 0 writes. They are loaded with
 ``weights_only=True``. ``load_params`` reads ``<dir>/state`` as the model
 part of ``<dir>/state.pt``, so the configs' ``state_dict_filepath:
 results/checkpoints/best/state`` works as it does for the JAX package.
@@ -27,6 +32,8 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from artspeech_tpu_torch.parallel.collectives import gather_leading_slices
+from artspeech_tpu_torch.parallel.distributed import is_main_process
 from artspeech_tpu_torch.utils import convert
 
 STATE_FILE = "state.pt"
@@ -39,11 +46,45 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def whole_state_dicts(model, optimizer=None):
+    """The model's (and the ``optimizer``'s, else None) state dict with
+    every model-axis slice gathered whole (module docstring); the module's
+    own when nothing is sharded. A collective over the model group when
+    something is: every rank of it calls this."""
+    model_sd = model.state_dict()
+    optim_sd = None if optimizer is None else optimizer.state_dict()
+    sliced = {}
+    for module in model.modules():
+        if getattr(module, "model_axis", None) is not None:
+            for _, p in module.model_axis_parameters():
+                sliced[id(p)] = module.model_axis
+    if not sliced:
+        return model_sd, optim_sd
+    (group, index, size), = set(sliced.values())
+    slots = [(model_sd, name, p) for name, p in model.named_parameters() if id(p) in sliced]
+    if optimizer is not None:
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        for i, p in enumerate(params):
+            if id(p) in sliced and i in optim_sd["state"]:
+                # A copy: the packed state holds the optimizer's own dicts.
+                moments = optim_sd["state"][i] = dict(optim_sd["state"][i])
+                slots += [(moments, k, v) for k, v in moments.items()
+                          if torch.is_tensor(v) and v.shape == p.shape]
+    wholes = gather_leading_slices([t for _, _, t in slots], group, index, size)
+    for (target, key, _), whole in zip(slots, wholes):
+        target[key] = whole
+    return model_sd, optim_sd
+
+
 def save_checkpoint(directory: str, state, aux: Optional[Dict[str, Any]] = None) -> None:
-    """Write the model and optimizer state (and ``aux`` as JSON) under ``directory``."""
+    """Write the model and optimizer state (and ``aux`` as JSON) under
+    ``directory``, whole: every rank calls this, rank 0 writes."""
+    model_sd, optim_sd = whole_state_dicts(state.model, state.optimizer)
+    if not is_main_process():
+        return
     os.makedirs(directory, exist_ok=True)
-    _save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-           "step": state.step}, os.path.join(directory, STATE_FILE))
+    _save({"model": model_sd, "optimizer": optim_sd, "step": state.step},
+          os.path.join(directory, STATE_FILE))
     if aux is not None:
         tmp = os.path.join(directory, AUX_FILE + ".tmp")
         with open(tmp, "w") as f:
@@ -76,10 +117,14 @@ def restore_checkpoint(directory: str, state):
 
 
 def save_params(path: str, model) -> None:
-    """Write a model-only artifact: the bare ``state_dict``."""
+    """Write a model-only artifact: the bare ``state_dict``, whole (every
+    rank calls this, rank 0 writes)."""
+    model_sd, _ = whole_state_dicts(model)
+    if not is_main_process():
+        return
     parent = os.path.dirname(os.path.abspath(path))
     os.makedirs(parent, exist_ok=True)
-    _save(model.state_dict(), path)
+    _save(model_sd, path)
 
 
 def load_params(path: str) -> Dict[str, torch.Tensor]:

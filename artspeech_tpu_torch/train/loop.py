@@ -12,8 +12,13 @@ Over a process group ``fit`` trains data-parallel (JAX :128-162): it resolves
 a mesh from the loader's collated batch, builds the steps against it, gives
 every rank rank 0's state, and feeds each rank its rows of every batch. The
 epoch means stay weighted by each batch's global count of real sentences.
-Only rank 0 writes checkpoints, ``best_model`` and the tracker's records and
-calls the epoch callback; the others wait for it at a barrier.
+An explicit mesh may have a model axis: ``distribute_state`` then splits the
+stacked heads and channels over it, and the checkpoints gather them whole
+(train/checkpoint.py), so they are a one-device run's. Every rank calls the
+saves (the gather is collective) and rank 0 writes them; rank 0 alone writes
+the tracker's records and calls the epoch callback; the others wait for it at
+a barrier. Every rank takes rank 0's validation metrics, so the scheduler,
+the stopper and the saves decide alike.
 """
 
 import os
@@ -27,11 +32,12 @@ from artspeech_tpu_torch.core.device import DeviceLike, resolve_device
 from artspeech_tpu_torch.data.batching import prefetch_to_device
 from artspeech_tpu_torch.parallel.distributed import (
     barrier,
+    broadcast_object,
     distribute_state,
     is_initialized,
     is_main_process,
 )
-from artspeech_tpu_torch.parallel.mesh import MODEL_AXIS, batch_sharding, data_parallel_mesh
+from artspeech_tpu_torch.parallel.mesh import batch_sharding, data_parallel_mesh
 from artspeech_tpu_torch.train.checkpoint import (
     has_checkpoint,
     restore_checkpoint,
@@ -141,8 +147,10 @@ def fit(
     ``mesh="auto"`` trains over the process group's ranks when there is a
     group: the data axis takes the largest rank count that divides the
     loader's ``collate_batch_size`` (JAX's rule). Without a group, or with
-    ``mesh=None``, this is the one-device loop. A mesh with a model axis is
-    refused (its checkpoints would hold slices). ``train_step_factory(mesh)``
+    ``mesh=None``, this is the one-device loop. An explicit ``Mesh`` may
+    have a model axis; the checkpoints are whole all the same, and restore
+    loads whole before ``distribute_state`` slices, so a checkpoint resumes
+    on one device or on any mesh. ``train_step_factory(mesh)``
     and ``eval_step_factory(mesh)`` build the steps against the resolved mesh
     (None when there is none) and replace ``train_step`` / ``eval_step``.
     Every rank must call ``fit`` alike; rank 0 writes, the others wait.
@@ -152,9 +160,6 @@ def fit(
         collate_bs = getattr(train_loader, "collate_batch_size",
                              getattr(train_loader, "batch_size", None))
         mesh = data_parallel_mesh(collate_bs, device=dev) if is_initialized() else None
-    if mesh is not None and mesh.shape[MODEL_AXIS] > 1:
-        raise ValueError("fit trains over the data axis only; a model axis goes through "
-                         "parallel.distribute_state and run_distributed_step")
     if train_step_factory is not None:
         train_step = train_step_factory(mesh)
     if eval_step_factory is not None:
@@ -194,7 +199,8 @@ def fit(
         generator = epoch_generator(seed, epoch, dev, rank)
         state, train_metrics = run_train_epoch(state, train_loader, train_step, generator, dev,
                                                sharding)
-        valid_metrics = run_eval_epoch(state, valid_loader, eval_step, dev, sharding)
+        valid_metrics = broadcast_object(
+            run_eval_epoch(state, valid_loader, eval_step, dev, sharding), mesh)
         monitored = valid_metrics[monitor]
 
         state = scheduler.step(valid_metrics.get("loss", monitored), state)
@@ -208,33 +214,31 @@ def fit(
             "best": is_best,
         }
         history.append(record)
-        if main:
-            if tracker is not None:
-                tracker.log_metrics({k: v for k, v in record.items() if k != "best"},
-                                    step=epoch)
-            if is_best:
-                save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: monitored})
-                save_params(best_model, state.model)
-            save_checkpoint(
-                last_dir,
-                state,
-                aux={
-                    "epoch": epoch,
-                    "best_metric": stopper.best_metric,
-                    "epochs_since_best": stopper.epochs_since_best,
-                    "scheduler_best": scheduler.best,
-                    "scheduler_bad_epochs": scheduler.bad_epochs,
-                },
-            )
-            if epoch_callback is not None:
-                epoch_callback(epoch, state, record)
+        if main and tracker is not None:
+            tracker.log_metrics({k: v for k, v in record.items() if k != "best"}, step=epoch)
+        if is_best:
+            save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: monitored})
+            save_params(best_model, state.model)
+        save_checkpoint(
+            last_dir,
+            state,
+            aux={
+                "epoch": epoch,
+                "best_metric": stopper.best_metric,
+                "epochs_since_best": stopper.epochs_since_best,
+                "scheduler_best": scheduler.best,
+                "scheduler_bad_epochs": scheduler.bad_epochs,
+            },
+        )
+        if main and epoch_callback is not None:
+            epoch_callback(epoch, state, record)
         barrier(mesh)
         if stopper.should_stop:
             break
 
     # A resumed run may complete zero epochs (or never improve): downstream
     # always needs a best checkpoint in this run's directory.
-    if main and not has_checkpoint(best_dir):
+    if broadcast_object(main and not has_checkpoint(best_dir), mesh):
         save_checkpoint(best_dir, state, aux={"epoch": epoch, monitor: stopper.best_metric})
         save_params(best_model, state.model)
     barrier(mesh)

@@ -19,7 +19,13 @@ of the batch, with JAX's shard_map semantics (JAX train/step.py:133-231):
 every masked mean is the rank's numerator over the GLOBAL count (valid frames
 all-reduced over the data group before the backward), so that the loss, the
 P2CP sums and one flattened gradient, all-reduced (SUM) after the backward,
-equal the whole batch's up to float summation order. A rank is one more
+equal the whole batch's up to float summation order. On a mesh with a model
+axis the model's stacked parts compute the rank's slice (the heads'
+articulators, the transformer's channels); their parameters' gradients are
+reduced over the data group only, like every other, and the replicated
+parameters get their whole gradient on every model rank, because what feeds
+a sharded part goes through ``copy_to_model_axis``, whose backward sums over
+the model group (``parallel/collectives.py``). A rank is one more
 microbatch of the transformer's exact accumulation, and both share
 ``_accumulate``. Every train step reports ``manual_spmd``: 1.0 over a mesh,
 0.0 without one. JAX's ``prefer_manual_spmd`` (a TPU dispatch floor between

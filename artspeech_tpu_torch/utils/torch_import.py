@@ -1,11 +1,18 @@
-"""Import reference PyTorch DeepSpeech2 weights into the port's model
-(counterpart of the DeepSpeech2 part of artspeech_tpu/utils/torch_import.py).
+"""Import the reference's PyTorch ArtSpeech and DeepSpeech2 weights into the
+port's models (counterpart of artspeech_tpu/utils/torch_import.py).
 
-Equivalent of reference deepspeech2.py:197-217 (``load_librispeech_model``):
-maps a torch state dict with the reference layout (adapter, cnn,
-residual_layers.N, linear, recurrent_layers.N, feature_extractor, classifier)
-onto ``models/deepspeech2.DeepSpeech2``, whose parameters keep the JAX
-package's layout:
+``convert_artspeech_state_dict`` maps a reference ArtSpeech state dict
+(encoder_decoder/models.py:99-145: embedding, 2-layer BiGRU, Linear head and
+one ``ArticulatorPredictor`` per articulator) onto
+``models/artspeech_rnn.ArtSpeech``: the GRU matrices transposed, the
+``predictors.{i}`` ModuleList stacked onto the heads' leading (Nart, ...)
+axis, the x and y output layers as ``dense2`` and ``dense3``.
+
+The DeepSpeech2 half is the equivalent of reference deepspeech2.py:197-217
+(``load_librispeech_model``): it maps a torch state dict with the reference
+layout (adapter, cnn, residual_layers.N, linear, recurrent_layers.N,
+feature_extractor, classifier) onto ``models/deepspeech2.DeepSpeech2``,
+whose parameters keep the JAX package's layout:
 
 - Conv2d: torch NCHW kernels (O, I, KD, KT) -> (KT, KD, I, O).
 - GRU: torch (3H, X) weight matrices -> (X, 3H).
@@ -24,6 +31,7 @@ import torch
 
 from artspeech_tpu_torch.core.device import DeviceLike
 from artspeech_tpu_torch.models.deepspeech2 import DeepSpeech2
+from artspeech_tpu_torch.utils.convert import artspeech_state_dict_from_flax
 
 
 def load_torch_state_dict(filepath: str) -> Dict[str, np.ndarray]:
@@ -33,6 +41,43 @@ def load_torch_state_dict(filepath: str) -> Dict[str, np.ndarray]:
 
 def _t(array) -> torch.Tensor:
     return torch.from_numpy(np.array(array, dtype=np.float32))
+
+
+def _f32(array) -> np.ndarray:
+    return np.asarray(array, dtype=np.float32)
+
+
+def convert_artspeech_state_dict(sd: Dict[str, np.ndarray],
+                                 num_layers: int = 2) -> Dict[str, torch.Tensor]:
+    """The port's ``ArtSpeech`` state dict from a reference ArtSpeech one
+    ({name: np.ndarray}, as ``load_torch_state_dict`` returns). Raises
+    ``KeyError`` on a missing key."""
+    gru = {}
+    for layer in range(num_layers):
+        for direction in ("", "_reverse"):
+            gru[f"GRULayer_{len(gru)}"] = {
+                "wi": _f32(sd[f"rnn.weight_ih_l{layer}{direction}"]).T,
+                "bi": _f32(sd[f"rnn.bias_ih_l{layer}{direction}"]),
+                "wh": _f32(sd[f"rnn.weight_hh_l{layer}{direction}"]).T,
+                "bh": _f32(sd[f"rnn.bias_hh_l{layer}{direction}"]),
+            }
+    n_art = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("predictors."))
+
+    def stacked(suffix, names):
+        return {new: np.stack([_f32(sd[f"predictors.{i}.{suffix}.{old}"]).T
+                               for i in range(n_art)])
+                for old, new in zip(("weight", "bias"), names)}
+
+    heads = {f"LayerNorm_{i}": stacked(f"linear.{k}", ("scale", "bias"))
+             for i, k in enumerate((0, 3, 6))}
+    for i, suffix in enumerate(("linear.1", "linear.4", "x_coords", "y_coords")):
+        heads[f"Dense_{i}"] = stacked(suffix, ("kernel", "bias"))
+    return artspeech_state_dict_from_flax({
+        "Embed_0": {"embedding": _f32(sd["embedding.weight"])},
+        "BiGRU_0": gru,
+        "Dense_0": {"kernel": _f32(sd["linear.0.weight"]).T, "bias": _f32(sd["linear.0.bias"])},
+        "ContourDecoder_0": {"VmapArticulatorPredictor_0": heads},
+    })
 
 
 def _same(sd, prefix, port, names=("weight", "bias"), as_=("weight", "bias")):

@@ -117,15 +117,27 @@ Phases, each printing its own lines:
                updates (1e-5, where |g| >= 100 eps as in train_against_cpu)
                must equal the one-rank step's, and the first step's summed
                gradients too (1e-5 max(|g|, 1)), with the kernels launched in
-               both ranks; and dryrun_multichip(2, backend="gloo"), one step
-               of every family over a (1, 2) mesh of two ranks on the card;
+               both ranks; in the same two ranks, the model axis: the
+               train_transformer.yaml transformer at full width (dropout 0.1,
+               B = 12, T = 128) on a (data 1, model 2) mesh, each rank holding
+               5 of the 10 channels of every channel stack and head, 3
+               updates against the one-device step on the card (bounds in
+               model_axis_against_one_device), each rank's training-attention
+               launches at G = 2,160, n_pairs = 45 and their geometry, and
+               fit of the thesis model for one epoch on that mesh, whose
+               whole checkpoint loads into a one-device model and gives the
+               ranks' valid metrics; the reference ArtSpeech import
+               (convert_artspeech_state_dict) at the thesis widths, its model
+               on the card against the CPU within 1e-5 with its gru_fwd
+               launches; and dryrun_multichip(2, backend="gloo"), one step of
+               every family over a (1, 2) mesh of two ranks on the card;
   6. cli     — the thesis workflow through the port's three CLIs, each run
                in-process through its run_experiment with sys.argv set, from
                YAML files written from the text of the repository's
                configs/model_free/ configs (only the corpus paths, the
                database, num_epochs: 2, state_dict_filepath and save_to
                changed) over a seeded gottingen-layout corpus on disk (one
-               subject, S01-S05, 6 sentences of about 75 frames each):
+               subject, S01-S05, 4 sentences of about 75 frames each):
                train_phoneme_to_articulation (fit + the final test with tract
                variables), test_phoneme_to_articulation on best/state,
                generate_vocal_tract_shape on S05 and, from best_model, on a
@@ -374,7 +386,7 @@ from artspeech_tpu_torch.models.latent_rnn import (
     make_latent_rnn_synthesis_forward,
 )
 from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer, make_fast_generate
-from artspeech_tpu_torch.parallel.collectives import all_reduce_flat
+from artspeech_tpu_torch.parallel.collectives import all_reduce_flat, gather_leading_slices
 from artspeech_tpu_torch.parallel.distributed import (
     distribute_state,
     initialize_multihost,
@@ -394,7 +406,8 @@ from artspeech_tpu_torch.ops import (
 from artspeech_tpu_torch.synth.pipeline import make_synthesis_step, synthesize_corpus
 from artspeech_tpu_torch.synth.viz import missing_packages
 from artspeech_tpu_torch.train import loop, state
-from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint
+from artspeech_tpu_torch.train.checkpoint import load_params, restore_checkpoint, whole_state_dicts
+from artspeech_tpu_torch.utils.torch_import import convert_artspeech_state_dict
 from artspeech_tpu_torch.losses import articulation as articulation_losses
 from artspeech_tpu_torch.losses.articulation import masked_euclidean_loss, recognition_feature_loss
 from artspeech_tpu_torch.losses.recognition import ctc_loss
@@ -496,7 +509,7 @@ THESIS_CONFIGS = os.path.join(REPO, "configs", "model_free")
 #: clipping, so that batches take bucket 128 (100 frames until the
 #: [synthetic] phase came: the CLI phases are host bound, per frame).
 CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S05"),
-                  n_sentences=6, frames_per_sentence=75)
+                  n_sentences=4, frames_per_sentence=75)
 # Card against CPU, the test step: the tract variables and metrics of one
 # test batch within 1e-4 (f32 sums in another order), and the same argmin
 # pair on at least 99 % of the frames (near-ties may flip on ulp-level
@@ -2074,6 +2087,19 @@ def train_against_cpu():
 PARALLEL = dict(batch=TRAIN["batch"], t=128, dummies=3, steps=3, gloo_steps=2, tol=1e-6,
                 gloo_rel=1e-4, gloo_abs=1e-5)
 PARALLEL_KERNELS = ("gru_fwd", "gru_bwd", "p2cp")
+#: The transformer on a (data 1, model 2) mesh of the two gloo ranks:
+#: train_transformer.yaml's widths and dropout, the thesis batch at T = 128
+#: (ragged), 3 updates; each rank runs the pair attention on its 5 x 9 pairs.
+#: Bounds against the one-device step (model_axis_against_one_device): the
+#: first update's metrics (the same weights and masks) 1e-5 relative, its
+#: gradients 1e-2 (global relative L2), the later updates' metrics 1e-3 and
+#: parameters 2 lr a step.
+MODEL_AXIS_TF = dict(batch=TRAIN["batch"], t=TRAIN_T, steps=3, pairs=45, first_metrics=1e-5,
+                     first_grads=1e-2, later_metrics=1e-3, params_lr_per_step=2.0)
+MODEL_AXIS_KERNELS = ("train_attention_fwd", "train_attention_bwd", "p2cp")
+#: The reference ArtSpeech import: a seeded state dict in the reference's key
+#: layout at the thesis widths; the model on the card against the CPU.
+REFERENCE_IMPORT = dict(b=12, t=128, tol=1e-5)
 
 
 def parallel_batch():
@@ -2102,10 +2128,10 @@ def parallel_steps(st, step, batch, n_steps, mesh=None):
     return metrics, grads
 
 
-def parallel_rank(rank, host):
+def parallel_rank(rank, host, tf_host, fit_dir):
     """One of two gloo ranks on cuda:0: the thesis step at dropout 0 over a
-    two-rank data mesh; its metrics, its launches and (rank 0) parameters
-    and each step's summed gradients."""
+    two-rank data mesh (its metrics, its launches and (rank 0) parameters
+    and each step's summed gradients); then the model axis (model_axis_rank)."""
     mesh = make_mesh()
     st = distribute_state(thesis_state(None, dropout=0.0), mesh)
     step = make_artspeech_train_step(TO_MM, with_p2cp=True, mesh=mesh)
@@ -2113,7 +2139,66 @@ def parallel_rank(rank, host):
     metrics, grads = parallel_steps(st, step, host, PARALLEL["gloo_steps"], mesh)
     counts = {k: launch_counts()[k] for k in PARALLEL_KERNELS}
     params = {k: v.cpu() for k, v in parameters(st).items()} if rank == 0 else None
-    return metrics, counts, params, mesh.shape, grads if rank == 0 else None
+    return (metrics, counts, params, mesh.shape, grads if rank == 0 else None,
+            model_axis_rank(rank, tf_host, fit_dir))
+
+
+def model_axis_rank(rank, tf_host, fit_dir):
+    """The (data 1, model 2) mesh of the two ranks: the thesis transformer's
+    train step (its channel stacks and heads split, 3 updates, dropout 0.1),
+    with its launches, the training attention's (G, n_pairs) and (rank 0)
+    the whole parameters; then ``fit`` of the thesis model for one epoch
+    (its heads split) into ``fit_dir``."""
+    mesh = make_mesh(model_parallel=2)
+    st = transformer_state(None)
+    whole_shapes = {n: p.shape for n, p in st.model.named_parameters()}
+    distribute_state(st, mesh)
+    sliced = [n for n, p in st.model.named_parameters() if p.shape != whole_shapes[n]]
+    step = make_transformer_train_step(TO_MM, with_p2cp=True, mesh=mesh)
+    attend, calls = hopper_train_attention.fused_causal_attend, []
+
+    def recorded(q, k, v, keep, n_pairs):
+        calls.append((q.shape[0], q.shape[1], q.shape[2], n_pairs))
+        return attend(q, k, v, keep, n_pairs)
+
+    hopper_train_attention.fused_causal_attend = recorded
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics, first_grads = [], None
+    try:
+        for i in range(MODEL_AXIS_TF["steps"]):
+            m = run_distributed_step(step, st, tf_host, loop.epoch_generator(0, i, "cuda", 0), mesh)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:  # the first step's gradients, whole (a collective)
+                grads = {n: p.grad for n, p in st.model.named_parameters()}
+                grads.update(zip(sliced, gather_leading_slices(
+                    [grads[n] for n in sliced], mesh.model_group, mesh.model_index, 2)))
+                first_grads = {n: g.cpu() for n, g in grads.items()} if rank == 0 else None
+    finally:
+        hopper_train_attention.fused_causal_attend = attend
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: launch_counts()[k] for k in MODEL_AXIS_KERNELS}
+    whole, _ = whole_state_dicts(st.model)  # a collective: both ranks
+    stack = "decoder_layers.0.inter.pairs.dense0_kernel"
+    out = {"coords": mesh.coords, "metrics": metrics, "counts": counts, "calls": calls,
+           "seconds": seconds, "first_grads": first_grads, "sliced": len(sliced), "stack_rows": {n: p.shape[0] for n, p in st.model.named_parameters()
+                                              if n in (stack, "predictors.dense0_kernel")},
+           "params": {k: v.cpu() for k, v in whole.items()} if rank == 0 else None}
+    del st, whole
+    train_loader = BucketedLoader(Corpus(TRAIN["n_train"], seed=1), TRAIN["batch"], seed=0)
+    valid_loader = BucketedLoader(Corpus(TRAIN["n_valid"], seed=2), TRAIN["batch"], shuffle=False)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fitted = loop.fit(thesis_state(None), train_loader, valid_loader, None, None, 1, fit_dir,
+                      mesh=mesh,
+                      train_step_factory=lambda m: make_artspeech_train_step(TO_MM, mesh=m),
+                      eval_step_factory=lambda m: make_artspeech_eval_step(TO_MM, mesh=m))
+    torch.cuda.synchronize()
+    out["fit"] = {"history": fitted.history, "counts": launch_counts(),
+                  "head_rows": fitted.state.model.decoder.dense0_kernel.shape[0]}
+    return out
 
 
 def parallel_one_rank(host):
@@ -2177,28 +2262,38 @@ def parallel_one_rank(host):
 
 
 def parallel_two_gloo_ranks(host):
-    """Two gloo ranks sharing cuda:0 (dropout 0) against the one-rank step."""
+    """Two gloo ranks sharing cuda:0 (dropout 0) against the one-rank step;
+    in the same spawn, the model axis (model_axis_against_one_device).
+    Returns the model-axis launches of both ranks together."""
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
     st = thesis_state(None, dropout=0.0)
     one, grads = parallel_steps(st, make_artspeech_train_step(TO_MM, with_p2cp=True), batch,
                                 PARALLEL["gloo_steps"])
     one_params = parameters(st)
+    del st
+    tf_host = {k: v.numpy() for k, v in fixed_batch(MODEL_AXIS_TF["batch"], MODEL_AXIS_TF["t"],
+                                                     seed=13, device="cpu").items()}
+    st = transformer_state(None)
+    tf_one, tf_grads = parallel_steps(
+        st, make_transformer_train_step(TO_MM, with_p2cp=True),
+        {k: torch.as_tensor(v, device="cuda") for k, v in tf_host.items()},
+        MODEL_AXIS_TF["steps"])
+    tf_one_params = parameters(st)
+    shape = {"layers": st.model.num_layers, "heads": st.model.num_heads}
+    del st
+    fit_dir = tempfile.mkdtemp()
     t0 = time.perf_counter()
-    results = spawn(2, parallel_rank, host, device="cuda", backend="gloo", timeout_s=300.0)
-    seconds = time.perf_counter() - t0
+    try:
+        results = spawn(2, parallel_rank, host, tf_host, fit_dir, device="cuda",
+                        backend="gloo", timeout_s=300.0)
+        seconds = time.perf_counter() - t0
+        counts = model_axis_against_one_device([r[5] for r in results], tf_one, tf_grads,
+                                               tf_one_params, fit_dir, **shape)
+    finally:
+        shutil.rmtree(fit_dir, ignore_errors=True)
     metric_err = max(abs(m[i][k] - one[i][k]) / max(abs(one[i][k]), 1e-30)
                      for m, *_ in results for i in range(len(one)) for k in ("loss", "p2cp_mm"))
-    params = results[0][2]
-    stable_err, below = 0.0, 0
-    for name, ref in one_params.items():
-        diff = (params[name] - ref.cpu()).abs()
-        stable = torch.ones_like(diff, dtype=torch.bool)
-        for g in grads:
-            if name in g:
-                stable &= g[name].abs() >= 100 * 1e-8
-        below += int((~stable).sum())
-        stable_err = max(stable_err, diff[stable].max().item() if stable.any() else 0.0)
-    all_err = max((params[n] - v.cpu()).abs().max().item() for n, v in one_params.items())
+    stable_err, below, all_err = stable_param_err(results[0][2], one_params, grads)
     # Each step's gradients summed over the ranks (averaged ones would pass the
     # parameter check: AdamW's first updates do not see a common scale);
     # the first step's, from the same parameters, within 1e-5 max(|g|, 1).
@@ -2220,14 +2315,181 @@ def parallel_two_gloo_ranks(host):
           f"two gloo ranks' summed gradients differ from one rank's: {grad_errs}")
     check(all(r[1] == expected for r in results), f"rank launches {[r[1] for r in results]}, "
                                                     f"expected {expected} each")
+    return counts
+
+
+def stable_param_err(params, ref_params, grads):
+    """Max |diff| of ``params`` from ``ref_params`` where every step's
+    one-device |g| >= 100 * Adam's eps (train_against_cpu), the count of
+    components below, and the max |diff| over all."""
+    stable_err, below = 0.0, 0
+    for name, ref in ref_params.items():
+        diff = (params[name] - ref.cpu()).abs()
+        stable = torch.ones_like(diff, dtype=torch.bool)
+        for g in grads:
+            if name in g:
+                stable &= g[name].abs() >= 100 * 1e-8
+        below += int((~stable).sum())
+        stable_err = max(stable_err, diff[stable].max().item() if stable.any() else 0.0)
+    all_err = max((params[n] - v.cpu()).abs().max().item() for n, v in ref_params.items())
+    return stable_err, below, all_err
+
+
+def model_axis_against_one_device(ranks, one, grads, one_params, fit_dir, layers, heads):
+    """The model axis's results against the card's one-device runs.
+
+    The transformer: the same seeded weights, batch and dropout masks (drawn
+    whole and sliced), so the first update's metrics agree within
+    MODEL_AXIS_TF["first_metrics"]; its gradients (the sharded ones gathered
+    whole) within MODEL_AXIS_TF["first_grads"] (global relative L2; the
+    model's own float32 noise: its LayerNorms' E[x^2] - E[x]^2 and ReLUs
+    within rounding of zero put float32 gradients up to 1e-2 from float64 on
+    a tensor, see transformer_train_against_cpu, and a sharded step sums in
+    another order); the later updates, where AdamW moves every component by
+    up to about lr whatever its gradient's size and so turns that noise into
+    moves of up to lr, within MODEL_AXIS_TF["later_metrics"] and parameters
+    within MODEL_AXIS_TF["params_lr_per_step"] lr a step (a wrong slice or
+    gather parts them by the weights' own size). The data-parallel two-rank
+    check's parameter figure (1e-5 where |g| >= 100 eps) is printed beside.
+    Each rank's launches (4 layers x 3 steps of each training-attention
+    kernel, 3 p2cp) and attention geometry (G = 45 pairs x B x H, n_pairs
+    45); its channel stacks and heads at C / 2 rows.
+
+    The fit checkpoint loaded into a one-device model: the keys, shapes and
+    dtypes of a one-device model's, and its valid metrics the ranks' (1e-4
+    relative), and both ranks' fit launches alike, every thesis kernel among
+    them. Returns both ranks' launches together."""
+    cfg = MODEL_AXIS_TF
+    rel_errs = [max(abs(r["metrics"][i][k] - one[i][k]) / max(abs(one[i][k]), 1e-30)
+                    for r in ranks for k in ("loss", "p2cp_mm")) for i in range(len(one))]
+    got = ranks[0]["first_grads"]
+    grad_err = (sum(((got[n] - g) ** 2).sum().item() for n, g in grads[0].items())
+                / sum((g ** 2).sum().item() for g in grads[0].values())) ** 0.5
+    stable_err, below, all_err = stable_param_err(ranks[0]["params"], one_params, grads)
+    steps = cfg["steps"]
+    expected = {"train_attention_fwd": layers * steps, "train_attention_bwd": layers * steps,
+                "p2cp": steps}
+    g = cfg["pairs"] * cfg["batch"] * heads
+    geometry = {(g, cfg["t"], HD, cfg["pairs"])}
+    calls = [set(r["calls"]) for r in ranks]
+    phase("parallel", case="model_axis_transformer_1x2_gloo_cuda0", steps=steps,
+          shape=f"B={cfg['batch']},T={cfg['t']},C=10,E=64,H={heads},layers={layers},"
+                f"dropout={TRAIN['dropout']}",
+          coords=[r["coords"] for r in ranks], rank_stack_rows=[r["stack_rows"] for r in ranks],
+          sliced_tensors=[r["sliced"] for r in ranks],
+          rel_err_metrics_by_step=[f"{e:.3g}" for e in rel_errs],
+          first_grads_global_rel_l2=f"{grad_err:.3g}",
+          max_abs_err_params_over_lr=f"{all_err / TRAIN['lr']:.3g}",
+          data_parallel_rule_max_abs_err_params=f"{stable_err:.3g}", components_g_below_100eps=below,
+          launches_by_rank=[r["counts"] for r in ranks], expected=expected,
+          attend_calls_by_rank=[sorted(c) for c in calls],
+          rank_seconds_3_steps=[f"{r['seconds']:.3f}" for r in ranks],
+          **train_attention_geometry_text(g, cfg["t"], HD, cfg["pairs"]))
+    check(rel_errs[0] <= cfg["first_metrics"] and grad_err <= cfg["first_grads"],
+          f"the model axis's first update differs from one device: metrics {rel_errs[0]:.3g}, "
+          f"gradients {grad_err:.3g}")
+    check(max(rel_errs) <= cfg["later_metrics"]
+          and all_err <= cfg["params_lr_per_step"] * steps * TRAIN["lr"],
+          f"the model axis's updates differ from one device: metrics {rel_errs}, "
+          f"params {all_err:.3g}")
+    check(all(r["counts"] == expected for r in ranks),
+          f"model-axis launches {[r['counts'] for r in ranks]}, expected {expected} each")
+    check(all(c == geometry for c in calls), f"model-axis attention calls {calls}, "
+                                             f"expected {geometry}")
+    check(all(set(r["stack_rows"].values()) == {5} for r in ranks), "stacks not split")
+
+    one_device = thesis_state(None)
+    best = load_params(os.path.join(fit_dir, "best_model"))
+    shapes = {k: (tuple(v.shape), v.dtype) for k, v in one_device.model.state_dict().items()}
+    same_layout = shapes == {k: (tuple(v.shape), v.dtype) for k, v in best.items()}
+    restored, _ = restore_checkpoint(os.path.join(fit_dir, "last"), one_device)
+    restored.model.load_state_dict(best)
+    valid_loader = BucketedLoader(Corpus(TRAIN["n_valid"], seed=2), TRAIN["batch"], shuffle=False)
+    ev = loop.run_eval_epoch(restored, valid_loader, make_artspeech_eval_step(TO_MM), "cuda")
+    record = ranks[0]["fit"]["history"][0]
+    fit_err = max(abs(ev[k] - record[f"valid_{k}"]) / abs(record[f"valid_{k}"])
+                  for k in ("loss", "p2cp_mm"))
+    fit_counts = [{k: v for k, v in r["fit"]["counts"].items() if v} for r in ranks]
+    phase("parallel", case="model_axis_fit_thesis_1x2", epochs=len(ranks[0]["fit"]["history"]),
+          head_rows_by_rank=[r["fit"]["head_rows"] for r in ranks], launches_by_rank=fit_counts,
+          checkpoint_layout_one_device=same_layout, restored_step=restored.step,
+          valid_loss_ranks=f"{record['valid_loss']:.6g}", valid_loss_one_device=f"{ev['loss']:.6g}",
+          max_rel_err_valid_metrics=f"{fit_err:.3g}")
+    check(same_layout, "the model-axis fit's best_model is not a one-device state dict")
+    check(all(r["fit"]["head_rows"] == 5 for r in ranks), "fit did not split the heads")
+    check(fit_counts[0] == fit_counts[1] and all(fit_counts[0].get(k) for k in PARALLEL_KERNELS),
+          f"the model-axis fit's launches by rank: {fit_counts}")
+    check(fit_err <= PARALLEL["gloo_rel"], f"the gathered checkpoint's valid metrics {ev} differ "
+                                          f"from the ranks' {record}")
+    return {k: sum(r["counts"].get(k, 0) + r["fit"]["counts"][k] for r in ranks) for k in KERNELS}
+
+
+def reference_artspeech_state_dict(rng, n_art, vocab, embed, hidden, n_samples=50):
+    """A seeded state dict in the reference ArtSpeech's key layout
+    (encoder_decoder/models.py:99-145), numpy arrays."""
+    def w(*shape):
+        fan_in = shape[-1] if len(shape) > 1 else 1
+        return (rng.standard_normal(shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    sd = {"embedding.weight": w(vocab, embed) * np.sqrt(embed)}
+    for layer, width in enumerate((embed, 2 * hidden)):
+        for direction in ("", "_reverse"):
+            sd[f"rnn.weight_ih_l{layer}{direction}"] = w(3 * hidden, width)
+            sd[f"rnn.weight_hh_l{layer}{direction}"] = w(3 * hidden, hidden)
+            sd[f"rnn.bias_ih_l{layer}{direction}"] = 0.1 * w(3 * hidden)
+            sd[f"rnn.bias_hh_l{layer}{direction}"] = 0.1 * w(3 * hidden)
+    sd["linear.0.weight"], sd["linear.0.bias"] = w(hidden, 2 * hidden), 0.1 * w(hidden)
+    for i in range(n_art):
+        for k, width in ((0, hidden), (3, 256), (6, 256)):
+            sd[f"predictors.{i}.linear.{k}.weight"] = 1.0 + 0.1 * w(width)
+            sd[f"predictors.{i}.linear.{k}.bias"] = 0.1 * w(width)
+        for name, (fan_in, fan_out) in (("linear.1", (hidden, 256)), ("linear.4", (256, 256)),
+                                        ("x_coords", (256, n_samples)),
+                                        ("y_coords", (256, n_samples))):
+            sd[f"predictors.{i}.{name}.weight"] = w(fan_out, fan_in)
+            sd[f"predictors.{i}.{name}.bias"] = 0.1 * w(fan_out)
+    return sd
+
+
+def reference_import_path():
+    """``convert_artspeech_state_dict`` at the thesis widths (10 articulators,
+    embed 64, hidden 128): the imported model's forward on the card (its
+    gru_fwd launches) against the CPU's within REFERENCE_IMPORT["tol"].
+    Returns the card forward's launches."""
+    sd = reference_artspeech_state_dict(np.random.default_rng(17), len(RECOGNITION_ARTICULATORS),
+                                        VOCAB, 64, HIDDEN)
+    imported = convert_artspeech_state_dict(sd)
+    batch = fixed_batch(REFERENCE_IMPORT["b"], REFERENCE_IMPORT["t"], seed=19, device="cpu")
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = ArtSpeech(VOCAB, len(RECOGNITION_ARTICULATORS), device=device)
+        model.load_state_dict(imported)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.no_grad():
+            out[device] = model(batch["tokens"].to(device), batch["lengths"].to(device)).cpu()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    phase("parallel", case="reference_artspeech_import",
+          shape=f"B={REFERENCE_IMPORT['b']},T={REFERENCE_IMPORT['t']},arts=10,embed=64,"
+                f"hidden={HIDDEN}", keys=len(sd), max_abs_err_card_vs_cpu=f"{err:.3g}",
+          tol=REFERENCE_IMPORT["tol"], gru_fwd_launches=counts["gru_fwd"],
+          finite=bool(torch.isfinite(out["cuda"]).all()))
+    check(err <= REFERENCE_IMPORT["tol"] and torch.isfinite(out["cuda"]).all(),
+          f"imported ArtSpeech: card vs CPU {err:.3g}")
+    check(counts["gru_fwd"] == 2, f"imported ArtSpeech: {counts['gru_fwd']} gru_fwd launches")
+    return counts
 
 
 def parallel_path():
-    """The [parallel] phase; returns the one-rank group step's launches."""
+    """The [parallel] phase; returns the launches of its paths: the one-rank
+    group step's, the model axis's (both ranks) and the reference import's."""
     t0 = time.perf_counter()
     host = parallel_batch()
-    counts = parallel_one_rank(host)
-    parallel_two_gloo_ranks(host)
+    counts = {"parallel": parallel_one_rank(host)}
+    counts["parallel_model_axis"] = parallel_two_gloo_ranks(host)
+    counts["reference_import"] = reference_import_path()
     t1 = time.perf_counter()
     losses = dryrun_multichip(2, backend="gloo")
     phase("parallel", case="dryrun_multichip_2_gloo", seconds=f"{time.perf_counter() - t1:.3f}",
@@ -5145,7 +5407,7 @@ def main():
 
     by_path = {k: {"synthesis": synthesis_launches if k == "gru_fwd" else 0,
                    "train": train_launches.get(k, 0),
-                   "parallel": parallel_launches.get(k, 0),
+                   **{p: c.get(k, 0) for p, c in parallel_launches.items()},
                    **{p: cli_launches[p][k] for p in CLI_PATHS},
                    "decode": decode_launches if k == "flash_decode" else 0,
                    "train_transformer": train_transformer_launches[k],

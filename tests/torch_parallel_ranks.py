@@ -1,5 +1,5 @@
-"""Rank functions for tests/test_torch_port_parallel.py and
-tests/test_torch_port_parallel_cli.py.
+"""Rank functions for tests/test_torch_port_parallel.py,
+tests/test_torch_port_parallel_cli.py and tests/test_torch_port_model_axis.py.
 
 ``artspeech_tpu_torch.parallel.dryrun.spawn`` runs them in fresh processes,
 one per rank of a gloo group on the CPU, and pickles their results back to the
@@ -7,17 +7,29 @@ test. They import torch and the port only: the tests compute JAX's side in
 their own process.
 """
 
+import contextlib
+import os
 import sys
 
 import numpy as np
 
+from artspeech_tpu_torch.data.batching import BucketedLoader
 from artspeech_tpu_torch.models.artspeech_rnn import ArtSpeech
+from artspeech_tpu_torch.models.transformer import ArtSpeechTransformer
+from artspeech_tpu_torch.ops import hopper_train_attention
 from artspeech_tpu_torch.parallel import dryrun
 from artspeech_tpu_torch.parallel.distributed import distribute_state, run_distributed_step
 from artspeech_tpu_torch.parallel.mesh import data_parallel_mesh, make_mesh, shard_batch
+from artspeech_tpu_torch.train import loop
+from artspeech_tpu_torch.train.checkpoint import whole_state_dicts
 from artspeech_tpu_torch.train.loop import epoch_generator
 from artspeech_tpu_torch.train.state import create_train_state
-from artspeech_tpu_torch.train.step import make_artspeech_eval_step, make_artspeech_train_step
+from artspeech_tpu_torch.train.step import (
+    make_artspeech_eval_step,
+    make_artspeech_train_step,
+    make_transformer_eval_step,
+    make_transformer_train_step,
+)
 
 TO_MM = 136 * 1.6176470518112
 
@@ -140,3 +152,136 @@ def one_rank_missing(rank):
         time.sleep(600)
     dist.barrier()
     return rank
+
+
+# -- the transformer on a model axis (tests/test_torch_port_model_axis.py) ------
+
+def transformer_state(state_dict, model_kwargs, lr, dropout=0.0):
+    model = ArtSpeechTransformer(**model_kwargs, dropout=dropout, device="cpu")
+    model.load_state_dict(state_dict)
+    return create_train_state(model, lr)
+
+
+@contextlib.contextmanager
+def counted_attends():
+    """Yields a list that records (G, n_pairs) of every
+    ``fused_causal_attend`` call made inside the block."""
+    attend, calls = hopper_train_attention.fused_causal_attend, []
+
+    def counted(q, k, v, keep, n_pairs):
+        calls.append((q.shape[0], n_pairs))
+        return attend(q, k, v, keep, n_pairs)
+
+    hopper_train_attention.fused_causal_attend = counted
+    try:
+        yield calls
+    finally:
+        hopper_train_attention.fused_causal_attend = attend
+
+
+def transformer_steps(st, batch, mesh, n_steps):
+    """``n_steps`` transformer train steps (P2CP on) from generators seeded
+    (0, step, data rank); the metrics as floats and the first step's
+    gradients. ``mesh`` None: the one-device steps on the whole batch."""
+    step = make_transformer_train_step(TO_MM, with_p2cp=True, device="cpu", mesh=mesh)
+    rank = 0 if mesh is None else mesh.data_index
+    metrics, first_grads = [], None
+    for i in range(n_steps):
+        generator = epoch_generator(0, i, "cpu", rank)
+        m = step(st, batch, generator) if mesh is None else \
+            run_distributed_step(step, st, batch, generator, mesh)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            first_grads = numpy_grads(st.model)
+    return metrics, first_grads
+
+
+class ContourCorpus:
+    """Seeded in-memory sentences with the ArtSpeechDataset item interface,
+    targets (length, n_art, 2, d) in [0, 1]."""
+
+    def __init__(self, n, seed, n_art, d, vocab, max_len=12):
+        rng = np.random.default_rng(seed)
+        self.items = []
+        for i, length in enumerate(rng.integers(3, max_len + 1, n)):
+            self.items.append({
+                "sentence_name": f"S{i:02d}", "length": int(length),
+                "tokens": rng.integers(0, vocab, length).astype(np.int32),
+                "targets": rng.random((length, n_art, 2, d)).astype(np.float32),
+                "references": np.zeros((length, 1, 2, d), np.float32),
+                "critical_masks": np.zeros((1, length), np.int32),
+                "voicing": np.zeros(length, np.float32),
+                "phonemes": ["p"] * length, "frame_ids": list(range(length))})
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def transformer_fit(state, mesh, fit_args, checkpoints_dir, n_epochs, **kwargs):
+    """``fit`` of the transformer at dropout 0 over ``mesh`` (None: one
+    device); returns its history."""
+    c, d, vocab = fit_args["n_art"], fit_args["d"], fit_args["vocab"]
+    batch_size = fit_args["batch_size"]
+    train = BucketedLoader(ContourCorpus(fit_args["n_train"], 1, c, d, vocab), batch_size,
+                           buckets=(16,), seed=0)
+    valid = BucketedLoader(ContourCorpus(fit_args["n_valid"], 2, c, d, vocab), batch_size,
+                           buckets=(16,), shuffle=False)
+    result = loop.fit(
+        state, train, valid, None, None, n_epochs, checkpoints_dir, device="cpu", mesh=mesh,
+        train_step_factory=lambda m: make_transformer_train_step(TO_MM, device="cpu", mesh=m),
+        eval_step_factory=lambda m: make_transformer_eval_step(TO_MM, device="cpu", mesh=m),
+        **kwargs)
+    return result.history
+
+
+def model_axis_scenarios(rank, inputs):
+    """Every multi-rank scenario of tests/test_torch_port_model_axis.py in
+    one group of 4 ranks."""
+    out = {}
+    tf = inputs["transformer"]
+
+    # The (data 2, model 2) step at dropout 0.
+    mesh = make_mesh(model_parallel=2, device="cpu")
+    st = transformer_state(tf["state_dict"], tf["model"], tf["lr"])
+    distribute_state(st, mesh)
+    with counted_attends() as calls:
+        metrics, grads = transformer_steps(st, tf["batch"], mesh, 1)
+    out["mesh22"] = {"coords": mesh.coords, "metrics": metrics[0], "grads": grads,
+                     "params": numpy_params(st.model), "attends": calls}
+
+    # The (data 1, model 2) pair at dropout 0.1, two updates.
+    pair = make_mesh([0, 1], model_parallel=2, device="cpu")
+    if rank < 2:
+        st = transformer_state(tf["state_dict"], tf["model"], tf["lr"], dropout=0.1)
+        distribute_state(st, pair)
+        with counted_attends() as calls:
+            metrics, _ = transformer_steps(st, tf["batch"], pair, 2)
+        model_sd, _ = whole_state_dicts(st.model)
+        out["pair"] = {"metrics": metrics, "attends": calls,
+                       "params": {k: v.numpy().copy() for k, v in model_sd.items()}}
+
+    # fit for 2 epochs on (data 2, model 2) and on (data 2, model 1), then a
+    # resume on (data 2, model 2) from the first one's last/.
+    fit_args, tmp = inputs["fit"], inputs["tmp"]
+    data_only = make_mesh([0, 1], device="cpu")
+    st = transformer_state(tf["state_dict"], tf["model"], fit_args["lr"])
+    out["fit_model_axis"] = transformer_fit(st, mesh, fit_args, os.path.join(tmp, "model_axis"), 2)
+    if rank < 2:
+        st = transformer_state(tf["state_dict"], tf["model"], fit_args["lr"])
+        out["fit_data_only"] = transformer_fit(st, data_only, fit_args,
+                                               os.path.join(tmp, "data_only"), 2)
+    st = transformer_state(tf["state_dict"], tf["model"], fit_args["lr"])
+    out["resume_mesh"] = transformer_fit(
+        st, mesh, fit_args, os.path.join(tmp, "resume_mesh"), 3,
+        resume_from=os.path.join(tmp, "model_axis", "last"))
+    out["sharded_shapes"] = {n: tuple(p.shape) for n, p in st.model.named_parameters()}
+
+    # C = 3 on the model axis of 2: the channel stacks stay whole.
+    st = transformer_state(inputs["odd"]["state_dict"], inputs["odd"]["model"], tf["lr"])
+    distribute_state(st, mesh)
+    metrics, grads = transformer_steps(st, inputs["odd"]["batch"], mesh, 1)
+    out["odd"] = {"metrics": metrics[0], "grads": grads}
+    return out
