@@ -32,21 +32,23 @@ from artspeech_tpu_torch.parallel.distributed import (
 )
 from artspeech_tpu_torch.utils.tracking import NullTracker, make_tracker
 
-#: Compute dtypes the port takes, by their config spellings; float32 is the
-#: models' default, so it is dropped from the kwargs.
+#: Compute dtypes, by their config spellings (JAX core/config.py:
+#: resolve_dtype); float32 is the models' default, so it is dropped from the
+#: kwargs.
 _COMPUTE_DTYPES = {"float32": None, "fp32": None, "bfloat16": torch.bfloat16,
-                   "bf16": torch.bfloat16}
+                   "bf16": torch.bfloat16, "float16": torch.float16, "fp16": torch.float16}
 
 
 def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
     """Model constructor kwargs from a config, with the compute dtype.
 
-    As in JAX (cli/common.py:51-52), two spellings select bf16 compute with
+    As in JAX (cli/common.py:51-52), two spellings select 16-bit compute with
     float32 parameters: ``compute_dtype: bfloat16`` at the top level, which
     does not override an explicit per-model ``dtype``, and ``dtype`` in the
     model's kwargs. ``float32``/``fp32`` (the default) are dropped,
-    ``bfloat16``/``bf16`` become ``dtype=torch.bfloat16``; any other dtype
-    raises ``NotImplementedError``.
+    ``bfloat16``/``bf16`` become ``dtype=torch.bfloat16`` and
+    ``float16``/``fp16`` ``dtype=torch.float16``; any other name raises
+    ``ValueError``, where JAX's ``resolve_dtype`` raises ``KeyError``.
     """
     kwargs = dict(cfg.get(key) or {})
     if cfg.get("compute_dtype") is not None:
@@ -54,9 +56,8 @@ def model_kwargs_from_cfg(cfg: Dict, key: str = "model_kwargs") -> Dict:
     if "dtype" in kwargs:
         name = str(kwargs["dtype"]).lower()
         if name not in _COMPUTE_DTYPES:
-            raise NotImplementedError(
-                f"compute dtype {kwargs['dtype']} is not ported: artspeech_tpu_torch computes "
-                f"in float32 or bfloat16")
+            raise ValueError(f"unknown compute dtype {kwargs['dtype']}: one of "
+                             f"{', '.join(_COMPUTE_DTYPES)}")
         dtype = _COMPUTE_DTYPES[name]
         if dtype is None:
             del kwargs["dtype"]

@@ -9,8 +9,8 @@ Construction takes a CPU ``torch.Generator`` for the random weights (None:
 one seeded with 0), which are drawn on the CPU and then moved, so one seed
 gives the same weights on every device, and a ``device``: ``cuda`` unless the
 caller passes ``device="cpu"``, and a compute ``dtype`` (None: float32;
-``torch.bfloat16`` for the bf16 configs): parameters stay float32 and the
-forward computes in it where the flax modules cast (JAX
+``torch.bfloat16`` for the bf16 configs, or ``torch.float16``): parameters
+stay float32 and the forward computes in it where the flax modules cast (JAX
 models/artspeech_rnn.py:27-78): the embedding's output, the GRU's input
 product and recurrence, the Dense layers and the heads' LayerNorm outputs.
 Construction ends in ``.eval()``; the trainer calls ``.train()``. In training mode with dropout > 0, ``forward``

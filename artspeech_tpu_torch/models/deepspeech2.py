@@ -20,11 +20,11 @@ the port's one-direction ``GRUStack`` (the GRU kernels for CUDA tensors).
 LayerNorms are flax's (epsilon 1e-6, Var = E[x^2] - E[x]^2) and GELU is
 exact.
 
-A model's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
-dtype: parameters stay float32; a convolution casts its input and kernel to
-it, sums the products in float32, adds the float32 bias and rounds the result
-to it, as JAX's ``ShiftedMatmulConv`` does; Dense layers compute in it and
-LayerNorms take their statistics in float32.
+A model's ``dtype`` (None: float32; ``torch.bfloat16`` or ``torch.float16``)
+is flax's compute dtype: parameters stay float32; a convolution casts its
+input and kernel to it, sums the products in float32, adds the float32 bias
+and rounds the result to it, as JAX's ``ShiftedMatmulConv`` does; Dense layers
+compute in it and LayerNorms take their statistics in float32.
 
 Construction draws the weights from a CPU ``torch.Generator`` (None: one
 seeded with 0) and moves them to ``device`` (``cuda`` unless the caller

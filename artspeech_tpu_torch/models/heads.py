@@ -10,10 +10,10 @@ Parameters keep the JAX (flax) layout and orientation: ``ln{i}_scale``,
 ``ln{i}_bias`` (Nart, F); ``dense{i}_kernel`` (Nart, in, out) and
 ``dense{i}_bias`` (Nart, out) for i = 0..3 (Dense_2 = x, Dense_3 = y).
 
-A model's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
-dtype: parameters stay float32, and each Dense casts its input, kernel and
-bias to it, each LayerNorm takes its statistics in float32 and returns it,
-as flax's ``dtype=`` does (JAX models/heads.py:56-102).
+A model's ``dtype`` (None: float32; ``torch.bfloat16`` or ``torch.float16``)
+is flax's compute dtype: parameters stay float32, and each Dense casts its
+input, kernel and bias to it, each LayerNorm takes its statistics in float32
+and returns it, as flax's ``dtype=`` does (JAX models/heads.py:56-102).
 
 On a mesh with a model axis (``parallel/distributed.distribute_state``) each
 model rank keeps its Nart / model slice of these parameters and computes
@@ -41,7 +41,7 @@ def cast(x, dtype: Optional[torch.dtype]):
 
 
 def at_least_f32(x):
-    """x promoted to at least float32 (bf16 up; float32 and float64 as they
+    """x promoted to at least float32 (bf16 and f16 up; float32 and float64 as they
     are), as flax promotes statistics and JAX's explicit float32 casts do."""
     return x.to(torch.promote_types(x.dtype, torch.float32))
 

@@ -29,7 +29,7 @@ Construction takes a CPU ``torch.Generator`` for the random weights (None: one
 seeded with 0; lecun-normal kernels, as flax initialises them), drawn on the
 CPU and then moved, a ``device``: ``cuda`` unless the caller passes
 ``device="cpu"``, and a compute ``dtype`` (None: float32; ``torch.bfloat16``
-for train_transformer_bf16.yaml). Parameters stay float32; the forward casts
+for train_transformer_bf16.yaml, or ``torch.float16``). Parameters stay float32; the forward casts
 where the JAX model casts (JAX transformer.py:201-290, :384-393, :590-764):
 the embedding's output; every Dense, Q/K/V MLP and attention projection
 (input, kernel and bias); the attention's scores, softmax and sum in the
@@ -636,10 +636,10 @@ class ArtSpeechTransformer(nn.Module):
 # -- the KV-cached decode ------------------------------------------------------
 
 def _cache_dtype(cache_dtype: Optional[str]) -> torch.dtype:
-    """None (float32), "float32" or "bfloat16" -> the torch dtype."""
+    """None (float32), "float32", "bfloat16" or "float16" -> the torch dtype."""
     dtype = torch.float32 if cache_dtype is None else getattr(torch, str(cache_dtype), None)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"cache_dtype must be float32 or bfloat16, got {cache_dtype}")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"cache_dtype must be float32, bfloat16 or float16, got {cache_dtype}")
     return dtype
 
 
@@ -650,7 +650,7 @@ def make_fast_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] =
     The memory-side K/V of every layer's cross attention are projected once,
     before the time loop. Each layer keeps its self and cross-channel K/V
     caches as (S, hd, G) tensors, G being every batch, channel (pair) and head
-    dimension merged, in ``cache_dtype`` (float32 or bfloat16; a row is
+    dimension merged, in ``cache_dtype`` (float32, bfloat16 or float16; a row is
     rounded to nearest even on writing, as JAX's ``astype``); they are
     allocated once per call and written in place, a row a step. The loop over
     time is a Python loop with a host int ``t``: at every step and layer both
@@ -813,7 +813,7 @@ def make_auto_generate(model: ArtSpeechTransformer, cache_dtype: Optional[str] =
     """Per-length choice between the KV-cached decode and the buffer
     re-decode (JAX transformer.py:1195): the buffer is taken for float32
     caches at source lengths in ``[BUFFER_WINS_LO, BUFFER_WINS_HI]``, the
-    cached decode everywhere else and always with bfloat16 caches.
+    cached decode everywhere else and always with 16-bit caches.
 
     The JAX band (64-112) was measured on a TPU v5e and does not carry over.
     The port's band comes from chip_smoke.py's ``[decode]`` sweep, the cached

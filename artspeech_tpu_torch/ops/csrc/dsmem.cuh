@@ -1,13 +1,14 @@
 // Helpers shared by the recurrences' thread-block-cluster steps: the GRU
 // forward step (gru_step.cuh) and the GRU and LSTM backward step
-// (rnn_bwd_step.cuh). Storage-type conversions, 16-byte loads, the
-// distributed-shared-memory stores that complete on the receiver's
-// transaction mbarrier, the waits on those mbarriers, and the launch of a
-// kernel on clusters of a size chosen at run time.
+// (rnn_bwd_step.cuh). Storage-type conversions (f32, bf16 and f16), 16-byte
+// loads, the distributed-shared-memory stores that complete on the
+// receiver's transaction mbarrier, the waits on those mbarriers, and the
+// launch of a kernel on clusters of a size chosen at run time.
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -18,16 +19,20 @@ constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory one Hopper block 
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as jnp astype
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even, as jnp astype
+}
 
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
 
-// Four consecutive values as f32 (16 bytes of f32, 8 of bf16; aligned).
+// Four consecutive values as f32 (16 bytes of f32, 8 of bf16 or f16; aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -35,6 +40,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 

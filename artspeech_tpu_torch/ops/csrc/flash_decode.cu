@@ -9,9 +9,9 @@
 //   s_r    = sum_d K[r, d, g] * q[d, g]              for r < n_rows
 //   out[:, g] = sum_r softmax_r(s)[r] * V[r, :, g]   (over r < n_rows)
 //
-// with a running max and denominator in f32 (online softmax). Caches are f32
-// or bf16; bf16 is widened to f32 on load, so all arithmetic is f32, as on
-// the TPU. expf (not __expf) keeps the result within 1e-5 of the plain
+// with a running max and denominator in f32 (online softmax). Caches are f32,
+// bf16 or f16; a 16-bit cache is widened to f32 on load, so all arithmetic is
+// f32, as on the TPU. expf (not __expf) keeps the result within 1e-5 of the plain
 // version.
 //
 // Layout: the decode's caches as they are, (S, hd, G) contiguous, G being
@@ -20,7 +20,7 @@
 //
 // What bounds it: each cache row is read once and used for hd
 // multiply-adds twice (score and PV), so about 1 operation per byte in f32
-// and 2 in bf16: memory bandwidth, far below the card's 20 f32 operations
+// and 2 in bf16 or f16: memory bandwidth, far below the card's 20 f32 operations
 // per byte. At the decode's shapes (hd = 16; G = 480 / 2,560 for the self
 // caches and 4,320 / 23,040 for the cross-channel caches at B = 12 / 64;
 // n_rows = 1 ... 128) one call reads from 15 kB to 377 MB, so most calls are
@@ -33,8 +33,8 @@
 // (flash-decoding's split-K), and combined in one launch:
 //
 // - A cluster of C <= 8 CTAs owns a block of 32 * LPT lanes (LPT = lanes a
-//   thread: 1, or 2 loaded as one 8-byte (f32) or 4-byte (bf16) word, so that
-//   a warp's bf16 load spans 128 B). Its C * W warps are the row splits:
+//   thread: 1, or 2 loaded as one 8-byte (f32) or 4-byte (bf16, f16) word, so
+//   that a warp's 16-bit load spans 128 B). Its C * W warps are the row splits:
 //   split s = rank * W + warp takes rows [s * n_rows / (C W), (s + 1) *
 //   n_rows / (C W)), each warp the lane block's whole width.
 // - A warp issues the K and V loads of a group of U rows (2 or 1, by
@@ -71,6 +71,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -84,18 +85,18 @@ namespace {
 constexpr int LANES = 32;
 constexpr int MAX_WARPS = 8;  // warps a CTA of the register instance
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // What one thread loads for one (row, d): LPT lanes of the storage type, as
 // raw words. A bf16 is the high half of an f32, so widening is a shift or a
 // mask (__nv_bfloat162 loads widened with the intrinsics ran slower on the
-// card, PERF.md).
+// card, PERF.md). An f16 has its own exponent width, so it is widened by the
+// intrinsics (__half2float, __half22float2).
 template <typename T, int LPT> struct Pack;
 template <> struct Pack<float, 1> { using type = uint32_t; };
 template <> struct Pack<float, 2> { using type = uint2; };
 template <> struct Pack<__nv_bfloat16, 1> { using type = uint16_t; };
 template <> struct Pack<__nv_bfloat16, 2> { using type = uint32_t; };
+template <> struct Pack<__half, 1> { using type = uint16_t; };
+template <> struct Pack<__half, 2> { using type = uint32_t; };
 
 template <typename T, int LPT> struct Unpack;
 template <> struct Unpack<float, 1> {
@@ -116,6 +117,18 @@ template <> struct Unpack<__nv_bfloat16, 2> {
   static __device__ __forceinline__ void to(uint32_t x, float (&o)[2]) {
     o[0] = __uint_as_float(x << 16);
     o[1] = __uint_as_float(x & 0xffff0000u);
+  }
+};
+template <> struct Unpack<__half, 1> {
+  static __device__ __forceinline__ void to(uint16_t x, float (&o)[1]) {
+    o[0] = __half2float(__ushort_as_half(x));
+  }
+};
+template <> struct Unpack<__half, 2> {
+  static __device__ __forceinline__ void to(uint32_t x, float (&o)[2]) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x));
+    o[0] = f.x;
+    o[1] = f.y;
   }
 };
 
@@ -385,14 +398,14 @@ flash_decode_wide_kernel(const T* __restrict__ k, const T* __restrict__ v,
       const T* kr = k + r * row_stride + g;
       const T* vr = v + r * row_stride + g;
       float s = 0.0f;
-      for (int d = 0; d < hd; ++d) s = fmaf(widen(kr[d * gs]), q_s[d * LANES + lane], s);
+      for (int d = 0; d < hd; ++d) s = fmaf(dsmem::to_f32(kr[d * gs]), q_s[d * LANES + lane], s);
       const float m_new = fmaxf(m, s);
       const float alpha = expf(m - m_new);  // 0 at the first row (m = -inf)
       const float p = expf(s - m_new);
       l = l * alpha + p;
       for (int d = 0; d < hd; ++d) {
         float* a = acc + d * LANES + lane;
-        *a = fmaf(p, widen(vr[d * gs]), *a * alpha);
+        *a = fmaf(p, dsmem::to_f32(vr[d * gs]), *a * alpha);
       }
       m = m_new;
     }
@@ -503,7 +516,7 @@ extern "C" {
 // Largest head dim the kernels take (the wrapper refuses more).
 int flash_decode_max_hd() { return 256; }
 
-// k, v: (S, hd, G) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); q: (hd, G) f32;
+// k, v: (S, hd, G) f32 (dtype 0), bf16 (dtype 1) or f16 (dtype 2); q: (hd, G) f32;
 // out: (hd, G) f32. Reads rows [0, n_rows), 1 <= n_rows <= S. The launch
 // comes from hopper_attention.flash_decode_launch_geometry: lanes a thread
 // (1, or 2 where hd <= 16, G is even and the pointers are aligned to a
@@ -513,13 +526,16 @@ int flash_decode_max_hd() { return 256; }
 // geometry the kernels do not take, else the first nonzero cudaError_t of
 // the launch (a refused cluster included), else 0.
 int flash_decode(const void* k, const void* v, const void* q, void* out, int hd, int g,
-                 int n_rows, int is_bf16, int lanes, int cluster, int warps, int smem,
+                 int n_rows, int dtype, int lanes, int cluster, int warps, int smem,
                  void* stream) {
-  if (hd < 1 || hd > 256 || g < 1 || n_rows < 1) return (int)cudaErrorInvalidValue;
+  if (hd < 1 || hd > 256 || g < 1 || n_rows < 1 || dtype < 0 || dtype > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(k, v, q, out, hd, g, n_rows, lanes, cluster, warps,
-                                           smem, s)
-                 : dispatch<float>(k, v, q, out, hd, g, n_rows, lanes, cluster, warps, smem, s);
+  if (dtype == 0)
+    return dispatch<float>(k, v, q, out, hd, g, n_rows, lanes, cluster, warps, smem, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(k, v, q, out, hd, g, n_rows, lanes, cluster, warps, smem, s);
+  return dispatch<__half>(k, v, q, out, hd, g, n_rows, lanes, cluster, warps, smem, s);
 }
 
 }  // extern "C"

@@ -65,6 +65,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "rnn_bwd_step.cuh"
@@ -410,7 +411,7 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, con
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; 1 <= H <= 1024; n_dir 1 or 2. The launch
 // geometry comes from hopper_gru.rnn_bwd_launch_geometry: cluster CTAs (0:
 // the wide instance), rows a cluster (or a wide block) walks, and the
 // dynamic shared memory in bytes; the f32 scratch holds that rule's
@@ -423,7 +424,7 @@ int gru_bwd(const void* xp, const void* wh, const void* bh, const void* mask, co
             const void* gy, void* dxp, void* scratch, void* dw_part, void* db_part, void* dw,
             void* db, int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype,
             int cluster, int rows, int smem, void* stream) {
-  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   float* f_scratch = static_cast<float*>(scratch);
   float* f_dw_part = static_cast<float*>(dw_part);
@@ -434,9 +435,13 @@ int gru_bwd(const void* xp, const void* wh, const void* bh, const void* mask, co
   if (dtype == 0)
     return launch<float>(xp, wh, bh, mask, ys, gy, dxp, f_scratch, f_dw_part, f_db_part, f_dw,
                          f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows, smem, s);
-  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, gy, dxp, f_scratch, f_dw_part, f_db_part,
-                               f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows,
-                               smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, gy, dxp, f_scratch, f_dw_part, f_db_part,
+                                 f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows,
+                                 smem, s);
+  return launch<__half>(xp, wh, bh, mask, ys, gy, dxp, f_scratch, f_dw_part, f_db_part,
+                        f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows,
+                        smem, s);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@
 //   h' = mask ? (1 - z) * n + z * h : h     (carry frozen on padded steps)
 //
 // with x = x_proj[t] the hoisted input projection, gate order r, z, n, and
-// all gate math in f32 for both f32 and bf16 storage. The carry is rounded to
+// all gate math in f32 for f32, bf16 and f16 storage. The carry is rounded to
 // the storage type after every step, as the TPU kernel's carry is. A reverse
 // direction walks time backward and stores outputs at their own time index.
 //
@@ -48,6 +48,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "rnn_fwd_step.cuh"
@@ -193,7 +194,7 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; 1 <= H <= 1024; n_dir 1 or 2. The launch
 // geometry comes from hopper_gru.gru_launch_geometry with 3 gates: cluster
 // CTAs (0: the wide instance), rows a cluster walks (2, 4 or 8), and the
 // dynamic shared memory in bytes. Returns the first nonzero cudaError_t of the
@@ -201,14 +202,17 @@ extern "C" {
 int gru_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys,
             int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype, int cluster,
             int rows, int smem, void* stream) {
-  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits, cluster,
                          rows, smem, s);
-  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
-                               cluster, rows, smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
+                                 cluster, rows, smem, s);
+  return launch<__half>(xp, wh, bh, mask, ys, n_steps, batch, hidden, n_dir, rev_bits,
+                        cluster, rows, smem, s);
 }
 
 }  // extern "C"

@@ -65,6 +65,7 @@
 // H = 1024.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -436,7 +437,7 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, con
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2. The launch
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; 1 <= H <= 1024; n_dir 1 or 2. The launch
 // geometry comes from hopper_gru.rnn_bwd_launch_geometry: cluster CTAs (0:
 // the wide instance), rows a cluster (or a wide block) walks, and the
 // dynamic shared memory in bytes; the f32 scratch holds that rule's
@@ -449,7 +450,7 @@ int lstm_bwd(const void* xp, const void* wh, const void* bh, const void* mask, c
              const void* cs, const void* gy, void* dxp, void* scratch, void* dw_part,
              void* db_part, void* dw, void* db, int n_steps, int batch, int hidden, int n_dir,
              int rev_bits, int dtype, int cluster, int rows, int smem, void* stream) {
-  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   float* f_scratch = static_cast<float*>(scratch);
   float* f_dw_part = static_cast<float*>(dw_part);
@@ -461,9 +462,13 @@ int lstm_bwd(const void* xp, const void* wh, const void* bh, const void* mask, c
     return launch<float>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part, f_db_part,
                          f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits, cluster, rows, smem,
                          s);
-  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part,
-                               f_db_part, f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits,
-                               cluster, rows, smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part,
+                                 f_db_part, f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits,
+                                 cluster, rows, smem, s);
+  return launch<__half>(xp, wh, bh, mask, ys, cs, gy, dxp, f_scratch, f_dw_part,
+                        f_db_part, f_dw, f_db, n_steps, batch, hidden, n_dir, rev_bits,
+                        cluster, rows, smem, s);
 }
 
 }  // extern "C"

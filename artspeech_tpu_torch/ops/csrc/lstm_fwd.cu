@@ -11,7 +11,7 @@
 //   h, c <- mask ? (h', c') : (h, c)            (carries frozen on padded steps)
 //
 // with x = x_proj[t] the hoisted input projection and all gate math in f32
-// for both f32 and bf16 storage. h and c are rounded to the storage type
+// for f32, bf16 and f16 storage. h and c are rounded to the storage type
 // after every step, as the TPU kernel's carries are. A reverse direction
 // walks time backward and stores outputs at their own time index.
 //
@@ -47,7 +47,7 @@
 //
 // The wide instance. Where no cluster holds W_h (the rule's `resident` is
 // false: U = H/C above 64, or a slice above a CTA's shared memory; H = 512
-// and 1,024 in f32 and bf16), lstm_fwd_wide_kernel runs: one block of 512
+// and 1,024 in every storage type), lstm_fwd_wide_kernel runs: one block of 512
 // threads a (direction, batch tile of BT rows), no cluster, W_h read from
 // global memory every step (the L2 holds it: 16 MiB at H = 1024 in f32),
 // each thread looping over its gate columns, scalar reads of h. The carries
@@ -56,6 +56,7 @@
 // update.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -226,7 +227,7 @@ int launch(const void* xp, const void* wh, const void* bh, const void* mask, voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; 1 <= H <= 1024; n_dir 1 or 2; cs may be
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; 1 <= H <= 1024; n_dir 1 or 2; cs may be
 // null. The launch geometry comes from hopper_gru.gru_launch_geometry with 4
 // gates: cluster CTAs (0: the wide instance), rows a cluster walks (2, 4 or
 // 8), and the dynamic shared memory in bytes. Returns the first nonzero
@@ -235,14 +236,17 @@ extern "C" {
 int lstm_fwd(const void* xp, const void* wh, const void* bh, const void* mask, void* ys, void* cs,
              int n_steps, int batch, int hidden, int n_dir, int rev_bits, int dtype, int cluster,
              int rows, int smem, void* stream) {
-  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || (dtype != 0 && dtype != 1))
+  if (hidden < 1 || hidden > 1024 || n_dir < 1 || n_dir > 2 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir, rev_bits,
                          cluster, rows, smem, s);
-  return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir, rev_bits,
-                               cluster, rows, smem, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir, rev_bits,
+                                 cluster, rows, smem, s);
+  return launch<__half>(xp, wh, bh, mask, ys, cs, n_steps, batch, hidden, n_dir, rev_bits,
+                        cluster, rows, smem, s);
 }
 
 }  // extern "C"

@@ -19,8 +19,8 @@
 //
 // The table: up to MAX_SOURCES channel-major point sets (..., 2, N_s), read
 // in place through their strides (a row stride for the flattened leading
-// dims, a coordinate stride and a point stride), f32 or bf16 (widened as it
-// is staged; the same bits as a cast); and up to MAX_PROBLEMS problems, each a
+// dims, a coordinate stride and a point stride), f32, bf16 or f16 (widened
+// as it is staged; the same bits as a cast); and up to MAX_PROBLEMS problems, each a
 // window (source, start, count) for u and one or two for v, read as one set
 // (the tract variables' palate is two: hard palate, then soft palate). One
 // launch takes a stack's four tract variables without copying a window,
@@ -45,6 +45,7 @@
 // stack's 768 CTAs at R = 1,536 run in one wave.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -84,8 +85,12 @@ struct Problem {
 struct Table {
   Source sources[MAX_SOURCES];
   Problem problems[MAX_PROBLEMS];
-  int n_problems, bf16;
+  int n_problems, dtype;  // the sources' storage type: 0 f32, 1 bf16, 2 f16
 };
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
 
 // The warp's rows row0, ... (rows of them) of the problem's windows into
 // shared memory, ROWS_A_WARP rows of 2 (N + M) floats: u's x and y rows,
@@ -124,7 +129,7 @@ __device__ __forceinline__ void stage(float* ws, const Table& t, const Problem& 
         const bool in = w < windows && q < rows && p < win[w].count;
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          x[q][w][k][c] = in ? static_cast<float>(base[q][w][p * ps[w] + c * cs[w]]) : 0.0f;
+          x[q][w][k][c] = in ? widen(base[q][w][p * ps[w] + c * cs[w]]) : 0.0f;
       }
     }
   }
@@ -149,9 +154,8 @@ __device__ __forceinline__ void stage(float* ws, const Table& t, const Problem& 
     const T* row = static_cast<const T*>(s.base) + (row0 + q) * s.row_stride +
                    w.start * s.point_stride;
     for (int p = lane + 32 * BATCH; p < w.count; p += 32) {
-      ws[q * row_floats + to + p] = static_cast<float>(row[p * s.point_stride]);
-      ws[q * row_floats + to + count_c + p] =
-          static_cast<float>(row[p * s.point_stride + s.coord_stride]);
+      ws[q * row_floats + to + p] = widen(row[p * s.point_stride]);
+      ws[q * row_floats + to + count_c + p] = widen(row[p * s.point_stride + s.coord_stride]);
     }
   };
   for (int q = 0; q < rows; ++q) {
@@ -254,8 +258,10 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 6)
   const int row_floats = 2 * (n + m);
   float* ws = smem + warp * ROWS_A_WARP * row_floats;
   const int rows = min(ROWS_A_WARP, n_rows - row0);
-  if (t.bf16)
+  if (t.dtype == 1)
     stage<__nv_bfloat16>(ws, t, pr, row0, rows, lane);
+  else if (t.dtype == 2)
+    stage<__half>(ws, t, pr, row0, rows, lane);
   else
     stage<float>(ws, t, pr, row0, rows, lane);
   __syncwarp();
@@ -302,15 +308,17 @@ __global__ void __launch_bounds__(MAX_WARPS * 32, 6)
 extern "C" {
 
 // sources: n_sources x (base address, row stride, coordinate stride, point
-// stride); problems: n_problems x (tile, slot, first block, then u, v1, v2 as
-// (source, start, count)), in the order the blocks run them; geometry as
+// stride), all of one storage type (dtype: 0 f32, 1 bf16, 2 f16); problems:
+// n_problems x (tile, slot, first block, then u, v1, v2 as (source, start,
+// count)), in the order the blocks run them; geometry as
 // ops/hopper_min_dist.py:min_dist_launch_geometry gives it. Returns the
 // first nonzero cudaError_t of the launch, else 0 (cudaErrorInvalidValue for
 // a table the kernel does not take).
 int min_dist(const long long* sources, int n_sources, const int* problems, int n_problems,
-             int n_rows, int bf16, int warps, int blocks, int smem, void* out, void* idx,
+             int n_rows, int dtype, int warps, int blocks, int smem, void* out, void* idx,
              void* stream) {
-  if (n_sources < 1 || n_sources > MAX_SOURCES || n_problems < 1 || n_problems > MAX_PROBLEMS)
+  if (n_sources < 1 || n_sources > MAX_SOURCES || n_problems < 1 || n_problems > MAX_PROBLEMS ||
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   Table t = {};
   for (int s = 0; s < n_sources; ++s) {
@@ -322,7 +330,7 @@ int min_dist(const long long* sources, int n_sources, const int* problems, int n
     t.problems[p] = {f[0], f[1], f[2], {f[3], f[4], f[5]}, {f[6], f[7], f[8]}, {f[9], f[10], f[11]}};
   }
   t.n_problems = n_problems;
-  t.bf16 = bf16;
+  t.dtype = dtype;
   // Above the default 48 KiB a block must opt in; the tract variables need
   // 12.8 KB, so their launches skip the call.
   if (smem > 48 * 1024) {

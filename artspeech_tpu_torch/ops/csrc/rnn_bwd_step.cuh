@@ -256,7 +256,7 @@ __device__ __forceinline__ void cluster_backward(const Problem<T>& pb, const Cel
 
   // W_h slice: value (k, local column jl = 4 * q + i) at (q * HK + k) * 4 + i,
   // zero for k >= H and past the units: a quad of a row is 16 bytes (8 in
-  // bf16), and the quads q of consecutive k are consecutive.
+  // bf16 and f16), and the quads q of consecutive k are consecutive.
   const T* w_d = pb.wh + (size_t)d * hidden * gh;
   for (int idx = tid; idx < hk * cols; idx += nt) {
     const int i = idx & 3;

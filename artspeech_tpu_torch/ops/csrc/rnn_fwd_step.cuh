@@ -1,8 +1,8 @@
 // The masked GRU and LSTM forward time loop on a thread-block cluster, the
 // forward's counterpart of rnn_bwd_step.cuh. Shared by gru_fwd.cu
-// (time-major GRU, one or two directions, f32 or bf16), gru_seq.cu
+// (time-major GRU, one or two directions, f32, bf16 or f16), gru_seq.cu
 // (batch-major GRU, one direction, f32) and lstm_fwd.cu (time-major LSTM,
-// one or two directions, f32 or bf16). Each file supplies a cell: its gate
+// one or two directions, f32, bf16 or f16). Each file supplies a cell: its gate
 // count G, where x_proj, the mask and the outputs of (t, b) live, which time
 // step walk step s visits, and the elementwise step from the G sums of a
 // (row, unit) to its new h. The step itself is here.
@@ -33,7 +33,7 @@
 // tile (8U threads a CTA): lane l sums k in the quads
 // {l, l + 8, l + 16, ...} of h, for the unit's G columns and the R rows,
 // reading h as float4 broadcasts and its W_h quads as 16-byte (8-byte in
-// bf16) loads laid out so that a warp reads consecutive addresses. Three
+// bf16 and f16) loads laid out so that a warp reads consecutive addresses. Three
 // levels of __shfl_xor_sync over the 8 lanes sum them in a fixed order,
 // halving the rows a lane holds while it holds more than one
 // (reduce-scatter), so that each row's G sums end in the lane that applies

@@ -98,14 +98,20 @@
 // are later work.
 //
 // The wide instances. Above hd = 32 the rows no longer fit a thread's
-// registers; hd up to 128 takes the wide kernels, which give a row to a warp
-// instead of a thread: lane l holds elements l, l + 32, ... of the warp's
-// row (NPL = ceil(hd / 32) of them, rounded up to 2 or 4), each dot product
-// is a butterfly of shuffles (every lane ends with the same sum, so all
-// lanes take the same softmax steps), and the other side's rows are read
-// from global memory by the warp in coalesced 128-byte spans (they stay in
+// registers, and above L = MAX_L (the longest default bucket) a group no
+// longer fits a block's shared memory; hd up to 128 and every L take the
+// wide kernels, which give a row to a warp instead of a thread: lane l holds
+// elements l, l + 32, ... of the warp's row (NPL = ceil(hd / 32) of them,
+// rounded up to 1, 2 or 4; every element at or past hd is zero, so at
+// hd < 32 the idle lanes add zeros to each sum), each dot product is a
+// butterfly of shuffles over all 32 lanes (every lane ends with the same
+// sum, so all lanes take the same softmax steps), and the other side's rows
+// are read from global memory by the warp in coalesced spans (they stay in
 // L1 and L2: a group's K and V at L = 512, hd = 128 are 512 KiB). No shared
-// memory; L stays within MAX_L, the longest default bucket.
+// memory, and no state that grows with L but the backward's (G, L) D
+// scratch, which the wrapper allocates. The loader's buckets past 512 (the
+// longest sentence rounded up to 64, data/batching.py) come here at the
+// transformer's hd = 16.
 // - forward: a warp a query row, keys 0..q in order, the same online
 //   softmax as above; four warps a block;
 // - backward, two launches: dQ a warp a query row (it also writes
@@ -961,13 +967,13 @@ int prepare(Kernel kernel, size_t smem) {
 }
 
 bool valid_shape(int g, int l, int hd, int n_pairs) {
-  return g >= 1 && l >= 1 && l <= MAX_L && hd >= 1 && hd <= 128 && n_pairs >= 1 &&
-         g % n_pairs == 0;
+  return g >= 1 && l >= 1 && hd >= 1 && hd <= 128 && n_pairs >= 1 && g % n_pairs == 0;
 }
 
 // The kernels that hold rows in registers and shared memory take the shape
 // (the forward and the backward alike: at hd <= 32 a group of up to MAX_L
-// rows fits a block's shared memory in strips of 16 rows).
+// rows fits a block's shared memory in strips of 16 rows); the wide kernels
+// take every other.
 bool resident(int l, int hd) { return hd <= 32 && l <= MAX_L; }
 
 // The strip backward's launch (hopper_train_attention.py:
@@ -1072,8 +1078,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* keep, co
 extern "C" {
 
 // q, k, v: (G, L, hd) f32; keep: (n_pairs, L, L) f32; out: (G, L, hd) f32;
-// lse: (G, L) f32. 1 <= L <= 512, 1 <= hd <= 128, n_pairs divides G. Where
-// resident (hd <= 32) the strip kernel runs with the launch geometry (groups
+// lse: (G, L) f32. 1 <= L, 1 <= hd <= 128, n_pairs divides G. Where
+// resident (hd <= 32, L <= 512) the strip kernel runs with the launch geometry (groups
 // a CTA, strip rows tq, threads a CTA, shared bytes smem), refused unless
 // valid_fwd_geometry accepts it; else the wide kernel, and the geometry is
 // not read. Returns the first nonzero cudaError_t of the launch, else 0.
@@ -1089,9 +1095,10 @@ int train_attention_fwd(const void* q, const void* k, const void* v, const void*
                     : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq,
                                      threads, smem, s);
   }
-  // Within MAX_L every hd <= 32 is resident, so the wide forward sees hd > 32.
-  return hd <= 64 ? launch_fwd_wide<2>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s)
-                  : launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  // The wide forward: hd > 32 at any L, or any hd past MAX_L.
+  if (hd <= 32) return launch_fwd_wide<1>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  if (hd <= 64) return launch_fwd_wide<2>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  return launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
 }
 
 // As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32 and the
@@ -1122,6 +1129,9 @@ int train_attention_bwd(const void* q, const void* k, const void* v, const void*
 #undef BWD
     return (int)cudaErrorInvalidValue;
   }
+  if (hd <= 32)
+    return launch_bwd_wide<1>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
+                              s);
   if (hd <= 64)
     return launch_bwd_wide<2>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
                               s);

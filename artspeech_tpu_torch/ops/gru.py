@@ -23,11 +23,11 @@ B <= 16, time-major twin scans above); the port has one. Every layer is
 differentiable through ``hopper_gru.GRUSequenceFn`` or
 ``hopper_lstm.LSTMSequenceFn`` (the backward kernels on CUDA).
 
-A layer's ``dtype`` (None: float32; or ``torch.bfloat16``) is flax's compute
-dtype (JAX ops/gru.py:74-79): the parameters stay float32 and are cast to it,
-with the input, for the input product and the recurrence, which then runs in
-it (gate math in float32, the carry rounded to it after every step, as the
-kernels do).
+A layer's ``dtype`` (None: float32; ``torch.bfloat16`` or ``torch.float16``)
+is flax's compute dtype (JAX ops/gru.py:74-79): the parameters stay float32
+and are cast to it, with the input, for the input product and the recurrence,
+which then runs in it (gate math in float32, the carry rounded to it after
+every step, as the kernels do).
 
 In training mode, dropout between stacked layers works as flax
 ``nn.Dropout``: keep with probability 1 - p, scale kept values by 1/(1 - p),

@@ -10,7 +10,7 @@ Pallas ``_flash_kernel``), which serves the transformer's KV-cached decode
 - A CUDA tensor takes the kernel, or the call raises. Nothing falls back.
 
 On every device the call raises for what the kernel does not take: caches
-other than float32 or bfloat16, K and V of different dtypes, a query other
+other than float32, bfloat16 or float16, K and V of different dtypes, a query other
 than float32, tensors that are not contiguous, a head dim above
 ``MAX_HEAD_DIM``, ``n_rows`` outside ``[1, S]``. The TPU wrapper's tile rules
 (``supported``, ``S_CHUNK``, ``_G_BLOCKS``) and its dispatch threshold
@@ -52,7 +52,8 @@ MAX_SMEM = 232448
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
 
-_CACHE_DTYPES = (torch.float32, torch.bfloat16)
+#: The cache dtypes the kernel takes, by its dtype code.
+_CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _entry = None
 _sm_counts = {}
 
@@ -172,7 +173,7 @@ def flash_decode_attend_reference(cache_k, cache_v, qg, n_rows: int):
 
 def _check(cache_k, cache_v, qg, n_rows):
     if cache_k.dtype not in _CACHE_DTYPES or cache_v.dtype != cache_k.dtype:
-        raise TypeError(f"flash_decode: caches must both be float32 or both bfloat16, got "
+        raise TypeError(f"flash_decode: caches must both be float32, bfloat16 or float16, got "
                         f"{cache_k.dtype} and {cache_v.dtype}")
     if qg.dtype != torch.float32:
         raise TypeError(f"flash_decode: the query must be float32, got {qg.dtype}")
@@ -196,8 +197,8 @@ def _launch(cache_k, cache_v, qg, n_rows):
     ptrs = (cache_k.data_ptr(), cache_v.data_ptr(), qg.data_ptr())
     geo = _geometry(g, n_rows, hd, elem, _sm_count(dev), all(p % 8 == 0 for p in ptrs))
     out = torch.empty((hd, g), dtype=torch.float32, device=dev)
-    err = _flash_entry()(*ptrs, out.data_ptr(), hd, g, n_rows, int(elem == 2), geo.lanes,
-                         geo.cluster, geo.warps, geo.smem_bytes,
+    err = _flash_entry()(*ptrs, out.data_ptr(), hd, g, n_rows, _CACHE_DTYPES[cache_k.dtype],
+                         geo.lanes, geo.cluster, geo.warps, geo.smem_bytes,
                          torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed with CUDA error {err}")
@@ -210,7 +211,7 @@ def flash_decode_attend(cache_k, cache_v, qg, n_rows: int):
     merged-lane caches.
 
     Args:
-        cache_k, cache_v: (S, hd, G) caches, float32 or bfloat16, contiguous.
+        cache_k, cache_v: (S, hd, G) caches, float32, bfloat16 or float16, contiguous.
         qg: (hd, G) float32 pre-scaled query, contiguous.
         n_rows: rows to attend over (``t + 1`` at decode step ``t``), a host
             int in ``[1, S]``.

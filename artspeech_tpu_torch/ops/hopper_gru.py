@@ -46,7 +46,8 @@ launches_seq = 0
 #: Widest hidden size the kernels take.
 MAX_HIDDEN = 1024
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The storage dtypes the recurrent kernels take, by their dtype code.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
 _POINTERS_INTS = {"gru_fwd": (5, 9), "gru_bwd": (12, 9), "gru_seq": (5, 6)}
 _libs = {}
@@ -284,7 +285,7 @@ def gru_sequence_reference(x_proj, w_h, b_h, mask, reverse=False):
     """Plain PyTorch masked GRU over hoisted projections (a loop over T).
 
     Args:
-        x_proj: (T, B, 3H) f32 or bf16 — ``x @ W_i + b_i`` for every step.
+        x_proj: (T, B, 3H) f32, bf16 or f16 — ``x @ W_i + b_i`` for every step.
         w_h: (H, 3H) recurrent weights; b_h: (3H,) recurrent bias.
         mask: (T, B); nonzero on valid steps, where the carry updates.
         reverse: walk time backward; outputs stay at their own time index.
@@ -374,32 +375,38 @@ def gru_sequence_backward_reference(x_proj, w_h, b_h, mask, ys, g, reverse=False
     return dxp, dw, db
 
 
-def _check(x_proj, w_h, b_h, mask, n_dir, name):
+def _check(x_proj, w_h, b_h, mask, n_dir, gates=3, name="gru"):
+    """Raises for what the recurrent kernels do not take: x_proj (T, B, D*gH),
+    w_h (D, H, gH) and b_h (D, gH) of one storage type in ``_DTYPES``, on one
+    card and contiguous, a mask (T, B) there, and 1 <= H <= ``MAX_HIDDEN``.
+    ``gates`` is g (3 for the GRU; hopper_lstm binds 4) and ``name`` ("gru"
+    or "lstm") begins each message."""
     if x_proj.dtype not in _DTYPES:
-        raise ValueError(f"gru kernel takes float32 or bfloat16, got {x_proj.dtype}")
+        raise ValueError(f"{name} kernel takes float32, bfloat16 or float16, got {x_proj.dtype}")
     if x_proj.dim() != 3 or w_h.dim() != 3 or b_h.dim() != 2 or mask.dim() != 2:
-        raise ValueError("gru kernel shapes: x_proj (T,B,D*3H), w_h (D,H,3H), b_h (D,3H), mask (T,B)")
+        raise ValueError(f"{name} kernel shapes: x_proj (T,B,D*{gates}H), w_h (D,H,{gates}H), "
+                         f"b_h (D,{gates}H), mask (T,B)")
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
-    gates = 3 * hidden
-    if (tuple(x_proj.shape) != (n_steps, batch, n_dir * gates)
-            or tuple(w_h.shape) != (n_dir, hidden, gates)
-            or tuple(b_h.shape) != (n_dir, gates)
+    width = gates * hidden
+    if (tuple(x_proj.shape) != (n_steps, batch, n_dir * width)
+            or tuple(w_h.shape) != (n_dir, hidden, width)
+            or tuple(b_h.shape) != (n_dir, width)
             or tuple(mask.shape) != (n_steps, batch)):
         raise ValueError(
-            f"gru kernel shape mismatch: x_proj {tuple(x_proj.shape)}, w_h {tuple(w_h.shape)}, "
+            f"{name} kernel shape mismatch: x_proj {tuple(x_proj.shape)}, w_h {tuple(w_h.shape)}, "
             f"b_h {tuple(b_h.shape)}, mask {tuple(mask.shape)}")
     for arg, t in (("x_proj", x_proj), ("w_h", w_h), ("b_h", b_h)):
         if t.dtype != x_proj.dtype or t.device != x_proj.device:
-            raise ValueError(f"gru kernel: {arg} must match x_proj's dtype and device")
+            raise ValueError(f"{name} kernel: {arg} must match x_proj's dtype and device")
         if not t.is_contiguous():
-            raise ValueError(f"gru kernel: {arg} must be contiguous")
+            raise ValueError(f"{name} kernel: {arg} must be contiguous")
     if mask.device != x_proj.device:
-        raise ValueError("gru kernel: mask must be on x_proj's device")
+        raise ValueError(f"{name} kernel: mask must be on x_proj's device")
     if not 1 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"gru kernel takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
+        raise ValueError(f"{name} kernel takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
     if x_proj.device.type != "cuda":
-        raise ValueError(f"gru kernel needs CUDA tensors, got {x_proj.device}")
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {x_proj.device}")
 
 
 def resident(name, hidden, dtype):
@@ -415,7 +422,7 @@ def resident(name, hidden, dtype):
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
     global launches
-    _check(x_proj, w_h, b_h, mask, n_dir, "gru_fwd")
+    _check(x_proj, w_h, b_h, mask, n_dir)
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
     mask_f = mask.to(torch.float32).contiguous()
@@ -438,7 +445,7 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits):
 
 def _launch_bwd(x_proj, w_h, b_h, mask, ys, g, n_dir, rev_bits):
     global bwd_launches
-    _check(x_proj, w_h, b_h, mask, n_dir, "gru_bwd")
+    _check(x_proj, w_h, b_h, mask, n_dir)
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
     gates = 3 * hidden

@@ -25,6 +25,7 @@ kernel launches and ``bwd_launches`` backward ones.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,10 +36,11 @@ launches = 0
 #: Backward kernel launches so far (the plain version does not count).
 bwd_launches = 0
 
-#: Widest hidden size the kernels take.
-MAX_HIDDEN = 1024
+#: Widest hidden size the kernels take (the recurrences' one bound).
+MAX_HIDDEN = hopper_gru.MAX_HIDDEN
+#: The recurrences' one argument check, at four gates.
+_check = functools.partial(hopper_gru._check, gates=4, name="lstm")
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: Each kernel's entry point: (device pointers, ints), then the stream.
 _POINTERS_INTS = {"lstm_fwd": (6, 9), "lstm_bwd": (13, 9)}
 _libs = {}
@@ -57,7 +59,7 @@ def _library(name):
 
 
 def _acc(dtype):
-    """The plain versions' compute type: f32 for f32 and bf16 storage (as the
+    """The plain versions' compute type: f32 for f32, bf16 and f16 storage (as the
     kernels), f64 for f64 inputs (so the tests can take exact gradients)."""
     return torch.promote_types(dtype, torch.float32)
 
@@ -76,7 +78,7 @@ def lstm_sequence_reference(x_proj, w_h, b_h, mask, reverse=False, return_cells=
     """Plain PyTorch masked LSTM over hoisted projections (a loop over T).
 
     Args:
-        x_proj: (T, B, 4H) f32 or bf16 — ``x @ W_i + b_i`` for every step,
+        x_proj: (T, B, 4H) f32, bf16 or f16 — ``x @ W_i + b_i`` for every step,
             gate blocks i, f, g, o.
         w_h: (H, 4H) recurrent weights; b_h: (4H,) recurrent bias.
         mask: (T, B); nonzero on valid steps, where the carries update.
@@ -175,34 +177,6 @@ def lstm_sequence_backward_reference(x_proj, w_h, b_h, mask, ys, cs, g, reverse=
     return dxp, dw, db
 
 
-def _check(x_proj, w_h, b_h, mask, n_dir, name):
-    if x_proj.dtype not in _DTYPES:
-        raise ValueError(f"lstm kernel takes float32 or bfloat16, got {x_proj.dtype}")
-    if x_proj.dim() != 3 or w_h.dim() != 3 or b_h.dim() != 2 or mask.dim() != 2:
-        raise ValueError("lstm kernel shapes: x_proj (T,B,D*4H), w_h (D,H,4H), b_h (D,4H), mask (T,B)")
-    n_steps, batch, _ = x_proj.shape
-    hidden = w_h.shape[1]
-    gates = 4 * hidden
-    if (tuple(x_proj.shape) != (n_steps, batch, n_dir * gates)
-            or tuple(w_h.shape) != (n_dir, hidden, gates)
-            or tuple(b_h.shape) != (n_dir, gates)
-            or tuple(mask.shape) != (n_steps, batch)):
-        raise ValueError(
-            f"lstm kernel shape mismatch: x_proj {tuple(x_proj.shape)}, w_h {tuple(w_h.shape)}, "
-            f"b_h {tuple(b_h.shape)}, mask {tuple(mask.shape)}")
-    for arg, t in (("x_proj", x_proj), ("w_h", w_h), ("b_h", b_h)):
-        if t.dtype != x_proj.dtype or t.device != x_proj.device:
-            raise ValueError(f"lstm kernel: {arg} must match x_proj's dtype and device")
-        if not t.is_contiguous():
-            raise ValueError(f"lstm kernel: {arg} must be contiguous")
-    if mask.device != x_proj.device:
-        raise ValueError("lstm kernel: mask must be on x_proj's device")
-    if not 1 <= hidden <= MAX_HIDDEN:
-        raise ValueError(f"lstm kernel takes 1 <= H <= {MAX_HIDDEN}, got H={hidden}")
-    if x_proj.device.type != "cuda":
-        raise ValueError(f"lstm kernel needs CUDA tensors, got {x_proj.device}")
-
-
 def resident(name, hidden, dtype):
     """Whether kernel ``name`` ("lstm_fwd" or "lstm_bwd") runs H in ``dtype``
     as the cluster kernel with W_h slices in shared memory (else its wide
@@ -216,7 +190,7 @@ def resident(name, hidden, dtype):
 
 def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
     global launches
-    _check(x_proj, w_h, b_h, mask, n_dir, "lstm_fwd")
+    _check(x_proj, w_h, b_h, mask, n_dir)
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
     mask_f = mask.to(torch.float32).contiguous()
@@ -231,7 +205,8 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
         err = _library("lstm_fwd").lstm_fwd(
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(),
             ys.data_ptr(), None if cs is None else cs.data_ptr(), n_steps, batch, hidden, n_dir,
-            rev_bits, _DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry), stream)
+            rev_bits, hopper_gru._DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry),
+            stream)
     if err != 0:
         raise RuntimeError(f"lstm_fwd kernel launch failed with CUDA error {err}")
     launches += 1
@@ -240,7 +215,7 @@ def _launch(x_proj, w_h, b_h, mask, n_dir, rev_bits, with_cells):
 
 def _launch_bwd(x_proj, w_h, b_h, mask, ys, cs, g, n_dir, rev_bits):
     global bwd_launches
-    _check(x_proj, w_h, b_h, mask, n_dir, "lstm_bwd")
+    _check(x_proj, w_h, b_h, mask, n_dir)
     n_steps, batch, _ = x_proj.shape
     hidden = w_h.shape[1]
     gates = 4 * hidden
@@ -263,7 +238,8 @@ def _launch_bwd(x_proj, w_h, b_h, mask, ys, cs, g, n_dir, rev_bits):
             x_proj.data_ptr(), w_h.data_ptr(), b_h.data_ptr(), mask_f.data_ptr(), ys.data_ptr(),
             cs.data_ptr(), g.data_ptr(), dxp.data_ptr(), scratch.data_ptr(), dw_part.data_ptr(),
             db_part.data_ptr(), dw.data_ptr(), db.data_ptr(), n_steps, batch, hidden, n_dir,
-            rev_bits, _DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry), stream)
+            rev_bits, hopper_gru._DTYPES[x_proj.dtype], *hopper_gru.geometry_args(geometry),
+            stream)
     if err != 0:
         raise RuntimeError(f"lstm_bwd kernel launch failed with CUDA error {err}")
     bwd_launches += 1

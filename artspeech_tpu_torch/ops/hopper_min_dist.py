@@ -51,7 +51,8 @@ launches = 0
 TILES = ((13, 13, 50, 50), (4, 7, 15, 25), (5, 10, 20, 40), (4, 13, 15, 50), (8, 8, 0, 0))
 MAX_SOURCES = MAX_PROBLEMS = 8
 OUT_FIELDS = 5  # dist, poc_1 (x, y), poc_2 (x, y)
-_DTYPES = (torch.float32, torch.bfloat16)
+#: The source dtypes the kernel reads in place, by its dtype code.
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib = None
 
 
@@ -197,7 +198,7 @@ def _launch(sources, problems, with_idx):
     if geo.warps == 0:
         raise ValueError(f"min_dist kernel: (N, M) = {max(shapes, key=sum)} need more than the "
                          f"{MAX_SMEM} B of shared memory a block may use for {ROWS_A_WARP} rows")
-    # Read in place (bf16 widened in the kernel); mixed or other types as f32.
+    # Read in place (bf16 and f16 widened in the kernel); mixed or other types as f32.
     dtype = sources[0].dtype
     if dtype not in _DTYPES or any(s.dtype != dtype for s in sources):
         sources, dtype = [s.to(torch.float32) for s in sources], torch.float32
@@ -221,7 +222,7 @@ def _launch(sources, problems, with_idx):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().min_dist(src, len(flat), table, len(problems), rows,
-                                  int(dtype == torch.bfloat16), geo.warps, geo.blocks,
+                                  _DTYPES[dtype], geo.warps, geo.blocks,
                                   geo.smem_bytes, out.data_ptr(),
                                   idx.data_ptr() if with_idx else None, stream)
     if err != 0:

@@ -15,16 +15,19 @@ wires them as a ``torch.autograd.Function``.
 
 On every device the call raises for what the kernels do not take: tensors
 other than float32, tensors that are not contiguous, a head dim above
-``MAX_HEAD_DIM``, ``L`` above ``MAX_L`` and a ``G`` that ``n_pairs`` does
-not divide. The kernels take any G: up to hd = ``RESIDENT_MAX_HD`` the
-resident ones, the thesis transformer's hd = 16 among them, each a walk of
-each group's causal triangle in query strips with the keep mask read along
-keys (the forward a CTA of groups of one pair in step, launched as
-:func:`train_attention_fwd_launch_geometry` says; the backward as
-:func:`train_attention_bwd_launch_geometry` says); above it the wide ones, a
-row a warp. The TPU wrapper's tile rules (``supported``, ``G_BLOCK``,
-``L % 128``, ``_spmd_safe``) and its ``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL``
-switch are not ported.
+``MAX_HEAD_DIM`` and a ``G`` that ``n_pairs`` does not divide. The kernels
+take any G and any L: up to hd = ``RESIDENT_MAX_HD`` and L = ``MAX_L`` the
+resident ones, the thesis transformer's hd = 16 at the default buckets among
+them, each a walk of each group's causal triangle in query strips with the
+keep mask read along keys (the forward a CTA of groups of one pair in step,
+launched as :func:`train_attention_fwd_launch_geometry` says; the backward as
+:func:`train_attention_bwd_launch_geometry` says); above either bound the wide
+ones, a row a warp, whose only state that grows with L is the backward's
+(G, L) scratch. The loader's buckets past the longest default one
+(data/batching.py rounds the longest sentence up to 64) take the wide kernels,
+as JAX sends them to its XLA attention. The TPU wrapper's tile rules
+(``supported``, ``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
+``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported.
 
 ``launches_fwd`` and ``launches_bwd`` count kernel launches.
 """
@@ -42,8 +45,8 @@ launches_fwd = 0
 #: Backward kernel launches so far (the plain version does not count).
 launches_bwd = 0
 
-#: Longest sequence the kernels take: the largest default bucket
-#: (data/batching.py DEFAULT_BUCKETS).
+#: Longest sequence of the resident kernels: the largest default bucket
+#: (data/batching.py DEFAULT_BUCKETS). Longer ones take the wide kernels.
 MAX_L = 512
 #: Largest head dim the kernels take (csrc/train_attention.cu).
 MAX_HEAD_DIM = 128
@@ -268,8 +271,8 @@ def _check(q, k, v, keep, n_pairs):
                          f"dividing G={g}, got keep {tuple(keep.shape)}, n_pairs={n_pairs}")
     if not all(t.is_contiguous() for t in (q, k, v, keep)):
         raise ValueError("fused_causal_attend: q, k, v and keep must be contiguous")
-    if not 1 <= l <= MAX_L:
-        raise ValueError(f"fused_causal_attend: L={l} outside the kernels' [1, {MAX_L}]")
+    if l < 1:
+        raise ValueError(f"fused_causal_attend: L={l} below 1")
     if not 1 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"fused_causal_attend: head dim {hd} outside the kernels' "
                          f"[1, {MAX_HEAD_DIM}]")

@@ -3,7 +3,7 @@ workflow through its CLIs, the transformer's KV-cached decode and its
 training, the autoencoder-based method (phonemes -> principal
 components), the mean-contour baseline, the phoneme recognizer (on recorded
 and synthesized corpora, and frozen inside the two trainers' losses) and the
-bf16 configs on one NVIDIA GPU, and check them.
+bf16 and fp16 compute dtypes on one NVIDIA GPU, and check them.
 
 Usage, from the root of the repository, on a machine with one H100:
 
@@ -19,7 +19,7 @@ Phases, each printing its own lines:
   3. kernel  — holds each kernel against its plain PyTorch version on the
                card: the GRU forward and backward at (T, B, H) = (128, 16,
                128) and (128, 256, 128), both directions in one launch and
-               each alone, ragged lengths, f32 and bf16 (the backward also
+               each alone, ragged lengths, f32, bf16 and f16 (the backward also
                against torch.autograd through the plain forward); the
                forward also at GRU_FWD_CASES (B = 1, B not a multiple of the
                cluster's rows, T = 1, H = 136, 20 and 6 whose units a CTA are
@@ -40,30 +40,32 @@ Phases, each printing its own lines:
                relative; then one launch for a stack's four tract variables
                (tract_variables_from_stack on seeded (R, 11, 2, 50) stacks,
                R = 12*128 and 1001, with built-in ties, a NaN point, and in
-               bf16) against the plain TV route: values within 1e-6
+               bf16 and f16) against the plain TV route: values within 1e-6
                relative with NaN at the same places, both places of
                constriction the same bits, one launch a stack, a second
                launch the same bits; flash decode
                at hd = 16 over 128-row caches, G of the self and cross-channel
                caches at B = 1, 12 and 64 and G 4,321 and 4,330 (not a
-               multiple of 32 or 64), n_rows 1, 2, 33, 127 and 128, f32 and
-               bf16 caches, within 1e-5 relative + 2e-5 absolute, each with
+               multiple of 32 or 64), n_rows 1, 2, 33, 127 and 128, f32, bf16
+               and f16 caches, within 1e-5 relative + 2e-5 absolute, each with
                its launch geometry, and a second launch bit for bit; the training
                attention forward and backward (train_attention.cu) at hd = 16,
                G = 360, 4,320 and 23,040 (B = 1, 12, 64 of the thesis
-               transformer) with L 32 and 128, L 512 and 37 at G = 360, the
-               all-ones and a seeded dropout keep mask, and L 1, 16, 33, 65,
+               transformer) with L 32 and 128, L 512, 37 and the buckets past
+               512 (576, the loader's for a 530-frame sentence, and 1,024:
+               the wide kernels) at G = 360, the all-ones and a seeded
+               dropout keep mask, and L 1, 16, 33, 65,
                129 and 255 at G = 360 with the dropout keep (the edges of the
                backward's query strips): the forward within 2e-5, dQ/dK/dV
                within 1e-4 * max(|ref|, 1) from the forward kernel's out and
                lse, the forward (out and lse) and the backward the same bits
-               on a second launch, each with both launch geometries, and
-               L = 513 refused; the LSTM forward and
+               on a second launch, each with both launch geometries; the
+               LSTM forward and
                backward (lstm_fwd.cu, lstm_bwd.cu) at H 16, 64 and 128, B 1,
                3, 12, 16 and 64, T 1, 7 and 128 (LSTM_CASES), both directions
                in one launch and each alone,
-               ragged lengths with a full row and a row of length 1, f32 and
-               bf16, held as the GRU kernels are (the forward's cell states
+               ragged lengths with a full row and a row of length 1, f32,
+               bf16 and f16, held as the GRU kernels are (the forward's cell states
                relative to max(|c|, 1)), each with both launch geometries
                and a second launch bit for bit;
      gru_seq — the batch-major GRU (gru_seq.cu, row 7) against its plain
@@ -77,16 +79,17 @@ Phases, each printing its own lines:
                each;
      widths  — every widened kernel against its plain version at widths the
                resident kernels refuse, at the same limits: the GRU forward
-               and backward at H 6, 130, 256, 512 and 1,024 in f32 and bf16,
-               the LSTM at H 168, 256, 512 and 1,024, the training attention at
-               hd 48, 64 and 128 with L 37, 128 and 512 and at hd 8, 17 and
-               32 with L 128 and 512 (both geometries; the forward's out and
-               lse and the backward the same bits on a second launch), the
-               decode at hd 80, 128 and 256 (f32 and bf16 caches); the
+               and backward at H 6, 130, 256, 512 and 1,024 in f32, bf16 and
+               f16, the LSTM at H 168, 256, 512 and 1,024, the training
+               attention at hd 48, 64 and 128 with L 37, 128 and 512, at
+               (hd, L) (16, 513) and (48, 600), and at hd 8, 17 and 32 with
+               L 128 and 512 (both geometries; the forward's out and lse and
+               the backward the same bits on a second launch), the decode at
+               hd 80, 128 and 256 (f32, bf16 and f16 caches); the
                instance each width takes (the thesis widths keep
                the resident kernels; the forwards' cluster step or wide
                instance as GRU_FWD_INSTANCE and LSTM_FWD_INSTANCE say), the
-               outer bounds refused (H 1,025, hd 129, L 513, decode hd 257),
+               outer bounds refused (H 1,025, hd 129, decode hd 257),
                and one timing of each wide instance beside the same PyTorch
                call (cuDNN's GRU and LSTM, scaled_dot_product_attention) at
                its shape, and the recurrences' cluster steps at H 256 beside
@@ -137,7 +140,7 @@ Phases, each printing its own lines:
                configs/model_free/ configs (only the corpus paths, the
                database, num_epochs: 2, state_dict_filepath and save_to
                changed) over a seeded gottingen-layout corpus on disk (one
-               subject, S01-S05, 4 sentences of about 75 frames each):
+               subject, S01-S05, 3 sentences of about 75 frames each):
                train_phoneme_to_articulation (fit + the final test with tract
                variables), test_phoneme_to_articulation on best/state,
                generate_vocal_tract_shape on S05 and, from best_model, on a
@@ -155,9 +158,12 @@ Phases, each printing its own lines:
                bf16 caches: launches, artifacts, TV CSVs; then the bf16
                configs, train_model_free_bf16.yaml and
                train_transformer_bf16.yaml (num_epochs: 2 and the same
-               path edits), with the f32 runs' launches, and each bf16
-               model's forward on the card against the CPU's bf16 forward
-               (bf16_against_cpu);
+               path edits), and the same two again with compute_dtype:
+               float16 (the transformer's final test with
+               generate_cache_dtype: float16 added), with the f32 runs'
+               launches, and each 16-bit model's forward on the card
+               against the CPU's forward in its dtype (half_against_cpu; the
+               fp16 ones on the test batch's first sentence);
   7. pc      — the autoencoder-based method through its nine CLI runs over
                the same corpus, from YAML files written from the text of
                configs/autoencoder_based/ (only paths, the database,
@@ -249,7 +255,12 @@ Phases, each printing its own lines:
                not used); an accum_steps sweep at B = 64 (microbatches 64,
                16, 8); 20 steps on one batch (the loss must fall); and
                one step at dropout 0 on the card against the CPU (as the
-               ArtSpeech one);
+               ArtSpeech one); then a bucket past 512: the batch
+               BucketedLoader makes of two sentences of 530 and 519 frames
+               (L = 576, the wide training-attention kernels), one step at
+               dropout 0.1 with exactly 4 + 4 train_attention launches, its
+               ms and peak memory, and one at dropout 0 on the card against
+               the CPU and float64;
  10. latent_rnn — the latent RNN of train_autoencoder_based.yaml at full
                width (embed 64, hidden 128, latent 35) with rnn: LSTM and
                its composite loss over a seeded frozen autoencoder: one
@@ -270,7 +281,8 @@ Phases, each printing its own lines:
                with the device's idle share and top kernels from
                torch.profiler, and each CLI's wall time; flash decode at the
                decode's own calls: the self and cross-channel caches at B = 12
-               and 64, f32 and bf16, n_rows 1, 16, 64 and 128, and the 256
+               and 64, f32 and bf16 (and the sweep with f16 caches at B = 12),
+               n_rows 1, 16, 64 and 128, and the 256
                calls of one layer's decode sweep over T = 128, cycling cache
                copies that overflow the L2, each by graph_ms (one CUDA graph
                of the calls: device time without host gaps) and back to back,
@@ -280,14 +292,16 @@ Phases, each printing its own lines:
                version and the profiler's device time at n_rows = 128, cross-
                channel); the training attention forward
                and backward at the B = 12 and B = 64 shapes (L = 128, the
-               dropout keep) the same way (graph_ms, back to back, the
+               dropout keep) and on the wide route at B = 2 with L 576 and
+               1,024, the same way (graph_ms, back to back, the
                profiler's device time and the share of the bound), against
                scaled_dot_product_attention
                (is_causal, all-ones keep: forward, and forward + backward
                minus forward); both LSTM kernels at T = 128, H = 128, B = 12
                and 64 the same way, against cuDNN's nn.LSTM (forward, and
                forward + backward minus forward); the GRU forward at B = 12,
-               16 and 256 and the batch-major GRU at B = 16 and 256 beside
+               16 and 256 (and both GRU kernels at B = 12 in f32, bf16 and
+               f16 by graph_ms) and the batch-major GRU at B = 16 and 256 beside
                gru_fwd with one direction on the same work, each with its
                launch geometry (C, rows a cluster, CTAs, waves at one CTA
                an SM) and microseconds a step, its plain
@@ -465,6 +479,14 @@ BF16_TOL = 2.0**-7
 # roundings, so allow four ulps of the largest value.
 BWD_F32_TOL = 1e-4
 BWD_BF16_TOL = 2.0**-6
+# The storage types of the recurrent kernels with their tolerances: an f16
+# instance is held to bf16's (f16 rounds at 2^-11, inside it).
+FWD_DTYPES = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL), (torch.float16, BF16_TOL))
+BWD_DTYPES = ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL),
+              (torch.float16, BWD_BF16_TOL))
+#: The 16-bit types beside float32 that the recurrences, the TV stack and
+#: the decode's caches take.
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 P2CP_TOL = 1e-5
 P2CP_ROWS = 12 * 128 * 10  # the thesis valid batch: B * T * Nart contour pairs
 #: [kernel] P2CP cases, (R, N, M): the metric's rows, an odd row count, N != M
@@ -491,6 +513,13 @@ REPLACES = {
     "gru_seq": "artspeech_tpu/ops/pallas_kernels.py:142 (_gru_seq_kernel, pallas_call at :198)",
 }
 KERNELS = tuple(REPLACES)
+#: The storage types each kernel is held to its plain version at (the
+#: training attention, gru_seq and P2CP compute in f32 only, as their TPU
+#: kernels; their callers cast 16-bit inputs up, as JAX does).
+DTYPES_HELD = {k: ["float32", "bfloat16", "float16"] for k in KERNELS}
+DTYPES_HELD.update({k: ["float32"] for k in ("p2cp", "train_attention_fwd",
+                                              "train_attention_bwd")})
+DTYPES_HELD["gru_seq"] = ["float32", "bfloat16 x_proj (cast to f32)"]
 #: The library (ops/csrc/<name>.cu) of each kernel.
 LIBRARY = {**{k: k for k in KERNELS}, "train_attention_fwd": "train_attention",
            "train_attention_bwd": "train_attention"}
@@ -509,7 +538,7 @@ THESIS_CONFIGS = os.path.join(REPO, "configs", "model_free")
 #: clipping, so that batches take bucket 128 (100 frames until the
 #: [synthetic] phase came: the CLI phases are host bound, per frame).
 CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S05"),
-                  n_sentences=4, frames_per_sentence=75)
+                  n_sentences=3, frames_per_sentence=75)
 # Card against CPU, the test step: the tract variables and metrics of one
 # test batch within 1e-4 (f32 sums in another order), and the same argmin
 # pair on at least 99 % of the frames (near-ties may flip on ulp-level
@@ -517,7 +546,7 @@ CLI_CORPUS = dict(subject="subject1", sequences=("S01", "S02", "S03", "S04", "S0
 TEST_STEP_TOL = 1e-4
 TV_SAME_PAIR_SHARE = 0.99
 #: bf16 forward, card against CPU, relative to max |ref|: four bf16 rounding
-#: steps (2^-8 each) of a sigmoid output in [0, 1]; see bf16_against_cpu.
+#: steps (2^-8 each) of a sigmoid output in [0, 1]; see half_against_cpu.
 BF16_FORWARD_TOL = 2.0**-6
 #: flash decode against its plain version: both read the same cache values
 #: (bf16 widened exactly) and differ by the order of f32 sums and the online
@@ -547,6 +576,11 @@ TRAIN_ATTN_PAIRS = 90
 #: Lengths at the edges of the training-attention backward's query strips
 #: (one row, a strip, a strip and one, ...), held with the dropout keep at B = 1.
 TRAIN_ATTN_EDGE_L = (1, 16, 33, 65, 129, 255, 512)
+#: Buckets past MAX_L = 512 (the wide kernels at hd 16): the one the loader
+#: adds for a LONG_SENTENCE-frame sentence (rounded up to 64) and 1,024.
+TRAIN_ATTN_LONG_L = (576, 1024)
+LONG_SENTENCE = 530  # frames: 9.6 s at gottingen's 55 fps
+LONG_B = 2
 TRAIN_T = 128
 TRAIN_BATCHES = (12, 64)  # the thesis batch and the test CLI's batch on the card
 MICROBATCHES = (64, 16, 8)  # the accum_steps sweep at B = 64
@@ -593,11 +627,11 @@ LSTM_FWD_INSTANCE = {168: ("cluster", "cluster"), 256: ("cluster", "cluster"),
 #: cluster step to H = 256, the wide one above.
 BWD_INSTANCE = {6: "cluster", 130: "cluster", 168: "cluster", 256: "cluster", 512: "wide",
                 1024: "wide"}
-#: (hd, L) of the training attention beyond its resident kernels, then head
-#: dims other than the transformer's 16 at L 128 and 512 (each printed with
-#: the instance it takes).
+#: (hd, L) of the training attention beyond its resident kernels (hd above
+#: 32, or L past MAX_L = 512), then head dims other than the transformer's 16
+#: at L 128 and 512 (each printed with the instance it takes).
 WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [
-    (hd, l) for hd in (8, 17, 32) for l in (128, 512)]
+    (16, 513), (48, 600)] + [(hd, l) for hd in (8, 17, 32) for l in (128, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
 WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
 #: The forwards' timed wide instances: at H = 256 they take the cluster step.
@@ -709,7 +743,7 @@ def ptxas_kernels(report):
     """(kernel, registers, spill stores, spill loads) of each entry function
     in an -Xptxas -v report; kernel is the function's name with its template
     arguments (storage type, then integers and bools), as in
-    gru_fwd_cluster_kernel<bf16,8> or flash_decode_kernel<f32,16,2,1>."""
+    gru_fwd_cluster_kernel<bf16,8>, <f16,8> or flash_decode_kernel<f32,16,2,1>."""
     kernels, name, spills = [], None, (0, 0)
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -717,8 +751,9 @@ def ptxas_kernels(report):
             base, rest = kernel_base(entry.group(1))
             templated = re.match(r"(I\w*?E)E", rest)
             args = templated.group(1) if templated else ""
-            targs = (["bf16"] if "bfloat16" in args else ["f32"] if args.startswith("If") else []) \
-                + re.findall(r"L[ib](\d+)E", args)
+            targs = (["bf16"] if "bfloat16" in args else ["f16"] if "6__half" in args
+                     else ["f32"] if args.startswith("If") else [])
+            targs += re.findall(r"L[ib](\d+)E", args)
             name = base + (f"<{','.join(targs)}>" if targs else "")
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if spill:
@@ -819,7 +854,7 @@ def gru_fwd_vs_plain():
     bench shape."""
     worst = 0.0
     for t, b, h in KERNEL_SHAPES + GRU_FWD_CASES:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in FWD_DTYPES:
             xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=t + b + h, short_row=True)
             got = hopper_gru.bigru_sequence(xp, wh, bh, mask)
             torch.cuda.synchronize()
@@ -841,7 +876,7 @@ def gru_fwd_vs_plain():
             if dtype == torch.float32 and (t, b) == (BENCH_T, BENCH_B):
                 worst = max(worst, *errs.values())
     for t, b, h in RECOGNIZER_GRU_CASES:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in FWD_DTYPES:
             xp, wh, bh, mask = recognizer_gru_inputs(t, b, h, dtype, seed=t + h)
             errs, zero_row = {}, 0.0
             for reverse in (False, True):
@@ -873,7 +908,7 @@ def gru_bwd_vs_plain():
     worst_abs, worst_rel = 0.0, 0.0
     for t, b, h in KERNEL_SHAPES + GRU_BWD_CASES:
         gates = 3 * h
-        for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        for dtype, tol in BWD_DTYPES:
             xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=2 * t + b + h,
                                           short_row=(t, b, h) in GRU_BWD_CASES)
             gy = torch.randn(t, b, 2 * h, generator=torch.Generator().manual_seed(b),
@@ -916,7 +951,7 @@ def gru_bwd_vs_plain():
                 worst_abs = max(worst_abs, *abs_errs.values())
                 worst_rel = max(worst_rel, *errs.values())
     for t, b, h in RECOGNIZER_GRU_CASES:
-        for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        for dtype, tol in BWD_DTYPES:
             xp, wh, bh, mask = recognizer_gru_inputs(t, b, h, dtype, seed=2 * t + h)
             gy = torch.randn(t, b, h, generator=torch.Generator().manual_seed(t),
                              device="cpu").to(dtype).cuda()
@@ -1074,7 +1109,8 @@ def tv_stack_cases():
     """(name, stack): seeded stacks at the test batch's rows and an odd
     count; built-in ties (a lower-lip point equal to two upper-lip points,
     and in rows 0-99 identical contours, every distance 0); a NaN point in
-    the tongue tip (rows 0-9) and the upper lip (rows 20-29); a bf16 stack."""
+    the tongue tip (rows 0-9) and the upper lip (rows 20-29); a bf16 and an
+    f16 stack."""
     at = {name: i for i, name in enumerate(TV_STACK_ARTS)}
     ties = tv_stack(TEST_ROWS, seed=21)
     ties[:, at[UPPER_LIP], :, 12] = ties[:, at[LOWER_LIP], :, 7]
@@ -1085,13 +1121,14 @@ def tv_stack_cases():
     nan[20:30, at[UPPER_LIP], 1, 0] = float("nan")
     return [(f"tv_stack_R{rows}", tv_stack(rows, seed=rows)) for rows in (TEST_ROWS, 1001)] + [
         ("tv_stack_ties", ties), ("tv_stack_nan", nan),
-        ("tv_stack_bf16", tv_stack(TEST_ROWS, seed=23, dtype=torch.bfloat16))]
+        ("tv_stack_bf16", tv_stack(TEST_ROWS, seed=23, dtype=torch.bfloat16)),
+        ("tv_stack_f16", tv_stack(TEST_ROWS, seed=24, dtype=torch.float16))]
 
 
 def plain_tvs(stack):
     """The plain TV route on the card, (4, R, 5): the windows cut, the palate
     concatenated, min_distance_channel_major_reference and gathers, on the
-    stack as f32 (the kernel widens a bf16 stack exactly)."""
+    stack as f32 (the kernel widens a bf16 or f16 stack exactly)."""
     names, problems = tract_variables.tv_table({a: stack.shape[-1] for a in TV_STACK_ARTS})
     sources = [stack[..., TV_STACK_ARTS.index(n), :, :].float() for n in names]
     return hopper_min_dist.min_distance_windows_reference(sources, problems)
@@ -1191,15 +1228,15 @@ def flash_geometry_text(g, n_rows, dtype, hd=HD):
 def flash_decode_vs_plain():
     """The kernel against its plain version at every lane count of the
     decode's caches at B = 1, 12 and 64 and at FLASH_RAGGED_G (lane counts
-    that are not a multiple of 32 or 64), n_rows in FLASH_CHECKED_ROWS, f32
-    and bf16, each with its launch geometry (CTAs/cluster/warps/lanes); and
+    that are not a multiple of 32 or 64), n_rows in FLASH_CHECKED_ROWS, f32,
+    bf16 and f16 caches, each with its launch geometry (CTAs/cluster/warps/lanes); and
     a second launch that gives the same bits. Returns the largest absolute
     error."""
     worst = 0.0
     cases = [(b, attend, g) for b in (1, 12, 64) for attend, g in flash_groups(b).items()]
     cases += [(None, "ragged", g) for g in FLASH_RAGGED_G]
     for b, attend, g in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, *HALF_DTYPES):
             k, v, q = flash_inputs(g, dtype, seed=g)
             errs, same = {}, True
             for n_rows in FLASH_CHECKED_ROWS:
@@ -1249,13 +1286,14 @@ def train_attention_geometry_text(g, l, hd, n_pairs):
 
 
 def train_attention_cases():
-    """(G, L, n_pairs values): every batch's G at L 32 and 128, then L 512 and
-    a length that is no bucket (37) at B = 1, with the all-ones keep
+    """(G, L, n_pairs values): every batch's G at L 32 and 128, then L 512, a
+    length that is no bucket (37) and the buckets past 512
+    (TRAIN_ATTN_LONG_L, the wide kernels) at B = 1, with the all-ones keep
     (n_pairs 1) and the dropout keep; then the strip edges at B = 1 with the
     dropout keep."""
     both = (1, TRAIN_ATTN_PAIRS)
     cases = [(g, l, both) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
-        (TRAIN_ATTN_G[1], 512, both), (TRAIN_ATTN_G[1], 37, both)]
+        (TRAIN_ATTN_G[1], l, both) for l in (512, 37, *TRAIN_ATTN_LONG_L)]
     return cases + [(TRAIN_ATTN_G[1], l, (TRAIN_ATTN_PAIRS,)) for l in TRAIN_ATTN_EDGE_L
                     if (TRAIN_ATTN_G[1], l, both) not in cases]
 
@@ -1263,8 +1301,7 @@ def train_attention_cases():
 def train_attention_vs_plain():
     """The forward and backward kernels against their plain versions at
     every case (the backward fed the forward kernel's out and lse), the
-    second launch of each bit for bit (out and lse; dQ, dK, dV); L = 513
-    refused.
+    second launch of each bit for bit (out and lse; dQ, dK, dV).
     Returns the largest absolute errors of the forward and of dQ/dK/dV."""
     worst_fwd = worst_bwd = 0.0
     for g, l, pairs in train_attention_cases():
@@ -1303,14 +1340,6 @@ def train_attention_vs_plain():
                             f"G={g} L={l} n_pairs={n_pairs}")
             worst_fwd, worst_bwd = max(worst_fwd, fwd_err), max(worst_bwd, bwd_abs)
             del q, k, v, keep, do, out, lse, grads, ref, ref_grads
-    q, k, v, keep, _ = train_attention_inputs(8, hopper_train_attention.MAX_L + 1, 1, seed=0)
-    try:
-        hopper_train_attention.fused_causal_attend(q, k, v, keep, 1)
-    except ValueError as err:
-        phase("kernel", kernel="train_attention", L=hopper_train_attention.MAX_L + 1,
-              refused=str(err).replace(" ", "_")[:80])
-    else:
-        raise RuntimeError("train_attention took L above MAX_L")
     return worst_fwd, worst_bwd
 
 
@@ -1342,7 +1371,7 @@ def lstm_fwd_vs_plain():
     largest f32 ys error at the latent RNN's shape."""
     worst = 0.0
     for t, b, h in LSTM_CASES:
-        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dtype, tol in FWD_DTYPES:
             errs, bitwise = {}, True
             for name, n_dir, rev_bits in LSTM_LAYOUTS:
                 xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=t + b + h + n_dir)
@@ -1380,7 +1409,7 @@ def lstm_bwd_vs_plain():
     shape and the largest f32 relative one."""
     worst_abs, worst_rel = 0.0, 0.0
     for t, b, h in LSTM_CASES:
-        for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        for dtype, tol in BWD_DTYPES:
             errs, abs_errs, bitwise = {}, {}, True
             for name, n_dir, rev_bits in LSTM_LAYOUTS:
                 xp, wh, bh, mask = lstm_inputs(t, b, h, n_dir, dtype, seed=2 * t + b + h + n_dir)
@@ -1578,15 +1607,13 @@ def widths():
         check(mod.resident(kernel, HIDDEN, torch.float32), f"{kernel} left its resident kernel "
                                                            f"at H={HIDDEN}")
         for h in WIDE_RNN_H[kernel[:4]]:
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype, tol in FWD_DTYPES if kernel.endswith("fwd") else BWD_DTYPES:
                 fwd = kernel.endswith("fwd")
-                tol = (F32_TOL if fwd else BWD_F32_TOL) if dtype == torch.float32 else (
-                    BF16_TOL if fwd else BWD_BF16_TOL)
                 err = width_errors(kernel, h, dtype)
                 torch.cuda.synchronize()
                 instance = "cluster" if mod.resident(kernel, h, dtype) else "wide"
                 expected = ({"gru_fwd": GRU_FWD_INSTANCE, "lstm_fwd": LSTM_FWD_INSTANCE}[kernel][h]
-                            [dtype == torch.bfloat16] if fwd else BWD_INSTANCE[h])
+                            [dtype != torch.float32] if fwd else BWD_INSTANCE[h])
                 check(instance == expected, f"{kernel} takes the {instance} instance at "
                                             f"H={h} {dtype}, expected {expected}")
                 phase("widths", kernel=kernel, H=h, dtype=str(dtype).split(".")[-1],
@@ -1635,15 +1662,15 @@ def widths():
                         f"hd={hd} L={l}")
             check(fwd_same, f"train_attention forward gave other bits on a second launch at "
                             f"hd={hd} L={l}")
-    for hd, l in ((hopper_train_attention.MAX_HEAD_DIM + 1, 8), (16, hopper_train_attention.MAX_L + 1)):
-        q, k, v, keep, _ = train_attention_inputs(2, l, 1, seed=0, hd=hd)
-        reason = refused(lambda: hopper_train_attention.fused_causal_attend(q, k, v, keep, 1))
-        phase("widths", kernel="train_attention", hd=hd, L=l,
-              refused=str(reason).replace(" ", "_")[:80])
-        check(reason is not None, f"train_attention took hd={hd} L={l}")
+    hd, l = hopper_train_attention.MAX_HEAD_DIM + 1, 8
+    q, k, v, keep, _ = train_attention_inputs(2, l, 1, seed=0, hd=hd)
+    reason = refused(lambda: hopper_train_attention.fused_causal_attend(q, k, v, keep, 1))
+    phase("widths", kernel="train_attention", hd=hd, L=l,
+          refused=str(reason).replace(" ", "_")[:80])
+    check(reason is not None, f"train_attention took hd={hd} L={l}")
 
     for hd in WIDE_FLASH_HD:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, *HALF_DTYPES):
             g = flash_groups(1)["self"]
             k, v, q = flash_inputs(g, dtype, seed=hd, hd=hd)
             errs = {n: flash_excess(hopper_attention.flash_decode_attend(k, v, q, n),
@@ -1919,13 +1946,14 @@ def smooth_contours(length, rng, n_art=len(RECOGNITION_ARTICULATORS)):
 
 
 class Corpus:
-    """Seeded in-memory sentences of 20-128 frames with the ArtSpeechDataset
-    item interface and smooth target contours."""
+    """Seeded in-memory sentences of 20-128 frames (or of the ``lengths``
+    given) with the ArtSpeechDataset item interface and smooth target
+    contours."""
 
-    def __init__(self, n, seed):
+    def __init__(self, n, seed, lengths=None):
         rng = np.random.default_rng(seed)
         self.data = []
-        for i, length in enumerate(rng.integers(20, 129, n)):
+        for i, length in enumerate(rng.integers(20, 129, n) if lengths is None else lengths):
             tokens = rng.integers(0, VOCAB, length).astype(np.int32)
             self.data.append({
                 "sentence_name": f"S{i:03d}", "tokens": tokens,
@@ -2501,7 +2529,13 @@ def parallel_path():
 # -- the thesis workflow through the CLIs --------------------------------------
 
 CLI_PATHS = ("cli_train", "cli_test", "cli_generate", "cli_generate_vcv", "cli_train_transformer",
-             "cli_transformer", "cli_train_bf16", "cli_train_transformer_bf16")
+             "cli_transformer", "cli_train_bf16", "cli_train_transformer_bf16", "cli_train_fp16",
+             "cli_train_transformer_fp16")
+#: The 16-bit CLI runs and their compute dtypes: the bf16 configs as they
+#: are, and again with compute_dtype: float16 (the transformer's test also
+#: with generate_cache_dtype: float16).
+HALF_CLI_RUNS = {"cli_train_bf16": torch.bfloat16, "cli_train_transformer_bf16": torch.bfloat16,
+                 "cli_train_fp16": torch.float16, "cli_train_transformer_fp16": torch.float16}
 
 
 def launch_counts():
@@ -2703,11 +2737,17 @@ def cli_path(tmp):
         "cli_train_bf16": ("train_model_free_bf16", {**corpus_keys, "num_epochs": 2}),
         "cli_train_transformer_bf16": ("train_transformer_bf16",
                                        {**corpus_keys, "num_epochs": 2}),
+        "cli_train_fp16": ("train_model_free_bf16",
+                           {**corpus_keys, "num_epochs": 2, "compute_dtype": "float16"}),
+        "cli_train_transformer_fp16": ("train_transformer_bf16",
+                                       {**corpus_keys, "num_epochs": 2,
+                                        "compute_dtype": "float16"}),
     }
     tf_out = os.path.join(tmp, "train_transformer_run")
     added = {"cli_transformer": {
         "state_dict_filepath": os.path.join(tf_out, "checkpoints", "best", "state"),
-        "save_to": os.path.join(tmp, "transformer_outputs")}}
+        "save_to": os.path.join(tmp, "transformer_outputs")},
+        "cli_train_transformer_fp16": {"generate_cache_dtype": "float16"}}
     cfgs = {p: thesis_config(name, os.path.join(tmp, f"{p}.yaml"), changes, added.get(p))
             for p, (name, changes) in configs.items()}
 
@@ -2762,11 +2802,12 @@ def cli_path(tmp):
         "cli_transformer": {**none, "p2cp": len(tf_buckets), "min_dist": 2 * len(tf_buckets),
                             "flash_decode": sum(2 * tf_layers * t for t in tf_buckets)},
     }
-    # The bf16 configs are the f32 ones with compute_dtype: bfloat16, so the
-    # same launches (the GRU kernels in bf16; the training attention in f32
-    # around its kernel, as JAX).
-    expected["cli_train_bf16"] = expected["cli_train"]
-    expected["cli_train_transformer_bf16"] = expected["cli_train_transformer"]
+    # The 16-bit configs are the f32 ones with compute_dtype: bfloat16 or
+    # float16, so the same launches (the GRU kernels and the decode's caches
+    # in the 16-bit type; the training attention in f32 around its kernel,
+    # as JAX).
+    for p in HALF_CLI_RUNS:
+        expected[p] = expected["cli_train_transformer" if "transformer" in p else "cli_train"]
     phase("cli", train_batches_per_epoch=tr, valid_batches=va, test_batches=te,
           transformer_train_batches_per_epoch=tf_tr, transformer_valid_batches=tf_va,
           transformer_test_buckets=tf_buckets, test_frames=sum(test_lengths.values()),
@@ -2777,15 +2818,14 @@ def cli_path(tmp):
                "cli_generate_vcv": generate_vocal_tract_shape,
                "cli_train_transformer": train_phoneme_to_articulation_transformer,
                "cli_transformer": test_phoneme_to_articulation_transformer,
-               "cli_train_bf16": train_phoneme_to_articulation,
-               "cli_train_transformer_bf16": train_phoneme_to_articulation_transformer}
+               **{p: train_phoneme_to_articulation_transformer if "transformer" in p
+                  else train_phoneme_to_articulation for p in HALF_CLI_RUNS}}
     outputs = {"cli_train": out, "cli_test": os.path.join(tmp, "test_run"),
                "cli_generate": os.path.join(tmp, "generate_run"),
                "cli_generate_vcv": os.path.join(tmp, "generate_vcv_run"),
                "cli_train_transformer": tf_out,
                "cli_transformer": os.path.join(tmp, "transformer_run"),
-               "cli_train_bf16": os.path.join(tmp, "train_bf16_run"),
-               "cli_train_transformer_bf16": os.path.join(tmp, "train_transformer_bf16_run")}
+               **{p: os.path.join(tmp, f"{p[4:]}_run") for p in HALF_CLI_RUNS}}
     results, launches, seconds = {}, {}, {}
     for p in CLI_PATHS:
         reset_launch_counts()
@@ -2804,7 +2844,7 @@ def cli_path(tmp):
           "the transformer train CLI launched no train_attention kernel")
 
     # What the CLIs wrote.
-    for run in (out, tf_out, outputs["cli_train_bf16"], outputs["cli_train_transformer_bf16"]):
+    for run in (out, tf_out, *(outputs[p] for p in HALF_CLI_RUNS)):
         for sub in ("checkpoints/best/state.pt", "checkpoints/best/aux.json",
                     "checkpoints/last/state.pt", "checkpoints/last/aux.json",
                     "checkpoints/best_model", "test_results.json", "run/params.json",
@@ -2819,8 +2859,7 @@ def cli_path(tmp):
                                                        if k != "ts"}))
     n_arts = len(arts) + 1  # with the upper incisor
     test_dirs = {p: os.path.join(outputs[p], "test_outputs", "0")
-                 for p in ("cli_train", "cli_test", "cli_train_transformer", "cli_train_bf16",
-                           "cli_train_transformer_bf16")}
+                 for p in ("cli_train", "cli_test", "cli_train_transformer", *HALF_CLI_RUNS)}
     test_dirs["cli_transformer"] = cfgs["cli_transformer"]["save_to"]
     for p, test_dir in test_dirs.items():
         frames, tv_rows = check_test_outputs(test_dir, test_lengths, n_arts)
@@ -2840,35 +2879,42 @@ def cli_path(tmp):
         frames = check_synthesis(cfgs[p]["save_to"], s, n_arts)
         check(len(results[p]) == len(s), f"{p}: {len(results[p])} sentences written")
         phase("cli", cli=p, sentences=len(s), frames=frames, finite=True)
-    bf16_against_cpu(outputs, cfgs, corpus, vocab_path)
+    t0 = time.perf_counter()
+    half_against_cpu(outputs, cfgs, corpus, vocab_path)
+    phase("cli", half_against_cpu_seconds=f"{time.perf_counter() - t0:.3f}")
     return launches, seconds, (best_state, corpus, vocab_path, train_cfg)
 
 
-def bf16_against_cpu(outputs, cfgs, corpus, vocab_path):
-    """The bf16 models the bf16 train CLIs left (best/state), on one test
-    batch: the forward on the card in bf16 against the same forward on the
-    CPU in bf16 (the plain versions), within BF16_FORWARD_TOL of max |ref|
-    or, where larger, twice the distance of the CPU's bf16 output from its
-    float32 output on the same weights (the bound tests/test_torch_port_bf16.py
-    holds the port to against flax)."""
+def half_against_cpu(outputs, cfgs, corpus, vocab_path):
+    """The 16-bit models the bf16 and fp16 train CLIs left (best/state), on
+    one test batch: the forward on the card in the run's dtype against the
+    same forward on the CPU in that dtype (the plain versions), within
+    BF16_FORWARD_TOL of max |ref| or, where larger, twice the distance of
+    the CPU's 16-bit output from its float32 output on the same weights (the
+    bound tests/test_torch_port_bf16.py holds the port to against flax). The
+    fp16 runs compare the batch's first sentence only: the card host's CPU
+    computes fp16 slowly (the transformer's forward at B = 4, T = 128 took
+    18.5 s, 1.3 s in bf16), and the whole batch took the script past its
+    time."""
     vocabulary = load_vocabulary(vocab_path)
-    for p in ("cli_train_bf16", "cli_train_transformer_bf16"):
+    for p, half in HALF_CLI_RUNS.items():
         cfg = cfgs[p]
         arts = sorted(cfg["articulators"])
         dataset = ArtSpeechDataset(corpus, "gottingen",
                                    sequences_from_dict(corpus, cfg["test_seq_dict"]), vocabulary,
                                    arts, clip_tails=cfg["clip_tails"])
         batch, _ = next(iter(BucketedLoader(dataset, cfg["batch_size"], shuffle=False)))
+        if half == torch.float16:
+            batch = {k: v[:1] for k, v in batch.items()}
         params = load_params(os.path.join(outputs[p], "checkpoints", "best", "state"))
         kwargs = model_kwargs_from_cfg(cfg)
-        check(kwargs.get("dtype") == torch.bfloat16, f"{p}: the config's dtype is {kwargs}")
+        check(kwargs.get("dtype") == half, f"{p}: the config's dtype is {kwargs}")
         outs = {}
-        for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
-                              ("cpu", torch.float32)):
+        for device, dtype in (("cuda", half), ("cpu", half), ("cpu", torch.float32)):
             kw = {**kwargs, "dtype": None if dtype == torch.float32 else dtype}
             tokens, lengths = (torch.as_tensor(batch[k], device=device)
                                for k in ("tokens", "lengths"))
-            if p == "cli_train_bf16":
+            if "transformer" not in p:
                 model = ArtSpeech(len(vocabulary), len(arts), **kw, device=device)
                 model.load_state_dict(params)
                 args = (tokens, lengths)
@@ -2881,16 +2927,16 @@ def bf16_against_cpu(outputs, cfgs, corpus, vocab_path):
                 args = (tokens, shift_targets_right(targets), lengths, lengths)
             with torch.inference_mode():
                 outs[(device, dtype)] = model(*args).float().cpu()
-        got, ref, f32 = outs[("cuda", torch.bfloat16)], outs[("cpu", torch.bfloat16)], \
-            outs[("cpu", torch.float32)]
+        got, ref, f32 = outs[("cuda", half)], outs[("cpu", half)], outs[("cpu", torch.float32)]
         valid = torch.arange(got.shape[1])[None, :] < torch.as_tensor(batch["lengths"])[:, None]
         tol = max(BF16_FORWARD_TOL * ref.abs().max().item(),
                   2 * (ref - f32).abs()[valid].max().item())
         err = (got - ref).abs()[valid].max().item()
-        phase("cli", bf16_forward=p, card_vs_cpu_max_abs_err=f"{err:.3g}", tol=f"{tol:.3g}",
-              cpu_bf16_vs_f32=f"{(ref - f32).abs()[valid].max().item():.3g}")
+        phase("cli", half_forward=p, dtype=str(half).split(".")[-1],
+              card_vs_cpu_max_abs_err=f"{err:.3g}", tol=f"{tol:.3g}",
+              cpu_half_vs_f32=f"{(ref - f32).abs()[valid].max().item():.3g}")
         check(torch.isfinite(got).all().item() and err <= tol,
-              f"{p}: the card's bf16 forward differs from the CPU's by {err} (tol {tol})")
+              f"{p}: the card's {half} forward differs from the CPU's by {err} (tol {tol})")
 
 
 def test_step_against_cpu(best_state, corpus, vocab_path, cfg):
@@ -3193,8 +3239,9 @@ def decode_path():
     """make_fast_generate at T = 128, B = 12 and 64, f32 and bf16 caches:
     launches exactly 2 * layers * T flash_decode a batch and nothing else,
     finite contours, frames/s and the device breakdown with flash_decode's
-    device ms and share of it a batch. Returns the flash_decode launches of
-    the four counted runs."""
+    device ms and share of it a batch (f16 caches decode in [cli], through
+    the transformer train CLI's final test). Returns the flash_decode
+    launches of the four counted runs."""
     model = thesis_transformer(None)
     per_batch = 2 * model.num_layers * DECODE_T
     total = 0
@@ -3416,7 +3463,12 @@ def transformer_train_against_cpu():
     - the attention key biases' gradients (exactly zero in exact arithmetic)
       below 1e-6 of the largest gradient on both sides.
     The per-tensor relative figures are printed."""
-    batch = fixed_batch(2, 32, seed=9, device="cpu")
+    transformer_step_against_f64(fixed_batch(2, 32, seed=9, device="cpu"), "train_transformer",
+                                 "dropout=0,B=2,T=32")
+
+
+def transformer_step_against_f64(batch, tag, label):
+    """transformer_train_against_cpu's step and rules on a CPU ``batch``."""
     out = {}
     for device in ("cuda", "cpu"):
         st = transformer_state(device, dropout=0.0)
@@ -3436,8 +3488,55 @@ def transformer_train_against_cpu():
     finally:
         hopper_train_attention.fused_causal_attend = saved
     exact = {n: p.grad for n, p in model.named_parameters()}
-    step_against_f64("train_transformer", "dropout=0,B=2,T=32", out, exact,
-                     zero={n for n in exact if n.endswith("key_bias")})
+    step_against_f64(tag, label, out, exact, zero={n for n in exact if n.endswith("key_bias")})
+
+
+def long_bucket_batch():
+    """The batch BucketedLoader makes of LONG_B sentences past the longest
+    default bucket (LONG_SENTENCE and LONG_SENTENCE - 11 frames), on the
+    CPU: both in the bucket the loader adds for them."""
+    corpus = Corpus(LONG_B, seed=17, lengths=(LONG_SENTENCE, LONG_SENTENCE - 11))
+    batch, _ = next(iter(BucketedLoader(corpus, LONG_B, shuffle=False)))
+    return {k: torch.as_tensor(batch[k]) for k in ("tokens", "targets", "lengths")}
+
+
+def long_bucket_path():
+    """The thesis transformer's train step (dropout 0.1) on long_bucket_batch
+    (L = TRAIN_ATTN_LONG_L[0], past the resident kernels' MAX_L): exactly one
+    forward and one backward train_attention launch a decoder layer, on the
+    wide kernels, a finite loss, its time and peak memory; then the same step
+    at dropout 0 on the card and on the CPU against float64
+    (transformer_step_against_f64). Returns the launches of the counted step."""
+    batch = long_bucket_batch()
+    l = batch["tokens"].shape[1]
+    check(l == TRAIN_ATTN_LONG_L[0] and not hopper_train_attention.resident(l, HD),
+          f"the loader's long bucket is L={l}, expected {TRAIN_ATTN_LONG_L[0]} on the wide kernels")
+    st = transformer_state(None)
+    layers = st.model.num_layers
+    step = make_transformer_train_step(TO_MM)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    on_card = {k: v.cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    loss = step(st, on_card, gen)["loss"].item()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = {**dict.fromkeys(KERNELS, 0), "train_attention_fwd": layers,
+                "train_attention_bwd": layers}
+    check(counts == expected, f"long-bucket step: launches {counts}, expected {expected}")
+    check(np.isfinite(loss), f"long-bucket step: loss {loss}")
+    step_ms, peak = timed_step(step, st, on_card, gen, f"train_transformer_L{l}", iters=3,
+                               breakdown=False)
+    phase("train_transformer", long_bucket=f"B={LONG_B},L={l}",
+          lengths=",".join(str(int(n)) for n in batch["lengths"]), dropout=TRAIN["dropout"],
+          loss=f"{loss:.6g}", step_ms=f"{step_ms:.6g}",
+          frames_per_s=f"{int(batch['lengths'].sum()) / step_ms * 1e3:.6g}",
+          peak_gib=f"{peak:.4g}", train_attention_fwd_launches=counts["train_attention_fwd"],
+          train_attention_bwd_launches=counts["train_attention_bwd"], expected=layers)
+    del st
+    transformer_step_against_f64(batch, "train_transformer",
+                                 f"long_bucket,dropout=0,B={LONG_B},L={l}")
+    return counts
 
 
 def step_against_f64(tag, label, out, exact, zero=frozenset(), own=frozenset()):
@@ -4523,21 +4622,23 @@ def train_attention_bound_ms(g, l, n_pairs, backward):
 def time_train_attention():
     """Both kernels at the B = 12 and B = 64 shapes (G = 4,320 and 23,040,
     L = 128, hd 16, the dropout keep with 90 pairs; each call moves 100 MB or
-    more, past the 50 MB L2): by graph_ms (device time without host gaps),
-    back to back and by profiler device time, the share of the bound
-    (bound / graph_ms), their plain versions, the bound, and
-    scaled_dot_product_attention on
-    (G, 1, L, hd) with is_causal and an all-ones keep (forward, and forward +
-    backward minus forward) as the yardstick."""
+    more, past the 50 MB L2), and on the wide route at the long-bucket
+    step's B = LONG_B (G = 720) at each L of TRAIN_ATTN_LONG_L: by graph_ms
+    (device time without host gaps), back to back and by profiler device
+    time, the share of the bound (bound / graph_ms), their plain versions,
+    the bound, and scaled_dot_product_attention on (G, 1, L, hd) with
+    is_causal and an all-ones keep (forward, and forward + backward minus
+    forward) as the yardstick. Returns {(kernel, B, L): numbers}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    for b in TRAIN_BATCHES:
-        g = TRAIN_ATTN_G[b]
-        q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=b)
+    shapes = [(b, TRAIN_T) for b in TRAIN_BATCHES] + [(LONG_B, l) for l in TRAIN_ATTN_LONG_L]
+    for b, l in shapes:
+        g = b * TRAIN_ATTN_G[1]
+        q, k, v, keep, do = train_attention_inputs(g, l, TRAIN_ATTN_PAIRS, seed=b + l)
         out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
         sq, sk, sv = (x[:, None] for x in (q, k, v))
         gq, gk, gv = (x.clone().requires_grad_() for x in (sq, sk, sv))
-        ones = torch.ones(1, TRAIN_T, TRAIN_T, device="cuda")
+        ones = torch.ones(1, l, l, device="cuda")
         lib_diff = (sdpa(sq, sk, sv, is_causal=True, scale=1.0)[:, 0]
                     - hopper_train_attention.fused_causal_attend_fwd(q, k, v, ones, 1)[0]
                     ).abs().max().item()
@@ -4561,18 +4662,21 @@ def time_train_attention():
                     q, k, v, keep, TRAIN_ATTN_PAIRS), False),
                 ("train_attention_bwd", bwd, lambda: hopper_train_attention.fused_causal_attend_bwd_reference(
                     q, k, v, keep, do, TRAIN_ATTN_PAIRS), True)):
-            bound_ms, bound_by = train_attention_bound_ms(g, TRAIN_T, TRAIN_ATTN_PAIRS, backward)
-            graph = graph_ms(fn, 10)
-            results[(name, b)] = dict(
+            bound_ms, bound_by = train_attention_bound_ms(g, l, TRAIN_ATTN_PAIRS, backward)
+            graph = graph_ms(fn, 10 if l <= hopper_train_attention.MAX_L else 3)
+            traced = (f"{name}_kernel" if hopper_train_attention.resident(l, HD)
+                      else ("train_attention_dq_wide_kernel", "train_attention_dkv_wide_kernel")
+                      if backward else "train_attention_fwd_wide_kernel")
+            results[(name, b, l)] = dict(
                 graph_ms=graph, share_of_bound=bound_ms / graph,
-                ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, f"{name}_kernel"),
+                ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, traced),
                 plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lib_both, 10) - lib_fwd_ms if backward else lib_fwd_ms)
-            geometry = train_attention_geometry_text(g, TRAIN_T, HD, TRAIN_ATTN_PAIRS)
-            phase("timing", kernel=name, B=b, G=g, L=TRAIN_T, hd=HD, n_pairs=TRAIN_ATTN_PAIRS,
+            geometry = train_attention_geometry_text(g, l, HD, TRAIN_ATTN_PAIRS)
+            phase("timing", kernel=name, B=b, G=g, L=l, hd=HD, n_pairs=TRAIN_ATTN_PAIRS,
                   dtype="float32", library_max_abs_diff_fwd_ones=f"{lib_diff:.3g}",
                   geometry=geometry["bwd_geometry" if backward else "fwd_geometry"],
-                  **fmt(results[(name, b)]))
+                  **fmt(results[(name, b, l)]))
         del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
     return results
 
@@ -4668,7 +4772,7 @@ def flash_timings(calls_of, repeat, launches=1):
 def time_flash_decode():
     """flash_decode at the decode's own calls: the self (G = B*C*H) and
     cross-channel (B*C*(C-1)*H) caches at B = 12 and 64, f32 and bf16
-    caches, n_rows in FLASH_TIMED_ROWS, each call on another of the cache
+    caches (and f16 at B = 12), n_rows in FLASH_TIMED_ROWS, each call on another of the cache
     copies of flash_cache_sets (they overflow the 50 MB L2, as the decode's
     8 caches a layer do); and a decode sweep, the 256 calls one layer makes
     over T = 128 (self, then cross-channel, at n_rows = t + 1), in ms a
@@ -4682,7 +4786,7 @@ def time_flash_decode():
     results = {}
     for b in DECODE_BATCHES:
         groups = flash_groups(b)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, *HALF_DTYPES)[:3 if b == DECODE_BATCHES[0] else 2]:
             elem = torch.finfo(dtype).bits // 8
             dname = str(dtype).split(".")[-1]
             copies, sets, sdpa_sets = flash_cache_sets(b, dtype)
@@ -4690,7 +4794,9 @@ def time_flash_decode():
             qs, ks, vs = sdpa_sets["inter"][0]
             lib_diff = (sdpa(qs, ks, vs, scale=1.0).float().reshape(-1, HD).T
                         - hopper_attention.flash_decode_attend(k, v, q, DECODE_T)).abs().max().item()
-            for kind, g in groups.items():
+            # f16 caches: the sweep only (their single calls read as bf16's;
+            # cut for the script's time limit).
+            for kind, g in groups.items() if dtype != torch.float16 else ():
                 for n_rows in FLASH_TIMED_ROWS:
                     def calls_of(which, kind=kind, n_rows=n_rows):
                         if which == "kernel":
@@ -4814,6 +4920,32 @@ def time_gru_fwd():
         phase("timing", kernel="gru_fwd", T=t, B=b, H=h, directions=2, dtype="float32",
               **fmt({k: v for k, v in results[(t, b)].items() if k != "geometry"}),
               **results[(t, b)]["geometry"])
+    return results
+
+
+def time_half_gru():
+    """Both GRU kernels at the test step's shape (T = 128, B = 12, H = 128,
+    both directions) in each storage type, f32, bf16 and f16, by graph_ms
+    (device time a call without host gaps) beside the bound at that
+    element size: the f16 instances beside the bf16 ones they mirror.
+    Returns {(kernel, dtype name): numbers}."""
+    results = {}
+    t, b, h = BENCH_T, GRU_FWD_TIMED_B[0], HIDDEN
+    for dtype in (torch.float32, *HALF_DTYPES):
+        xp, wh, bh, mask = gru_inputs(t, b, h, 2, dtype, seed=5)
+        gy = torch.randn(t, b, 2 * h, generator=torch.Generator().manual_seed(6)).to(dtype).cuda()
+        ys = hopper_gru.bigru_sequence(xp, wh, bh, mask)
+        elem, name = xp.element_size(), str(dtype).split(".")[-1]
+        for kernel, fn, bound in (
+                ("gru_fwd", lambda: hopper_gru.bigru_sequence(xp, wh, bh, mask), gru_bound_ms),
+                ("gru_bwd", lambda: hopper_gru.gru_backward(xp, wh, bh, mask, ys, gy, 0b10),
+                 gru_bwd_bound_ms)):
+            graph = graph_ms(fn, 10)
+            bound_ms, bound_by = bound(t, b, h, 2, elem)
+            results[(kernel, name)] = dict(graph_ms=graph, bound_ms=bound_ms, bound_by=bound_by,
+                                           share_of_bound=bound_ms / graph)
+            phase("timing", kernel=kernel, T=t, B=b, H=h, directions=2, dtype=name,
+                  **fmt(results[(kernel, name)]))
     return results
 
 
@@ -5337,8 +5469,10 @@ def main():
     parallel_launches = parallel_path()
     elapsed("parallel")
     with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
         cli_launches, cli_seconds, test_step_inputs = cli_path(tmp)
         test_step_against_cpu(*test_step_inputs)
+        phase("cli", seconds=f"{time.perf_counter() - t0:.3f}")
         t0 = time.perf_counter()
         pc_launches, pc_seconds = pc_path(tmp, *test_step_inputs[1:3])
         phase("pc", seconds=f"{time.perf_counter() - t0:.3f}")
@@ -5363,7 +5497,9 @@ def main():
         frozen_launches = frozen_steps_path(rec_cfg)
         frozen_step_against_f64(rec_cfg)
         phase("synthetic", seconds=f"{time.perf_counter() - t0:.3f}")
+        t0 = time.perf_counter()
         surface_launches = surfaces_path(tmp, corpus, test_step_inputs[2], test_step_inputs[0])
+        phase("surfaces", seconds=f"{time.perf_counter() - t0:.3f}")
     elapsed("cli_pc_mean_contour_recognizer_synthetic_surfaces")
     decode_launches = decode_path()
     decode_against_cpu()
@@ -5371,6 +5507,9 @@ def main():
     train_transformer_launches = train_transformer_path()
     transformer_loss_falls()
     transformer_train_against_cpu()
+    t0 = time.perf_counter()
+    long_bucket_launches = long_bucket_path()
+    phase("train_transformer", long_bucket_seconds=f"{time.perf_counter() - t0:.3f}")
     t0 = time.perf_counter()
     latent_launches = latent_rnn_path()
     latent_rnn_loss_falls()
@@ -5383,10 +5522,11 @@ def main():
     train_attention = time_train_attention()
     gru_fwd = time_gru_fwd()
     gru_bwd = time_gru_bwd()
+    half_gru = time_half_gru()
     numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": gru_bwd[BENCH_B],
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
                "flash_decode": flash[(12, torch.float32, "inter", DECODE_T)],
-               **{k: train_attention[(k, TRAIN["batch"])]
+               **{k: train_attention[(k, TRAIN["batch"], TRAIN_T)]
                   for k in ("train_attention_fwd", "train_attention_bwd")}}
     lstm = time_lstm()
     numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
@@ -5411,6 +5551,7 @@ def main():
                    **{p: cli_launches[p][k] for p in CLI_PATHS},
                    "decode": decode_launches if k == "flash_decode" else 0,
                    "train_transformer": train_transformer_launches[k],
+                   "train_transformer_long_bucket": long_bucket_launches[k],
                    **{p: pc_launches[p][k] for p in PC_PATHS},
                    **{p: mc_launches[p][k] for p in MC_PATHS},
                    "latent_rnn": latent_launches[k],
@@ -5449,8 +5590,9 @@ def main():
                  "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
                               for (b, d, *what), r in flash.items()
                               if what == ["inter", DECODE_T]}},
-             **{k: {"device_ms": train_attention[(k, TRAIN["batch"])]["device_ms"],
-                    "by_shape": {f"B={b}": r for (n, b), r in train_attention.items() if n == k}}
+             **{k: {"device_ms": train_attention[(k, TRAIN["batch"], TRAIN_T)]["device_ms"],
+                    "by_shape": {f"B={b},L={l}": r for (n, b, l), r in train_attention.items()
+                                 if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
     extra["lstm_fwd"]["graph_ms"] = lstm["lstm_fwd"][LSTM_SHAPES[0][1]]["graph_ms"]
@@ -5459,12 +5601,17 @@ def main():
     extra["gru_bwd"]["by_shape"] = {f"B={b}": r for b, r in gru_bwd.items()}
     extra["gru_bwd"]["device_ms"] = gru_bwd[BENCH_B]["device_ms"]
     for k in ("gru_fwd", "gru_bwd"):
+        extra[k]["by_dtype"] = {
+            "shape": f"T={BENCH_T},B={GRU_FWD_TIMED_B[0]},H={HIDDEN},directions=2",
+            **{d: r for (n, d), r in half_gru.items() if n == k}}
         extra[k]["recognizer"] = {"shape": "T={},B={},H={},directions=1,float32".format(
             *RECOGNIZER_GRU_CASES[0]), **recognizer_gru[k]}
         extra[k]["frozen_recognizer"] = {"shape": "T={},B={},H={},directions=1,float32".format(
             *FROZEN_GRU), **frozen_gru[k]}
     for k, w in wide.items():
         extra.setdefault(k, {}).update(w)
+    for k in KERNELS:
+        extra.setdefault(k, {})["dtypes"] = DTYPES_HELD[k]
     elapsed("timing")
     line = {"kernels": [kernel_entry(k, sum(by_path[k].values()), by_path[k], errs[k], numbers[k],
                                      shapes[k], **extra.get(k, {})) for k in KERNELS]}

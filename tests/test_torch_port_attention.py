@@ -4,7 +4,7 @@
   for a CPU tensor), reading exactly ``t + 1`` rows, against JAX's Pallas
   ``flash_decode_attend`` in interpret mode, which reads a ``p_end``-row
   prefix and masks the rows past ``t``: the shapes of
-  tests/test_pallas_attention.py, float32 and bfloat16 caches, to 1e-5
+  tests/test_pallas_attention.py, float32, bfloat16 and float16 caches, to 1e-5
   relative and 2e-5 absolute (float32 sums in another order).
 - The same against the XLA attend of the JAX decode (transformer.py:1043-1047)
   at a lane count the Pallas kernel refuses (G = 360, the thesis batch's self
@@ -25,7 +25,8 @@ from artspeech_tpu.ops.pallas_attention import S_CHUNK, flash_decode_attend, sup
 from artspeech_tpu_torch.ops import _build, hopper_attention
 
 S, HD, G = 64, 16, 256
-TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+TORCH_DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+                jnp.float16: torch.float16}
 
 
 def _inputs(dtype, g=G, seed=0):
@@ -38,8 +39,8 @@ def _inputs(dtype, g=G, seed=0):
 
 
 def _to_torch(x, dtype):
-    """A JAX array as a torch tensor of ``dtype``, bit for bit (bf16 via f32,
-    which holds every bf16 value exactly)."""
+    """A JAX array as a torch tensor of ``dtype``, bit for bit (bf16 and f16
+    via f32, which holds every value of either exactly)."""
     return torch.from_numpy(np.array(x.astype(jnp.float32))).to(dtype)
 
 
@@ -49,7 +50,7 @@ def _port(k, v, q, n_rows, dtype):
         _to_torch(q, torch.float32), n_rows).numpy()
 
 
-@pytest.mark.parametrize("cache_dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [jnp.float32, jnp.bfloat16, jnp.float16])
 @pytest.mark.parametrize("p_end", [S_CHUNK, S])
 @pytest.mark.parametrize("t_of", ["first", "fifth", "last"])
 def test_plain_attend_matches_the_pallas_kernel(cache_dtype, p_end, t_of):
@@ -71,7 +72,7 @@ def _xla_attend(k, v, q, t):
     return jnp.sum(v.astype(jnp.float32) * attn[:, None, :], axis=0)
 
 
-@pytest.mark.parametrize("cache_dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("cache_dtype", [jnp.float32, jnp.bfloat16, jnp.float16])
 def test_plain_attend_matches_the_xla_attend_where_pallas_refuses(cache_dtype):
     g = 360
     assert not supported(S, HD, g)
@@ -91,7 +92,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
     before = hopper_attention.launches
     k, v, q = _tensors(device)
     cases = [
-        (TypeError, (k.half(), v.half(), q, 1)),
+        (TypeError, (k.half(), v.bfloat16(), q, 1)),
         (TypeError, (k.double(), v.double(), q, 1)),
         (TypeError, (k, v.bfloat16(), q, 1)),
         (TypeError, (k, v, q.bfloat16(), 1)),
@@ -107,7 +108,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(device):
         with pytest.raises(error):
             hopper_attention.flash_decode_attend(*args)
     if device == "meta":
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             k, v, q = _tensors(device, dtype=dtype, hd=hopper_attention.MAX_HEAD_DIM)
             with pytest.raises(ValueError, match="CUDA"):
                 hopper_attention.flash_decode_attend(k, v, q, 4)

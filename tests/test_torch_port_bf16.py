@@ -1,25 +1,29 @@
-"""bf16 compute in the port against flax's ``dtype=jnp.bfloat16``, on the CPU.
+"""16-bit compute in the port against flax's ``dtype=jnp.bfloat16`` and
+``dtype=jnp.float16``, on the CPU.
 
-The JAX package's bf16 configs (compute_dtype: bfloat16) keep the parameters
-in float32 and compute in bf16 where the flax modules cast. The port takes
-the same ``dtype``. ArtSpeech (embed 8, hidden 16) and the transformer
+The JAX package's bf16 configs (compute_dtype: bfloat16, and float16 where a
+config asks for it) keep the parameters in float32 and compute in the 16-bit
+type where the flax modules cast. The port takes the same ``dtype``; each
+test runs at both. ArtSpeech (embed 8, hidden 16) and the transformer
 (embed 16, 2 heads, 1 layer, 3 articulators) are each initialised once with
 flax; every leaf gets seeded noise and goes into the port through the
 converter. One seeded padded batch (B = 4, T = 16, lengths 16, 11, 5, 1).
 
-Tolerances. Both sides round to bf16 (8 bits of mantissa, 2^-8 relative) at
+Tolerances, in rounding steps of the dtype: 2^-8 for bf16 (8 bits of
+mantissa), 2^-11 for fp16 (11). Both sides round to the 16-bit type at
 every cast point, but not in the same order: torch and XLA sum bf16 products
 in different orders and the port's GRU keeps its gate math in f32 (the
 kernels' semantics) where flax's scan computes it in bf16. One rounding step
-of a sigmoid output in [0, 1] is 2^-8, and a few of them accumulate over the
-layers, so the outputs are held within 2^-6 of max |ref| (4 steps), or,
-where it is larger, within twice the distance of flax's own bf16 output from
-its float32 output on the same weights: the port may not stray from flax's
-bf16 by more than bf16 itself strays from float32. The transformer's
-attention, softmax and LayerNorms in bf16 give that second bound. The
-loss, a mean over every valid frame, holds within 2^-6 relative; the
-gradients, which flow back through the same roundings, point the same way
-(cosine >= 0.99 over all parameters) with the same norm within 2^-4. The
+of a sigmoid output in [0, 1] is one step, and a few of them accumulate over
+the layers, so the outputs are held within 4 steps of max |ref| (2^-6 in
+bf16, 2^-9 in fp16), or, where it is larger, within twice the distance of
+flax's own 16-bit output from its float32 output on the same weights: the
+port may not stray from flax's 16-bit output by more than that type itself
+strays from float32. The transformer's attention, softmax and LayerNorms in
+the 16-bit type give that second bound. The loss, a mean over every valid
+frame, holds within 4 steps relative; the gradients, which flow back through
+the same roundings, point the same way (cosine >= 0.99 over all parameters)
+with the same norm within 2^-4, at both types. The
 training-mode pair attention runs its kernel in float32 and casts back, as
 JAX does, which is checked on the call.
 """
@@ -53,8 +57,11 @@ VOCAB, C, N_FEAT, T, B = 12, 3, 20, 16, 4
 ARTSPEECH = {"embed_dim": 8, "hidden_size": 16, "n_samples": N_FEAT // 2}
 TRANSFORMER = {"embed_dim": 16, "num_heads": 2, "num_layers": 1, "encoder_ff_dim": 32,
                "num_feat": N_FEAT}
-BF16_STEP = 2.0**-8
-OUT_TOL, LOSS_TOL, GRAD_NORM_TOL, GRAD_COS = 4 * BF16_STEP, 2.0**-6, 2.0**-4, 0.99
+#: One rounding step of each compute dtype; outputs and the loss are held to
+#: four of them.
+STEPS = {"bfloat16": 2.0**-8, "float16": 2.0**-11}
+GRAD_NORM_TOL, GRAD_COS = 2.0**-4, 0.99
+HALF = pytest.mark.parametrize("dtype", sorted(STEPS))
 TO_MM = 136 * 1.6176470518112
 
 
@@ -75,19 +82,29 @@ def _noisy(params, seed):
         np.asarray(x) + 0.1 * rng.standard_normal(x.shape).astype(np.float32) for x in leaves])
 
 
-def _reference(make, params, args, batch):
-    """flax's bf16 output, loss and gradients (float32), and its float32
-    output on the same weights."""
-    bf16, f32 = make(jnp.bfloat16), make(None)
+class _References(dict):
+    """flax's output, loss and gradients (float32) at each 16-bit dtype,
+    computed at first use, and its float32 output on the same weights."""
 
-    def loss_fn(p):
-        out = bf16.apply({"params": p}, *args)
-        return jax_losses.masked_euclidean_loss(out, batch["targets"], batch["lengths"]), out
+    def __init__(self, make, params, args, batch):
+        super().__init__()
+        self.make, self.params, self.args, self.batch = make, params, args, batch
+        self.out_f32 = np.asarray(jax.jit(make(None).apply)({"params": params}, *args))
 
-    (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
-    return {"out": np.asarray(out.astype(jnp.float32)), "loss": float(loss),
-            "grads": jax.tree_util.tree_map(lambda g: np.asarray(g, np.float32), grads),
-            "out_f32": np.asarray(jax.jit(f32.apply)({"params": params}, *args))}
+    def __missing__(self, dtype):
+        model = self.make(getattr(jnp, dtype))
+
+        def loss_fn(p):
+            out = model.apply({"params": p}, *self.args)
+            return (jax_losses.masked_euclidean_loss(out, self.batch["targets"],
+                                                     self.batch["lengths"]), out)
+
+        (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(self.params)
+        self[dtype] = {"out": np.asarray(out.astype(jnp.float32)), "loss": float(loss),
+                       "grads": jax.tree_util.tree_map(lambda g: np.asarray(g, np.float32),
+                                                       grads),
+                       "out_f32": self.out_f32}
+        return self[dtype]
 
 
 @pytest.fixture(scope="module")
@@ -97,9 +114,9 @@ def artspeech():
                                    **ARTSPEECH)
     args = (batch["tokens"], batch["lengths"])
     params = _noisy(make(None).init(jax.random.PRNGKey(0), *args)["params"], seed=1)
-    ref = _reference(make, params, args, batch)
     state_dict = artspeech_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params))
-    return {**ref, "batch": batch, "valid": valid, "state_dict": state_dict,
+    return {"ref": _References(make, params, args, batch), "batch": batch, "valid": valid,
+            "state_dict": state_dict,
             "port": lambda dt: _load(ArtSpeech(VOCAB, C, **ARTSPEECH, dtype=dt, device="cpu"),
                                      state_dict)}
 
@@ -112,12 +129,12 @@ def transformer_ref():
                                      dtype=dt, **TRANSFORMER)
     args = (batch["tokens"], tgt_in, batch["lengths"], batch["lengths"])
     params = _noisy(make(None).init(jax.random.PRNGKey(0), *args)["params"], seed=2)
-    ref = _reference(make, params, args, batch)
+    state_dict = transformer_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params))
     # Training mode at dropout 0 (the pairs through the port's fused path;
     # flax's deterministic=False takes no dropout at rate 0).
-    train = _reference(make, params, (*args, False), batch)
-    state_dict = transformer_state_dict_from_flax(jax.tree_util.tree_map(np.asarray, params))
-    return {**ref, "train": train, "batch": batch, "valid": valid, "state_dict": state_dict,
+    return {"ref": _References(make, params, args, batch),
+            "train": _References(make, params, (*args, False), batch), "batch": batch,
+            "valid": valid, "state_dict": state_dict,
             "port": lambda dt: _load(ArtSpeechTransformer(VOCAB, C, **TRANSFORMER, dtype=dt,
                                                           device="cpu"), state_dict)}
 
@@ -131,15 +148,16 @@ def _tensors(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _assert_output_close(got, ref, valid):
-    assert got.dtype == torch.bfloat16
+def _assert_output_close(got, ref, valid, dtype):
+    assert got.dtype == getattr(torch, dtype)
     got = got.float().detach().numpy()
-    tol = max(OUT_TOL * np.abs(ref["out"]).max(), 2 * np.abs(ref["out"] - ref["out_f32"])[valid].max())
+    tol = max(4 * STEPS[dtype] * np.abs(ref["out"]).max(),
+              2 * np.abs(ref["out"] - ref["out_f32"])[valid].max())
     assert np.abs(got - ref["out"])[valid].max() <= tol
 
 
-def _assert_step_close(loss, model, ref_loss, ref_grads, to_state_dict):
-    assert abs(loss - ref_loss) <= LOSS_TOL * ref_loss
+def _assert_step_close(loss, model, ref_loss, ref_grads, to_state_dict, dtype):
+    assert abs(loss - ref_loss) <= 4 * STEPS[dtype] * ref_loss
     ref = to_state_dict(ref_grads)  # maps a gradient tree as it maps params
     names = sorted(ref)
     got = torch.cat([dict(model.named_parameters())[n].grad.flatten() for n in names])
@@ -150,31 +168,36 @@ def _assert_step_close(loss, model, ref_loss, ref_grads, to_state_dict):
     assert abs(got.norm() / exp.norm() - 1.0) <= GRAD_NORM_TOL
 
 
-def test_artspeech_forward_matches_flax_bf16(artspeech):
+@HALF
+def test_artspeech_forward_matches_flax_bf16(artspeech, dtype):
     b = _tensors(artspeech["batch"])
     with torch.no_grad():
-        got = artspeech["port"](torch.bfloat16)(b["tokens"], b["lengths"])
+        got = artspeech["port"](getattr(torch, dtype))(b["tokens"], b["lengths"])
         f32 = artspeech["port"](None)(b["tokens"], b["lengths"])
-    _assert_output_close(got, artspeech, artspeech["valid"])
+    _assert_output_close(got, artspeech["ref"][dtype], artspeech["valid"], dtype)
     assert f32.dtype == torch.float32 and not torch.equal(got.float(), f32)
 
 
-def test_artspeech_train_step_matches_flax_bf16(artspeech):
-    st = state.create_train_state(artspeech["port"](torch.bfloat16), 1e-3, 1e-5)
+@HALF
+def test_artspeech_train_step_matches_flax_bf16(artspeech, dtype):
+    ref = artspeech["ref"][dtype]
+    st = state.create_train_state(artspeech["port"](getattr(torch, dtype)), 1e-3, 1e-5)
     metrics = make_artspeech_train_step(TO_MM, device="cpu")(st, artspeech["batch"])
-    _assert_step_close(metrics["loss"].item(), st.model, artspeech["loss"], artspeech["grads"],
-                       artspeech_state_dict_from_flax)
+    _assert_step_close(metrics["loss"].item(), st.model, ref["loss"], ref["grads"],
+                       artspeech_state_dict_from_flax, dtype)
 
 
-def test_transformer_forward_matches_flax_bf16(transformer_ref):
+@HALF
+def test_transformer_forward_matches_flax_bf16(transformer_ref, dtype):
     b = _tensors(transformer_ref["batch"])
     with torch.no_grad():
-        got = transformer_ref["port"](torch.bfloat16)(
+        got = transformer_ref["port"](getattr(torch, dtype))(
             b["tokens"], shift_targets_right(b["targets"]), b["lengths"], b["lengths"])
-    _assert_output_close(got, transformer_ref, transformer_ref["valid"])
+    _assert_output_close(got, transformer_ref["ref"][dtype], transformer_ref["valid"], dtype)
 
 
-def test_transformer_train_step_matches_flax_bf16(transformer_ref, monkeypatch):
+@HALF
+def test_transformer_train_step_matches_flax_bf16(transformer_ref, monkeypatch, dtype):
     calls = []
     attend = hopper_train_attention.fused_causal_attend
 
@@ -184,15 +207,15 @@ def test_transformer_train_step_matches_flax_bf16(transformer_ref, monkeypatch):
         return out
 
     monkeypatch.setattr(transformer.hopper_train_attention, "fused_causal_attend", recorded)
-    ref = transformer_ref["train"]
-    st = state.create_train_state(transformer_ref["port"](torch.bfloat16), 1e-3, 1e-5)
+    ref = transformer_ref["train"][dtype]
+    st = state.create_train_state(transformer_ref["port"](getattr(torch, dtype)), 1e-3, 1e-5)
     metrics = make_transformer_train_step(TO_MM, device="cpu")(st, transformer_ref["batch"])
     # One fused pair attention a decoder layer, in float32 around the kernel.
     assert calls == [(torch.float32,) * 4] * TRANSFORMER["num_layers"]
     _assert_step_close(metrics["loss"].item(), st.model, ref["loss"], ref["grads"],
-                       transformer_state_dict_from_flax)
+                       transformer_state_dict_from_flax, dtype)
     b = _tensors(transformer_ref["batch"])
     with torch.no_grad():
         got = st.model.train()(b["tokens"], shift_targets_right(b["targets"]), b["lengths"],
                                b["lengths"])
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == getattr(torch, dtype)

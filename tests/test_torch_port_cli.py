@@ -222,8 +222,8 @@ def test_train_cli_writes_what_jax_writes(workdir, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(workdir, tmp_path, monkeypatch):
-    # bf16 compute is ported: both spellings, and the top level never
-    # overrides a per-model dtype (JAX cli/common.py:51-52).
+    # bf16 and fp16 compute are ported: both spellings of each, and the top
+    # level never overrides a per-model dtype (JAX cli/common.py:51-52).
     assert model_kwargs_from_cfg({"compute_dtype": "bfloat16"}) == {"dtype": torch.bfloat16}
     assert model_kwargs_from_cfg({"model_params": {"dtype": "bf16"}}, "model_params") \
         == {"dtype": torch.bfloat16}
@@ -232,8 +232,12 @@ def test_cli_refuses_what_is_not_ported(workdir, tmp_path, monkeypatch):
         == {"dropout": 0.1}
     assert model_kwargs_from_cfg({"compute_dtype": "float32", "model_kwargs": {"dropout": 0.1}}) \
         == {"dropout": 0.1}
-    with pytest.raises(NotImplementedError, match="float16 is not ported"):
-        model_kwargs_from_cfg({"compute_dtype": "float16"})
+    assert model_kwargs_from_cfg({"compute_dtype": "float16"}) == {"dtype": torch.float16}
+    assert model_kwargs_from_cfg({"compute_dtype": "fp16"}) == {"dtype": torch.float16}
+    assert model_kwargs_from_cfg({"compute_dtype": "fp16", "model_kwargs": {"dtype": "bf16"}}) \
+        == {"dtype": torch.bfloat16}
+    with pytest.raises(ValueError, match="unknown compute dtype float64"):
+        model_kwargs_from_cfg({"compute_dtype": "float64"})
     # The recognizer's CLIs are ported, scoring a synthesized corpus among
     # them (tests/test_torch_port_recognition_train.py,
     # tests/test_torch_port_synthetic.py).

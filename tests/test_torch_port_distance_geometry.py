@@ -402,23 +402,29 @@ def test_p2cp_wrapper_launches_the_rule(monkeypatch, fake_cuda):
                             geo.smem_bytes, 0)
 
 
-def test_min_dist_wrapper_reads_the_stack_in_place(monkeypatch, fake_cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_min_dist_wrapper_reads_the_stack_in_place(monkeypatch, fake_cuda, dtype):
+    # Every storage type the kernel stages (its dtype code 0, 1, 2), never cast.
     lib = _FakeLibrary()
     monkeypatch.setattr(hopper_min_dist, "_library", lambda: lib)
     monkeypatch.setattr(hopper_min_dist, "_check", lambda sources, problems: None)
-    stack = torch.zeros(3, 4, len(ARTS), 2, 50)
+    stack = torch.zeros(3, 4, len(ARTS), 2, 50, dtype=dtype)
     names, problems = tract_variables.tv_table({a: 50 for a in ARTS})
     sources = [stack[..., ARTS.index(name), :, :] for name in names]
     before = hopper_min_dist.launches
     out, idx = hopper_min_dist._launch(sources, problems, with_idx=False)
     assert hopper_min_dist.launches == before + 1
     assert out.shape == (4, 3, 4, 5) and idx is None
-    src, n_src, table, n_problems, rows, bf16, warps, blocks, smem, out_ptr, idx_ptr, _ = \
+    src, n_src, table, n_problems, rows, code, warps, blocks, smem, out_ptr, idx_ptr, _ = \
         lib.calls["min_dist"]
-    assert (n_src, n_problems, rows, bf16, out_ptr, idx_ptr) == (6, 4, 12, 0, out.data_ptr(), None)
+    assert (n_src, n_problems, rows, code, out_ptr, idx_ptr) == (
+        6, 4, 12, [torch.float32, torch.bfloat16, torch.float16].index(dtype), out.data_ptr(),
+        None)
     # Each source is the stack itself at its articulator's offset, by its strides: no copy.
+    elem = stack.element_size()
     assert [tuple(src[4 * k:4 * k + 4]) for k in range(6)] == [
-        (stack.data_ptr() + 4 * 100 * ARTS.index(name), 100 * len(ARTS), 50, 1) for name in names]
+        (stack.data_ptr() + elem * 100 * ARTS.index(name), 100 * len(ARTS), 50, 1)
+        for name in names]
     geo = hopper_min_dist.min_dist_launch_geometry(12, [(50, 50), (15, 25), (20, 40), (15, 50)])
     assert (warps, blocks, smem) == (geo.warps, geo.blocks, geo.smem_bytes)
     assert [tuple(table[12 * k:12 * k + 12]) for k in range(4)] == [

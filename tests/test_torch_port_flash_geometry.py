@@ -170,14 +170,16 @@ def test_wrapper_passes_the_rule_geometry(monkeypatch):
     before = hopper_attention.launches
     for g, n_rows, hd, dtype in ((480, 128, 16, torch.float32), (4320, 16, 16, torch.bfloat16),
                                  (23040, 1, 16, torch.float32), (33, 7, 64, torch.bfloat16),
-                                 (40, 3, 128, torch.float32)):
+                                 (40, 3, 128, torch.float32), (4320, 16, 16, torch.float16)):
         k = torch.zeros((n_rows, hd, g), dtype=dtype)
         hopper_attention._launch(k, torch.zeros_like(k), torch.zeros((hd, g)), n_rows)
         geo = hopper_attention.flash_decode_launch_geometry(g, n_rows, hd, k.element_size(), SMS)
-        # 4 pointers, hd, G, n_rows, is_bf16, lanes, cluster, warps, smem, stream.
-        assert fake.calls[-1][4:] == (hd, g, n_rows, int(dtype == torch.bfloat16), geo.lanes,
-                                      geo.cluster, geo.warps, geo.smem_bytes, 0)
-    assert hopper_attention.launches == before + 5
+        # 4 pointers, hd, G, n_rows, the cache dtype (0 f32, 1 bf16, 2 f16), lanes,
+        # cluster, warps, smem, stream.
+        code = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
+        assert fake.calls[-1][4:] == (hd, g, n_rows, code, geo.lanes, geo.cluster, geo.warps,
+                                      geo.smem_bytes, 0)
+    assert hopper_attention.launches == before + 6
     assert "flash_decode" not in _build._libraries
 
 

@@ -84,16 +84,18 @@ def test_reference_gradients_match_jax_kernel_and_scan(reverse):
             assert _rel_err(p.grad.numpy(), np.asarray(r)) <= GRAD_TOL, name
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_reference_matches_jax_kernel_bf16(reverse):
+def test_reference_matches_jax_kernel_bf16(reverse, dtype):
+    # 16-bit storage, held as the GRU's (test_torch_port_gru.py).
     xp, wh, bh, mask = _inputs(seed=3)
-    as_bf16 = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
-    kernel = pallas_gru.lstm_sequence(as_bf16(xp), as_bf16(wh), as_bf16(bh),
-                                      as_bf16(mask.astype(np.float32)), reverse=reverse)
-    to_t = lambda a: torch.from_numpy(a).to(torch.bfloat16)  # noqa: E731
+    as_half = lambda a: jnp.asarray(a).astype(getattr(jnp, dtype))  # noqa: E731
+    kernel = pallas_gru.lstm_sequence(as_half(xp), as_half(wh), as_half(bh),
+                                      as_half(mask.astype(np.float32)), reverse=reverse)
+    to_t = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))  # noqa: E731
     got = hopper_lstm.lstm_sequence(to_t(xp), to_t(wh), to_t(bh), torch.from_numpy(mask),
                                     reverse)
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(kernel.astype(jnp.float32)),
                                rtol=0, atol=2.0**-7)
 

@@ -184,20 +184,22 @@ def test_deepspeech2_gradients_match_jax(models):
     assert _rel_err(grads[torch.float32]["conv.bias"], ref["conv.bias"]) <= 2 * jax_distance
 
 
-def test_deepspeech2_bf16_within_twice_flax_bf16_distance(models):
-    """bf16 compute, float32 parameters: the port's bf16 logits part from
-    flax's bf16 by at most twice what flax's bf16 parts from its float32."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_deepspeech2_bf16_within_twice_flax_bf16_distance(models, dtype):
+    """16-bit compute (bf16, and fp16 under the same name), float32
+    parameters: the port's logits part from flax's at that dtype by at most
+    twice what flax's part from its float32."""
     jax_model, params, _ = models["wide"]
     x, voicing = _inputs(seed=9)
     kwargs = dict(voicing=jnp.asarray(voicing), lengths=jnp.asarray(LENGTHS))
     f32 = np.asarray(jax_model.apply({"params": params}, jnp.asarray(x), **kwargs))
-    jax_bf16 = JaxDeepSpeech2(**WIDE, dtype=jnp.bfloat16)
-    ref = np.asarray(jax_bf16.apply({"params": params}, jnp.asarray(x), **kwargs), np.float32)
-    model = DeepSpeech2(**WIDE, dtype=torch.bfloat16, device="cpu")
+    jax_half = JaxDeepSpeech2(**WIDE, dtype=getattr(jnp, dtype))
+    ref = np.asarray(jax_half.apply({"params": params}, jnp.asarray(x), **kwargs), np.float32)
+    model = DeepSpeech2(**WIDE, dtype=getattr(torch, dtype), device="cpu")
     model.load_state_dict(deepspeech2_state_dict_from_flax(params))
     with torch.no_grad():
         got = model(torch.from_numpy(x), torch.from_numpy(voicing), torch.from_numpy(LENGTHS))
-    assert got.dtype == torch.bfloat16
+    assert got.dtype == getattr(torch, dtype)
     assert all(p.dtype == torch.float32 for p in model.parameters())
     flax_distance = np.abs(ref - f32).max()
     assert 0 < flax_distance < 0.5

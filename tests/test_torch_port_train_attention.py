@@ -15,6 +15,9 @@ Same numpy-seeded inputs through both packages:
   path, weights carried by the converter, forward and gradients;
 - on a padded batch, the fused path against the eval path on valid
   positions;
+- the same pair layer at a bucket past the resident kernels' 512 (the one
+  ``BucketedLoader`` adds for a 530-frame sentence, L = 576), where JAX
+  takes its XLA attention and the port's kernels take every L;
 - the refusals the kernels' bounds impose, on the CPU too.
 """
 
@@ -26,6 +29,7 @@ import torch
 
 from artspeech_tpu.models.transformer import FusedChannelInteractions
 from artspeech_tpu.ops import pallas_train_attention
+from artspeech_tpu_torch.data.batching import BucketedLoader
 from artspeech_tpu_torch.models.transformer import ChannelInteractionsLayer
 from artspeech_tpu_torch.ops import hopper_train_attention
 from artspeech_tpu_torch.utils import convert
@@ -93,8 +97,6 @@ def _refusal_cases():
 
     ok = dict(q=t(4, 8, 4), k=t(4, 8, 4), v=t(4, 8, 4), keep=t(1, 8, 8), n_pairs=1)
     return {
-        "L_above_MAX_L": (dict(ok, q=t(2, 513, 4), k=t(2, 513, 4), v=t(2, 513, 4),
-                               keep=t(1, 513, 513)), ValueError, "L=513"),
         "head_dim_above_bound": (dict(ok, q=t(4, 8, 129), k=t(4, 8, 129), v=t(4, 8, 129)),
                                  ValueError, "head dim 129"),
         "float64": (dict(ok, q=t(4, 8, 4, dtype=torch.float64)), TypeError, "float32"),
@@ -127,15 +129,22 @@ def _port_layer(params):
     return layer
 
 
+def _jax_pair_layer(rng, proc):
+    """JAX's FusedChannelInteractions and its parameters, every leaf with
+    seeded noise (no zero bias, no unit LN scale). Init, forward and
+    gradients are jitted: op by op, the L = 576 case took ~25 s."""
+    layer = FusedChannelInteractions(embed_dim=E, num_heads=H, num_channels=C)
+    params = jax.jit(layer.init)(jax.random.PRNGKey(0), proc)["params"]
+    leaves, tree = jax.tree_util.tree_flatten(params)
+    return layer, jax.tree_util.tree_unflatten(tree, [
+        np.asarray(x) + 0.1 * rng.standard_normal(x.shape).astype(np.float32) for x in leaves])
+
+
 @pytest.fixture(scope="module")
 def pair_layer():
     rng = np.random.default_rng(1)
     proc = (rng.normal(size=(B, C, L, E)) * 0.5).astype(np.float32)
-    layer = FusedChannelInteractions(embed_dim=E, num_heads=H, num_channels=C)
-    params = layer.init(jax.random.PRNGKey(0), proc)["params"]
-    leaves, tree = jax.tree_util.tree_flatten(params)
-    params = jax.tree_util.tree_unflatten(tree, [  # no zero bias, no unit LN scale
-        np.asarray(x) + 0.1 * rng.standard_normal(x.shape).astype(np.float32) for x in leaves])
+    layer, params = _jax_pair_layer(rng, proc)
     g = C * (C - 1) * B * H
     assert pallas_train_attention.supported(g, L, E // H, g)  # JAX takes its kernel path
     return layer, params, proc
@@ -145,13 +154,16 @@ def test_fused_pair_layer_matches_jax_fused_channel_interactions(pair_layer):
     """Forward within 2e-5 and gradients (by the input and every parameter)
     within 1e-4 * max(|ref|, 1), the JAX test's tolerances
     (tests/test_pallas_train_attention.py: kernel against its fallback)."""
-    layer, params, proc = pair_layer
+    _assert_pair_layer_matches_jax(*pair_layer)
 
+
+def _assert_pair_layer_matches_jax(layer, params, proc):
     def loss(p, x):
         return jnp.sum(jnp.sin(layer.apply({"params": p}, x, deterministic=True)))
 
-    ref_out = np.asarray(layer.apply({"params": params}, proc, deterministic=True))
-    ref_gp, ref_gx = jax.grad(loss, argnums=(0, 1))(params, proc)
+    ref_out = np.asarray(jax.jit(lambda p, x: layer.apply({"params": p}, x, deterministic=True))(
+        params, proc))
+    ref_gp, ref_gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(params, proc)
     port = _port_layer(params).train()
     x = torch.from_numpy(proc).requires_grad_()
     out = port(x)
@@ -184,3 +196,37 @@ def test_fused_path_equals_eval_path_on_valid_positions(pair_layer):
     diff = (fused - plain).abs().permute(0, 2, 1, 3)  # (B, L, C, E)
     assert diff[valid].max().item() <= 2e-5
     assert diff[~valid].max().item() > 1e-3  # padded queries do differ: the paths are distinct
+
+
+LONG_SENTENCE, LONG_B = 530, 2  # frames: past the longest default bucket (512)
+
+
+def _loader_bucket(lengths):
+    """The first batch ``BucketedLoader`` makes of sentences of these
+    lengths: (bucket length, lengths)."""
+    items = [{"tokens": np.ones(n, np.int32), "targets": np.zeros((n, C, 2, 1), np.float32),
+              "references": np.zeros((n, 1, 2, 1), np.float32),
+              "critical_masks": np.zeros((0, n), np.int32), "voicing": np.zeros(n, np.float32),
+              "length": n, "sentence_name": f"s{i}", "phonemes": ["a"] * n,
+              "frame_ids": list(range(n))} for i, n in enumerate(lengths)]
+    batch, _ = next(iter(BucketedLoader(items, batch_size=len(items), shuffle=False)))
+    return batch["tokens"].shape[1], batch["lengths"]
+
+
+def test_fused_pair_layer_matches_jax_past_the_longest_default_bucket():
+    """A bucket the loader adds past 512 (L = 576 for a 530-frame sentence):
+    JAX's FusedChannelInteractions takes its XLA attention there, the port
+    the same fused_causal_attend as at every L (its plain versions on the
+    CPU). Forward and gradients, by the input and every parameter (the
+    query, key and value kernels among them), at the tolerances above; the
+    padded frames of the shorter sentence are zero, as a padded batch's."""
+    bucket, lengths = _loader_bucket((LONG_SENTENCE, 519))
+    assert bucket == 576 and not hopper_train_attention.resident(bucket, E // H)
+    rng = np.random.default_rng(5)
+    valid = np.arange(bucket)[None, :] < lengths[:, None]
+    proc = ((rng.normal(size=(LONG_B, C, bucket, E)) * 0.5).astype(np.float32)
+            * valid[:, None, :, None])
+    layer, params = _jax_pair_layer(rng, proc)
+    g = C * (C - 1) * LONG_B * H
+    assert not pallas_train_attention.supported(g, bucket, E // H, g)  # JAX: XLA attention
+    _assert_pair_layer_matches_jax(layer, params, proc)

@@ -313,11 +313,14 @@ def test_cli_defaults_and_refusals(setup, tmp_path, monkeypatch):
     assert cache_dtype_from_cfg({}) == "bfloat16"
     for name in ("float32", "fp32", "none", "None"):
         assert cache_dtype_from_cfg({"generate_cache_dtype": name}) is None
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        transformer.make_fast_generate(setup["port"], "float16", device="cpu")
-    cfg = {**setup["base"], "model_kwargs": {**MODEL, "dtype": "float16"},
+    assert cache_dtype_from_cfg({"generate_cache_dtype": "float16"}) == "float16"
+    # float16 caches and compute are ported; what neither package computes
+    # in is refused (JAX's resolve_dtype raises KeyError there).
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        transformer.make_fast_generate(setup["port"], "float64", device="cpu")
+    cfg = {**setup["base"], "model_kwargs": {**MODEL, "dtype": "float64"},
            "state_dict_filepath": str(setup["root"] / "ckpts" / "best_model")}
-    with pytest.raises(NotImplementedError, match="float16 is not ported"):
+    with pytest.raises(ValueError, match="unknown compute dtype float64"):
         _run("artspeech_tpu_torch", "test_phoneme_to_articulation_transformer", cfg,
              tmp_path / "out", monkeypatch, tmp_path)
 
