@@ -97,26 +97,60 @@
 // kernels' G_BLOCK and 128-multiple L have no counterpart. wgmma and TMA
 // are later work.
 //
-// The wide instances. Above hd = 32 the rows no longer fit a thread's
-// registers, and above L = MAX_L (the longest default bucket) a group no
-// longer fits a block's shared memory; hd up to 128 and every L take the
-// wide kernels, which give a row to a warp instead of a thread: lane l holds
-// elements l, l + 32, ... of the warp's row (NPL = ceil(hd / 32) of them,
-// rounded up to 1, 2 or 4; every element at or past hd is zero, so at
-// hd < 32 the idle lanes add zeros to each sum), each dot product is a
-// butterfly of shuffles over all 32 lanes (every lane ends with the same
-// sum, so all lanes take the same softmax steps), and the other side's rows
-// are read from global memory by the warp in coalesced spans (they stay in
-// L1 and L2: a group's K and V at L = 512, hd = 128 are 512 KiB). No shared
-// memory, and no state that grows with L but the backward's (G, L) D
-// scratch, which the wrapper allocates. The loader's buckets past 512 (the
-// longest sentence rounded up to 64, data/batching.py) come here at the
-// transformer's hd = 16.
-// - forward: a warp a query row, keys 0..q in order, the same online
-//   softmax as above; four warps a block;
-// - backward, two launches: dQ a warp a query row (it also writes
-//   D_q = dO_q . out_q into a (G, L) scratch), then dK and dV a warp a key
-//   row over queries L-1 down to k, reading D from the scratch.
+// The streamed kernels take every shape past the resident ones: L above
+// MAX_L (the longest default bucket; the loader's longer buckets, the
+// longest sentence rounded up to 64, come here at the transformer's
+// hd = 16) or hd in 33..128, where a group's K and V no longer fit a
+// block's shared memory or a row no longer fits a thread's registers. They
+// replace kernels that gave a row to a warp (keys one at a time, each dot
+// product a butterfly of shuffles, K and V read from global memory), which
+// ran at ~1 % of the bound below.
+//
+// What bounds them: a causal pair costs the forward 4 hd operations and the
+// backward 10 hd (as above), while the rows of q, k, v, dO and out and the
+// keep mask need be read once. At hd = 16 and L = 576 (G = 720, 90 pairs)
+// the forward does ~34 operations a byte it must move and the backward
+// ~63, above the card's 20 (67 TFLOP/s f32 over 3.35 TB/s): operations
+// bound the long buckets; at hd = 64 and L = 128 bytes and operations come
+// within a factor of 1.3 of each other. What a kernel must avoid is
+// reading K and V (or q and dO) again for every row: a CTA owns a tile of
+// 32 rows of one group (query rows for the forward and dQ, keys for dK/dV)
+// in shared memory and streams the other side through shared memory in
+// stages of 32 or 64 rows, two buffers filled by cp.async while the other
+// is walked, one barrier a stage; each streamed row serves the tile's 32
+// rows, and the pair's keep rows of a stage come in along keys. Warp w
+// takes the tile's rows [8 w, 8 w + 8) and 32-column chunks of each stage;
+// lane (r_l, c_l) holds rows r_l + 4 i (i < 2) and columns c_l + 8 j
+// (j < 4), so every float4 read from shared memory feeds 8 FMAs (scores).
+// Shared memory does not grow with L; CTAs are launched longest walk first
+// (a tile's CTAs take the groups in order, so one pair's keep rows are read
+// by CTAs that run together), and every warp walks the same chunks, of
+// which only the diagonal one is masked.
+// - The products acc_r += w_rc x_c (P keep V, dS K, P keep dO, dS Q): at
+//   hd = 16 a lane sums its own columns over all 16 dims and the 8 column
+//   lanes of a row merge once at the end (fold), as the resident forward
+//   does; at hd 32-128 the warp's (8, 32) weights go through a shared block
+//   and a lane sums all 32 columns for its 2 rows and hd / 8 dims, so no
+//   accumulator grows past 32 registers.
+// - forward (train_attention_fwd_stream_kernel): the online softmax of the
+//   resident forward carried across stages (at hd > 16 the row's max is
+//   shared by its 8 lanes, 3 shuffles a chunk); out and lse written once.
+// - backward, two launches, no atomics: dQ (query tiles, key stages from 0
+//   to the diagonal; it also writes D_q = dO_q . out_q into a (G, L)
+//   scratch), then dK and dV (key tiles, query stages from the diagonal to
+//   L, with q, dO, lse and D). P is recomputed in each, as FlashAttention-2
+//   does (7 hd FMAs a pair where the bound counts 5); every sum runs in a
+//   fixed order, so a launch gives the same bits.
+// Register caps follow the CTAs an SM that shared memory allows: 4 (128
+// registers) for the forward at hd <= 32, 3 at 64, 2 at 128; 3 for dQ (2 at
+// hd 128); 2 for dK/dV, whose two accumulators take 64 registers at hd 16.
+// In probes on the H100, a cap of 128 everywhere spilled up to 748 bytes
+// and ran the backward at L = 576 in 2.11 ms against 1.61; 2 or 4 groups of
+// 16 or 8 rows a CTA, sharing the keep rows, ran 6 % to 3x slower than one
+// group of 32, and 64-column stages at hd = 64 slower than 32. The launch geometry comes from the
+// wrapper (hopper_train_attention.py: train_attention_stream_launch_geometry)
+// and valid_stream_geometry refuses any other. f32 FMAs throughout (TF32
+// breaks the limits above); the tensor cores (3xTF32) are later work.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -796,163 +830,530 @@ train_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
-// ---- wide instances: a warp a row ------------------------------------------
+// ---- streamed kernels: every shape past the resident ones ------------------
 
-constexpr int WIDE_WARPS = 4;  // rows a block
+namespace stream {
 
-// Elements l, l + 32, ... (NPL of them) of an hd-float row, zero past hd.
-template <int NPL>
-__device__ inline void load_lanes(float* dst, const float* __restrict__ row, int hd, int lane) {
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    dst[i] = d < hd ? row[d] : 0.0f;
+constexpr int ROWS = 32;          // the CTA's own rows: an 8-row block a warp
+constexpr int THREADS = 4 * ROWS;  // 4 warps
+constexpr int CHUNK = 32;         // columns of a warp's block: c_l + 8 j, j < 4
+// Floats a row of a warp's (8, 32) weight block: 40, so that a lane's 2 x 4
+// stores (rows r_l + 4 i, columns c_l + 8 j) hit 32 banks.
+constexpr int WS = 40;
+
+// Floats of a CTA's shared memory, kernel by kernel (kind 0 the forward, 1
+// dQ, 2 dK/dV): the CTA's own ROWS rows, HD floats each (q; q and dO; k and
+// v), two buffers of a stage's `cols` streamed rows (k and v; k and v; q,
+// dO, lse and D), two of the stage's keep rows (ROWS x (cols + 8) along
+// keys; for dK/dV cols x (ROWS + 4), the stage's queries along the CTA's
+// keys), and at HD > 16 a weight block a warp.
+__host__ __device__ inline size_t cta_floats(int kind, int hd_max, int cols) {
+  const size_t own = (size_t)ROWS * hd_max, stage = (size_t)cols * hd_max;
+  const size_t w = hd_max > 16 ? (size_t)THREADS / 32 * 8 * WS : 0;
+  if (kind == 0) return own + 4 * stage + 2 * (size_t)ROWS * (cols + 8) + w;
+  if (kind == 1) return 2 * own + 4 * stage + 2 * (size_t)ROWS * (cols + 8) + w;
+  return 2 * own + 4 * stage + 4 * (size_t)cols + 2 * (size_t)cols * (ROWS + 4) + w;
+}
+
+// The CTA's place: rows [r0, r0 + ROWS) of group g. Tiles go longest walk
+// first (the last query tiles, the first key tiles); a tile's CTAs take the
+// groups in order, so the CTAs that read one pair's keep rows run together.
+struct Place {
+  int r0;
+  size_t g;
+};
+__device__ inline Place place(int l, int g_total, bool last_first) {
+  const int n_tiles = (l + ROWS - 1) / ROWS, idx = blockIdx.x / g_total;
+  return {(last_first ? n_tiles - 1 - idx : idx) * ROWS, (size_t)(blockIdx.x % g_total)};
+}
+
+// Rows [r0, r0 + n) x keys [k0, k0 + nk) of a pair's (L, L) keep mask into
+// rows of `stride` floats, zero past L: 16-byte copies when vec (L % 4 == 0).
+__device__ inline void copy_keep(float* dst, const float* __restrict__ keep_p, int r0, int n,
+                                 int k0, int nk, int l, int stride, bool vec, int t, int nts) {
+  const int w = vec ? 4 : 1, per_row = nk / w;
+  for (int i = t; i < n * per_row; i += nts) {
+    const int row = i / per_row, c = w * (i % per_row), r = r0 + row, key = k0 + c;
+    const bool in = r < l && key < l;
+    const float* src = in ? keep_p + (size_t)r * l + key : keep_p;
+    if (vec)
+      strip::copy16(dst + row * stride + c, src, in);
+    else
+      strip::copy4(dst + row * stride + c, src, in);
   }
 }
 
-template <int NPL>
-__device__ inline void store_lanes(float* row, const float* src, int hd, int lane) {
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) row[d] = src[i];
+// Entries [r0, r0 + n) of an L-vector into dst, zero past L.
+__device__ inline void copy_vec(float* dst, const float* __restrict__ src, int r0, int n, int l,
+                                int t, int nts) {
+  for (int i = t; i < n; i += nts) {
+    const bool in = r0 + i < l;
+    strip::copy4(dst + i, in ? src + r0 + i : src, in);
   }
 }
 
-// Sum over the warp by a fixed xor butterfly: every lane gets the same value.
-__device__ inline float warp_sum(float v) {
+// sc[i][j] = a_(ra + 4 i) . b_(cb + 8 j) (i < 2, j < 4) over HD dims, rows
+// of HD floats in shared memory swizzled by their index in their buffer
+// (fwd::swz; rows cb + 8 j share cb's swizzle).
+template <int HD>
+__device__ __forceinline__ void scores(float (&sc)[2][4], const float* a, int ra, const float* b,
+                                       int cb) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-template <int NPL>
-__device__ inline float lane_dot(const float* a, const float* __restrict__ row, int hd, int lane) {
-  float s = 0.0f;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) s = fmaf(a[i], row[d], s);
-  }
-  return warp_sum(s);
-}
-
-template <int NPL>
-__device__ inline void lane_axpy(float* acc, float w, const float* __restrict__ row, int hd,
-                                 int lane) {
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+  // 8 float4 columns at a time: unrolled whole at hd 64 and 128, the library
+  // took 57 s to build against 22, and ran no faster.
+#pragma unroll 8
+  for (int c4 = 0; c4 < HD / 4; ++c4) {
+    float4 bx[4];
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int d = lane + 32 * i;
-    if (d < hd) acc[i] = fmaf(w, row[d], acc[i]);
-  }
-}
-
-template <int NPL>
-__global__ void __launch_bounds__(32 * WIDE_WARPS)
-train_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ keep,
-                                float* __restrict__ out, float* __restrict__ lse, int g_total,
-                                int l, int hd, int groups_per_pair) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);  // g * L + r
-  if (row >= (size_t)g_total * l) return;
-  const size_t g = row / l;
-  const int r = (int)(row - g * l);
-  const float* kg = k + g * l * hd;
-  const float* vg = v + g * l * hd;
-  const float* keep_r = keep + ((g / groups_per_pair) * l + r) * l;
-  float qr[NPL], acc[NPL];
-  load_lanes<NPL>(qr, q + row * hd, hd, lane);
+    for (int j = 0; j < 4; ++j)
+      bx[j] = strip::ld4(b + (cb + 8 * j) * HD + 4 * fwd::swz<HD>(cb, c4));
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
-  float m = -INFINITY, z = 0.0f;
-  for (int j = 0; j <= r; ++j) {
-    const float s = lane_dot<NPL>(qr, kg + (size_t)j * hd, hd, lane);
-    if (s > m) {
-      const float alpha = expf(m - s);  // 0 at the first key
-      z *= alpha;
+    for (int i = 0; i < 2; ++i) {
+      const float4 ax = strip::ld4(a + (ra + 4 * i) * HD + 4 * fwd::swz<HD>(ra + 4 * i, c4));
 #pragma unroll
-      for (int i = 0; i < NPL; ++i) acc[i] *= alpha;
-      m = s;
+      for (int j = 0; j < 4; ++j) {
+        float& e = sc[i][j];
+        e = fmaf(ax.x, bx[j].x, e);
+        e = fmaf(ax.y, bx[j].y, e);
+        e = fmaf(ax.z, bx[j].z, e);
+        e = fmaf(ax.w, bx[j].w, e);
+      }
     }
-    const float p = expf(s - m);
-    z += p;
-    lane_axpy<NPL>(acc, p * keep_r[j], vg + (size_t)j * hd, hd, lane);
   }
-  const float inv_z = 1.0f / z;
-#pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] *= inv_z;
-  store_lanes<NPL>(out + row * hd, acc, hd, lane);
-  if (lane == 0) lse[row] = m + logf(z);
 }
 
-template <int NPL>
-__global__ void __launch_bounds__(32 * WIDE_WARPS)
-train_attention_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, const float* __restrict__ keep,
-                               const float* __restrict__ out, const float* __restrict__ lse,
-                               const float* __restrict__ dout, float* __restrict__ dq,
-                               float* __restrict__ dsum, int g_total, int l, int hd,
-                               int groups_per_pair) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);
-  if (row >= (size_t)g_total * l) return;
-  const size_t g = row / l;
-  const int r = (int)(row - g * l);
-  const float* kg = k + g * l * hd;
-  const float* vg = v + g * l * hd;
-  const float* keep_r = keep + ((g / groups_per_pair) * l + r) * l;
-  float qr[NPL], dor[NPL], acc[NPL];
-  load_lanes<NPL>(qr, q + row * hd, hd, lane);
-  load_lanes<NPL>(dor, dout + row * hd, hd, lane);
-  const float d_r = lane_dot<NPL>(dor, out + row * hd, hd, lane);
-  if (lane == 0) dsum[row] = d_r;
+// acc[i][d] += w[i][j] x_(cb + 8 j)[d] over the lane's 4 columns and all HD
+// dims (the lane's partial sums; the 8 column lanes of a row merge at the end).
+template <int HD>
+__device__ __forceinline__ void accumulate_full(float (&acc)[2][HD], const float (&w)[2][4],
+                                                const float* x, int cb) {
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) acc[i] = 0.0f;
-  const float lse_r = lse[row];
-  for (int j = 0; j <= r; ++j) {
-    const float* kj = kg + (size_t)j * hd;
-    const float p = expf(lane_dot<NPL>(qr, kj, hd, lane) - lse_r);
-    const float dp = lane_dot<NPL>(dor, vg + (size_t)j * hd, hd, lane) * keep_r[j];
-    lane_axpy<NPL>(acc, p * (dp - d_r), kj, hd, lane);
+  for (int c4 = 0; c4 < HD / 4; ++c4) {
+    float4 xv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xv[j] = strip::ld4(x + (cb + 8 * j) * HD + 4 * fwd::swz<HD>(cb, c4));
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][4 * c4] = fmaf(w[i][j], xv[j].x, acc[i][4 * c4]);
+        acc[i][4 * c4 + 1] = fmaf(w[i][j], xv[j].y, acc[i][4 * c4 + 1]);
+        acc[i][4 * c4 + 2] = fmaf(w[i][j], xv[j].z, acc[i][4 * c4 + 2]);
+        acc[i][4 * c4 + 3] = fmaf(w[i][j], xv[j].w, acc[i][4 * c4 + 3]);
+      }
   }
-  store_lanes<NPL>(dq + row * hd, acc, hd, lane);
 }
 
-template <int NPL>
-__global__ void __launch_bounds__(32 * WIDE_WARPS)
-train_attention_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ keep,
-                                const float* __restrict__ lse, const float* __restrict__ dout,
-                                const float* __restrict__ dsum, float* __restrict__ dk,
-                                float* __restrict__ dv, int g_total, int l, int hd,
-                                int groups_per_pair) {
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * WIDE_WARPS + (threadIdx.x >> 5);  // g * L + c
-  if (row >= (size_t)g_total * l) return;
-  const size_t g = row / l;
-  const int c = (int)(row - g * l);
-  const float* qg = q + g * l * hd;
-  const float* dog = dout + g * l * hd;
-  const float* lse_g = lse + g * l;
-  const float* dsum_g = dsum + g * l;
-  const float* keep_g = keep + (g / groups_per_pair) * l * l;
-  float kc[NPL], vc[NPL], dka[NPL], dva[NPL];
-  load_lanes<NPL>(kc, k + row * hd, hd, lane);
-  load_lanes<NPL>(vc, v + row * hd, hd, lane);
+// acc[i][4 n + e] += sum_c W[r_l + 4 i][c] x_c[4 (c_l + 8 n) + e] over the
+// 32 columns of the warp's block: the lanes' weights go through the warp's
+// block wb, then each lane takes its 2 rows and HD / 8 dims (float4 n of
+// the lane's dims is float4 column c_l + 8 n of a row).
+template <int HD>
+__device__ __forceinline__ void accumulate_split(float (&acc)[2][HD / 8], const float (&w)[2][4],
+                                                 float* wb, const float* x, int rl, int cl) {
+  __syncwarp();  // the warp's reads of the last block are done
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) dka[i] = dva[i] = 0.0f;
-  for (int i = l - 1; i >= c; --i) {
-    const float* qi = qg + (size_t)i * hd;
-    const float* doi = dog + (size_t)i * hd;
-    const float kp = keep_g[(size_t)i * l + c];
-    const float p = expf(lane_dot<NPL>(kc, qi, hd, lane) - lse_g[i]);
-    const float dp = lane_dot<NPL>(vc, doi, hd, lane) * kp;
-    lane_axpy<NPL>(dva, p * kp, doi, hd, lane);
-    lane_axpy<NPL>(dka, p * (dp - dsum_g[i]), qi, hd, lane);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wb[(rl + 4 * i) * WS + cl + 8 * j] = w[i][j];
+  __syncwarp();
+  // Two groups of 4 columns at a time, for the build time as in scores.
+#pragma unroll 2
+  for (int c = 0; c < CHUNK; c += 4) {
+    const float4 w0 = strip::ld4(wb + rl * WS + c), w1 = strip::ld4(wb + (rl + 4) * WS + c);
+    const float wv[2][4] = {{w0.x, w0.y, w0.z, w0.w}, {w1.x, w1.y, w1.z, w1.w}};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int n = 0; n < HD / 32; ++n) {
+        const float4 xv = strip::ld4(x + (c + e) * HD + 4 * fwd::swz<HD>(c + e, cl + 8 * n));
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[i][4 * n] = fmaf(wv[i][e], xv.x, acc[i][4 * n]);
+          acc[i][4 * n + 1] = fmaf(wv[i][e], xv.y, acc[i][4 * n + 1]);
+          acc[i][4 * n + 2] = fmaf(wv[i][e], xv.z, acc[i][4 * n + 2]);
+          acc[i][4 * n + 3] = fmaf(wv[i][e], xv.w, acc[i][4 * n + 3]);
+        }
+      }
   }
-  store_lanes<NPL>(dk + row * hd, dka, hd, lane);
-  store_lanes<NPL>(dv + row * hd, dva, hd, lane);
+}
+
+// The products of a chunk: accumulate_split at HD > 16, else accumulate_full.
+template <int HD, int DA>
+__device__ __forceinline__ void accumulate(float (&acc)[2][DA], const float (&w)[2][4], float* wb,
+                                           const float* x, int rl, int cl) {
+  if constexpr (DA == HD)
+    accumulate_full<HD>(acc, w, x, cl);
+  else
+    accumulate_split<HD>(acc, w, wb, x, rl, cl);
+}
+
+// Row i of the lane's accumulators, times `scale`, to its place in `row`
+// (an hd-float row of global memory): at HD > 16 the lane's HD / 8 dims
+// (float4 columns c_l + 8 n); else the 8 column lanes' partial sums are
+// folded first (all lanes take part) and the lane writes dims
+// [2 c_l, 2 c_l + 2).
+template <int HD, int DA>
+__device__ __forceinline__ void store_row(float* row, float (&a)[DA], float scale, int cl, int hd,
+                                          bool vec, bool write) {
+  if constexpr (DA == HD) {
+    fwd::fold<HD / 2>(a, 4, cl & 4);
+    fwd::fold<HD / 4>(a, 2, cl & 2);
+    fwd::fold<HD / 8>(a, 1, cl & 1);
+    if (!write) return;
+    const int d0 = HD / 8 * cl;
+    if (vec && d0 + 2 <= hd) {
+      *reinterpret_cast<float2*>(row + d0) = make_float2(a[0] * scale, a[1] * scale);
+    } else {
+#pragma unroll
+      for (int e = 0; e < HD / 8; ++e)
+        if (d0 + e < hd) row[d0 + e] = a[e] * scale;
+    }
+  } else {
+    if (!write) return;
+#pragma unroll
+    for (int n = 0; n < HD / 32; ++n) {
+      const int d0 = 4 * (cl + 8 * n);
+      const float x[4] = {a[4 * n] * scale, a[4 * n + 1] * scale, a[4 * n + 2] * scale,
+                          a[4 * n + 3] * scale};
+      if (d0 < hd) strip::store4(row + d0, x, hd - d0, vec);
+    }
+  }
+}
+
+}  // namespace stream
+
+// The streamed forward. A CTA takes query rows [i0, i0 + ROWS) of one group
+// (stream::place), warp w rows [i0 + 8 w, + 8), and streams keys 0 .. the
+// tile's diagonal chunk in stages of `cols` keys: K and V rows and the
+// pair's keep rows of the stage (along keys) by cp.async into one buffer
+// while the other is walked, chunk by chunk. Lane (r_l, c_l) keeps, for rows
+// r_l + 4 i, the online softmax of the resident forward: at HD = 16 its own
+// max, sum and accumulators over its keys, merged over the 8 column lanes at
+// the end; at HD > 16 the row's max over the chunk (3 shuffles), so that the
+// 8 lanes share one scale and each accumulates HD / 8 dims over all 32 keys.
+// Only the diagonal chunk is masked. out and lse are written once.
+template <int HD>
+__global__ void __launch_bounds__(stream::THREADS, HD <= 32 ? 4 : HD == 64 ? 3 : 2)
+train_attention_fwd_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ keep,
+                                  float* __restrict__ out, float* __restrict__ lse, int g_total,
+                                  int l, int hd, int groups_per_pair, int cols, int vec_flag,
+                                  int kvec_flag) {
+  using namespace stream;
+  using fwd::LOG2E;
+  using fwd::ex2;
+  constexpr int DA = HD > 16 ? HD / 8 : HD;  // accumulators a row a lane
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = vec_flag != 0, kvec = kvec_flag != 0;
+  const int t = threadIdx.x, nts = blockDim.x;
+  const Place pl = place(l, g_total, true);
+  const int i0 = pl.r0, lp = cols + 8, stage = cols * HD;
+  float* qs = smem;                       // [ROWS][HD]
+  float* ks = qs + ROWS * HD;             // [2][cols][HD]
+  float* vs = ks + 2 * stage;             // [2][cols][HD]
+  float* keep_s = vs + 2 * stage;         // [2][ROWS][cols + 8]
+  float* wbuf = keep_s + 2 * ROWS * lp;   // [warps][8][WS] (HD > 16)
+  const size_t g = pl.g, off = g * l * hd;
+  const float* keep_p = keep + (g / groups_per_pair) * l * l;
+  const int warp = t / 32, lane = t % 32, rl = lane >> 3, cl = lane & 7, rb = 8 * warp;
+  const bool live = i0 + rb < l;
+  const int kend = (i0 / CHUNK + 1) * CHUNK;  // keys through the diagonal chunk
+  const int n_stages = (kend + cols - 1) / cols;
+
+  auto copy_stage = [&](int s) {
+    const int kt = s * cols, nk = min(cols, kend - kt);
+    float* kb = ks + (s & 1) * stage;
+    fwd::copy_rows<HD>(kb, 0, k + off, kt, nk, l, hd, vec, t, nts);
+    fwd::copy_rows<HD>(kb + 2 * stage, 0, v + off, kt, nk, l, hd, vec, t, nts);
+    copy_keep(keep_s + (s & 1) * ROWS * lp, keep_p, i0, ROWS, kt, nk, l, lp, kvec, t, nts);
+  };
+  fwd::copy_rows<HD>(qs, 0, q + off, i0, ROWS, l, hd, vec, t, nts);
+  copy_stage(0);
+
+  float* wb = wbuf + warp * 8 * WS;
+  float acc[2][DA], m[2], z[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int d = 0; d < DA; ++d) acc[i][d] = 0.0f;
+    m[i] = -INFINITY;
+    z[i] = 0.0f;
+  }
+  for (int s = 0; s < n_stages; ++s) {
+    strip::copies_done();
+    __syncthreads();  // stage s in; every warp done with stage s - 1's buffers
+    if (s + 1 < n_stages) copy_stage(s + 1);
+    if (!live) continue;
+    const float* kb = ks + (s & 1) * stage;
+    const float* keep_b = keep_s + (s & 1) * ROWS * lp;
+    for (int c = 0; c < cols && s * cols + c < kend; c += CHUNK) {
+      const int k0 = s * cols + c;
+      float sc[2][4], w[2][4];
+      scores<HD>(sc, qs, rb + rl, kb + c * HD, cl);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (k0 + CHUNK > i0) {  // the diagonal chunk
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (k0 + cl + 8 * j > i0 + rb + rl + 4 * i) sc[i][j] = -INFINITY;
+        }
+        float cm = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+        if constexpr (DA != HD) {  // one max for the row's 8 lanes
+#pragma unroll
+          for (int o = 1; o < 8; o <<= 1) cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, o));
+        }
+        if (cm > m[i] + fwd::RESCALE) {  // true at the first keys (m is -inf)
+          const float alpha = ex2((m[i] - cm) * LOG2E);
+          z[i] *= alpha;
+#pragma unroll
+          for (int d = 0; d < DA; ++d) acc[i][d] *= alpha;
+          m[i] = cm;
+        }
+        const float ml = (m[i] == -INFINITY ? 0.0f : m[i]) * LOG2E;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          w[i][j] = ex2(fmaf(sc[i][j], LOG2E, -ml));
+          z[i] += w[i][j];
+          w[i][j] *= keep_b[(rb + rl + 4 * i) * lp + c + cl + 8 * j];
+        }
+      }
+      accumulate<HD, DA>(acc, w, wb, kb + 2 * stage + c * HD, rl, cl);
+    }
+  }
+  if (!live) return;
+
+  // Merge the 8 column lanes of each row (their max, then their sums) and
+  // write out and lse.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mm = m[i];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) mm = fmaxf(mm, __shfl_xor_sync(0xffffffffu, mm, o));
+    const float scale = ex2((m[i] - mm) * LOG2E);  // 1 at HD > 16; 0 for a lane without keys
+    float zz = z[i] * scale;
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) zz += __shfl_xor_sync(0xffffffffu, zz, o);
+    if constexpr (DA == HD) {  // the lanes' own scales, before their sums are folded
+#pragma unroll
+      for (int d = 0; d < DA; ++d) acc[i][d] *= scale;
+    }
+    const int r = i0 + rb + rl + 4 * i;
+    const bool in = r < l;
+    store_row<HD, DA>(out + (g * l + (in ? r : 0)) * hd, acc[i], 1.0f / zz, cl, hd, vec, in);
+    if (in && cl == 0) lse[g * l + r] = mm + logf(zz);
+  }
+}
+
+// The streamed dQ, and D. A CTA takes query rows [i0, i0 + ROWS) of one
+// group, as the streamed forward, with their q and dO rows in shared memory,
+// and streams keys 0 .. the tile's diagonal chunk in stages of `cols` (K, V
+// and the keep rows, along keys). First each warp sums D_q = dO_q . out_q
+// for its rows (a lane hd / 8 dims, then 3 shuffles) and writes it to dsum
+// for the dK/dV kernel. Per pair s = q . k and dp = dO . v (scores),
+// P = exp(s - lse_q), dS = P (dp keep - D_q), 0 above the diagonal; dQ += dS K
+// as the forward's P keep V.
+template <int HD>
+__global__ void __launch_bounds__(stream::THREADS, HD == 128 ? 2 : 3)
+train_attention_dq_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ keep,
+                                 const float* __restrict__ out, const float* __restrict__ lse,
+                                 const float* __restrict__ dout, float* __restrict__ dq,
+                                 float* __restrict__ dsum, int g_total, int l, int hd,
+                                 int groups_per_pair, int cols, int vec_flag, int kvec_flag) {
+  using namespace stream;
+  constexpr int DA = HD > 16 ? HD / 8 : HD;
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = vec_flag != 0, kvec = kvec_flag != 0;
+  const int t = threadIdx.x, nts = blockDim.x;
+  const Place pl = place(l, g_total, true);
+  const int i0 = pl.r0, lp = cols + 8, stage = cols * HD;
+  float* qs = smem;                       // [ROWS][HD]
+  float* dos = qs + ROWS * HD;            // [ROWS][HD]
+  float* ks = dos + ROWS * HD;            // [2][cols][HD]
+  float* vs = ks + 2 * stage;             // [2][cols][HD]
+  float* keep_s = vs + 2 * stage;         // [2][ROWS][cols + 8]
+  float* wbuf = keep_s + 2 * ROWS * lp;   // [warps][8][WS] (HD > 16)
+  const size_t g = pl.g, off = g * l * hd;
+  const float* keep_p = keep + (g / groups_per_pair) * l * l;
+  const int warp = t / 32, lane = t % 32, rl = lane >> 3, cl = lane & 7, rb = 8 * warp;
+  const bool live = i0 + rb < l;
+  const int kend = (i0 / CHUNK + 1) * CHUNK;
+  const int n_stages = (kend + cols - 1) / cols;
+
+  auto copy_stage = [&](int s) {
+    const int kt = s * cols, nk = min(cols, kend - kt);
+    float* kb = ks + (s & 1) * stage;
+    fwd::copy_rows<HD>(kb, 0, k + off, kt, nk, l, hd, vec, t, nts);
+    fwd::copy_rows<HD>(kb + 2 * stage, 0, v + off, kt, nk, l, hd, vec, t, nts);
+    copy_keep(keep_s + (s & 1) * ROWS * lp, keep_p, i0, ROWS, kt, nk, l, lp, kvec, t, nts);
+  };
+  fwd::copy_rows<HD>(qs, 0, q + off, i0, ROWS, l, hd, vec, t, nts);
+  fwd::copy_rows<HD>(dos, 0, dout + off, i0, ROWS, l, hd, vec, t, nts);
+  copy_stage(0);
+
+  // D_q and lse_q of the lane's rows (0 past L), D written for dK/dV.
+  float lse_r[2], d_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i0 + rb + rl + 4 * i;
+    const bool in = r < l;
+    float part = 0.0f;
+    if (in) {
+      const float* dor = dout + (g * l + r) * hd;
+      const float* outr = out + (g * l + r) * hd;
+      for (int d = cl; d < hd; d += 8) part = fmaf(__ldg(dor + d), __ldg(outr + d), part);
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
+    d_r[i] = part;
+    lse_r[i] = in ? __ldg(lse + g * l + r) : 0.0f;
+    if (in && cl == 0) dsum[g * l + r] = part;
+  }
+
+  float* wb = wbuf + warp * 8 * WS;
+  float acc[2][DA];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int d = 0; d < DA; ++d) acc[i][d] = 0.0f;
+  for (int s = 0; s < n_stages; ++s) {
+    strip::copies_done();
+    __syncthreads();
+    if (s + 1 < n_stages) copy_stage(s + 1);
+    if (!live) continue;
+    const float* kb = ks + (s & 1) * stage;
+    const float* keep_b = keep_s + (s & 1) * ROWS * lp;
+    for (int c = 0; c < cols && s * cols + c < kend; c += CHUNK) {
+      const int k0 = s * cols + c;
+      float sc[2][4], dp[2][4], w[2][4];
+      scores<HD>(sc, qs, rb + rl, kb + c * HD, cl);
+      scores<HD>(dp, dos, rb + rl, kb + 2 * stage + c * HD, cl);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float kp = keep_b[(rb + rl + 4 * i) * lp + c + cl + 8 * j];
+          const float ds = expf(sc[i][j] - lse_r[i]) * (dp[i][j] * kp - d_r[i]);
+          const bool above = k0 + CHUNK > i0 && k0 + cl + 8 * j > i0 + rb + rl + 4 * i;
+          w[i][j] = above ? 0.0f : ds;
+        }
+      accumulate<HD, DA>(acc, w, wb, kb + c * HD, rl, cl);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i0 + rb + rl + 4 * i;
+    store_row<HD, DA>(dq + (g * l + (r < l ? r : 0)) * hd, acc[i], 1.0f, cl, hd, vec, r < l);
+  }
+}
+
+// The streamed dK and dV. A CTA takes keys [j0, j0 + ROWS) of one group
+// (stream::place, the first key tiles first), with their K and V rows in
+// shared memory, and streams query rows from the key tile's diagonal chunk
+// to L in stages of `cols`: q and dO rows, lse and D (from the dQ kernel),
+// and the pair's keep rows of the stage over the CTA's keys (a query row's
+// keep along keys, never down a column). Warp w takes keys [j0 + 8 w, + 8),
+// lane (r_l, c_l) keys r_l + 4 i and queries c_l + 8 j of each 32-query
+// chunk: s = k . q and dp = v . dO (scores), P = exp(s - lse_q), P keep and
+// dS = P (dp keep - D_q), 0 above the diagonal; dV += (P keep) dO and
+// dK += dS Q as the forward's P keep V.
+template <int HD>
+__global__ void __launch_bounds__(stream::THREADS, 2)
+train_attention_dkv_stream_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ keep,
+                                  const float* __restrict__ lse, const float* __restrict__ dout,
+                                  const float* __restrict__ dsum, float* __restrict__ dk,
+                                  float* __restrict__ dv, int g_total, int l, int hd,
+                                  int groups_per_pair, int cols, int vec_flag, int kvec_flag) {
+  using namespace stream;
+  constexpr int DA = HD > 16 ? HD / 8 : HD;
+  constexpr int KS = ROWS + 4;  // floats a keep row of a stage: its query's keep of the CTA's keys
+  extern __shared__ __align__(16) float smem[];
+  const bool vec = vec_flag != 0, kvec = kvec_flag != 0;
+  const int t = threadIdx.x, nts = blockDim.x;
+  const Place pl = place(l, g_total, false);
+  const int j0 = pl.r0, stage = cols * HD;
+  float* ks = smem;                       // [ROWS][HD]
+  float* vs = ks + ROWS * HD;             // [ROWS][HD]
+  float* qs = vs + ROWS * HD;             // [2][cols][HD]
+  float* dos = qs + 2 * stage;            // [2][cols][HD]
+  float* lse_s = dos + 2 * stage;         // [2][cols]
+  float* d_s = lse_s + 2 * cols;          // [2][cols]
+  float* keep_s = d_s + 2 * cols;         // [2][cols][ROWS + 4]
+  float* wbuf = keep_s + 2 * cols * KS;   // [warps][8][WS] (HD > 16)
+  const size_t g = pl.g, off = g * l * hd;
+  const float* keep_p = keep + (g / groups_per_pair) * l * l;
+  const int warp = t / 32, lane = t % 32, rl = lane >> 3, cl = lane & 7, rb = 8 * warp;
+  const bool live = j0 + rb < l;
+  const int q0 = j0 / CHUNK * CHUNK;  // the diagonal chunk's first query
+  const int qend = q0 + (l - q0 + CHUNK - 1) / CHUNK * CHUNK;
+  const int n_stages = (qend - q0 + cols - 1) / cols;
+
+  auto copy_stage = [&](int s) {
+    const int qt = q0 + s * cols, nq = min(cols, qend - qt), b = s & 1;
+    float* qb = qs + b * stage;
+    fwd::copy_rows<HD>(qb, 0, q + off, qt, nq, l, hd, vec, t, nts);
+    fwd::copy_rows<HD>(qb + 2 * stage, 0, dout + off, qt, nq, l, hd, vec, t, nts);
+    copy_vec(lse_s + b * cols, lse + g * l, qt, nq, l, t, nts);
+    copy_vec(d_s + b * cols, dsum + g * l, qt, nq, l, t, nts);
+    copy_keep(keep_s + b * cols * KS, keep_p, qt, nq, j0, ROWS, l, KS, kvec, t, nts);
+  };
+  fwd::copy_rows<HD>(ks, 0, k + off, j0, ROWS, l, hd, vec, t, nts);
+  fwd::copy_rows<HD>(vs, 0, v + off, j0, ROWS, l, hd, vec, t, nts);
+  copy_stage(0);
+
+  float* wb = wbuf + warp * 8 * WS;
+  float dka[2][DA], dva[2][DA];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int d = 0; d < DA; ++d) dka[i][d] = dva[i][d] = 0.0f;
+  for (int s = 0; s < n_stages; ++s) {
+    strip::copies_done();
+    __syncthreads();
+    if (s + 1 < n_stages) copy_stage(s + 1);
+    if (!live) continue;
+    const int b = s & 1;
+    const float* qb = qs + b * stage;
+    const float* lse_b = lse_s + b * cols;
+    const float* d_b = d_s + b * cols;
+    const float* keep_b = keep_s + b * cols * KS;
+    for (int c = 0; c < cols && q0 + s * cols + c < qend; c += CHUNK) {
+      const int qc = q0 + s * cols + c;
+      float sc[2][4], dp[2][4], pk[2][4], ds[2][4];
+      scores<HD>(sc, ks, rb + rl, qb + c * HD, cl);
+      scores<HD>(dp, vs, rb + rl, qb + 2 * stage + c * HD, cl);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qi = c + cl + 8 * j;
+        const float lse_q = lse_b[qi], d_q = d_b[qi];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float kp = keep_b[qi * KS + rb + rl + 4 * i];
+          const float p = expf(sc[i][j] - lse_q);
+          const bool above = qc == q0 && qc + cl + 8 * j < j0 + rb + rl + 4 * i;
+          pk[i][j] = above ? 0.0f : p * kp;
+          ds[i][j] = above ? 0.0f : p * (dp[i][j] * kp - d_q);
+        }
+      }
+      accumulate<HD, DA>(dva, pk, wb, qb + 2 * stage + c * HD, rl, cl);
+      accumulate<HD, DA>(dka, ds, wb, qb + c * HD, rl, cl);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = j0 + rb + rl + 4 * i;
+    const size_t o = (g * l + (r < l ? r : 0)) * hd;
+    store_row<HD, DA>(dk + o, dka[i], 1.0f, cl, hd, vec, r < l);
+    store_row<HD, DA>(dv + o, dva[i], 1.0f, cl, hd, vec, r < l);
+  }
 }
 
 template <typename Kernel>
@@ -970,10 +1371,10 @@ bool valid_shape(int g, int l, int hd, int n_pairs) {
   return g >= 1 && l >= 1 && hd >= 1 && hd <= 128 && n_pairs >= 1 && g % n_pairs == 0;
 }
 
-// The kernels that hold rows in registers and shared memory take the shape
+// The kernels that hold a group's rows in shared memory take the shape
 // (the forward and the backward alike: at hd <= 32 a group of up to MAX_L
-// rows fits a block's shared memory in strips of 16 rows); the wide kernels
-// take every other.
+// rows fits a block's shared memory in strips of 16 rows); the streamed
+// kernels take every other.
 bool resident(int l, int hd) { return hd <= 32 && l <= MAX_L; }
 
 // The strip backward's launch (hopper_train_attention.py:
@@ -1001,25 +1402,52 @@ bool valid_fwd_geometry(int l, int hd, int groups, int tq, int threads, size_t s
          smem == sizeof(float) * fwd::smem_floats(l, hd_max, groups, tq) && smem <= MAX_SMEM;
 }
 
-int wide_blocks(int g, int l) {
-  return (int)(((size_t)g * l + WIDE_WARPS - 1) / WIDE_WARPS);
+// Rows of the streamed kernels' instances: hd padded to 16, 32, 64 or 128.
+int stream_hd(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+
+// A streamed kernel's launch (hopper_train_attention.py:
+// train_attention_stream_launch_geometry; kind 0 the forward, 1 dQ, 2
+// dK/dV): columns a stage, shared bytes. Refused unless the kernel can run
+// it: stages of 32 or 64 columns, and the shared bytes those of the kind
+// and hd.
+bool valid_stream_geometry(int kind, int hd, int cols, size_t smem) {
+  return (cols == 32 || cols == 64) &&
+         smem == sizeof(float) * stream::cta_floats(kind, stream_hd(hd), cols) && smem <= MAX_SMEM;
 }
 
-template <int NPL>
-int launch_fwd_wide(const void* q, const void* k, const void* v, const void* keep, void* out,
-                    void* lse, int g, int l, int hd, int n_pairs, cudaStream_t stream) {
-  train_attention_fwd_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+// CTAs of a streamed kernel: ceil(L / ROWS) tiles of each group.
+unsigned stream_ctas(int g, int l) {
+  return (unsigned)((l + stream::ROWS - 1) / stream::ROWS) * g;
+}
+
+template <int HD>
+int launch_fwd_stream(const void* q, const void* k, const void* v, const void* keep, void* out,
+                      void* lse, int g, int l, int hd, int n_pairs, int cols, size_t smem,
+                      cudaStream_t stream) {
+  const int err = prepare(train_attention_fwd_stream_kernel<HD>, smem);
+  if (err) return err;
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
+  const int vec = hd % 4 == 0 && bits % 16 == 0;
+  const int kvec = l % 4 == 0 && (uintptr_t)keep % 16 == 0;
+  train_attention_fwd_stream_kernel<HD><<<stream_ctas(g, l), stream::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(keep), static_cast<float*>(out), static_cast<float*>(lse), g, l,
-      hd, g / n_pairs);
+      hd, g / n_pairs, cols, vec, kvec);
   return (int)cudaGetLastError();
 }
 
-template <int NPL>
-int launch_bwd_wide(const void* q, const void* k, const void* v, const void* keep,
-                    const void* out, const void* lse, const void* dout, void* dq, void* dk,
-                    void* dv, void* dsum, int g, int l, int hd, int n_pairs,
-                    cudaStream_t stream) {
+template <int HD>
+int launch_bwd_stream(const void* q, const void* k, const void* v, const void* keep,
+                      const void* out, const void* lse, const void* dout, void* dq, void* dk,
+                      void* dv, void* dsum, int g, int l, int hd, int n_pairs, int cols,
+                      size_t smem, int kv_cols, size_t kv_smem, cudaStream_t stream) {
+  int err = prepare(train_attention_dq_stream_kernel<HD>, smem);
+  if (!err) err = prepare(train_attention_dkv_stream_kernel<HD>, kv_smem);
+  if (err) return err;
+  const uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+                         (uintptr_t)dout | (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
+  const int vec = hd % 4 == 0 && bits % 16 == 0;
+  const int kvec = l % 4 == 0 && (uintptr_t)keep % 16 == 0;
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
   const float* fv = static_cast<const float*>(v);
@@ -1027,14 +1455,14 @@ int launch_bwd_wide(const void* q, const void* k, const void* v, const void* kee
   const float* flse = static_cast<const float*>(lse);
   const float* fdout = static_cast<const float*>(dout);
   float* fdsum = static_cast<float*>(dsum);
-  train_attention_dq_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+  train_attention_dq_stream_kernel<HD><<<stream_ctas(g, l), stream::THREADS, smem, stream>>>(
       fq, fk, fv, fkeep, static_cast<const float*>(out), flse, fdout, static_cast<float*>(dq),
-      fdsum, g, l, hd, g / n_pairs);
-  const int err = (int)cudaGetLastError();
+      fdsum, g, l, hd, g / n_pairs, cols, vec, kvec);
+  err = (int)cudaGetLastError();
   if (err) return err;
-  train_attention_dkv_wide_kernel<NPL><<<wide_blocks(g, l), 32 * WIDE_WARPS, 0, stream>>>(
+  train_attention_dkv_stream_kernel<HD><<<stream_ctas(g, l), stream::THREADS, kv_smem, stream>>>(
       fq, fk, fv, fkeep, flse, fdout, fdsum, static_cast<float*>(dk), static_cast<float*>(dv), g,
-      l, hd, g / n_pairs);
+      l, hd, g / n_pairs, kv_cols, vec, kvec);
   return (int)cudaGetLastError();
 }
 
@@ -1078,65 +1506,96 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* keep, co
 extern "C" {
 
 // q, k, v: (G, L, hd) f32; keep: (n_pairs, L, L) f32; out: (G, L, hd) f32;
-// lse: (G, L) f32. 1 <= L, 1 <= hd <= 128, n_pairs divides G. Where
-// resident (hd <= 32, L <= 512) the strip kernel runs with the launch geometry (groups
-// a CTA, strip rows tq, threads a CTA, shared bytes smem), refused unless
-// valid_fwd_geometry accepts it; else the wide kernel, and the geometry is
-// not read. Returns the first nonzero cudaError_t of the launch, else 0.
+// lse: (G, L) f32. n_pairs divides G. For the resident shapes (hd <= 32,
+// L <= 512) only: the strip kernel with the launch geometry (groups a CTA,
+// strip rows tq, threads a CTA, shared bytes smem), refused unless
+// valid_fwd_geometry accepts it. Returns the first nonzero cudaError_t of
+// the launch, else 0.
 int train_attention_fwd(const void* q, const void* k, const void* v, const void* keep, void* out,
                         void* lse, int g, int l, int hd, int n_pairs, int groups, int tq,
                         int threads, size_t smem, void* stream) {
-  if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
+  if (!valid_shape(g, l, hd, n_pairs) || !resident(l, hd) ||
+      !valid_fwd_geometry(l, hd, groups, tq, threads, smem))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident(l, hd)) {
-    if (!valid_fwd_geometry(l, hd, groups, tq, threads, smem)) return (int)cudaErrorInvalidValue;
-    return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq,
-                                     threads, smem, s)
-                    : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq,
-                                     threads, smem, s);
-  }
-  // The wide forward: hd > 32 at any L, or any hd past MAX_L.
-  if (hd <= 32) return launch_fwd_wide<1>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
-  if (hd <= 64) return launch_fwd_wide<2>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
-  return launch_fwd_wide<4>(q, k, v, keep, out, lse, g, l, hd, n_pairs, s);
+  return hd <= 16 ? launch_fwd<16>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq, threads,
+                                   smem, s)
+                  : launch_fwd<32>(q, k, v, keep, out, lse, g, l, hd, n_pairs, groups, tq, threads,
+                                   smem, s);
 }
 
 // As train_attention_fwd, plus its out and lse, dout (G, L, hd) f32 and the
-// gradients dq, dk, dv (G, L, hd) f32. Where resident the strip kernel runs
-// with the launch geometry (groups a CTA, strip rows tq, threads a group
-// nts, dK/dV units a thread nku, shared bytes smem) and dsum is not read;
-// else the wide kernels, with dsum (G, L) f32 scratch for D_q = dO_q . out_q,
-// and the geometry is not read.
+// gradients dq, dk, dv (G, L, hd) f32; the strip kernel with the launch
+// geometry (groups a CTA, strip rows tq, threads a group nts, dK/dV units a
+// thread nku, shared bytes smem), refused unless valid_bwd_geometry
+// accepts it.
 int train_attention_bwd(const void* q, const void* k, const void* v, const void* keep,
                         const void* out, const void* lse, const void* dout, void* dq, void* dk,
-                        void* dv, void* dsum, int g, int l, int hd, int n_pairs, int groups,
-                        int tq, int nts, int nku, size_t smem, void* stream) {
-  if (!valid_shape(g, l, hd, n_pairs)) return (int)cudaErrorInvalidValue;
+                        void* dv, int g, int l, int hd, int n_pairs, int groups, int tq, int nts,
+                        int nku, size_t smem, void* stream) {
+  if (!valid_shape(g, l, hd, n_pairs) || !resident(l, hd) ||
+      !valid_bwd_geometry(l, hd, groups, tq, nts, nku, smem))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident(l, hd)) {
-    if (!valid_bwd_geometry(l, hd, groups, tq, nts, nku, smem)) return (int)cudaErrorInvalidValue;
 #define BWD(HD, NKU)                                                                          \
   launch_bwd<HD, NKU>(q, k, v, keep, out, lse, dout, dq, dk, dv, g, l, hd, n_pairs, groups, tq, \
                       nts, smem, s)
-    if (hd <= 16) {
-      if (nku == 1) return BWD(16, 1);
-      if (nku == 2) return BWD(16, 2);
-    } else {
-      if (nku == 1) return BWD(32, 1);
-      if (nku == 2) return BWD(32, 2);
-      if (nku == 4) return BWD(32, 4);
-    }
-#undef BWD
-    return (int)cudaErrorInvalidValue;
+  if (hd <= 16) {
+    if (nku == 1) return BWD(16, 1);
+    if (nku == 2) return BWD(16, 2);
+  } else {
+    if (nku == 1) return BWD(32, 1);
+    if (nku == 2) return BWD(32, 2);
+    if (nku == 4) return BWD(32, 4);
   }
-  if (hd <= 32)
-    return launch_bwd_wide<1>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
-                              s);
-  if (hd <= 64)
-    return launch_bwd_wide<2>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
-                              s);
-  return launch_bwd_wide<4>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs,
-                            s);
+#undef BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// As train_attention_fwd, for every shape up to hd = 128 that the resident
+// kernels do not take (L > 512 or hd > 32): the streamed forward with the
+// launch geometry (keys a stage, shared bytes), refused unless
+// valid_stream_geometry accepts it.
+int train_attention_fwd_stream(const void* q, const void* k, const void* v, const void* keep,
+                               void* out, void* lse, int g, int l, int hd, int n_pairs, int cols,
+                               size_t smem, void* stream) {
+  if (!valid_shape(g, l, hd, n_pairs) || resident(l, hd) ||
+      !valid_stream_geometry(0, hd, cols, smem))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FWD(HD) launch_fwd_stream<HD>(q, k, v, keep, out, lse, g, l, hd, n_pairs, cols, smem, s)
+  switch (stream_hd(hd)) {
+    case 16: return FWD(16);
+    case 32: return FWD(32);
+    case 64: return FWD(64);
+    default: return FWD(128);
+  }
+#undef FWD
+}
+
+// As train_attention_bwd, for the shapes of train_attention_fwd_stream: the
+// streamed dQ kernel (keys a stage cols, shared bytes smem), which also
+// writes D_q = dO_q . out_q to dsum, (G, L) f32 scratch, then the streamed
+// dK/dV kernel (queries a stage kv_cols, kv_smem), each refused unless
+// valid_stream_geometry accepts it.
+int train_attention_bwd_stream(const void* q, const void* k, const void* v, const void* keep,
+                               const void* out, const void* lse, const void* dout, void* dq,
+                               void* dk, void* dv, void* dsum, int g, int l, int hd, int n_pairs,
+                               int cols, size_t smem, int kv_cols, size_t kv_smem, void* stream) {
+  if (!valid_shape(g, l, hd, n_pairs) || resident(l, hd) ||
+      !valid_stream_geometry(1, hd, cols, smem) || !valid_stream_geometry(2, hd, kv_cols, kv_smem))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BWD(HD)                                                                              \
+  launch_bwd_stream<HD>(q, k, v, keep, out, lse, dout, dq, dk, dv, dsum, g, l, hd, n_pairs, cols, \
+                        smem, kv_cols, kv_smem, s)
+  switch (stream_hd(hd)) {
+    case 16: return BWD(16);
+    case 32: return BWD(32);
+    case 64: return BWD(64);
+    default: return BWD(128);
+  }
+#undef BWD
 }
 
 }  // extern "C"

@@ -16,18 +16,29 @@ wires them as a ``torch.autograd.Function``.
 On every device the call raises for what the kernels do not take: tensors
 other than float32, tensors that are not contiguous, a head dim above
 ``MAX_HEAD_DIM`` and a ``G`` that ``n_pairs`` does not divide. The kernels
-take any G and any L: up to hd = ``RESIDENT_MAX_HD`` and L = ``MAX_L`` the
-resident ones, the thesis transformer's hd = 16 at the default buckets among
-them, each a walk of each group's causal triangle in query strips with the
-keep mask read along keys (the forward a CTA of groups of one pair in step,
-launched as :func:`train_attention_fwd_launch_geometry` says; the backward as
-:func:`train_attention_bwd_launch_geometry` says); above either bound the wide
-ones, a row a warp, whose only state that grows with L is the backward's
-(G, L) scratch. The loader's buckets past the longest default one
-(data/batching.py rounds the longest sentence up to 64) take the wide kernels,
-as JAX sends them to its XLA attention. The TPU wrapper's tile rules
-(``supported``, ``G_BLOCK``, ``L % 128``, ``_spmd_safe``) and its
-``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are not ported.
+take any G and any L, each shape by one route (:func:`resident`):
+
+- up to hd = ``RESIDENT_MAX_HD`` and L = ``MAX_L``, the thesis transformer's
+  hd = 16 at the default buckets among them, the resident kernels: each
+  walks its groups' causal triangles in query strips with the K and V rows
+  of a whole group in shared memory and the keep mask read along keys (the
+  forward a CTA of groups of one pair in step, launched as
+  :func:`train_attention_fwd_launch_geometry` says; the backward as
+  :func:`train_attention_bwd_launch_geometry` says);
+- every other shape, the streamed kernels: a CTA owns a tile of 32 rows of
+  one group (query rows for the forward and dQ, keys for dK/dV) and
+  streams the other side's rows and the keep mask through shared memory
+  in stages, so that its shared memory does not grow with L; the
+  backward is two launches, dQ (which also writes D = dO . out into a
+  (G, L) scratch) then dK and dV, as
+  :func:`train_attention_stream_launch_geometry` says. The loader's
+  buckets past the longest default one (data/batching.py rounds the
+  longest sentence up to 64) take them, where JAX sends those lengths to
+  its XLA attention.
+
+The TPU wrapper's tile rules (``supported``, ``G_BLOCK``, ``L % 128``,
+``_spmd_safe``) and its ``ARTSPEECH_NO_TRAIN_ATTENTION_KERNEL`` switch are
+not ported.
 
 ``launches_fwd`` and ``launches_bwd`` count kernel launches.
 """
@@ -46,7 +57,7 @@ launches_fwd = 0
 launches_bwd = 0
 
 #: Longest sequence of the resident kernels: the largest default bucket
-#: (data/batching.py DEFAULT_BUCKETS). Longer ones take the wide kernels.
+#: (data/batching.py DEFAULT_BUCKETS). Longer ones take the streamed kernels.
 MAX_L = 512
 #: Largest head dim the kernels take (csrc/train_attention.cu).
 MAX_HEAD_DIM = 128
@@ -60,6 +71,12 @@ BWD_MAX_THREADS = 256
 FWD_MAX_THREADS = 128
 #: Bytes of shared memory one Hopper block may use.
 MAX_SMEM = 232448
+#: Rows of one group a CTA of each streamed kernel owns (train_attention.cu:
+#: stream::ROWS), and its threads: 4 warps, each 8 of the rows.
+STREAM_ROWS = 32
+STREAM_THREADS = 128
+#: The streamed kernels, in the order of train_attention.cu's stream::cta_floats kinds.
+STREAM_KINDS = ("fwd", "dq", "dkv")
 
 _lib = None
 
@@ -181,6 +198,57 @@ def _bwd_geometry(g, l, hd):
     return train_attention_bwd_launch_geometry(g, l, hd)
 
 
+class StreamGeometry(NamedTuple):
+    """How one streamed kernel launches at one shape
+    (:func:`train_attention_stream_launch_geometry`); the kernel is passed
+    ``cols`` and ``smem_bytes``."""
+
+    cols: int        #: rows streamed a stage (32 or 64): keys (fwd, dq) or query rows (dkv)
+    ctas: int        #: ceil(L / STREAM_ROWS) * G: a CTA a tile of one group's rows
+    smem_bytes: int  #: dynamic shared memory a CTA
+
+
+def stream_hd(hd):
+    """Floats a row of the streamed kernels' instances: hd padded to 16, 32,
+    64 or 128."""
+    return next(h for h in (16, 32, 64, 128) if hd <= h)
+
+
+def stream_cta_floats(kind, hd, cols):
+    """Floats of shared memory one CTA of a streamed kernel takes
+    (train_attention.cu: stream::cta_floats): its own ``STREAM_ROWS`` rows
+    (q; q and dO; k and v), two buffers of a stage's ``cols`` streamed rows
+    (k and v; k and v; q, dO, lse and D), two of the stage's keep rows, and
+    at hd above 16 an (8, 40) weight block a warp."""
+    h, r = stream_hd(hd), STREAM_ROWS
+    w = STREAM_THREADS // 32 * 8 * 40 if h > 16 else 0
+    if kind == "fwd":
+        return r * h + 4 * cols * h + 2 * r * (cols + 8) + w
+    if kind == "dq":
+        return 2 * r * h + 4 * cols * h + 2 * r * (cols + 8) + w
+    return 2 * r * h + 4 * cols * h + 4 * cols + 2 * cols * (r + 4) + w
+
+
+def train_attention_stream_launch_geometry(g, l, hd, kind="fwd"):
+    """The launch of one of csrc/train_attention.cu's streamed kernels
+    (``kind`` in ``STREAM_KINDS``) for G groups of length ``l`` and head dim
+    ``hd``, from the shape alone: a CTA of ``STREAM_THREADS`` threads for
+    each tile of ``STREAM_ROWS`` rows of each group, stages of 64 columns at
+    hd <= 32, else 32. Shared memory does not depend on L: at most ~111 KB
+    (dq, hd = 128). On the H100 one group of 32 rows a CTA ran ahead of 2
+    or 4 groups of 16 or 8 rows sharing their keep rows, and 32-column
+    stages ahead of 64 at hd = 64 (64 ahead of 32 for the forward at
+    hd = 16)."""
+    cols = 64 if hd <= 32 else 32
+    return StreamGeometry(cols, -(-l // STREAM_ROWS) * g,
+                          4 * stream_cta_floats(kind, hd, cols))
+
+
+@functools.lru_cache(maxsize=1024)
+def _stream_geometry(g, l, hd, kind):
+    return train_attention_stream_launch_geometry(g, l, hd, kind)
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -188,17 +256,24 @@ def _library():
         lib.train_attention_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                             + [ctypes.c_size_t, ctypes.c_void_p])
         lib.train_attention_fwd.restype = ctypes.c_int
-        lib.train_attention_bwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        lib.train_attention_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                                             + [ctypes.c_size_t, ctypes.c_void_p])
         lib.train_attention_bwd.restype = ctypes.c_int
+        geometry = [ctypes.c_int, ctypes.c_size_t]
+        lib.train_attention_fwd_stream.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                                                   + geometry + [ctypes.c_void_p])
+        lib.train_attention_fwd_stream.restype = ctypes.c_int
+        lib.train_attention_bwd_stream.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                                                   + geometry * 2 + [ctypes.c_void_p])
+        lib.train_attention_bwd_stream.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
 def resident(l: int, hd: int) -> bool:
-    """Whether the forward and backward at (L, hd) run the resident kernels
-    (else the wide ones, a row a warp): hd <= ``RESIDENT_MAX_HD`` and
-    L <= ``MAX_L``."""
+    """Whether the forward and backward at (L, hd) run the resident kernels,
+    which hold a group's rows in shared memory (else the streamed ones):
+    hd <= ``RESIDENT_MAX_HD`` and L <= ``MAX_L``."""
     return hd <= RESIDENT_MAX_HD and l <= MAX_L
 
 
@@ -302,14 +377,16 @@ def _launch_fwd(q, k, v, keep, n_pairs):
     g, l, hd = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((g, l), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), g, l, hd, n_pairs)
     if resident(l, hd):
         geo = _fwd_geometry(g, l, hd)
-        launch = (geo.groups, geo.tq, geo.threads, geo.smem_bytes)
-    else:  # the wide kernel takes no geometry
-        launch = (0,) * 4
-    err = _library().train_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        g, l, hd, n_pairs, *launch, _stream(q.device))
+        err = _library().train_attention_fwd(*args, geo.groups, geo.tq, geo.threads,
+                                             geo.smem_bytes, _stream(q.device))
+    else:
+        geo = _stream_geometry(g, l, hd, "fwd")
+        err = _library().train_attention_fwd_stream(*args, geo.cols, geo.smem_bytes,
+                                                    _stream(q.device))
     if err != 0:
         raise RuntimeError(f"train_attention forward kernel launch failed with CUDA error {err}")
     launches_fwd += 1
@@ -337,15 +414,19 @@ def _launch_bwd(q, k, v, keep, out, lse, do, n_pairs):
     global launches_bwd
     g, l, hd = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     if resident(l, hd):
         geo = _bwd_geometry(g, l, hd)
-        dsum, launch = None, (geo.groups, geo.tq, geo.threads, geo.nku, geo.smem_bytes)
-    else:  # the wide kernels' D_q = dO_q . out_q
-        dsum, launch = torch.empty_like(lse), (0,) * 5
-    err = _library().train_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), keep.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        0 if dsum is None else dsum.data_ptr(), g, l, hd, n_pairs, *launch, _stream(q.device))
+        err = _library().train_attention_bwd(*args, g, l, hd, n_pairs, geo.groups, geo.tq,
+                                             geo.threads, geo.nku, geo.smem_bytes,
+                                             _stream(q.device))
+    else:  # dQ, then dK and dV, with D_q = dO_q . out_q in a scratch between them
+        dsum = torch.empty_like(lse)
+        a, b = (_stream_geometry(g, l, hd, kind) for kind in ("dq", "dkv"))
+        err = _library().train_attention_bwd_stream(
+            *args, dsum.data_ptr(), g, l, hd, n_pairs, a.cols, a.smem_bytes, b.cols, b.smem_bytes,
+            _stream(q.device))
     if err != 0:
         raise RuntimeError(f"train_attention backward kernel launch failed with CUDA error {err}")
     launches_bwd += 1

@@ -53,8 +53,10 @@ Phases, each printing its own lines:
                G = 360, 4,320 and 23,040 (B = 1, 12, 64 of the thesis
                transformer) with L 32 and 128, L 512, 37 and the buckets past
                512 (576, the loader's for a 530-frame sentence, and 1,024:
-               the wide kernels) at G = 360, the all-ones and a seeded
-               dropout keep mask, and L 1, 16, 33, 65,
+               the streamed kernels) at G = 360, and the streamed kernels
+               at (hd, L) (64, 128), (64, 576), (128, 128), (128, 576),
+               (33, 65), (16, 513) and (16, 577) at G = 360, each with the
+               all-ones and a seeded dropout keep mask, and L 1, 16, 33, 65,
                129 and 255 at G = 360 with the dropout keep (the edges of the
                backward's query strips): the forward within 2e-5, dQ/dK/dV
                within 1e-4 * max(|ref|, 1) from the forward kernel's out and
@@ -83,7 +85,8 @@ Phases, each printing its own lines:
                f16, the LSTM at H 168, 256, 512 and 1,024, the training
                attention at hd 48, 64 and 128 with L 37, 128 and 512, at
                (hd, L) (16, 513) and (48, 600), and at hd 8, 17 and 32 with
-               L 128 and 512 (both geometries; the forward's out and lse and
+               L 128 and 512 (the geometries, "stream:" where the streamed
+               kernels run; the forward's out and lse and
                the backward the same bits on a second launch), the decode at
                hd 80, 128 and 256 (f32, bf16 and f16 caches); the
                instance each width takes (the thesis widths keep
@@ -91,7 +94,9 @@ Phases, each printing its own lines:
                instance as GRU_FWD_INSTANCE and LSTM_FWD_INSTANCE say), the
                outer bounds refused (H 1,025, hd 129, decode hd 257),
                and one timing of each wide instance beside the same PyTorch
-               call (cuDNN's GRU and LSTM, scaled_dot_product_attention) at
+               call (cuDNN's GRU and LSTM, the decode's
+               scaled_dot_product_attention; the streamed training
+               attention's at hd 64 and 128 are in timing) at
                its shape, and the recurrences' cluster steps at H 256 beside
                cuDNN there;
   4. main    — the full-width ArtSpeech (vocab 64, hidden 128) synthesis path:
@@ -257,7 +262,7 @@ Phases, each printing its own lines:
                one step at dropout 0 on the card against the CPU (as the
                ArtSpeech one); then a bucket past 512: the batch
                BucketedLoader makes of two sentences of 530 and 519 frames
-               (L = 576, the wide training-attention kernels), one step at
+               (L = 576, the streamed training-attention kernels), one step at
                dropout 0.1 with exactly 4 + 4 train_attention launches, its
                ms and peak memory, and one at dropout 0 on the card against
                the CPU and float64;
@@ -292,9 +297,10 @@ Phases, each printing its own lines:
                version and the profiler's device time at n_rows = 128, cross-
                channel); the training attention forward
                and backward at the B = 12 and B = 64 shapes (L = 128, the
-               dropout keep) and on the wide route at B = 2 with L 576 and
-               1,024, the same way (graph_ms, back to back, the
-               profiler's device time and the share of the bound), against
+               dropout keep), on the streamed route at B = 2 with L 576 and
+               1,024 and at B = 12, L = 128 with hd 64 and 128, the same
+               way (graph_ms, back to back, the profiler's device time and
+               the share of the bound), against
                scaled_dot_product_attention
                (is_causal, all-ones keep: forward, and forward + backward
                minus forward); both LSTM kernels at T = 128, H = 128, B = 12
@@ -576,9 +582,17 @@ TRAIN_ATTN_PAIRS = 90
 #: Lengths at the edges of the training-attention backward's query strips
 #: (one row, a strip, a strip and one, ...), held with the dropout keep at B = 1.
 TRAIN_ATTN_EDGE_L = (1, 16, 33, 65, 129, 255, 512)
-#: Buckets past MAX_L = 512 (the wide kernels at hd 16): the one the loader
-#: adds for a LONG_SENTENCE-frame sentence (rounded up to 64) and 1,024.
+#: Buckets past MAX_L = 512 (the streamed kernels at hd 16): the one the
+#: loader adds for a LONG_SENTENCE-frame sentence (rounded up to 64) and 1,024.
 TRAIN_ATTN_LONG_L = (576, 1024)
+#: (hd, L) of the streamed kernels' own [kernel] cases, at B = 1 with both
+#: keeps: hd 64 and 128 at L 128 and 576, hd 33 (rows padded to 64) at 65,
+#: and at hd 16 one past MAX_L and one past the loader's 576.
+TRAIN_ATTN_STREAM_CASES = ((64, 128), (64, 576), (128, 128), (128, 576), (33, 65), (16, 513),
+                           (16, 577))
+#: Head dims of the timed shapes at B = 12, L = 128 beside the transformer's
+#: 16 (the streamed kernels).
+TRAIN_ATTN_TIMED_HD = (64, 128)
 LONG_SENTENCE = 530  # frames: 9.6 s at gottingen's 55 fps
 LONG_B = 2
 TRAIN_T = 128
@@ -633,7 +647,7 @@ BWD_INSTANCE = {6: "cluster", 130: "cluster", 168: "cluster", 256: "cluster", 51
 WIDE_TRAIN_ATTN = [(hd, l) for hd in (48, 64, 128) for l in (37, 128, 512)] + [
     (16, 513), (48, 600)] + [(hd, l) for hd in (8, 17, 32) for l in (128, 512)]
 WIDE_FLASH_HD = (80, 128, 256)
-WIDE_TIMED_H, WIDE_TIMED_ATTN_HD, WIDE_TIMED_FLASH_HD = 256, 64, 128
+WIDE_TIMED_H, WIDE_TIMED_FLASH_HD = 256, 128
 #: The forwards' timed wide instances: at H = 256 they take the cluster step.
 WIDE_TIMED_GRU_FWD_H = WIDE_TIMED_LSTM_FWD_H = 512
 #: The backwards' timed wide instances: at H = 256 they take the cluster step.
@@ -1274,9 +1288,15 @@ def train_attention_inputs(g, l, n_pairs, seed, hd=HD):
 
 def train_attention_geometry_text(g, l, hd, n_pairs):
     """Both kernels' launch geometries at one shape, for a [kernel] or
-    [widths] line ("wide" where the wide kernels run)."""
+    [widths] line (the streamed kernels' with "stream:", the backward's dQ
+    and dK/dV kernels each)."""
     if not hopper_train_attention.resident(l, hd):
-        return dict(fwd_geometry="wide", bwd_geometry="wide")
+        geo = {kind: hopper_train_attention.train_attention_stream_launch_geometry(g, l, hd, kind)
+               for kind in hopper_train_attention.STREAM_KINDS}
+        text = {kind: f"rows={hopper_train_attention.STREAM_ROWS},cols={x.cols},ctas={x.ctas},"
+                      f"smem={x.smem_bytes}" for kind, x in geo.items()}
+        return dict(fwd_geometry=f"stream:{text['fwd']}",
+                    bwd_geometry=f"stream:dq:{text['dq']};dkv:{text['dkv']}")
     f = hopper_train_attention.train_attention_fwd_launch_geometry(g, l, hd, n_pairs)
     b = hopper_train_attention.train_attention_bwd_launch_geometry(g, l, hd)
     return dict(fwd_geometry=f"groups={f.groups},tq={f.tq},threads={f.threads},ctas={f.ctas},"
@@ -1286,16 +1306,18 @@ def train_attention_geometry_text(g, l, hd, n_pairs):
 
 
 def train_attention_cases():
-    """(G, L, n_pairs values): every batch's G at L 32 and 128, then L 512, a
-    length that is no bucket (37) and the buckets past 512
-    (TRAIN_ATTN_LONG_L, the wide kernels) at B = 1, with the all-ones keep
-    (n_pairs 1) and the dropout keep; then the strip edges at B = 1 with the
-    dropout keep."""
+    """(G, L, hd, n_pairs values): at hd 16 every batch's G at L 32 and 128,
+    then L 512, a length that is no bucket (37) and the buckets past 512
+    (TRAIN_ATTN_LONG_L, the streamed kernels) at B = 1, with the all-ones
+    keep (n_pairs 1) and the dropout keep; the streamed kernels' own cases
+    (TRAIN_ATTN_STREAM_CASES) at B = 1 with both keeps; then the strip edges
+    at B = 1 with the dropout keep."""
     both = (1, TRAIN_ATTN_PAIRS)
-    cases = [(g, l, both) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
-        (TRAIN_ATTN_G[1], l, both) for l in (512, 37, *TRAIN_ATTN_LONG_L)]
-    return cases + [(TRAIN_ATTN_G[1], l, (TRAIN_ATTN_PAIRS,)) for l in TRAIN_ATTN_EDGE_L
-                    if (TRAIN_ATTN_G[1], l, both) not in cases]
+    cases = [(g, l, HD, both) for g in TRAIN_ATTN_G.values() for l in (32, 128)] + [
+        (TRAIN_ATTN_G[1], l, HD, both) for l in (512, 37, *TRAIN_ATTN_LONG_L)] + [
+        (TRAIN_ATTN_G[1], l, hd, both) for hd, l in TRAIN_ATTN_STREAM_CASES]
+    return cases + [(TRAIN_ATTN_G[1], l, HD, (TRAIN_ATTN_PAIRS,)) for l in TRAIN_ATTN_EDGE_L
+                    if (TRAIN_ATTN_G[1], l, HD, both) not in cases]
 
 
 def train_attention_vs_plain():
@@ -1304,9 +1326,10 @@ def train_attention_vs_plain():
     second launch of each bit for bit (out and lse; dQ, dK, dV).
     Returns the largest absolute errors of the forward and of dQ/dK/dV."""
     worst_fwd = worst_bwd = 0.0
-    for g, l, pairs in train_attention_cases():
+    for g, l, hd, pairs in train_attention_cases():
         for n_pairs in pairs:
-            q, k, v, keep, do = train_attention_inputs(g, l, n_pairs, seed=g + l + n_pairs)
+            q, k, v, keep, do = train_attention_inputs(g, l, n_pairs,
+                                                       seed=g + l + n_pairs + hd - HD, hd=hd)
             out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, n_pairs)
             grads = hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
                                                                    n_pairs)
@@ -1321,8 +1344,9 @@ def train_attention_vs_plain():
                 q, k, v, keep, out, lse, do, n_pairs), grads)
             fwd_same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_fwd(
                 q, k, v, keep, n_pairs), (out, lse))
-            phase("kernel", kernel="train_attention", G=g, L=l, hd=HD, n_pairs=n_pairs,
-                  **train_attention_geometry_text(g, l, HD, n_pairs),
+            phase("kernel", kernel="train_attention", G=g, L=l, hd=hd, n_pairs=n_pairs,
+                  route="resident" if hopper_train_attention.resident(l, hd) else "stream",
+                  **train_attention_geometry_text(g, l, hd, n_pairs),
                   keep="ones" if n_pairs == 1 else "dropout_0.1", fwd_tol=TRAIN_ATTN_FWD_TOL,
                   bwd_tol=TRAIN_ATTN_BWD_TOL, max_abs_err_fwd=f"{fwd_err:.3g}",
                   max_abs_err_bwd=f"{bwd_abs:.3g}",
@@ -1330,14 +1354,14 @@ def train_attention_vs_plain():
                   fwd_same_bits=fwd_same, bwd_same_bits=same)
             check(np.isfinite(fwd_err) and fwd_err <= TRAIN_ATTN_FWD_TOL,
                   f"train_attention forward disagrees with its plain version at G={g} L={l} "
-                  f"n_pairs={n_pairs}: {fwd_err}")
+                  f"hd={hd} n_pairs={n_pairs}: {fwd_err}")
             check(all(np.isfinite(e) and e <= TRAIN_ATTN_BWD_TOL for e in rel.values()),
                   f"train_attention backward disagrees with its plain version at G={g} L={l} "
-                  f"n_pairs={n_pairs}: {rel}")
+                  f"hd={hd} n_pairs={n_pairs}: {rel}")
             check(same, f"train_attention backward gave other bits on a second launch at G={g} "
-                        f"L={l} n_pairs={n_pairs}")
+                        f"L={l} hd={hd} n_pairs={n_pairs}")
             check(fwd_same, f"train_attention forward gave other bits on a second launch at "
-                            f"G={g} L={l} n_pairs={n_pairs}")
+                            f"G={g} L={l} hd={hd} n_pairs={n_pairs}")
             worst_fwd, worst_bwd = max(worst_fwd, fwd_err), max(worst_bwd, bwd_abs)
             del q, k, v, keep, do, out, lse, grads, ref, ref_grads
     return worst_fwd, worst_bwd
@@ -1650,7 +1674,7 @@ def widths():
             fwd_same = repeats_bitwise(lambda: hopper_train_attention.fused_causal_attend_fwd(
                 q, k, v, keep, n_pairs), (out, lse))
             phase("widths", kernel="train_attention", hd=hd, L=l, G=8, n_pairs=n_pairs,
-                  instance="resident" if hopper_train_attention.resident(l, hd) else "wide",
+                  instance="resident" if hopper_train_attention.resident(l, hd) else "stream",
                   **train_attention_geometry_text(8, l, hd, n_pairs),
                   fwd_tol=TRAIN_ATTN_FWD_TOL, bwd_tol=TRAIN_ATTN_BWD_TOL,
                   max_abs_err_fwd=f"{fwd_err:.3g}", rel_err_bwd=f"{bwd_err:.3g}",
@@ -1731,10 +1755,7 @@ def time_wide_instances():
     gru_fwd and lstm_fwd at H = 512 (T = 128, B = 16, both directions;
     cuDNN's nn.GRU and nn.LSTM forward); gru_bwd and lstm_bwd at H = 512 (the
     same T, B and directions; cuDNN's nn.GRU and nn.LSTM backward timed
-    alone); the training attention at hd = 64
-    (G = 4,320, L = 128, the dropout keep; scaled_dot_product_attention with
-    is_causal, forward, and forward + backward minus forward); the decode at
-    hd = 128 (the B = 12 cross-channel G, 128 rows;
+    alone); the decode at hd = 128 (the B = 12 cross-channel G, 128 rows;
     scaled_dot_product_attention over (G, 1, 1, hd) x (G, 1, S, hd)). Beside
     them, under keys of their own, the cluster steps at H = 256 (the width
     the wide instances ran at until the cluster steps took it) with cuDNN
@@ -1766,23 +1787,7 @@ def time_wide_instances():
     with torch.inference_mode():
         library["gru_fwd"] = cuda_ms(lambda: cudnn(x), 5)
     del xp, wh, bh, mask, cudnn, x
-    g, hd = TRAIN_ATTN_G[12], WIDE_TIMED_ATTN_HD
-    q, k, v, keep, do = train_attention_inputs(g, TRAIN_T, TRAIN_ATTN_PAIRS, seed=7, hd=hd)
-    out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
-    results["train_attention_fwd"] = cuda_ms(
-        lambda: hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS), 5)
-    results["train_attention_bwd"] = cuda_ms(
-        lambda: hopper_train_attention.fused_causal_attend_bwd(q, k, v, keep, out, lse, do,
-                                                               TRAIN_ATTN_PAIRS), 5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    sq, sk, sv = (a[:, None] for a in (q, k, v))
-    gq, gk, gv = (a.clone().requires_grad_() for a in (sq, sk, sv))
-    library["train_attention_fwd"] = cuda_ms(lambda: sdpa(sq, sk, sv, is_causal=True, scale=1.0),
-                                             5)
-    library["train_attention_bwd"] = cuda_ms(
-        lambda: sdpa(gq, gk, gv, is_causal=True, scale=1.0).backward(do[:, None]), 5) - \
-        library["train_attention_fwd"]
-    del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
     g_flash = flash_groups(12)["inter"]
     k, v, q = flash_inputs(g_flash, torch.float32, seed=7, hd=WIDE_TIMED_FLASH_HD)
     results["flash_decode"] = cuda_ms(lambda: hopper_attention.flash_decode_attend(k, v, q,
@@ -1794,8 +1799,6 @@ def time_wide_instances():
               **{k: f"T={t},B={b},H={WIDE_TIMED_BWD_H},directions=2"
                  for k in ("gru_bwd", "lstm_bwd")},
               "lstm_fwd": f"T={t},B={b},H={WIDE_TIMED_LSTM_FWD_H},directions=2",
-              "train_attention_fwd": f"G={g},L={TRAIN_T},hd={hd}",
-              "train_attention_bwd": f"G={g},L={TRAIN_T},hd={hd}",
               "flash_decode": f"G={g_flash},S={DECODE_T},hd={WIDE_TIMED_FLASH_HD}"}
     h256_shape = f"T={t},B={b},H={h},directions=2"
     phase("timing", kernel="gru_fwd", instance="cluster", shape=h256_shape, dtype="float32",
@@ -3453,13 +3456,17 @@ def transformer_train_against_cpu():
     - the metrics within 1e-4 relative;
     - the card's gradients no further from float64 (global relative L2 over
       all parameters) than twice the CPU's, or 1e-4;
-    - the updated parameters where |g| >= 100 * eps and both sides'
-      gradients have one sign: AdamW's first update moves a component by
+    - the updated parameters where both sides' gradients have one sign and
+      |g| >= 100 * eps: AdamW's first update moves a component by
       lr * g / (|g| + eps) (and the same weight decay on both sides), which
       two same-sign gradients of |g| >= 100 * eps can part by at most
-      lr * 1e-2, so a larger gap is the optimizer's; and every component
-      whose sign differs holds a gradient below 1e-2 of its tensor's
-      largest;
+      lr * 1e-2, so a larger gap is the optimizer's; where only the CPU's
+      |g| reaches 100 * eps, that bound does not hold (a card gradient of
+      1e-7 moves its component by 0.91 lr, a CPU one of 1e-6 by 0.99 lr),
+      so there the card's gradient must be no further from float64 than
+      the CPU's, or the parameters within lr * 1e-2 all the same; and every
+      component whose sign differs holds a gradient below 1e-2 of its
+      tensor's largest;
     - the attention key biases' gradients (exactly zero in exact arithmetic)
       below 1e-6 of the largest gradient on both sides.
     The per-tensor relative figures are printed."""
@@ -3504,13 +3511,15 @@ def long_bucket_path():
     """The thesis transformer's train step (dropout 0.1) on long_bucket_batch
     (L = TRAIN_ATTN_LONG_L[0], past the resident kernels' MAX_L): exactly one
     forward and one backward train_attention launch a decoder layer, on the
-    wide kernels, a finite loss, its time and peak memory; then the same step
+    streamed kernels, a finite loss, its time, device breakdown and peak
+    memory; then the same step
     at dropout 0 on the card and on the CPU against float64
     (transformer_step_against_f64). Returns the launches of the counted step."""
     batch = long_bucket_batch()
     l = batch["tokens"].shape[1]
     check(l == TRAIN_ATTN_LONG_L[0] and not hopper_train_attention.resident(l, HD),
-          f"the loader's long bucket is L={l}, expected {TRAIN_ATTN_LONG_L[0]} on the wide kernels")
+          f"the loader's long bucket is L={l}, expected {TRAIN_ATTN_LONG_L[0]} on the streamed "
+          f"kernels")
     st = transformer_state(None)
     layers = st.model.num_layers
     step = make_transformer_train_step(TO_MM)
@@ -3527,6 +3536,8 @@ def long_bucket_path():
     check(np.isfinite(loss), f"long-bucket step: loss {loss}")
     step_ms, peak = timed_step(step, st, on_card, gen, f"train_transformer_L{l}", iters=3,
                                breakdown=False)
+    device_breakdown(lambda: step(st, on_card, gen), step_ms, f"train_transformer_L{l}", steps=1,
+                     host_ops=False)
     phase("train_transformer", long_bucket=f"B={LONG_B},L={l}",
           lengths=",".join(str(int(n)) for n in batch["lengths"]), dropout=TRAIN["dropout"],
           loss=f"{loss:.6g}", step_ms=f"{step_ms:.6g}",
@@ -3560,14 +3571,22 @@ def step_against_f64(tag, label, out, exact, zero=frozenset(), own=frozenset()):
     card, cpu = out["cuda"], out["cpu"]
     metric_err = max(abs(card[0][k] - v) / max(abs(v), 1e-30) for k, v in cpu[0].items())
     err_card, err_cpu = global_err(card[1]), global_err(cpu[1])
-    param_err, flips, flip_share = 0.0, 0, 0.0
+    param_err, flips, flip_share, cpu_only, further = 0.0, 0, 0.0, 0, 0
     for n, p in cpu[2].items():
         if n in own:
             continue
         g_card, g_cpu = card[1][n], cpu[1][n]
-        same = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_cpu.abs() >= 100 * 1e-8)
+        moved = (card[2][n] - p).abs() / TRAIN["lr"]
+        agree = (torch.sign(g_card) == torch.sign(g_cpu)) & (g_cpu.abs() >= 100 * 1e-8)
+        same = agree & (g_card.abs() >= 100 * 1e-8)
         if same.any():
-            param_err = max(param_err, ((card[2][n] - p).abs()[same].max() / TRAIN["lr"]).item())
+            param_err = max(param_err, moved[same].max().item())
+        # Only the CPU's |g| past 100 eps: the card's gradient as near float64
+        # as the CPU's, or the update within lr * 1e-2.
+        lone = agree & (g_card.abs() < 100 * 1e-8)
+        cpu_only += int(lone.sum())
+        further += int((lone & ((g_card - exact[n]).abs() > (g_cpu - exact[n]).abs())
+                        & (moved > 1e-2)).sum())
         flipped = torch.sign(g_card) != torch.sign(g_cpu)
         if flipped.any() and n not in zero:
             flips += int(flipped.sum())
@@ -3581,13 +3600,17 @@ def step_against_f64(tag, label, out, exact, zero=frozenset(), own=frozenset()):
           grads_vs_f64_global_rel_card=f"{err_card:.3g}", grads_vs_f64_global_rel_cpu=f"{err_cpu:.3g}",
           grads_card_vs_cpu_max_rel_per_tensor=f"{per_tensor['card_vs_cpu']:.3g}",
           grads_cpu_vs_f64_max_rel_per_tensor=f"{per_tensor['cpu_vs_f64']:.3g}",
-          params_diff_over_lr_same_sign_g_ge_100eps=f"{param_err:.3g}", sign_flips=flips,
+          params_diff_over_lr_same_sign_g_ge_100eps=f"{param_err:.3g}",
+          cpu_only_g_ge_100eps=cpu_only, cpu_only_card_further_from_f64=further, sign_flips=flips,
           sign_flip_max_share=f"{flip_share:.3g}",
           **({"zero_grads_over_largest": f"{zero_share:.3g}"} if zero else {}))
     check(metric_err <= 1e-4, f"card and CPU {tag} steps disagree on the metrics: {metric_err}")
     check(err_card <= max(2 * err_cpu, 1e-4),
           f"the card's gradients are further from float64 ({err_card}) than twice the CPU's ({err_cpu})")
     check(param_err <= 1e-2, f"card and CPU updated parameters part by {param_err} lr")
+    check(further == 0, f"{further} components whose |g| passes 100 eps on the CPU only: the "
+                        f"card's gradient further from float64 than the CPU's and the update "
+                        f"beyond lr * 1e-2")
     check(flip_share <= 1e-2, f"a gradient of {flip_share} of its tensor's largest flips sign")
     check(zero_share <= 1e-6, f"exactly-zero gradients reach {zero_share} of the largest")
 
@@ -4604,17 +4627,17 @@ def flash_bound_ms(n_rows, g, elem_bytes):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def train_attention_bound_ms(g, l, n_pairs, backward):
+def train_attention_bound_ms(g, l, n_pairs, backward, hd=HD):
     """Least time for the work over the causal (q, k) pairs: the forward
     reads q, k, v and keep and writes the output and lse once, 4 hd
     operations a pair (score and PV); the backward's function reads q, k, v,
     keep and dO and writes dq, dk, dv once, 10 hd operations a pair (score,
     dP, dV, dQ, dK)."""
     pairs = g * l * (l + 1) // 2
-    rows = 4 * g * l * HD
+    rows = 4 * g * l * hd
     keep = 4 * n_pairs * l * l
     bytes_moved = 7 * rows + keep if backward else 4 * rows + keep + 4 * g * l
-    ops = (10 if backward else 4) * HD * pairs
+    ops = (10 if backward else 4) * hd * pairs
     by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -4622,19 +4645,24 @@ def train_attention_bound_ms(g, l, n_pairs, backward):
 def time_train_attention():
     """Both kernels at the B = 12 and B = 64 shapes (G = 4,320 and 23,040,
     L = 128, hd 16, the dropout keep with 90 pairs; each call moves 100 MB or
-    more, past the 50 MB L2), and on the wide route at the long-bucket
-    step's B = LONG_B (G = 720) at each L of TRAIN_ATTN_LONG_L: by graph_ms
-    (device time without host gaps), back to back and by profiler device
-    time, the share of the bound (bound / graph_ms), their plain versions,
-    the bound, and scaled_dot_product_attention on (G, 1, L, hd) with
-    is_causal and an all-ones keep (forward, and forward + backward minus
-    forward) as the yardstick. Returns {(kernel, B, L): numbers}."""
+    more, past the 50 MB L2; the resident kernels), on the streamed route at
+    the long-bucket step's B = LONG_B (G = 720) at each L of
+    TRAIN_ATTN_LONG_L, and at B = 12, L = 128 with the head dims of
+    TRAIN_ATTN_TIMED_HD: by graph_ms (device time without host gaps), back to
+    back and by profiler device time, the share of the bound (bound /
+    graph_ms), their plain versions, the bound, and
+    scaled_dot_product_attention on (G, 1, L, hd) with is_causal and an
+    all-ones keep (forward, and forward + backward minus forward) as the
+    yardstick. Returns {(kernel, B, L, hd): numbers}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     results = {}
-    shapes = [(b, TRAIN_T) for b in TRAIN_BATCHES] + [(LONG_B, l) for l in TRAIN_ATTN_LONG_L]
-    for b, l in shapes:
+    shapes = ([(b, TRAIN_T, HD) for b in TRAIN_BATCHES]
+              + [(LONG_B, l, HD) for l in TRAIN_ATTN_LONG_L]
+              + [(TRAIN["batch"], TRAIN_T, hd) for hd in TRAIN_ATTN_TIMED_HD])
+    for b, l, hd in shapes:
         g = b * TRAIN_ATTN_G[1]
-        q, k, v, keep, do = train_attention_inputs(g, l, TRAIN_ATTN_PAIRS, seed=b + l)
+        q, k, v, keep, do = train_attention_inputs(g, l, TRAIN_ATTN_PAIRS, seed=b + l + hd - HD,
+                                                   hd=hd)
         out, lse = hopper_train_attention.fused_causal_attend_fwd(q, k, v, keep, TRAIN_ATTN_PAIRS)
         sq, sk, sv = (x[:, None] for x in (q, k, v))
         gq, gk, gv = (x.clone().requires_grad_() for x in (sq, sk, sv))
@@ -4662,21 +4690,21 @@ def time_train_attention():
                     q, k, v, keep, TRAIN_ATTN_PAIRS), False),
                 ("train_attention_bwd", bwd, lambda: hopper_train_attention.fused_causal_attend_bwd_reference(
                     q, k, v, keep, do, TRAIN_ATTN_PAIRS), True)):
-            bound_ms, bound_by = train_attention_bound_ms(g, l, TRAIN_ATTN_PAIRS, backward)
-            graph = graph_ms(fn, 10 if l <= hopper_train_attention.MAX_L else 3)
-            traced = (f"{name}_kernel" if hopper_train_attention.resident(l, HD)
-                      else ("train_attention_dq_wide_kernel", "train_attention_dkv_wide_kernel")
-                      if backward else "train_attention_fwd_wide_kernel")
-            results[(name, b, l)] = dict(
+            bound_ms, bound_by = train_attention_bound_ms(g, l, TRAIN_ATTN_PAIRS, backward, hd)
+            graph = graph_ms(fn, 10)
+            traced = (f"{name}_kernel" if hopper_train_attention.resident(l, hd)
+                      else ("train_attention_dq_stream_kernel", "train_attention_dkv_stream_kernel")
+                      if backward else "train_attention_fwd_stream_kernel")
+            results[(name, b, l, hd)] = dict(
                 graph_ms=graph, share_of_bound=bound_ms / graph,
                 ms=cuda_ms(fn, 20), device_ms=kernel_device_ms(fn, 10, traced),
                 plain_ms=cuda_ms(plain, 3), bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=cuda_ms(lib_both, 10) - lib_fwd_ms if backward else lib_fwd_ms)
-            geometry = train_attention_geometry_text(g, l, HD, TRAIN_ATTN_PAIRS)
-            phase("timing", kernel=name, B=b, G=g, L=l, hd=HD, n_pairs=TRAIN_ATTN_PAIRS,
+            geometry = train_attention_geometry_text(g, l, hd, TRAIN_ATTN_PAIRS)
+            phase("timing", kernel=name, B=b, G=g, L=l, hd=hd, n_pairs=TRAIN_ATTN_PAIRS,
                   dtype="float32", library_max_abs_diff_fwd_ones=f"{lib_diff:.3g}",
                   geometry=geometry["bwd_geometry" if backward else "fwd_geometry"],
-                  **fmt(results[(name, b, l)]))
+                  **fmt(results[(name, b, l, hd)]))
         del q, k, v, keep, do, out, lse, sq, sk, sv, gq, gk, gv
     return results
 
@@ -5526,7 +5554,7 @@ def main():
     numbers = {"gru_fwd": gru_fwd[(BENCH_T, BENCH_B)], "gru_bwd": gru_bwd[BENCH_B],
                "p2cp": time_p2cp(), "min_dist": time_min_dist(),
                "flash_decode": flash[(12, torch.float32, "inter", DECODE_T)],
-               **{k: train_attention[(k, TRAIN["batch"], TRAIN_T)]
+               **{k: train_attention[(k, TRAIN["batch"], TRAIN_T, HD)]
                   for k in ("train_attention_fwd", "train_attention_bwd")}}
     lstm = time_lstm()
     numbers.update({k: lstm[k][LSTM_SHAPES[0][1]] for k in ("lstm_fwd", "lstm_bwd")})
@@ -5590,9 +5618,9 @@ def main():
                  "by_shape": {f"B={b},{str(d).split('.')[-1]}": r
                               for (b, d, *what), r in flash.items()
                               if what == ["inter", DECODE_T]}},
-             **{k: {"device_ms": train_attention[(k, TRAIN["batch"], TRAIN_T)]["device_ms"],
-                    "by_shape": {f"B={b},L={l}": r for (n, b, l), r in train_attention.items()
-                                 if n == k}}
+             **{k: {"device_ms": train_attention[(k, TRAIN["batch"], TRAIN_T, HD)]["device_ms"],
+                    "by_shape": {f"B={b},L={l},hd={hd}": r
+                                 for (n, b, l, hd), r in train_attention.items() if n == k}}
                 for k in ("train_attention_fwd", "train_attention_bwd")}}
     extra["lstm_bwd"]["rel_err"] = lstm_bwd_rel_err
     extra["lstm_fwd"]["graph_ms"] = lstm["lstm_fwd"][LSTM_SHAPES[0][1]]["graph_ms"]

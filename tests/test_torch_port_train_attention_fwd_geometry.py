@@ -109,13 +109,17 @@ def test_thesis_shapes():
 
 
 class _FakeLibrary:
-    """Records the arguments of each call of the forward's entry point."""
+    """Records the arguments of each call of the forward's entry points."""
 
     def __init__(self):
         self.calls = []
 
     def train_attention_fwd(self, *args):
-        self.calls.append(args)
+        self.calls.append(("resident", args))
+        return 0
+
+    def train_attention_fwd_stream(self, *args):
+        self.calls.append(("stream", args))
         return 0
 
 
@@ -133,14 +137,16 @@ def test_wrapper_passes_the_rule_geometry(monkeypatch):
         keep = torch.ones((n_pairs, l, l))
         out, lse = hopper_train_attention._launch_fwd(q, q, q, keep, n_pairs)
         assert out.shape == q.shape and lse.shape == (g, l)
-        args = fake.calls[-1]
+        route, args = fake.calls[-1]
         # 6 pointers, G, L, hd, n_pairs, geometry, stream.
         assert args[6:10] == (g, l, hd, n_pairs) and args[-1] == 0
         if hopper_train_attention.resident(l, hd):
             geo = hopper_train_attention.train_attention_fwd_launch_geometry(g, l, hd, n_pairs)
+            assert route == "resident"
             assert args[10:14] == (geo.groups, geo.tq, geo.threads, geo.smem_bytes)
-        else:  # the wide kernel: no geometry
-            assert args[10:14] == (0,) * 4
+        else:  # the streamed kernel and its own rule
+            geo = hopper_train_attention.train_attention_stream_launch_geometry(g, l, hd)
+            assert route == "stream" and args[10:12] == (geo.cols, geo.smem_bytes)
     assert hopper_train_attention.launches_fwd == before + 5
     assert "train_attention" not in _build._libraries
 

@@ -95,13 +95,17 @@ def test_thesis_shapes():
 
 
 class _FakeLibrary:
-    """Records the arguments of each call of the backward's entry point."""
+    """Records the arguments of each call of the backward's entry points."""
 
     def __init__(self):
         self.calls = []
 
     def train_attention_bwd(self, *args):
-        self.calls.append(args)
+        self.calls.append(("resident", args))
+        return 0
+
+    def train_attention_bwd_stream(self, *args):
+        self.calls.append(("stream", args))
         return 0
 
 
@@ -118,15 +122,15 @@ def test_wrapper_passes_the_rule_geometry(monkeypatch):
         q = torch.zeros((g, l, hd))
         keep = torch.ones((n_pairs, l, l))
         hopper_train_attention._launch_bwd(q, q, q, keep, q, torch.zeros((g, l)), q, n_pairs)
-        args = fake.calls[-1]
-        # 11 pointers (dsum 0 for the strip kernel), G, L, hd, n_pairs, geometry, stream.
-        assert args[11:15] == (g, l, hd, n_pairs) and args[-1] == 0
+        route, args = fake.calls[-1]
+        assert args[-1] == 0
         if hopper_train_attention.resident(l, hd):
+            # 10 pointers, G, L, hd, n_pairs, geometry, stream.
             geo = hopper_train_attention.train_attention_bwd_launch_geometry(g, l, hd)
-            assert args[10] == 0
-            assert args[15:20] == (geo.groups, geo.tq, geo.threads, geo.nku, geo.smem_bytes)
-        else:  # the wide kernels: dsum scratch, no geometry
-            assert args[10] != 0 and args[15:20] == (0,) * 5
+            assert route == "resident" and args[10:14] == (g, l, hd, n_pairs)
+            assert args[14:19] == (geo.groups, geo.tq, geo.threads, geo.nku, geo.smem_bytes)
+        else:  # the streamed kernels: the D scratch, their own geometries
+            assert route == "stream" and args[10] != 0 and args[11:15] == (g, l, hd, n_pairs)
     assert hopper_train_attention.launches_bwd == before + 5
     assert "train_attention" not in _build._libraries
 
